@@ -1,0 +1,597 @@
+// Flash-attention forward for Hopper: softmax(q k^T * scale) v with an online
+// softmax, never materialising the (Sq, Sk) logits in device memory.
+//
+// Replaces the Pallas TPU kernel t2v_turbo_tpu/ops/attention.py::_flash_fwd_kernel
+// (entry flash_attention, implementation _flash_attention_fwd_impl). On the
+// main path it runs every attention of the VC2 UNet (spatial self-attention
+// at S = 2560, 640, 160 and 40, cross-attention to 77 text tokens, temporal
+// self-attention over 16 frames; heads of 64) and the VAE's mid-block
+// attention (S = 2560, one head of 512).
+//
+// What bounds it on the H100: the plain version writes and reads the f32
+// logits, 2.1 GB per level-0 call; this kernel reads q, k, v once per query
+// tile and writes o once, so device-memory traffic stops mattering and the
+// arithmetic decides. Two paths do that arithmetic:
+// - bf16, the main path's dtype: tensor cores through mma.sync.m16n8k16 in
+//   FlashAttention-2's register layout (the "Tensor-core path" section below).
+//   wgmma, TMA and a pipelined K/V ring are later work.
+// - f32: scalar f32 FMAs out of shared memory, exact enough to hold against
+//   the plain f32 math. Each thread owns a small register tile of the logits
+//   and of the output, so every shared-memory load feeds several FMAs;
+//   shared-memory bandwidth is the limit it hits.
+//
+// Common to both (the TPU kernel's sequential K grid axis becomes a loop in
+// the block):
+// - one block per (batch*head, tile of queries);
+// - per tile of keys: stage K and V in shared memory, compute the logits,
+//   update the running max m, sum l and the f32 output accumulator
+//   (registers), as the TPU kernel's (m, l, acc) scratch;
+// - the probabilities are rounded to the input dtype before the P.V product
+//   (bf16 on the tensor-core path), as the reference casts them to v's dtype;
+// - keys past Sk get the reference's mask value, queries past Sq are computed
+//   on zeros and not stored, so any S works without padding copies;
+// - q, k, v and o are addressed through (batch, seq, head) strides with a
+//   contiguous head dimension, so the (B, S, H, D) output of the q/k/v
+//   Linears needs no transpose.
+// Scalar tilings (256 threads): D = 64 (BQ = BK = 64, 66 KB of shared memory)
+// and D = 512 (BQ = BK = 32, 197 KB, one block per SM); both need dynamic
+// shared memory above 48 KB, so cudaFuncSetAttribute.
+#include "common.cuh"
+
+namespace t2v {
+
+constexpr int kFlashThreads = 256;
+constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;  // the reference's
+
+template <int D, int BQ, int BK>
+struct FlashSmem {
+  static constexpr int DP = D + 1;    // padded rows: conflict-free column reads
+  static constexpr int BKP = BK + 1;
+  static constexpr int floats = BQ * DP + BK * DP + BK * D + BQ * BKP + 3 * BQ;
+  static constexpr size_t bytes = sizeof(float) * (size_t)floats;
+};
+
+// f32, scalar: SR x SC logits and OR x OC outputs per thread.
+template <int D, int BQ, int BK, int SR, int SC, int OR, int OC>
+__global__ void __launch_bounds__(kFlashThreads)
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ o, int H, int Sq, int Sk,
+                 long long q_sb, long long q_ss, long long q_sh, long long k_sb,
+                 long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                 long long v_sh, long long o_sb, long long o_ss, long long o_sh,
+                 float scale) {
+  using Smem = FlashSmem<D, BQ, BK>;
+  constexpr int DP = Smem::DP, BKP = Smem::BKP;
+  constexpr int SCG = BK / SC;                 // logit column groups
+  constexpr int SRG = kFlashThreads / SCG;     // logit row groups
+  constexpr int OCG = D / OC;                  // output column groups
+  constexpr int ORG = kFlashThreads / OCG;     // output row groups
+  constexpr int TPR = kFlashThreads / BQ;      // softmax threads per row
+  static_assert(SRG * SR == BQ, "logit tiling must cover BQ");
+  static_assert(ORG * OR == BQ, "output tiling must cover BQ");
+  static_assert(TPR * BQ == kFlashThreads && TPR <= 32 && (32 % TPR) == 0,
+                "softmax row groups must sit inside a warp");
+
+  extern __shared__ float smem[];
+  float* sQ = smem;             // [BQ][DP]
+  float* sK = sQ + BQ * DP;     // [BK][DP]
+  float* sV = sK + BK * DP;     // [BK][D]
+  float* sS = sV + BK * D;      // [BQ][BKP]  logits, then probabilities
+  float* sM = sS + BQ * BKP;    // [BQ] running max
+  float* sL = sM + BQ;          // [BQ] running sum
+  float* sA = sL + BQ;          // [BQ] rescale factor of this K tile
+
+  const int tid = threadIdx.x;
+  const int bh = blockIdx.y;
+  const int b = bh / H, h = bh % H;
+  const int q0 = blockIdx.x * BQ;
+  const float* qb = q + b * q_sb + h * q_sh;
+  const float* kb = k + b * k_sb + h * k_sh;
+  const float* vb = v + b * v_sb + h * v_sh;
+  float* ob = o + b * o_sb + h * o_sh;
+
+  for (int i = tid; i < BQ * D; i += kFlashThreads) {
+    const int r = i / D, d = i % D;
+    const int qi = q0 + r;
+    sQ[r * DP + d] = qi < Sq ? qb[(long long)qi * q_ss + d] : 0.0f;
+  }
+  if (tid < BQ) {
+    sM[tid] = -INFINITY;
+    sL[tid] = 0.0f;
+  }
+
+  const int s_cg = tid % SCG, s_rg = tid / SCG;
+  const int o_cg = tid % OCG, o_rg = tid / OCG;
+  float acc[OR][OC];
+#pragma unroll
+  for (int i = 0; i < OR; ++i)
+#pragma unroll
+    for (int j = 0; j < OC; ++j) acc[i][j] = 0.0f;
+
+  const int n_kt = (Sk + BK - 1) / BK;
+  for (int kt = 0; kt < n_kt; ++kt) {
+    const int k0 = kt * BK;
+    __syncthreads();  // the previous tile's sK/sV/sS reads are done
+    for (int i = tid; i < BK * D; i += kFlashThreads) {
+      const int r = i / D, d = i % D;
+      const int ki = k0 + r;
+      float kv = 0.0f, vv = 0.0f;
+      if (ki < Sk) {
+        kv = kb[(long long)ki * k_ss + d];
+        vv = vb[(long long)ki * v_ss + d];
+      }
+      sK[r * DP + d] = kv;
+      sV[r * D + d] = vv;
+    }
+    __syncthreads();
+
+    // logits tile: rows s_rg + i*SRG, columns s_cg + j*SCG
+    float s[SR][SC];
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) s[i][j] = 0.0f;
+#pragma unroll 8
+    for (int d = 0; d < D; ++d) {
+      float qv[SR], kv[SC];
+#pragma unroll
+      for (int i = 0; i < SR; ++i) qv[i] = sQ[(s_rg + i * SRG) * DP + d];
+#pragma unroll
+      for (int j = 0; j < SC; ++j) kv[j] = sK[(s_cg + j * SCG) * DP + d];
+#pragma unroll
+      for (int i = 0; i < SR; ++i)
+#pragma unroll
+        for (int j = 0; j < SC; ++j) s[i][j] = fmaf(qv[i], kv[j], s[i][j]);
+    }
+#pragma unroll
+    for (int i = 0; i < SR; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int col = s_cg + j * SCG;
+        sS[(s_rg + i * SRG) * BKP + col] = (k0 + col < Sk) ? s[i][j] * scale : kMaskValue;
+      }
+    __syncthreads();
+
+    // online softmax, TPR neighbouring lanes per row
+    {
+      const int row = tid / TPR, sub = tid % TPR;
+      const float m_prev = sM[row];
+      float mx = -INFINITY;
+      for (int c = sub; c < BK; c += TPR) mx = fmaxf(mx, sS[row * BKP + c]);
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_next = fmaxf(m_prev, mx);
+      float sum = 0.0f;
+      for (int c = sub; c < BK; c += TPR) {
+        const float p = expf(sS[row * BKP + c] - m_next);
+        sum += p;
+        sS[row * BKP + c] = p;
+      }
+#pragma unroll
+      for (int off = TPR / 2; off > 0; off >>= 1)
+        sum += __shfl_xor_sync(0xffffffffu, sum, off);
+      if (sub == 0) {
+        const float alpha = expf(m_prev - m_next);
+        sA[row] = alpha;
+        sL[row] = sL[row] * alpha + sum;
+        sM[row] = m_next;
+      }
+    }
+    __syncthreads();
+
+    // acc = alpha * acc + P V: rows o_rg + i*ORG, columns o_cg + j*OCG
+#pragma unroll
+    for (int i = 0; i < OR; ++i) {
+      const float a = sA[o_rg + i * ORG];
+#pragma unroll
+      for (int j = 0; j < OC; ++j) acc[i][j] *= a;
+    }
+#pragma unroll 4
+    for (int c = 0; c < BK; ++c) {
+      float pv[OR], vv[OC];
+#pragma unroll
+      for (int i = 0; i < OR; ++i) pv[i] = sS[(o_rg + i * ORG) * BKP + c];
+#pragma unroll
+      for (int j = 0; j < OC; ++j) vv[j] = sV[c * D + o_cg + j * OCG];
+#pragma unroll
+      for (int i = 0; i < OR; ++i)
+#pragma unroll
+        for (int j = 0; j < OC; ++j) acc[i][j] = fmaf(pv[i], vv[j], acc[i][j]);
+    }
+  }
+  __syncthreads();
+
+#pragma unroll
+  for (int i = 0; i < OR; ++i) {
+    const int r = o_rg + i * ORG;
+    const int qi = q0 + r;
+    if (qi >= Sq) continue;
+    const float l = sL[r];
+    float* orow = ob + (long long)qi * o_ss;
+#pragma unroll
+    for (int j = 0; j < OC; ++j) orow[o_cg + j * OCG] = acc[i][j] / l;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// Tensor-core path: bf16 on mma.sync.m16n8k16 (bf16 in, f32 accumulate), in
+// FlashAttention-2's register layout. Per tile of keys, K and V are staged in
+// shared memory row-major ([key][d], rows padded by 8 elements so fragment
+// loads and ldmatrix rows fall in distinct banks), with 16-byte loads when
+// the tensors are 16-byte aligned. The logits accumulate in registers (K
+// fragments by 32-bit loads), the softmax runs on them (each query row is
+// spread over the 4 lanes of a quad), and the probabilities, rounded to bf16,
+// are reused in registers as the A operand of P.V, whose B fragments come
+// from V through ldmatrix.trans. Each lane keeps a partial row sum, reduced
+// once at the end. No cp.async/TMA pipelining yet: loads and math alternate.
+// - D = 64 (the UNet's level-0 self-attention): 4 warps, each owning 16
+//   queries (64 per block) and its Q fragments for the whole K loop.
+// - D = 512 (the VAE's one head): a warp's 16 x 512 f32 accumulators would
+//   not fit its registers, so 8 warps take 32 queries: two groups of 16 rows,
+//   and within each, 4 warps own a 128-wide slice of the head dim. Each warp
+//   computes partial logits over its slice; the 4 partials are summed through
+//   shared memory in a fixed order, so the 4 warps of a row group hold the
+//   same logits and softmax.
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
+                                          uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Four 8x8 b16 matrices, transposed: lane l gives the row address of matrix
+// l / 8, row l % 8; register i holds matrix i's (2t, 2t+1; g) pair.
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* row) {
+  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(addr));
+}
+
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
+__device__ __forceinline__ uint32_t smem_pair(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
+// Two neighbouring elements of a global row as one A-fragment register
+// (zeros past the last row).
+__device__ __forceinline__ uint32_t global_pair(const __nv_bfloat16* base, int row, int n_rows,
+                                                long long row_stride, int col) {
+  if (row >= n_rows) return 0u;
+  const __nv_bfloat16* p = base + (long long)row * row_stride + col;
+  return (uint32_t)__bfloat16_as_ushort(p[0]) | ((uint32_t)__bfloat16_as_ushort(p[1]) << 16);
+}
+
+// Stage keys [k0, k0 + BK) of K and V as [key][d] rows of stride LD; zeros
+// past Sk. VEC moves 8 elements (16 bytes) at a time.
+template <int D, int BK, int LD, int NTHREADS, bool VEC>
+__device__ __forceinline__ void stage_kv(__nv_bfloat16* sK, __nv_bfloat16* sV,
+                                         const __nv_bfloat16* kb, const __nv_bfloat16* vb,
+                                         long long k_ss, long long v_ss, int k0, int Sk) {
+  constexpr int W = VEC ? 8 : 1;
+  for (int i = threadIdx.x; i < BK * (D / W); i += NTHREADS) {
+    const int r = i / (D / W), c = (i % (D / W)) * W;
+    const int key = k0 + r;
+    if constexpr (VEC) {
+      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
+      if (key < Sk) {
+        kv = *reinterpret_cast<const uint4*>(kb + (long long)key * k_ss + c);
+        vv = *reinterpret_cast<const uint4*>(vb + (long long)key * v_ss + c);
+      }
+      *reinterpret_cast<uint4*>(sK + r * LD + c) = kv;
+      *reinterpret_cast<uint4*>(sV + r * LD + c) = vv;
+    } else {
+      const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+      sK[r * LD + c] = key < Sk ? kb[(long long)key * k_ss + c] : zero;
+      sV[r * LD + c] = key < Sk ? vb[(long long)key * v_ss + c] : zero;
+    }
+  }
+}
+
+// s += Q K^T over this warp's head-dim chunks [d0, d0 + 16*KC).
+template <int NT, int KC, int LD>
+__device__ __forceinline__ void qk_tile(float (&s)[NT][4], const uint32_t (&qa)[KC][4],
+                                        const __nv_bfloat16* sK, int d0, int g, int t) {
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
+    const __nv_bfloat16* krow = sK + (nt * 8 + g) * LD + d0 + 2 * t;
+#pragma unroll
+    for (int kc = 0; kc < KC; ++kc)
+      mma_16816(s[nt], qa[kc], smem_pair(krow + kc * 16), smem_pair(krow + kc * 16 + 8));
+  }
+}
+
+// Online-softmax update of one logits tile held in mma C-fragments: scale,
+// mask keys >= Sk, new running max per row (rows g and g+8 of the warp),
+// probabilities in place, partial row sums, and the output rescale.
+template <int NT, int DT>
+__device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&acc)[DT][4], int k0, int t,
+                                             int Sk, float scale, float& m0, float& m1, float& l0,
+                                             float& l1) {
+  float mx0 = -INFINITY, mx1 = -INFINITY;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const int col = k0 + nt * 8 + 2 * t + (e & 1);
+      const float val = col < Sk ? s[nt][e] * scale : kMaskValue;
+      s[nt][e] = val;
+      if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
+    }
+  }
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
+    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
+  }
+  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
+  const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
+  m0 = mn0;
+  m1 = mn1;
+  float rs0 = 0.0f, rs1 = 0.0f;
+#pragma unroll
+  for (int nt = 0; nt < NT; ++nt) {
+    s[nt][0] = expf(s[nt][0] - mn0);
+    s[nt][1] = expf(s[nt][1] - mn0);
+    s[nt][2] = expf(s[nt][2] - mn1);
+    s[nt][3] = expf(s[nt][3] - mn1);
+    rs0 += s[nt][0] + s[nt][1];
+    rs1 += s[nt][2] + s[nt][3];
+  }
+  l0 = l0 * a0 + rs0;
+  l1 = l1 * a1 + rs1;
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    acc[dt][0] *= a0;
+    acc[dt][1] *= a0;
+    acc[dt][2] *= a1;
+    acc[dt][3] *= a1;
+  }
+}
+
+// acc += P . V for one tile: P from the probability fragments, V from its
+// row-major tile through ldmatrix.trans, head-dim columns [d0, d0 + 8*DT).
+template <int NT, int DT, int LD>
+__device__ __forceinline__ void pv_tile(float (&acc)[DT][4], const float (&s)[NT][4],
+                                        const __nv_bfloat16* sV, int d0, int lane) {
+  static_assert(DT % 2 == 0, "ldmatrix.x4 feeds two d tiles");
+  const int mat = lane >> 3, rr = lane & 7;
+#pragma unroll
+  for (int j = 0; j < NT / 2; ++j) {
+    const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
+                            pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
+                            pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
+    // matrices: keys j*16 + {0..7, 8..15} x d tiles {dt, dt + 1}
+    const __nv_bfloat16* row = sV + (j * 16 + (mat & 1) * 8 + rr) * LD + d0 + (mat >> 1) * 8;
+#pragma unroll
+    for (int dt = 0; dt < DT; dt += 2) {
+      uint32_t b[4];
+      ldmatrix_x4_trans(b, row + dt * 8);
+      mma_16816(acc[dt], pa, b[0], b[1]);
+      mma_16816(acc[dt + 1], pa, b[2], b[3]);
+    }
+  }
+}
+
+// o[row, d0 + ...] = acc / l for this lane's two rows.
+template <int DT>
+__device__ __forceinline__ void store_rows(const float (&acc)[DT][4], float l0, float l1,
+                                           __nv_bfloat16* ob, long long o_ss, int r0, int Sq,
+                                           int d0, int t) {
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
+    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
+  }
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) {
+    const int col = d0 + dt * 8 + 2 * t;
+    if (r0 < Sq) {
+      __nv_bfloat16* p = ob + (long long)r0 * o_ss + col;
+      p[0] = __float2bfloat16_rn(acc[dt][0] / l0);
+      p[1] = __float2bfloat16_rn(acc[dt][1] / l0);
+    }
+    if (r0 + 8 < Sq) {
+      __nv_bfloat16* p = ob + (long long)(r0 + 8) * o_ss + col;
+      p[0] = __float2bfloat16_rn(acc[dt][2] / l1);
+      p[1] = __float2bfloat16_rn(acc[dt][3] / l1);
+    }
+  }
+}
+
+// Tile shapes of the two mma kernels and their dynamic shared memory.
+template <int D> struct MmaTiling;
+template <> struct MmaTiling<64> {
+  static constexpr int WARPS = 4, ROW_GROUPS = 4, D_SLICES = 1, BK = 64;
+};
+template <> struct MmaTiling<512> {
+  static constexpr int WARPS = 8, ROW_GROUPS = 2, D_SLICES = 4, BK = 32;
+};
+
+template <int D> struct MmaSmem {
+  using Tl = MmaTiling<D>;
+  static constexpr int LD = D + 8;                // K and V rows
+  static constexpr int LDS = Tl::BK + 4;          // partial-logit rows (D_SLICES > 1)
+  static constexpr size_t kv_bytes = sizeof(__nv_bfloat16) * 2 * Tl::BK * LD;
+  static constexpr size_t bytes =
+      kv_bytes + (Tl::D_SLICES > 1 ? sizeof(float) * Tl::WARPS * 16 * LDS : 0);
+};
+
+template <int D, bool VEC>
+__global__ void __launch_bounds__(32 * MmaTiling<D>::WARPS)
+flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
+                     int Sq, int Sk, long long q_sb, long long q_ss, long long q_sh,
+                     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
+                     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
+                     long long o_sh, float scale) {
+  using Tl = MmaTiling<D>;
+  using Sm = MmaSmem<D>;
+  constexpr int NTHREADS = 32 * Tl::WARPS, BK = Tl::BK, LD = Sm::LD, LDS = Sm::LDS;
+  constexpr int DW = D / Tl::D_SLICES;  // head-dim slice of one warp
+  constexpr int NT = BK / 8, KC = DW / 16, DT = DW / 8;
+  static_assert(Tl::ROW_GROUPS * Tl::D_SLICES == Tl::WARPS, "warps tile rows x head dim");
+  static_assert(Sm::kv_bytes % 16 == 0, "smem carve alignment");
+  extern __shared__ __align__(16) unsigned char smem_raw[];
+  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][LD]
+  __nv_bfloat16* sV = sK + BK * LD;                                  // [BK][LD]
+  float* sS = reinterpret_cast<float*>(smem_raw + Sm::kv_bytes);     // [slice][group][16][LDS]
+
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;  // quad row and lane-in-quad of the mma layout
+  const int group = warp / Tl::D_SLICES, slice = warp % Tl::D_SLICES;
+  const int bh = blockIdx.y, b = bh / H, h = bh % H;
+  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
+  const int r0 = (blockIdx.x * Tl::ROW_GROUPS + group) * 16 + g;  // rows r0 and r0 + 8
+  const int d0 = slice * DW;
+
+  uint32_t qa[KC][4];
+#pragma unroll
+  for (int kc = 0; kc < KC; ++kc) {
+    const int c = d0 + kc * 16 + 2 * t;
+    qa[kc][0] = global_pair(qb, r0, Sq, q_ss, c);
+    qa[kc][1] = global_pair(qb, r0 + 8, Sq, q_ss, c);
+    qa[kc][2] = global_pair(qb, r0, Sq, q_ss, c + 8);
+    qa[kc][3] = global_pair(qb, r0 + 8, Sq, q_ss, c + 8);
+  }
+  float acc[DT][4];
+#pragma unroll
+  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.0f;
+  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
+
+  for (int k0 = 0; k0 < Sk; k0 += BK) {
+    __syncthreads();  // the previous tile's reads are done
+    stage_kv<D, BK, LD, NTHREADS, VEC>(sK, sV, kb, vb, k_ss, v_ss, k0, Sk);
+    __syncthreads();
+    float s[NT][4];
+    qk_tile<NT, KC, LD>(s, qa, sK, d0, g, t);
+    if constexpr (Tl::D_SLICES > 1) {
+      // sum the slices' partial logits in a fixed order
+      auto at = [&](int sl, int e, int nt) {
+        return sS + ((sl * Tl::ROW_GROUPS + group) * 16 + g + (e >> 1) * 8) * LDS + nt * 8 +
+               2 * t + (e & 1);
+      };
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) *at(slice, e, nt) = s[nt][e];
+      __syncthreads();
+#pragma unroll
+      for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float tot = 0.0f;
+#pragma unroll
+          for (int sl = 0; sl < Tl::D_SLICES; ++sl) tot += *at(sl, e, nt);
+          s[nt][e] = tot;
+        }
+    }
+    softmax_tile<NT, DT>(s, acc, k0, t, Sk, scale, m0, m1, l0, l1);
+    pv_tile<NT, DT, LD>(acc, s, sV, d0, lane);
+  }
+  store_rows<DT>(acc, l0, l1, o + b * o_sb + h * o_sh, o_ss, r0, Sq, d0, t);
+}
+
+template <int D, bool VEC>
+static cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                              const __nv_bfloat16* v, __nv_bfloat16* o, int B, int H, int Sq,
+                              int Sk, const long long* st, float scale, cudaStream_t stream) {
+  using Tl = MmaTiling<D>;
+  const size_t smem = MmaSmem<D>::bytes;
+  auto kern = flash_fwd_mma_kernel<D, VEC>;
+  cudaError_t err =
+      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const int bq = 16 * Tl::ROW_GROUPS;
+  const dim3 grid((Sq + bq - 1) / bq, B * H);
+  kern<<<grid, 32 * Tl::WARPS, smem, stream>>>(q, k, v, o, H, Sq, Sk, st[0], st[1], st[2], st[3],
+                                               st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+                                               st[11], scale);
+  return cudaGetLastError();
+}
+
+// 16-byte staging needs 16-byte aligned K/V rows at every (batch, head, key).
+static bool rows_aligned16(const void* p, const long long* st3) {
+  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st3[0] % 8 == 0 && st3[1] % 8 == 0 &&
+         st3[2] % 8 == 0;
+}
+
+static cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* o, int B,
+                                    int H, int Sq, int Sk, int D, const long long* st, float scale,
+                                    cudaStream_t stream) {
+  const auto* qp = static_cast<const __nv_bfloat16*>(q);
+  const auto* kp = static_cast<const __nv_bfloat16*>(k);
+  const auto* vp = static_cast<const __nv_bfloat16*>(v);
+  auto* op = static_cast<__nv_bfloat16*>(o);
+  const bool vec = rows_aligned16(k, st + 3) && rows_aligned16(v, st + 6);
+  if (D == 64)
+    return vec ? launch_mma<64, true>(qp, kp, vp, op, B, H, Sq, Sk, st, scale, stream)
+               : launch_mma<64, false>(qp, kp, vp, op, B, H, Sq, Sk, st, scale, stream);
+  if (D == 512)
+    return vec ? launch_mma<512, true>(qp, kp, vp, op, B, H, Sq, Sk, st, scale, stream)
+               : launch_mma<512, false>(qp, kp, vp, op, B, H, Sq, Sk, st, scale, stream);
+  return cudaErrorInvalidValue;
+}
+
+template <int D, int BQ, int BK, int SR, int SC, int OR, int OC>
+static cudaError_t launch_flash_f32(const float* q, const float* k, const float* v, float* o,
+                                    int B, int H, int Sq, int Sk, const long long* st,
+                                    float scale, cudaStream_t stream) {
+  auto kern = flash_fwd_kernel<D, BQ, BK, SR, SC, OR, OC>;
+  const size_t smem = FlashSmem<D, BQ, BK>::bytes;
+  cudaError_t err = cudaFuncSetAttribute(
+      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return err;
+  const dim3 grid((Sq + BQ - 1) / BQ, B * H);
+  kern<<<grid, kFlashThreads, smem, stream>>>(q, k, v, o, H, Sq, Sk, st[0], st[1], st[2], st[3],
+                                              st[4], st[5], st[6], st[7], st[8], st[9], st[10],
+                                              st[11], scale);
+  return cudaGetLastError();
+}
+
+static cudaError_t launch_flash_scalar(const void* q, const void* k, const void* v, void* o,
+                                       int B, int H, int Sq, int Sk, int D, const long long* st,
+                                       float scale, cudaStream_t stream) {
+  const auto* qp = static_cast<const float*>(q);
+  const auto* kp = static_cast<const float*>(k);
+  const auto* vp = static_cast<const float*>(v);
+  auto* op = static_cast<float*>(o);
+  if (D == 64)
+    return launch_flash_f32<64, 64, 64, 4, 4, 4, 4>(qp, kp, vp, op, B, H, Sq, Sk, st, scale, stream);
+  if (D == 512)
+    return launch_flash_f32<512, 32, 32, 2, 2, 4, 16>(qp, kp, vp, op, B, H, Sq, Sk, st, scale,
+                                                      stream);
+  return cudaErrorInvalidValue;
+}
+
+}  // namespace t2v
+
+extern "C" {
+
+// q: (B, Sq, H, D), k/v: (B, Sk, H, D), o: (B, Sq, H, D), all addressed by
+// element strides st = [q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
+// o_sb, o_ss, o_sh] with a contiguous last dimension. D must be 64 or 512.
+int t2v_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
+                            int dtype, int B, int H, int Sq, int Sk, int D,
+                            const long long* strides, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == t2v::kF32)
+    return t2v::launch_flash_scalar(q, k, v, o, B, H, Sq, Sk, D, strides, scale, st);
+  if (dtype == t2v::kBF16)
+    return t2v::launch_flash_mma(q, k, v, o, B, H, Sq, Sk, D, strides, scale, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+}  // extern "C"

@@ -1,0 +1,55 @@
+"""The diffusion noise schedule (port of t2v_turbo_tpu/diffusion/schedule.py,
+inference part).
+
+The tables are computed in float64 numpy exactly as the JAX package does for
+the `scaled_linear` schedule of every T2V-Turbo config, then held as float32
+tensors; `to(device)` moves them next to the latents.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class DiffusionSchedule:
+    """Cumulative-alpha tables, each a (T,) float32 tensor."""
+
+    alphas_cumprod: torch.Tensor
+    sqrt_alphas_cumprod: torch.Tensor
+    sqrt_one_minus_alphas_cumprod: torch.Tensor
+    num_timesteps: int
+
+    @classmethod
+    def create(
+        cls, num_timesteps: int = 1000, linear_start: float = 0.00085, linear_end: float = 0.012
+    ) -> "DiffusionSchedule":
+        betas = np.linspace(linear_start**0.5, linear_end**0.5, num_timesteps, dtype=np.float64) ** 2
+        alphas_cumprod = np.cumprod(1.0 - betas)
+
+        def f32(a):
+            return torch.tensor(np.asarray(a, dtype=np.float32))
+
+        return cls(
+            alphas_cumprod=f32(alphas_cumprod),
+            sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
+            sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
+            num_timesteps=num_timesteps,
+        )
+
+    def to(self, device) -> "DiffusionSchedule":
+        return dataclasses.replace(
+            self,
+            alphas_cumprod=self.alphas_cumprod.to(device),
+            sqrt_alphas_cumprod=self.sqrt_alphas_cumprod.to(device),
+            sqrt_one_minus_alphas_cumprod=self.sqrt_one_minus_alphas_cumprod.to(device),
+        )
+
+
+def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:
+    """table[t], right-broadcast to `ndim` dims: (B,) -> (B, 1, 1, ...)."""
+    out = table[t.to(device=table.device, dtype=torch.long)]
+    return out.reshape(out.shape + (1,) * (ndim - out.dim()))
