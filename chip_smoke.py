@@ -7,9 +7,13 @@ Phases; the script exits non-zero, without the final result line, if any fails:
   1. device:    a CUDA device must exist; prints the card's name and power limit.
   2. build:     compiles the hand-written kernels from csrc/ with nvcc.
   3. kernels:   each kernel against its plain PyTorch version on the card, at the
-                main path's shapes, with the stated tolerance; bf16 flash
-                attention and its plain version also against f64 math; times
-                kernel and plain with CUDA events.
+                main path's and the training path's shapes, with the stated
+                tolerance, from one table of cases; bf16 flash attention (the
+                forward's and the forward-with-lse's output, and the gradients
+                through the autograd function) and its plain version also
+                against f64 math; times kernel, plain and the one PyTorch
+                library call computing the same function (a yardstick only)
+                with CUDA events, beside the card's bound for the work.
   4. main path: full-width VC2 (UNet 320/640/1280, VAE ch 128, ViT-H text tower
                 with 23 of 24 blocks), seeded random weights, bf16, through
                 apps/generate.py's build_pipeline and the pipeline call:
@@ -22,8 +26,24 @@ Phases; the script exits non-zero, without the final result line, if any fails:
   5. reference: a small pipeline (f32, 256x256, so flash attention still runs)
                 on the card against the same weights on the CPU, where every
                 kernel wrapper runs its plain version.
-The last two lines of standard output are the kernels' JSON record and
-{"ok": true, "device": {...}}.
+  6. training:  full-width v1 LoRA LCD training (a VC2 student with its
+                256-d w-embedding input and a teacher, LoRA rank 64, batch 1 of
+                16x40x64x4 latents and 77x1024 contexts, adamw8bit) built by
+                apps/train_v1.py's builder with --random-weights and
+                --synthetic-data: 1 warm-up and 3 timed steps; checks finite
+                loss and grad_norm, that every LoRA factor moved and the frozen
+                weights did not, and that every kernel of the path launched;
+                one more step under torch.profiler (chiprun_out/profile_train.txt).
+                Runs without --use-remat, with it only if that does not fit.
+  7. training reference: one small f32 LCD step (heads of 64, so the flash
+                kernels run) through the trainer's gradient path
+                (LCDTrainer.loss_and_grads: the step's cached LoRA merge) on
+                the card, with remat off and on, against the same weights,
+                LoRA factors (non-zero ups) and draws on the CPU: loss and
+                every LoRA gradient.
+The last lines of standard output are the card's name and power limit, the
+kernels' JSON record and {"ok": true, "device": {...}}; the whole log is also
+written to chiprun_out/chip_smoke.log.
 """
 
 from __future__ import annotations
@@ -48,13 +68,87 @@ PROMPTS = (
 KERNELS = {
     "flash_attention": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
                         "t2v_turbo_tpu/ops/attention.py:257"),
+    "flash_attention_fwd_lse": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
+                                "t2v_turbo_tpu/ops/attention.py:106"),
+    "flash_attention_bwd_dkv": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd.cu",
+                                "t2v_turbo_tpu/ops/attention.py:157"),
+    "flash_attention_bwd_dq": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd.cu",
+                               "t2v_turbo_tpu/ops/attention.py:213"),
     "group_norm": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
     "layer_norm": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:136"),
 }
+SERVING_KERNELS = ("flash_attention", "group_norm", "layer_norm")
+# The H100 SXM's published dense peaks (NVIDIA's H100 datasheet): bf16
+# on tensor cores; f32 outside them (the f32 kernels are scalar FMAs).
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
+PEAK_BYTES = 3.35e12
+
+
+def wrappers():
+    """Kernel name -> the wrapper whose `launches` counts its launches."""
+    from t2v_turbo_tpu_torch.ops import attention as A
+    from t2v_turbo_tpu_torch.ops import norms as N
+
+    return {"flash_attention": A.flash_attention, "flash_attention_fwd_lse": A.flash_attention_lse,
+            "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
+            "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
+            "group_norm": N.fused_group_norm, "layer_norm": N.fused_layer_norm}
+
+
+def reset_launches():
+    for w in wrappers().values():
+        w.launches = 0
+
+
+def read_launches():
+    return {n: w.launches for n, w in wrappers().items()}
+
+
+def bound_ms(ops, nbytes, dtype):
+    """(least ms the card could take, "operations" or "bytes"): the larger of
+    ops over the peak rate for the dtype and bytes over the memory rate."""
+    t_ops = ops / PEAK_OPS[str(dtype).replace("torch.", "")]
+    t_bytes = nbytes / PEAK_BYTES
+    return 1e3 * max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def attention_bound(q, k, which):
+    """Bound of one attention kernel on (B, S, H, D) inputs: 2 flops a
+    multiply-add over the products it must do (fwd: QK^T, PV; dkv: S^T, dP^T,
+    dV, dK; dq: S, dP, dQ), each input read once and each output written once
+    (lse / delta rows in f32)."""
+    b, sq, h, d = q.shape
+    sk, e = k.shape[1], q.element_size()
+    qn, kn, rows = b * sq * h * d, b * sk * h * d, b * h * sq * 4
+    products, nbytes = {
+        "fwd": (2, e * (2 * qn + 2 * kn)),
+        "fwd_lse": (2, e * (2 * qn + 2 * kn) + rows),
+        "bwd_dkv": (4, e * (2 * qn + 4 * kn) + 2 * rows),
+        "bwd_dq": (3, e * (3 * qn + 2 * kn) + 2 * rows),
+    }[which]
+    return bound_ms(products * 2 * b * h * sq * sk * d, nbytes, q.dtype)
+
+
+def norm_bound(x, c, ops_per_element):
+    """A norm reads x and writes y once (plus its f32 affine); its few
+    operations per element are f32."""
+    return bound_ms(ops_per_element * x.numel(), 2 * x.numel() * x.element_size() + 8 * c,
+                    "float32")
+
+
+def record(records, name, max_err, ms, plain_ms, library_ms, bound):
+    """Keep the first case's times (the path's main shape) and the largest error."""
+    rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
+                                    "library_ms": library_ms, "bound_ms": bound[0],
+                                    "bound_by": bound[1]})
+    rec["max_abs_err"] = max(rec["max_abs_err"], max_err)
 
 
 def log(msg: str) -> None:
+    """Print, and keep the whole log in chiprun_out/chip_smoke.log."""
     print(msg, flush=True)
+    with open(os.path.join(OUT_DIR, "chip_smoke.log"), "a") as f:
+        f.write(msg + "\n")
 
 
 def cuda_time_ms(fn, iters: int) -> float:
@@ -91,9 +185,42 @@ def phase_build():
     log(f"build: {time.perf_counter() - t0:.2f} s -> {os.path.relpath(cuda_lib.library_path(), HERE)}")
 
 
-def _kernel_cases():
-    """(kernel, label, make_inputs, kernel_fn, plain_fn, atol, rtol, iters, reason)."""
+def _elementwise(atol, rtol):
+    """(bound, text): |kernel - plain| <= atol + rtol*|plain| on every element."""
+    return (lambda ref: atol + rtol * ref.abs()), f"atol {atol:g} + rtol {rtol:g}*|ref|"
+
+
+def _of_max(tol):
+    """(bound, text): |kernel - plain| <= tol*max(1, max|plain|) on every element."""
+    return (lambda ref: tol * max(1.0, float(ref.abs().max()))), f"{tol:g}*max(1,|ref|)"
+
+
+def _sdpa_fwd(q, k, v, *_):
+    """The library forward on (B, S, H, D) inputs, as a call to time."""
+    import torch.nn.functional as F
+
+    return lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+
+
+def _sdpa_bwd(q, k, v, do, *_):
+    """The library backward (dq, dk and dv together), as a call to time. It
+    takes contiguous (B, H, S, D) copies: it faults on misaligned views."""
     import torch
+    import torch.nn.functional as F
+
+    qq, kk, vv = (t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    out, dout = F.scaled_dot_product_attention(qq, kk, vv), do.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qq, kk, vv), dout, retain_graph=True)
+
+
+def _kernel_cases():
+    """Dicts: kernel (a name in KERNELS: checked, timed and recorded; any
+    other name: checked only), label, make (inputs), fn, plain, outputs (their
+    names), tols (one (bound, text) per output held to plain), why, exact
+    (optional: the f64 values of the first outputs), iters, library (inputs ->
+    the one PyTorch call computing the same function, to time), bound."""
+    import torch
+    import torch.nn.functional as F
 
     from t2v_turbo_tpu_torch.ops import attention as A
     from t2v_turbo_tpu_torch.ops import norms as N
@@ -103,16 +230,6 @@ def _kernel_cases():
             g = torch.Generator("cuda").manual_seed(s + d)
             shapes = [(b, s, h, d)] + 2 * [(b, sk or s, h, d)]
             return [torch.randn(sh, generator=g, device="cuda").to(dtype) for sh in shapes]
-        return make
-
-    def attn_unaligned(b, s, h, d):
-        """q, k, v whose rows start one element past 16-byte alignment, so the
-        kernels take their element-wise staging path."""
-        def make():
-            g = torch.Generator("cuda").manual_seed(s)
-            bufs = [torch.randn((b, s, h * d + 1), generator=g, device="cuda").to(torch.bfloat16)
-                    for _ in range(3)]
-            return [t[..., 1:].view(b, s, h, d) for t in bufs]
         return make
 
     def norm_inputs(shape, c, dtype):
@@ -131,75 +248,197 @@ def _kernel_cases():
                  "both are also held to f64 math below")
     why_f32 = "f32 with TF32 off; only the summation order and expf differ"
     why_norm_bf = "bf16 output; f32 statistics summed in another order can move a value by one bf16 ulp"
-    gn = lambda x, w, b: N.fused_group_norm(x, w, b, 32, 1e-5, "silu")
-    gn_plain = lambda x, w, b: N.group_norm_plain(x, w, b, 32, 1e-5, "silu")
-    gn6 = lambda x, w, b: N.fused_group_norm(x, w, b, 32, 1e-6, "silu")
-    gn6_plain = lambda x, w, b: N.group_norm_plain(x, w, b, 32, 1e-6, "silu")
-    ln = lambda x, w, b: N.fused_layer_norm(x, w, b, 1e-5)
-    ln_plain = lambda x, w, b: N.layer_norm_plain(x, w, b, 1e-5)
+    def flash(label, make, atol, rtol, iters, why, f64=True):
+        return dict(kernel="flash_attention", label=label, make=make, fn=A.flash_attention,
+                    plain=A.attention, outputs=("o",), tols=[_elementwise(atol, rtol)], why=why,
+                    iters=iters, library=_sdpa_fwd, bound=lambda q, k, v: attention_bound(q, k, "fwd"),
+                    **({"exact": _attention_f64} if f64 else {}))
+
+    def gn(label, shape, c, eps, iters):
+        return dict(kernel="group_norm", label=label, make=norm_inputs(shape, c, bf),
+                    fn=lambda x, w, b: N.fused_group_norm(x, w, b, 32, eps, "silu"),
+                    plain=lambda x, w, b: N.group_norm_plain(x, w, b, 32, eps, "silu"),
+                    outputs=("y",), tols=[_elementwise(1e-2, 1e-2)], iters=iters, why=why_norm_bf,
+                    library=lambda x, w, b: lambda: F.silu(F.group_norm(x, 32, w.to(x.dtype), b.to(x.dtype), eps)),
+                    bound=lambda x, w, b: norm_bound(x, c, 10))
+
+    def ln(label, shape, c, dtype, atol, why):
+        return dict(kernel="layer_norm", label=label, make=norm_inputs(shape, c, dtype),
+                    fn=lambda x, w, b: N.fused_layer_norm(x, w, b, 1e-5),
+                    plain=lambda x, w, b: N.layer_norm_plain(x, w, b, 1e-5),
+                    outputs=("y",), tols=[_elementwise(atol, atol)], iters=20, why=why,
+                    library=lambda x, w, b: lambda: F.layer_norm(x, (c,), w.to(x.dtype), b.to(x.dtype), 1e-5),
+                    bound=lambda x, w, b: norm_bound(x, c, 8))
+
+    serving = [
+        flash("UNet L0 self-attn (16,5,2560,2560,64) bf16", attn(16, 2560, 5, 64, bf), 2e-3, 2e-2, 10, why_bf),
+        flash("UNet L0 self-attn (16,5,2560,2560,64) f32", attn(16, 2560, 5, 64, f32), 1e-5, 1e-4, 5, why_f32,
+              f64=False),
+        flash("VAE mid attn (16,1,2560,2560,512) bf16", attn(16, 2560, 1, 512, bf), 2e-3, 2e-2, 5, why_bf),
+        flash("UNet L1 self-attn (16,10,640,640,64) bf16", attn(16, 640, 10, 64, bf), 2e-3, 2e-2, 20, why_bf),
+        flash("UNet L0 cross-attn (16,5,2560,77,64) bf16", attn(16, 2560, 5, 64, bf, sk=77), 2e-2, 2e-2, 20,
+              why_short),
+        flash("UNet L0 temporal attn (2560,5,16,16,64) bf16", attn(2560, 16, 5, 64, bf), 2e-2, 2e-2, 20,
+              why_short),
+        flash("ragged S (2,5,1111,1111,64) bf16", attn(2, 1111, 5, 64, bf), 2e-3, 2e-2, 5, why_bf),
+        flash("ragged S (2,1,1111,1111,512) bf16", attn(2, 1111, 1, 512, bf), 2e-3, 2e-2, 5, why_bf),
+        flash("unaligned strided K/V (2,5,300,300,64) bf16", _unaligned(2, 300, 300, 5, 64, 3), 2e-3, 2e-2, 5,
+              why_bf),
+        gn("UNet L0 GN+SiLU per frame (16,320,40,64) bf16", (16, 320, 40, 64), 320, 1e-5, 20),
+        gn("whole-clip GN+SiLU (1,320,16,40,64) bf16", (1, 320, 16, 40, 64), 320, 1e-5, 20),
+        gn("VAE full-res GN+SiLU (16,128,320,512) bf16", (16, 128, 320, 512), 128, 1e-6, 10),
+        gn("odd spatial size, element-wise path (2,64,5,7) bf16", (2, 64, 5, 7), 64, 1e-5, 5),
+        ln("transformer LN (40960,320) bf16", (40960, 320), 320, bf, 1e-2, why_norm_bf),
+        ln("transformer LN (2560,1280) f32", (2560, 1280), 1280, f32, 1e-5, "f32; only the summation order differs"),
+    ]
+    return serving + [case for args in TRAIN_ATTENTION_CASES for case in _train_attention_cases(*args)]
+
+
+# The training path's attentions (B, H, Sq, Sk, D = 64): every UNet attention
+# the student's gradient-carrying forward runs, plus ragged, strided and f32.
+TRAIN_ATTENTION_CASES = [
+    ("UNet L0 self-attn (16,5,2560,2560,64) bf16", (16, 2560, 2560, 5), "bfloat16", 5),
+    ("UNet L1 self-attn (16,10,640,640,64) bf16", (16, 640, 640, 10), "bfloat16", 10),
+    ("UNet L0 cross-attn (16,5,2560,77,64) bf16", (16, 2560, 77, 5), "bfloat16", 10),
+    ("UNet L0 temporal attn (2560,5,16,16,64) bf16", (2560, 16, 16, 5), "bfloat16", 10),
+    ("init_attn temporal (2560,8,16,16,64) bf16", (2560, 16, 16, 8), "bfloat16", 10),
+    ("ragged S (2,5,1111,1111,64) bf16", (2, 1111, 1111, 5), "bfloat16", 5),
+    ("unaligned strided BSHD (2,5,300,300,64) bf16", (2, 300, 300, 5), "unaligned", 5),
+    ("UNet L1 self-attn (16,10,640,640,64) f32, TF32 off", (16, 640, 640, 10), "float32", 3),
+]
+
+
+def _train_attention_cases(label, shape, kind, iters):
+    """At one training shape: B2 (o held as B1's output is, and to f64; lse
+    against logsumexp of the f32 logits), each B3 kernel against its twin
+    given the same lse and delta, and dq, dk, dv through the autograd
+    function against plain autograd (bf16: both held to f64 math)."""
+    import torch
+
+    from t2v_turbo_tpu_torch.ops import attention as A
+
+    b, sq, sk, h = shape
+    dtype = torch.float32 if kind == "float32" else torch.bfloat16
+    scale = 64**-0.5
+
+    def base():  # q, k, v, dO
+        if kind == "unaligned":
+            return _unaligned(b, sq, sk, h, 64, 4)()
+        g = torch.Generator("cuda").manual_seed(sq * 31 + sk)
+        return [torch.randn((b, s, h, 64), generator=g, device="cuda").to(dtype) for s in (sq, sk, sk, sq)]
+
+    def with_row_stats():  # q, k, v, dO, lse, delta from the plain forward
+        q, k, v, do = base()
+        o, lse = A.attention_lse_plain(q, k, v, scale)
+        return [q, k, v, do, lse, A.attention_bwd_delta(do, o)]
+
+    def grads(attend):
+        def run(q, k, v, do):
+            leaves = [t.detach().requires_grad_() for t in (q, k, v)]
+            return torch.autograd.grad(attend(*leaves), leaves, do)
+        return run
+
+    if dtype == torch.float32:
+        o_tol, why_o, twin_tol = _elementwise(1e-5, 1e-4), "f32 with TF32 off", _of_max(1e-5)
+    elif sk <= 77:  # as B1's few-key cases
+        o_tol, why_o, twin_tol = _elementwise(2e-2, 2e-2), "bf16 output, few keys (as B1)", _of_max(2e-2)
+    else:
+        o_tol, why_o, twin_tol = _elementwise(2e-3, 2e-2), "bf16 output (as B1)", _of_max(2e-2)
+    bf16 = dtype == torch.bfloat16
+    # kernel vs its plain twin on the same inputs (lse and delta given): the
+    # kernel rounds P and dS to bf16 (2^-9) before each product over up to
+    # 2560 terms and rounds its output to bf16; the twin keeps them f32.
+    why_twin = ("P and dS rounded to bf16 for their products" if bf16 else "f32 with TF32 off")
     return [
-        ("flash_attention", "UNet L0 self-attn (16,5,2560,2560,64) bf16", attn(16, 2560, 5, 64, bf),
-         A.flash_attention, A.attention, 2e-3, 2e-2, 10, why_bf),
-        ("flash_attention", "UNet L0 self-attn (16,5,2560,2560,64) f32", attn(16, 2560, 5, 64, f32),
-         A.flash_attention, A.attention, 1e-5, 1e-4, 5, why_f32),
-        ("flash_attention", "VAE mid attn (16,1,2560,2560,512) bf16", attn(16, 2560, 1, 512, bf),
-         A.flash_attention, A.attention, 2e-3, 2e-2, 5, why_bf),
-        ("flash_attention", "UNet L1 self-attn (16,10,640,640,64) bf16", attn(16, 640, 10, 64, bf),
-         A.flash_attention, A.attention, 2e-3, 2e-2, 20, why_bf),
-        ("flash_attention", "UNet L0 cross-attn (16,5,2560,77,64) bf16",
-         attn(16, 2560, 5, 64, bf, sk=77), A.flash_attention, A.attention, 2e-2, 2e-2, 20, why_short),
-        ("flash_attention", "UNet L0 temporal attn (2560,5,16,16,64) bf16", attn(2560, 16, 5, 64, bf),
-         A.flash_attention, A.attention, 2e-2, 2e-2, 20, why_short),
-        ("flash_attention", "ragged S (2,5,1111,1111,64) bf16", attn(2, 1111, 5, 64, bf),
-         A.flash_attention, A.attention, 2e-3, 2e-2, 5, why_bf),
-        ("flash_attention", "ragged S (2,1,1111,1111,512) bf16", attn(2, 1111, 1, 512, bf),
-         A.flash_attention, A.attention, 2e-3, 2e-2, 5, why_bf),
-        ("flash_attention", "unaligned strided K/V (2,5,300,300,64) bf16", attn_unaligned(2, 300, 5, 64),
-         A.flash_attention, A.attention, 2e-3, 2e-2, 5, why_bf),
-        ("group_norm", "UNet L0 GN+SiLU per frame (16,320,40,64) bf16",
-         norm_inputs((16, 320, 40, 64), 320, bf), gn, gn_plain, 1e-2, 1e-2, 20, why_norm_bf),
-        ("group_norm", "whole-clip GN+SiLU (1,320,16,40,64) bf16",
-         norm_inputs((1, 320, 16, 40, 64), 320, bf), gn, gn_plain, 1e-2, 1e-2, 20, why_norm_bf),
-        ("group_norm", "VAE full-res GN+SiLU (16,128,320,512) bf16",
-         norm_inputs((16, 128, 320, 512), 128, bf), gn6, gn6_plain, 1e-2, 1e-2, 10, why_norm_bf),
-        ("group_norm", "odd spatial size, element-wise path (2,64,5,7) bf16",
-         norm_inputs((2, 64, 5, 7), 64, bf), gn, gn_plain, 1e-2, 1e-2, 5, why_norm_bf),
-        ("layer_norm", "transformer LN (40960,320) bf16", norm_inputs((40960, 320), 320, bf),
-         ln, ln_plain, 1e-2, 1e-2, 20, why_norm_bf),
-        ("layer_norm", "transformer LN (2560,1280) f32", norm_inputs((2560, 1280), 1280, f32),
-         ln, ln_plain, 1e-5, 1e-5, 20, "f32; only the summation order differs"),
+        dict(kernel="flash_attention_fwd_lse", label=label, make=lambda: base()[:3],
+             fn=lambda q, k, v: A.flash_attention_lse(q, k, v, scale),
+             plain=lambda q, k, v: A.attention_lse_plain(q, k, v, scale), outputs=("o", "lse"),
+             tols=[o_tol, _elementwise(1e-3, 0.0)], iters=iters, library=_sdpa_fwd,
+             why=f"o: {why_o}; lse: f32 sums of exp in another order",
+             bound=lambda q, k, v: attention_bound(q, k, "fwd_lse"),
+             **({"exact": _attention_f64} if bf16 else {})),
+        dict(kernel="flash_attention_bwd_dkv", label=label, make=with_row_stats,
+             fn=lambda *a: A.flash_attention_bwd_dkv(*a, scale),
+             plain=lambda *a: A.attention_bwd_dkv_plain(*a, scale), outputs=("dk", "dv"),
+             tols=[twin_tol, twin_tol], why=why_twin, iters=iters, library=_sdpa_bwd,
+             bound=lambda q, k, *_: attention_bound(q, k, "bwd_dkv")),
+        dict(kernel="flash_attention_bwd_dq", label=label, make=with_row_stats,
+             fn=lambda *a: A.flash_attention_bwd_dq(*a, scale),
+             plain=lambda *a: A.attention_bwd_dq_plain(*a, scale), outputs=("dq",),
+             tols=[twin_tol], why=why_twin, iters=iters, library=_sdpa_bwd,
+             bound=lambda q, k, *_: attention_bound(q, k, "bwd_dq")),
+        dict(kernel="flash_attention autograd", label=label, make=base,
+             fn=grads(lambda q, k, v: A.flash_attention(q, k, v, scale)),
+             plain=grads(lambda q, k, v: A.attention(q, k, v, scale=scale)), outputs=("dq", "dk", "dv"),
+             tols=[] if bf16 else 3 * [_of_max(1e-5)],
+             why="bf16: held to f64 math below" if bf16 else "f32 with TF32 off",
+             **({"exact": _attention_grads_f64} if bf16 else {})),
     ]
 
 
+def _unaligned(b, sq, sk, h, d, n):
+    """n (B, S, H, D) bf16 tensors whose rows start one element past 16-byte
+    alignment (strided views), so the kernels take their element-wise path."""
+    def make():
+        import torch
+
+        g = torch.Generator("cuda").manual_seed(sq)
+        bufs = [torch.randn((b, s, h * d + 1), generator=g, device="cuda").to(torch.bfloat16)
+                for s in (sq, sk, sk, sq)[:n]]
+        return [t[..., 1:].view(b, t.shape[1], h, d) for t in bufs]
+    return make
+
+
 def _attention_f64(q, k, v):
+    """(o,): softmax(q k^T / sqrt(D)) v in f64 on the same inputs."""
     import torch
 
     logits = torch.einsum("bqhd,bkhd->bhqk", q.double(), k.double()) * q.shape[-1] ** -0.5
-    return torch.einsum("bhqk,bkhd->bqhd", logits.softmax(-1), v.double())
+    return (torch.einsum("bhqk,bkhd->bqhd", logits.softmax(-1), v.double()),)
 
 
-# A bf16 flash output must be no less accurate than the plain path's, both
+def _attention_grads_f64(q, k, v, do):
+    """(dq, dk, dv) of softmax(q k^T / sqrt(D)) v in f64 on the same inputs."""
+    import torch
+
+    q, k, v, do = (t.double() for t in (q, k, v, do))
+    scale = q.shape[-1] ** -0.5
+    p = torch.softmax(torch.einsum("bqhd,bkhd->bhqk", q, k) * scale, -1)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do)
+    ds = torch.einsum("bqhd,bkhd->bhqk", do, v)
+    ds = p * (ds - (ds * p).sum(-1, keepdim=True))
+    del p
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k) * scale,
+            torch.einsum("bhqk,bqhd->bkhd", ds, q) * scale, dv)
+
+
+# A bf16 flash result must be no less accurate than the plain path's, both
 # measured against f64 math on the same bf16 inputs. Both round their output
 # to bf16, so their errors are quantised to bf16 ulps: the largest error may
 # land one ulp (2x) apart, the mean error is the finer reading. A P.V product
 # accumulated in bf16, or a row sum out of step with the rescaled
-# accumulator, raises the mean error well past these factors.
+# accumulator, raises the mean error well past these factors; so would a
+# backward that dropped a term or rounded dS before the delta subtraction.
 F64_MEAN_FACTOR, F64_MAX_FACTOR = 1.25, 2.0
 
 
-def _check_against_f64(label, inputs, got, ref):
-    """Errors of kernel and plain against f64 attention; raises unless the
-    kernel's are within the factors above of the plain path's."""
-    exact = _attention_f64(*inputs)
+def _check_against_f64(what, label, got, ref, exact):
+    """Errors of kernel and plain against f64; raises unless the kernel's are
+    within the factors above of the plain path's."""
     k_err, p_err = ((t.double() - exact).abs() for t in (got, ref))
     k_max, k_mean = float(k_err.max()), float(k_err.mean())
     p_max, p_mean = float(p_err.max()), float(p_err.mean())
     ok = k_mean <= F64_MEAN_FACTOR * p_mean and k_max <= F64_MAX_FACTOR * p_max
-    log(f"kernel flash_attention: {label}: against f64 on the same bf16 inputs: kernel max {k_max:.3e} "
+    log(f"kernel {what}: {label}: against f64 on the same bf16 inputs: kernel max {k_max:.3e} "
         f"mean {k_mean:.3e}, plain max {p_max:.3e} mean {p_mean:.3e} (kernel mean <= "
         f"{F64_MEAN_FACTOR:g}x plain's, max <= {F64_MAX_FACTOR:g}x) {'OK' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"flash_attention is less accurate than the plain path at {label}")
+        raise AssertionError(f"{what} is less accurate than the plain path at {label}")
+
+
+def _timing_line(ms, plain_ms, library_ms, bound):
+    return (f"kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, library {library_ms:.4g} ms, "
+            f"bound {bound[0]:.4g} ms ({bound[1]})")
 
 
 def phase_kernels(records):
@@ -207,29 +446,42 @@ def phase_kernels(records):
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
-    for name, label, make, kern, plain, atol, rtol, iters, reason in _kernel_cases():
-        inputs = make()
-        got = kern(*inputs)
+    for case in _kernel_cases():
+        name, label = case["kernel"], case["label"]
+        inputs = case["make"]()
+        got = _as_tuple(case["fn"](*inputs))
         torch.cuda.synchronize()
-        ref = plain(*inputs)
-        err = (got.float() - ref.float()).abs()
-        bound = atol + rtol * ref.float().abs()
-        ok = bool(torch.isfinite(got).all()) and bool((err <= bound).all())
-        max_err = float(err.max())
-        ms = cuda_time_ms(lambda: kern(*inputs), iters)
-        plain_ms = cuda_time_ms(lambda: plain(*inputs), iters)
-        log(f"kernel {name}: {label}: max_abs_err {max_err:.3e} (atol {atol:g} + rtol {rtol:g}"
-            f"*|ref|: {reason}) {'OK' if ok else 'FAIL'}; kernel {ms:.3f} ms, plain {plain_ms:.3f} ms")
-        rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms})
-        rec["max_abs_err"] = max(rec["max_abs_err"], max_err)
+        ref = _as_tuple(case["plain"](*inputs))
+        finite = all(bool(torch.isfinite(t).all()) for t in got)
+        ok, errs = finite, []
+        for g, r, (tol, _) in zip(got, ref, case["tols"]):
+            err = (g.float() - r.float()).abs()
+            errs.append(float(err.max()))
+            ok = ok and bool((err <= tol(r.float())).all())
+            del err
+        line = f"kernel {name}: {label}: finite {finite}; " + "".join(
+            f"{n} max_abs_err {e:.3e} (<= {text}); " for n, e, (_, text) in zip(case["outputs"], errs, case["tols"])
+        ) + f"({case['why']}) {'OK' if ok else 'FAIL'}"
+        if name in KERNELS:
+            times = (cuda_time_ms(lambda: case["fn"](*inputs), case["iters"]),
+                     cuda_time_ms(lambda: case["plain"](*inputs), case["iters"]),
+                     cuda_time_ms(case["library"](*inputs), case["iters"]))
+            bound = case["bound"](*inputs)
+            line += "; " + _timing_line(*times, bound)
+            record(records, name, max(errs), *times, bound)
+        log(line)
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version at {label}")
-        del err, bound
-        if name == "flash_attention" and got.dtype == torch.bfloat16:
-            _check_against_f64(label, inputs, got, ref)
+        if "exact" in case:
+            for n, g, r, e in zip(case["outputs"], got, ref, case["exact"](*inputs)):
+                _check_against_f64(name, f"{label} {n}", g, r, e)
         del inputs, got, ref
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
+
+
+def _as_tuple(x):
+    return x if isinstance(x, tuple) else (x,)
 
 
 def _timed_forward(module, store):
@@ -252,7 +504,6 @@ def phase_main_path(records):
     import torch
 
     from t2v_turbo_tpu_torch.apps.generate import build_pipeline, parse_args
-    from t2v_turbo_tpu_torch.ops import flash_attention, fused_group_norm, fused_layer_norm
     from t2v_turbo_tpu_torch.pipelines.vc2 import video_to_uint8
 
     t0 = time.perf_counter()
@@ -263,10 +514,7 @@ def phase_main_path(records):
                 for n, m in (("unet", pipe.unet), ("vae", pipe.vae), ("text", pipe.text_model))}
     log(f"main path: pipeline built in {time.perf_counter() - t0:.1f} s; parameters {n_params}")
 
-    wrappers = {"flash_attention": flash_attention, "group_norm": fused_group_norm,
-                "layer_norm": fused_layer_norm}
-    for w in wrappers.values():
-        w.launches = 0
+    reset_launches()
     torch.cuda.reset_peak_memory_stats()
     video_s = []
     for i, prompt in enumerate(PROMPTS):
@@ -290,7 +538,7 @@ def phase_main_path(records):
             path = os.path.join(OUT_DIR, "chip_smoke_video0.npy")
             np.save(path, video_to_uint8(video)[0])  # (T, H, W, 3) uint8, as save_video writes .npy
             log(f"main path: wrote {os.path.relpath(path, HERE)}")
-    launches = {n: w.launches for n, w in wrappers.items()}
+    launches = {n: c for n, c in read_launches().items() if n in SERVING_KERNELS}
     peak = torch.cuda.max_memory_allocated()
     log(f"main path: s/video (videos 2-3, no hooks) {' '.join(f'{s:.3f}' for s in video_s[1:])}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
@@ -389,6 +637,230 @@ def phase_reference():
     torch.backends.cudnn.allow_tf32 = True
 
 
+def _moved(before, after, what):
+    """Raise unless every tensor of `after` differs from `before`."""
+    import torch
+
+    still = [n for n in before if torch.equal(before[n], after[n])]
+    if still:
+        raise AssertionError(f"{len(still)} LoRA {what} factors did not move (first: {still[0]})")
+
+
+def phase_training(records):
+    """Full-width v1 LoRA LCD training through apps/train_v1.py's builder."""
+    import gc
+
+    import torch
+
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            return _train_full_width(records, remat)
+        except torch.cuda.OutOfMemoryError:
+            if remat:
+                raise
+            log("training: out of memory without --use-remat; running with it")
+
+
+def _train_full_width(records, remat):
+    import math
+
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch import lora as L
+    from t2v_turbo_tpu_torch.apps import train_v1
+
+    argv = ["--random-weights", "--synthetic-data", "--device", "cuda:0", "--seed", "0",
+            "--output-dir", os.path.join(OUT_DIR, "train_v1"), "--max-steps", "4",
+            "--checkpointing-steps", "1000000"] + (["--use-remat"] if remat else [])
+    t0 = time.perf_counter()
+    trainer, data, _ = train_v1.build_trainer(train_v1.parse_args(argv))
+    torch.cuda.synchronize()
+    n_student = sum(v.numel() for v in L.base_state_dict(trainer.student).values())
+    log(f"training: built in {time.perf_counter() - t0:.1f} s ({' '.join(argv)}); mode "
+        f"{'--use-remat' if remat else 'no remat'}; student {n_student} frozen parameters, "
+        f"LoRA rank {trainer.cfg.lora_rank} on {len(trainer.factors)} modules, "
+        f"{L.count_lora_params(trainer.factors)} trainable; optimizer moments {trainer.optimizer.moments}")
+    frozen = {f"student.{k}": v.clone() for k, v in L.base_state_dict(trainer.student).items()}
+    frozen.update({f"teacher.{k}": v.clone() for k, v in trainer.teacher.state_dict().items()})
+    factors0 = {n: {k: t.detach().clone() for k, t in f.items()} for n, f in trainer.factors.items()}
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(4):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.step_once(next(data))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        log(f"training: step {i + 1}{' (warm-up)' if i == 0 else ''}: {step_s[-1]:.3f} s, loss {loss:.6f}, "
+            f"grad_norm {gnorm:.6f}, max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0):
+            raise AssertionError(f"training step {i + 1}: loss {loss}, grad_norm {gnorm}")
+        if i < 2:  # up starts at 0: it moves at step 1, down from step 2 on
+            kind = ("up", "down")[i]
+            _moved({n: f[kind] for n, f in factors0.items()},
+                   {n: f[kind].detach() for n, f in trainer.factors.items()}, kind)
+            log(f"training: after step {i + 1} every LoRA {kind} factor moved ({len(factors0)})")
+    launches = read_launches()
+    log(f"training: kernel launches over the 4 steps {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the training path")
+        if name not in SERVING_KERNELS:
+            records[name]["launches"] = n
+    now = {f"student.{k}": v for k, v in L.base_state_dict(trainer.student).items()}
+    now.update({f"teacher.{k}": v for k, v in trainer.teacher.state_dict().items()})
+    changed = [k for k in frozen if not torch.equal(frozen[k], now[k])]
+    if changed:
+        raise AssertionError(f"{len(changed)} frozen weights changed (first: {changed[0]})")
+    log(f"training: {len(frozen)} frozen tensors (student base and teacher) bitwise unchanged")
+    log(f"training: s/step (steps 2-4, {'--use-remat' if remat else 'no remat'}) "
+        f"{' '.join(f'{s:.3f}' for s in step_s[1:])} (mean {np.mean(step_s[1:]):.3f}); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del frozen, now, factors0
+    _profile_train_step(trainer, data)
+
+
+def _profile_train_step(trainer, data):
+    """torch.profiler over one more training step: device time by kernel and
+    the idle share, into chiprun_out/profile_train.txt."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    host_batch = next(data)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        float(trainer.step_once(host_batch)["loss"])
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(e.self_device_time_total for e in events) / 1e3
+    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50, max_name_column_width=90)
+    with open(os.path.join(OUT_DIR, "profile_train.txt"), "w") as f:
+        f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
+    top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    log(f"training profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f} -> chiprun_out/profile_train.txt; top: "
+        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
+
+
+def _w_embedding_drift(w) -> float:
+    """How far the card's guidance embedding of these draws' w is from the
+    CPU's (max |diff|), logged with which of its two f32 functions makes the
+    difference: the frequencies' torch.exp, or sin / cos of the same
+    arguments."""
+    import torch
+
+    from t2v_turbo_tpu_torch.diffusion.lcm import guidance_frequencies, guidance_scale_embedding
+
+    freqs = [guidance_frequencies(128, device).cpu() for device in ("cpu", "cuda:0")]
+    rel = (freqs[1] - freqs[0]).abs() / torch.finfo(torch.float32).eps / freqs[0]
+    args = (w.float() * 1000.0)[:, None] * freqs[0][None, :]
+    trig = max(float((fn(args.cuda()).cpu() - fn(args)).abs().max()) for fn in (torch.sin, torch.cos))
+    emb = [guidance_scale_embedding(w.to(device), 256).cpu() for device in ("cpu", "cuda:0")]
+    drift = float((emb[1] - emb[0]).abs().max())
+    log(f"training reference: guidance embedding of w = {[round(float(x), 4) for x in w]}, card vs CPU: "
+        f"max|diff| {drift:.3e}; frequencies (torch.exp) differ in "
+        f"{int((rel > 0).sum())} of 128, by up to {float(rel.max()):.2f} f32 eps relative; sin / cos of the same "
+        f"f32 arguments (up to {float(args.max()):.0f} rad) differ by up to {trig:.3e}")
+    return drift
+
+
+def phase_training_reference():
+    """One small f32 LCD step through the trainer's gradient path on the card
+    (kernels; remat off and on) against the CPU (plain versions) on the same
+    weights, factors and draws."""
+    import dataclasses
+    import functools
+
+    import torch
+
+    from t2v_turbo_tpu_torch import lora as L
+    from t2v_turbo_tpu_torch.diffusion import DDIMSolver, DiffusionSchedule
+    from t2v_turbo_tpu_torch.models import UNetConfig, UNetModel, seeded_init_
+    from t2v_turbo_tpu_torch.training.lcd import LCDConfig, sample_draws
+    from t2v_turbo_tpu_torch.training.optim import make_optimizer
+    from t2v_turbo_tpu_torch.training.trainer import LCDTrainer, TrainerConfig
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = UNetConfig(model_channels=64, num_res_blocks=1, attention_resolutions=(1, 2), channel_mult=(1, 2),
+                     context_dim=64, time_cond_proj_dim=256)
+    student_sd = seeded_init_(UNetModel(cfg), 21).state_dict()
+    teacher_cfg = dataclasses.replace(cfg, time_cond_proj_dim=None)
+    teacher_sd = seeded_init_(UNetModel(teacher_cfg), 22).state_dict()
+    g = torch.Generator().manual_seed(23)
+    factors = L.init_lora(UNetModel(cfg), L.LoRAConfig(rank=8), g)
+    for f in factors.values():  # non-zero ups, so every factor has a gradient
+        f["up"] = 0.05 * torch.randn(f["up"].shape, generator=g)
+    batch = {"latents": torch.randn((1, 4, 16, 16, 4), generator=g), "ctx": torch.randn((1, 77, 64), generator=g),
+             "uncond_ctx": torch.zeros((1, 77, 64)), "fps": torch.full((1,), 16.0)}
+    draws = sample_draws(LCDConfig(), batch["latents"].shape, g)
+    w_drift = _w_embedding_drift(draws.w)
+    sched = DiffusionSchedule.create()
+    solver = DDIMSolver.create(sched.alphas_cumprod.numpy())
+
+    def step(device, remat):
+        student = UNetModel(cfg, use_remat=remat).to(device)
+        student.load_state_dict(student_sd, strict=True)
+        teacher = UNetModel(teacher_cfg).to(device)
+        teacher.load_state_dict(teacher_sd, strict=True)
+        trainer = LCDTrainer(student=student, teacher=teacher, sched=sched, solver=solver,
+                             lcd_cfg=LCDConfig(), optimizer=functools.partial(make_optimizer, name="adamw"),
+                             cfg=TrainerConfig(output_dir=os.path.join(OUT_DIR, "train_reference"),
+                                               lora_rank=8))
+        with torch.no_grad():
+            for n, f in trainer.factors.items():
+                for k, t in f.items():
+                    t.copy_(factors[n][k])
+        names = [f"{n}.{k}" for n in sorted(trainer.factors) for k in ("down", "up")]
+        reset_launches()
+        loss, _, _ = trainer.loss_and_grads({k: v.to(device) for k, v in batch.items()}, draws)
+        grads = [t.detach().cpu() for t in trainer._grad_views]
+        return float(loss.detach()), dict(zip(names, grads)), read_launches()
+
+    # Bounds (f32, TF32 off; sums run in another order through three UNet
+    # passes): each LoRA gradient's max|diff| <= 1e-3 * its max|ref| + 1e-6 *
+    # the largest gradient of all. time_cond_proj's factors take the guidance
+    # embedding sin / cos(w * 1000 * f) as input: the card's f32 torch.exp
+    # gives some of the frequencies f one ulp away from the CPU's, which
+    # arguments up to 1.5e4 rad turn into ~1e-3 of the embedding (sin / cos
+    # of the same arguments agree to ~6e-8; both logged above). Their
+    # gradients are linear in the embedding, so their bound adds twice its
+    # measured drift.
+    w_input, rtol = "time_cond_proj.", 1e-3
+    w_tol = rtol + 2 * w_drift
+    ref_loss, ref_grads, _ = step("cpu", False)
+    gmax = max(float(t.abs().max()) for t in ref_grads.values())
+    for remat in (False, True):
+        loss, grads, launches = step("cuda:0", remat)
+        ratios = {n: float((grads[n] - r).abs().max()) / (float(r.abs().max()) + 1e-6 * gmax)
+                  for n, r in ref_grads.items()}
+        rest = {n: v for n, v in ratios.items() if not n.startswith(w_input)}
+        worst = max(rest, key=rest.get)
+        w_worst = max(v for n, v in ratios.items() if n.startswith(w_input))
+        loss_err = abs(loss - ref_loss)
+        ran = all(n > 0 for n in launches.values())
+        ok = (loss_err <= 1e-4 * max(1.0, abs(ref_loss)) and rest[worst] <= rtol and w_worst <= w_tol
+              and ran)
+        log(f"training reference: 1 f32 LCD step, 4x16x16 latents, UNet 64/128 with heads "
+            f"of 64, {'remat' if remat else 'no remat'}, card vs CPU: loss {loss:.6f} vs {ref_loss:.6f} "
+            f"(|diff| {loss_err:.3e} <= 1e-4*max(1,|loss|)); {len(grads)} LoRA gradients, "
+            f"max|diff| / (max|ref| + 1e-6*max|all ref|): median "
+            f"{sorted(ratios.values())[len(ratios) // 2]:.3e}, worst {rest[worst]:.3e} at {worst} "
+            f"(<= {rtol:g}), time_cond_proj {w_worst:.3e} (<= {w_tol:.3e}: 1e-3 + 2x the embedding's drift); "
+            f"card launches {launches} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError("the card's LCD step disagrees with the CPU's")
+    torch.backends.cudnn.allow_tf32 = True
+
+
 def main() -> int:
     if not os.path.isdir(os.path.join(HERE, "t2v_turbo_tpu_torch")):
         print("chip_smoke: t2v_turbo_tpu_torch is not beside this script", file=sys.stderr)
@@ -399,6 +871,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device", file=sys.stderr)
         return 1
+    os.makedirs(OUT_DIR, exist_ok=True)
+    open(os.path.join(OUT_DIR, "chip_smoke.log"), "w").close()
     records = {}
     phases = [
         ("device", phase_device),
@@ -406,6 +880,8 @@ def main() -> int:
         ("kernels", lambda: phase_kernels(records)),
         ("main path", lambda: phase_main_path(records)),
         ("reference", phase_reference),
+        ("training", lambda: phase_training(records)),
+        ("training reference", phase_training_reference),
     ]
     failed = []
     for name, fn in phases:
@@ -421,10 +897,12 @@ def main() -> int:
     if failed:
         print(f"chip_smoke: failed phases: {failed}", file=sys.stderr)
         return 1
+    phase_device()  # the card's name and power limit again, beside the record
     log(json.dumps({"kernels": [
         {"name": n, "route": "cuda", "source": KERNELS[n][0], "replaces": KERNELS[n][1],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
-         "plain_ms": r["plain_ms"]}
+         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+         "library_ms": r["library_ms"]}
         for n, r in records.items()
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,6 +8,10 @@ Usage:
 
 Without --checkpoint, --random-weights must be passed explicitly: every
 weight is then drawn from --seed (non-zero everywhere, 1/sqrt(fan_in)).
+--lora-ckpt folds a trained LoRA into the UNet (alpha 1, the reference's
+collapse): the reference's `unet_lora.pt` list or a `unet_lora.npz` of
+either package's trainer. The output is written by the port's own
+io/video.py: .npy always, .mp4 when an ffmpeg binary is present.
 The models run in bf16 on --device (default cuda:0), where every GroupNorm
 and LayerNorm, and every attention of head dim 64 or 512 but the CLIP
 tower's causal one, run the hand-written kernels (ops/attention.py::sdpa).
@@ -27,6 +31,8 @@ def parse_args(argv=None):
     p.add_argument("--prompt", required=True)
     p.add_argument("--checkpoint", default=None, help="VideoCrafter2 model.ckpt")
     p.add_argument("--unet-ckpt", default=None, help="LCM student unet.pt (replaces the ckpt's UNet)")
+    p.add_argument("--lora-ckpt", default=None,
+                   help="v1 LoRA to fold into the UNet: unet_lora.pt or unet_lora.npz")
     p.add_argument("--random-weights", action="store_true",
                    help="run with seeded random weights (smoke mode, no checkpoint)")
     p.add_argument("--steps", type=int, default=4)
@@ -76,6 +82,8 @@ def build_pipeline(args, spec=None):
         print("error: provide --checkpoint or pass --random-weights", file=sys.stderr)
         sys.exit(2)
 
+    if args.lora_ckpt:
+        unet.load_state_dict(lora_state_dict(unet, args.lora_ckpt, spec.unet), strict=True)
     for m in (unet, vae, text):
         cast_compute_dtype_(m, dtype).eval().requires_grad_(False)
     return T2VTurboVC2Pipeline(
@@ -85,10 +93,20 @@ def build_pipeline(args, spec=None):
     )
 
 
+def lora_state_dict(unet, path, cfg):
+    """The UNet's state dict with the LoRA at `path` (.pt or .npz) folded in."""
+    from ..io.lora_import import apply_lora_pt, load_lora_pt
+    from ..lora import load_lora_npz, merge_lora
+
+    with torch.no_grad():
+        if path.endswith(".npz"):
+            return merge_lora(unet.state_dict(), load_lora_npz(path, unet))
+        return apply_lora_pt(unet.state_dict(), load_lora_pt(path), cfg)
+
+
 def main(argv=None):
     args = parse_args(argv)
-    from t2v_turbo_tpu.io.video import save_video
-
+    from ..io.video import save_video
     from ..pipelines.vc2 import video_to_uint8
 
     t0 = time.time()

@@ -1,20 +1,28 @@
 // Flash-attention forward for Hopper: softmax(q k^T * scale) v with an online
-// softmax, never materialising the (Sq, Sk) logits in device memory.
+// softmax, never materialising the (Sq, Sk) logits in device memory, and
+// optionally the per-row log-sum-exp that the backward needs.
 //
-// Replaces the Pallas TPU kernel t2v_turbo_tpu/ops/attention.py::_flash_fwd_kernel
-// (entry flash_attention, implementation _flash_attention_fwd_impl). On the
-// main path it runs every attention of the VC2 UNet (spatial self-attention
-// at S = 2560, 640, 160 and 40, cross-attention to 77 text tokens, temporal
-// self-attention over 16 frames; heads of 64) and the VAE's mid-block
-// attention (S = 2560, one head of 512).
+// Replaces the Pallas TPU kernels t2v_turbo_tpu/ops/attention.py::
+// _flash_fwd_kernel (entry flash_attention, implementation
+// _flash_attention_fwd_impl; "B1") and _flash_fwd_kernel_lse (the custom
+// VJP's forward rule, implementation _flash_attention_fwd_lse_impl; "B2").
+// One kernel template serves both: a null `lse` pointer gives B1, a non-null
+// one B2, which also writes lse = m + log(l) per query row in f32. The
+// (B, S, H, D) strides make it the BSHD family's forward too (B6: the TPU's
+// _flash_fwd_kernel_bshd and _flash_fwd_kernel_bshd_lse).
+// On the main path B1 runs every attention of the VC2 UNet (spatial
+// self-attention at S = 2560, 640, 160 and 40, cross-attention to 77 text
+// tokens, temporal self-attention over 16 frames; heads of 64) and the VAE's
+// mid-block attention (S = 2560, one head of 512); in training B2 runs every
+// UNet attention of the student's gradient-carrying forward.
 //
 // What bounds it on the H100: the plain version writes and reads the f32
 // logits, 2.1 GB per level-0 call; this kernel reads q, k, v once per query
-// tile and writes o once, so device-memory traffic stops mattering and the
-// arithmetic decides. Two paths do that arithmetic:
+// tile and writes o (and 4 bytes of lse a row) once, so device-memory traffic
+// stops mattering and the arithmetic decides. Two paths do that arithmetic:
 // - bf16, the main path's dtype: tensor cores through mma.sync.m16n8k16 in
-//   FlashAttention-2's register layout (the "Tensor-core path" section below).
-//   wgmma, TMA and a pipelined K/V ring are later work.
+//   FlashAttention-2's register layout (flash_mma.cuh). wgmma, TMA and a
+//   pipelined K/V ring are later work.
 // - f32: scalar f32 FMAs out of shared memory, exact enough to hold against
 //   the plain f32 math. Each thread owns a small register tile of the logits
 //   and of the output, so every shared-memory load feeds several FMAs;
@@ -32,16 +40,16 @@
 //   on zeros and not stored, so any S works without padding copies;
 // - q, k, v and o are addressed through (batch, seq, head) strides with a
 //   contiguous head dimension, so the (B, S, H, D) output of the q/k/v
-//   Linears needs no transpose.
+//   Linears needs no transpose; lse is (B, H, Sq) f32 with (batch, head)
+//   strides and a contiguous sequence.
 // Scalar tilings (256 threads): D = 64 (BQ = BK = 64, 66 KB of shared memory)
 // and D = 512 (BQ = BK = 32, 197 KB, one block per SM); both need dynamic
 // shared memory above 48 KB, so cudaFuncSetAttribute.
-#include "common.cuh"
+#include "flash_mma.cuh"
 
 namespace t2v {
 
 constexpr int kFlashThreads = 256;
-constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;  // the reference's
 
 template <int D, int BQ, int BK>
 struct FlashSmem {
@@ -55,11 +63,11 @@ struct FlashSmem {
 template <int D, int BQ, int BK, int SR, int SC, int OR, int OC>
 __global__ void __launch_bounds__(kFlashThreads)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ o, int H, int Sq, int Sk,
-                 long long q_sb, long long q_ss, long long q_sh, long long k_sb,
-                 long long k_ss, long long k_sh, long long v_sb, long long v_ss,
-                 long long v_sh, long long o_sb, long long o_ss, long long o_sh,
-                 float scale) {
+                 const float* __restrict__ v, float* __restrict__ o, float* __restrict__ lse,
+                 int H, int Sq, int Sk, long long q_sb, long long q_ss, long long q_sh,
+                 long long k_sb, long long k_ss, long long k_sh, long long v_sb, long long v_ss,
+                 long long v_sh, long long o_sb, long long o_ss, long long o_sh, long long l_sb,
+                 long long l_sh, float scale) {
   using Smem = FlashSmem<D, BQ, BK>;
   constexpr int DP = Smem::DP, BKP = Smem::BKP;
   constexpr int SCG = BK / SC;                 // logit column groups
@@ -212,19 +220,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < OC; ++j) orow[o_cg + j * OCG] = acc[i][j] / l;
   }
+  if (lse != nullptr && tid < BQ && q0 + tid < Sq)
+    lse[b * l_sb + h * l_sh + q0 + tid] = sM[tid] + logf(sL[tid]);
 }
 
 // ---------------------------------------------------------------------------
 // Tensor-core path: bf16 on mma.sync.m16n8k16 (bf16 in, f32 accumulate), in
-// FlashAttention-2's register layout. Per tile of keys, K and V are staged in
-// shared memory row-major ([key][d], rows padded by 8 elements so fragment
-// loads and ldmatrix rows fall in distinct banks), with 16-byte loads when
-// the tensors are 16-byte aligned. The logits accumulate in registers (K
-// fragments by 32-bit loads), the softmax runs on them (each query row is
-// spread over the 4 lanes of a quad), and the probabilities, rounded to bf16,
-// are reused in registers as the A operand of P.V, whose B fragments come
-// from V through ldmatrix.trans. Each lane keeps a partial row sum, reduced
-// once at the end. No cp.async/TMA pipelining yet: loads and math alternate.
+// FlashAttention-2's register layout (flash_mma.cuh). Per tile of keys, K
+// and V are staged in shared memory row-major ([key][d], rows padded by 8
+// elements so fragment loads and ldmatrix rows fall in distinct banks), with
+// 16-byte loads when the tensors are 16-byte aligned. The logits accumulate
+// in registers (K fragments by 32-bit loads), the softmax runs on them (each
+// query row is spread over the 4 lanes of a quad), and the probabilities,
+// rounded to bf16, are reused in registers as the A operand of P.V, whose B
+// fragments come from V through ldmatrix.trans. Each lane keeps a partial
+// row sum, reduced once at the end. No cp.async/TMA pipelining yet: loads
+// and math alternate.
 // - D = 64 (the UNet's level-0 self-attention): 4 warps, each owning 16
 //   queries (64 per block) and its Q fragments for the whole K loop.
 // - D = 512 (the VAE's one head): a warp's 16 x 512 f32 accumulators would
@@ -234,82 +245,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 //   shared memory in a fixed order, so the 4 warps of a row group hold the
 //   same logits and softmax.
 // ---------------------------------------------------------------------------
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
-                                          uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-// Four 8x8 b16 matrices, transposed: lane l gives the row address of matrix
-// l / 8, row l % 8; register i holds matrix i's (2t, 2t+1; g) pair.
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const __nv_bfloat16* row) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(row));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
-}
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
-  return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t smem_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
-
-// Two neighbouring elements of a global row as one A-fragment register
-// (zeros past the last row).
-__device__ __forceinline__ uint32_t global_pair(const __nv_bfloat16* base, int row, int n_rows,
-                                                long long row_stride, int col) {
-  if (row >= n_rows) return 0u;
-  const __nv_bfloat16* p = base + (long long)row * row_stride + col;
-  return (uint32_t)__bfloat16_as_ushort(p[0]) | ((uint32_t)__bfloat16_as_ushort(p[1]) << 16);
-}
-
-// Stage keys [k0, k0 + BK) of K and V as [key][d] rows of stride LD; zeros
-// past Sk. VEC moves 8 elements (16 bytes) at a time.
-template <int D, int BK, int LD, int NTHREADS, bool VEC>
-__device__ __forceinline__ void stage_kv(__nv_bfloat16* sK, __nv_bfloat16* sV,
-                                         const __nv_bfloat16* kb, const __nv_bfloat16* vb,
-                                         long long k_ss, long long v_ss, int k0, int Sk) {
-  constexpr int W = VEC ? 8 : 1;
-  for (int i = threadIdx.x; i < BK * (D / W); i += NTHREADS) {
-    const int r = i / (D / W), c = (i % (D / W)) * W;
-    const int key = k0 + r;
-    if constexpr (VEC) {
-      uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-      if (key < Sk) {
-        kv = *reinterpret_cast<const uint4*>(kb + (long long)key * k_ss + c);
-        vv = *reinterpret_cast<const uint4*>(vb + (long long)key * v_ss + c);
-      }
-      *reinterpret_cast<uint4*>(sK + r * LD + c) = kv;
-      *reinterpret_cast<uint4*>(sV + r * LD + c) = vv;
-    } else {
-      const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-      sK[r * LD + c] = key < Sk ? kb[(long long)key * k_ss + c] : zero;
-      sV[r * LD + c] = key < Sk ? vb[(long long)key * v_ss + c] : zero;
-    }
-  }
-}
-
-// s += Q K^T over this warp's head-dim chunks [d0, d0 + 16*KC).
-template <int NT, int KC, int LD>
-__device__ __forceinline__ void qk_tile(float (&s)[NT][4], const uint32_t (&qa)[KC][4],
-                                        const __nv_bfloat16* sK, int d0, int g, int t) {
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    s[nt][0] = s[nt][1] = s[nt][2] = s[nt][3] = 0.0f;
-    const __nv_bfloat16* krow = sK + (nt * 8 + g) * LD + d0 + 2 * t;
-#pragma unroll
-    for (int kc = 0; kc < KC; ++kc)
-      mma_16816(s[nt], qa[kc], smem_pair(krow + kc * 16), smem_pair(krow + kc * 16 + 8));
-  }
-}
 
 // Online-softmax update of one logits tile held in mma C-fragments: scale,
 // mask keys >= Sk, new running max per row (rows g and g+8 of the warp),
@@ -359,56 +294,6 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&acc)[DT]
   }
 }
 
-// acc += P . V for one tile: P from the probability fragments, V from its
-// row-major tile through ldmatrix.trans, head-dim columns [d0, d0 + 8*DT).
-template <int NT, int DT, int LD>
-__device__ __forceinline__ void pv_tile(float (&acc)[DT][4], const float (&s)[NT][4],
-                                        const __nv_bfloat16* sV, int d0, int lane) {
-  static_assert(DT % 2 == 0, "ldmatrix.x4 feeds two d tiles");
-  const int mat = lane >> 3, rr = lane & 7;
-#pragma unroll
-  for (int j = 0; j < NT / 2; ++j) {
-    const uint32_t pa[4] = {pack_bf16(s[2 * j][0], s[2 * j][1]), pack_bf16(s[2 * j][2], s[2 * j][3]),
-                            pack_bf16(s[2 * j + 1][0], s[2 * j + 1][1]),
-                            pack_bf16(s[2 * j + 1][2], s[2 * j + 1][3])};
-    // matrices: keys j*16 + {0..7, 8..15} x d tiles {dt, dt + 1}
-    const __nv_bfloat16* row = sV + (j * 16 + (mat & 1) * 8 + rr) * LD + d0 + (mat >> 1) * 8;
-#pragma unroll
-    for (int dt = 0; dt < DT; dt += 2) {
-      uint32_t b[4];
-      ldmatrix_x4_trans(b, row + dt * 8);
-      mma_16816(acc[dt], pa, b[0], b[1]);
-      mma_16816(acc[dt + 1], pa, b[2], b[3]);
-    }
-  }
-}
-
-// o[row, d0 + ...] = acc / l for this lane's two rows.
-template <int DT>
-__device__ __forceinline__ void store_rows(const float (&acc)[DT][4], float l0, float l1,
-                                           __nv_bfloat16* ob, long long o_ss, int r0, int Sq,
-                                           int d0, int t) {
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    l0 += __shfl_xor_sync(0xffffffffu, l0, off);
-    l1 += __shfl_xor_sync(0xffffffffu, l1, off);
-  }
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    const int col = d0 + dt * 8 + 2 * t;
-    if (r0 < Sq) {
-      __nv_bfloat16* p = ob + (long long)r0 * o_ss + col;
-      p[0] = __float2bfloat16_rn(acc[dt][0] / l0);
-      p[1] = __float2bfloat16_rn(acc[dt][1] / l0);
-    }
-    if (r0 + 8 < Sq) {
-      __nv_bfloat16* p = ob + (long long)(r0 + 8) * o_ss + col;
-      p[0] = __float2bfloat16_rn(acc[dt][2] / l1);
-      p[1] = __float2bfloat16_rn(acc[dt][3] / l1);
-    }
-  }
-}
-
 // Tile shapes of the two mma kernels and their dynamic shared memory.
 template <int D> struct MmaTiling;
 template <> struct MmaTiling<64> {
@@ -430,11 +315,12 @@ template <int D> struct MmaSmem {
 template <int D, bool VEC>
 __global__ void __launch_bounds__(32 * MmaTiling<D>::WARPS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o, int H,
-                     int Sq, int Sk, long long q_sb, long long q_ss, long long q_sh,
-                     long long k_sb, long long k_ss, long long k_sh, long long v_sb,
-                     long long v_ss, long long v_sh, long long o_sb, long long o_ss,
-                     long long o_sh, float scale) {
+                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
+                     float* __restrict__ lse, int H, int Sq, int Sk, long long q_sb,
+                     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
+                     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
+                     long long o_sb, long long o_ss, long long o_sh, long long l_sb,
+                     long long l_sh, float scale) {
   using Tl = MmaTiling<D>;
   using Sm = MmaSmem<D>;
   constexpr int NTHREADS = 32 * Tl::WARPS, BK = Tl::BK, LD = Sm::LD, LDS = Sm::LDS;
@@ -458,14 +344,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   const int d0 = slice * DW;
 
   uint32_t qa[KC][4];
-#pragma unroll
-  for (int kc = 0; kc < KC; ++kc) {
-    const int c = d0 + kc * 16 + 2 * t;
-    qa[kc][0] = global_pair(qb, r0, Sq, q_ss, c);
-    qa[kc][1] = global_pair(qb, r0 + 8, Sq, q_ss, c);
-    qa[kc][2] = global_pair(qb, r0, Sq, q_ss, c + 8);
-    qa[kc][3] = global_pair(qb, r0 + 8, Sq, q_ss, c + 8);
-  }
+  load_a_frags<KC>(qa, qb, r0, Sq, q_ss, d0, t);
   float acc[DT][4];
 #pragma unroll
   for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.0f;
@@ -473,7 +352,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   for (int k0 = 0; k0 < Sk; k0 += BK) {
     __syncthreads();  // the previous tile's reads are done
-    stage_kv<D, BK, LD, NTHREADS, VEC>(sK, sV, kb, vb, k_ss, v_ss, k0, Sk);
+    stage_pair<D, BK, LD, NTHREADS, VEC>(sK, sV, kb, vb, k_ss, v_ss, k0, Sk);
     __syncthreads();
     float s[NT][4];
     qk_tile<NT, KC, LD>(s, qa, sK, d0, g, t);
@@ -501,13 +380,21 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     softmax_tile<NT, DT>(s, acc, k0, t, Sk, scale, m0, m1, l0, l1);
     pv_tile<NT, DT, LD>(acc, s, sV, d0, lane);
   }
-  store_rows<DT>(acc, l0, l1, o + b * o_sb + h * o_sh, o_ss, r0, Sq, d0, t);
+  l0 = quad_sum(l0);
+  l1 = quad_sum(l1);
+  store_acc<DT>(acc, 1.0f / l0, 1.0f / l1, o + b * o_sb + h * o_sh, o_ss, r0, Sq, d0, t);
+  if (lse != nullptr && slice == 0 && t == 0) {
+    float* lrow = lse + b * l_sb + h * l_sh;
+    if (r0 < Sq) lrow[r0] = m0 + logf(l0);
+    if (r0 + 8 < Sq) lrow[r0 + 8] = m1 + logf(l1);
+  }
 }
 
 template <int D, bool VEC>
 static cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                              const __nv_bfloat16* v, __nv_bfloat16* o, int B, int H, int Sq,
-                              int Sk, const long long* st, float scale, cudaStream_t stream) {
+                              const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int B, int H,
+                              int Sq, int Sk, const long long* st, const long long* lst,
+                              float scale, cudaStream_t stream) {
   using Tl = MmaTiling<D>;
   const size_t smem = MmaSmem<D>::bytes;
   auto kern = flash_fwd_mma_kernel<D, VEC>;
@@ -516,20 +403,15 @@ static cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (err != cudaSuccess) return err;
   const int bq = 16 * Tl::ROW_GROUPS;
   const dim3 grid((Sq + bq - 1) / bq, B * H);
-  kern<<<grid, 32 * Tl::WARPS, smem, stream>>>(q, k, v, o, H, Sq, Sk, st[0], st[1], st[2], st[3],
-                                               st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-                                               st[11], scale);
+  kern<<<grid, 32 * Tl::WARPS, smem, stream>>>(q, k, v, o, lse, H, Sq, Sk, st[0], st[1], st[2],
+                                               st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+                                               st[10], st[11], lst[0], lst[1], scale);
   return cudaGetLastError();
 }
 
-// 16-byte staging needs 16-byte aligned K/V rows at every (batch, head, key).
-static bool rows_aligned16(const void* p, const long long* st3) {
-  return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st3[0] % 8 == 0 && st3[1] % 8 == 0 &&
-         st3[2] % 8 == 0;
-}
-
-static cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* o, int B,
-                                    int H, int Sq, int Sk, int D, const long long* st, float scale,
+static cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* o,
+                                    float* lse, int B, int H, int Sq, int Sk, int D,
+                                    const long long* st, const long long* lst, float scale,
                                     cudaStream_t stream) {
   const auto* qp = static_cast<const __nv_bfloat16*>(q);
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
@@ -537,43 +419,56 @@ static cudaError_t launch_flash_mma(const void* q, const void* k, const void* v,
   auto* op = static_cast<__nv_bfloat16*>(o);
   const bool vec = rows_aligned16(k, st + 3) && rows_aligned16(v, st + 6);
   if (D == 64)
-    return vec ? launch_mma<64, true>(qp, kp, vp, op, B, H, Sq, Sk, st, scale, stream)
-               : launch_mma<64, false>(qp, kp, vp, op, B, H, Sq, Sk, st, scale, stream);
+    return vec ? launch_mma<64, true>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream)
+               : launch_mma<64, false>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
   if (D == 512)
-    return vec ? launch_mma<512, true>(qp, kp, vp, op, B, H, Sq, Sk, st, scale, stream)
-               : launch_mma<512, false>(qp, kp, vp, op, B, H, Sq, Sk, st, scale, stream);
+    return vec ? launch_mma<512, true>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream)
+               : launch_mma<512, false>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
   return cudaErrorInvalidValue;
 }
 
 template <int D, int BQ, int BK, int SR, int SC, int OR, int OC>
 static cudaError_t launch_flash_f32(const float* q, const float* k, const float* v, float* o,
-                                    int B, int H, int Sq, int Sk, const long long* st,
-                                    float scale, cudaStream_t stream) {
+                                    float* lse, int B, int H, int Sq, int Sk, const long long* st,
+                                    const long long* lst, float scale, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<D, BQ, BK, SR, SC, OR, OC>;
   const size_t smem = FlashSmem<D, BQ, BK>::bytes;
   cudaError_t err = cudaFuncSetAttribute(
       kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((Sq + BQ - 1) / BQ, B * H);
-  kern<<<grid, kFlashThreads, smem, stream>>>(q, k, v, o, H, Sq, Sk, st[0], st[1], st[2], st[3],
-                                              st[4], st[5], st[6], st[7], st[8], st[9], st[10],
-                                              st[11], scale);
+  kern<<<grid, kFlashThreads, smem, stream>>>(q, k, v, o, lse, H, Sq, Sk, st[0], st[1], st[2],
+                                              st[3], st[4], st[5], st[6], st[7], st[8], st[9],
+                                              st[10], st[11], lst[0], lst[1], scale);
   return cudaGetLastError();
 }
 
 static cudaError_t launch_flash_scalar(const void* q, const void* k, const void* v, void* o,
-                                       int B, int H, int Sq, int Sk, int D, const long long* st,
-                                       float scale, cudaStream_t stream) {
+                                       float* lse, int B, int H, int Sq, int Sk, int D,
+                                       const long long* st, const long long* lst, float scale,
+                                       cudaStream_t stream) {
   const auto* qp = static_cast<const float*>(q);
   const auto* kp = static_cast<const float*>(k);
   const auto* vp = static_cast<const float*>(v);
   auto* op = static_cast<float*>(o);
   if (D == 64)
-    return launch_flash_f32<64, 64, 64, 4, 4, 4, 4>(qp, kp, vp, op, B, H, Sq, Sk, st, scale, stream);
+    return launch_flash_f32<64, 64, 64, 4, 4, 4, 4>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst,
+                                                    scale, stream);
   if (D == 512)
-    return launch_flash_f32<512, 32, 32, 2, 2, 4, 16>(qp, kp, vp, op, B, H, Sq, Sk, st, scale,
-                                                      stream);
+    return launch_flash_f32<512, 32, 32, 2, 2, 4, 16>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst,
+                                                      scale, stream);
   return cudaErrorInvalidValue;
+}
+
+static int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
+                     int B, int H, int Sq, int Sk, int D, const long long* strides,
+                     const long long* lse_strides, float scale, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (dtype == kF32)
+    return launch_flash_scalar(q, k, v, o, lse, B, H, Sq, Sk, D, strides, lse_strides, scale, st);
+  if (dtype == kBF16)
+    return launch_flash_mma(q, k, v, o, lse, B, H, Sq, Sk, D, strides, lse_strides, scale, st);
+  return (int)cudaErrorInvalidValue;
 }
 
 }  // namespace t2v
@@ -586,12 +481,19 @@ extern "C" {
 int t2v_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                             int dtype, int B, int H, int Sq, int Sk, int D,
                             const long long* strides, float scale, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == t2v::kF32)
-    return t2v::launch_flash_scalar(q, k, v, o, B, H, Sq, Sk, D, strides, scale, st);
-  if (dtype == t2v::kBF16)
-    return t2v::launch_flash_mma(q, k, v, o, B, H, Sq, Sk, D, strides, scale, st);
-  return (int)cudaErrorInvalidValue;
+  const long long no_lse[2] = {0, 0};
+  return t2v::flash_fwd(q, k, v, o, nullptr, dtype, B, H, Sq, Sk, D, strides, no_lse, scale,
+                        stream);
+}
+
+// As t2v_flash_attention_fwd, and lse: (B, H, Sq) f32 at element strides
+// lse_strides = [l_sb, l_sh] with a contiguous sequence, = m + log(l) per row.
+int t2v_flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o, float* lse,
+                                int dtype, int B, int H, int Sq, int Sk, int D,
+                                const long long* strides, const long long* lse_strides,
+                                float scale, void* stream) {
+  return t2v::flash_fwd(q, k, v, o, lse, dtype, B, H, Sq, Sk, D, strides, lse_strides, scale,
+                        stream);
 }
 
 }  // extern "C"

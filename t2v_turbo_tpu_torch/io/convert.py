@@ -10,6 +10,11 @@
   (unet, vae, clip) state dicts with their prefixes stripped.
 - `load_clip_text`: strict load of an open_clip text-tower state dict minus
   exactly the keys the penultimate tower does not hold.
+- `lora_to_jax` / `lora_from_jax`: the port's LoRA factors (the reference's
+  `LoraInjected*` layout, lora.py) <-> the JAX package's factor tree
+  ({path: {"down" (in_f, r), "up" (r, out)}}, t2v_turbo_tpu/lora.py), which
+  folds a conv kernel's (kh, kw, I) or (kt, 1, I) into in_f and keeps
+  GEGLU's proj as in = C, out = 2F.
 
 Layout conventions (JAX -> reference torch):
   Dense kernel (in, out)           -> Linear weight (out, in)
@@ -245,3 +250,57 @@ def load_clip_text(model, sd: Mapping) -> None:
     tower, after dropping exactly `unused_checkpoint_keys`."""
     drop = set(unused_checkpoint_keys(sd, model.cfg))
     model.load_state_dict({k: v for k, v in sd.items() if k not in drop}, strict=True)
+
+
+def _lora_kind(shape) -> str:
+    return {2: "linear", 4: "conv2d", 5: "conv3d"}[len(shape)]
+
+
+def lora_to_jax(factors, prefix=("params",)) -> Dict[tuple, Dict[str, np.ndarray]]:
+    """The port's factors -> the JAX factor tree, keyed by the kernel's
+    path `prefix + flax path + ("kernel",)`, as the JAX trainer keys them."""
+    from .lora_import import flax_path
+
+    out = {}
+    for name, fac in factors.items():
+        down = fac["down"].detach().float().cpu().numpy()  # (r, I, *k)
+        up = fac["up"].detach().float().cpu().numpy()  # (O, r, 1...)
+        r, o = down.shape[0], up.shape[0]
+        kind = _lora_kind(down.shape)
+        if kind == "linear":
+            d = down.T
+        elif kind == "conv2d":  # (r, I, kh, kw) -> (kh, kw, I, r)
+            d = down.transpose(2, 3, 1, 0).reshape(-1, r)
+        else:  # (r, I, kt, 1, 1) -> (kt, 1, I, r)
+            d = down.reshape(r, down.shape[1], down.shape[2]).transpose(2, 1, 0).reshape(-1, r)
+        out[tuple(prefix) + flax_path(name) + ("kernel",)] = {
+            "down": np.ascontiguousarray(d), "up": np.ascontiguousarray(up.reshape(o, r).T)}
+    return out
+
+
+def lora_from_jax(lora_flat, shapes) -> Dict[str, Dict[str, torch.Tensor]]:
+    """A JAX factor tree -> the port's factors; `shapes` maps each target
+    module name to its weight shape (the JAX factors do not carry the
+    conv kernel's spatial size)."""
+    from .lora_import import flax_path
+
+    by_path = {flax_path(name) + ("kernel",): name for name in shapes}
+    out = {}
+    for path, fac in lora_flat.items():
+        key = tuple(path[1:]) if path and path[0] == "params" else tuple(path)
+        name = by_path[key]
+        shape = tuple(shapes[name])
+        down, up = np.asarray(fac["down"], np.float32), np.asarray(fac["up"], np.float32)
+        r = down.shape[1]
+        kind = _lora_kind(shape)
+        if kind == "linear":
+            d = down.T
+        elif kind == "conv2d":  # (kh * kw * I, r) -> (r, I, kh, kw)
+            o, i, kh, kw = shape
+            d = down.reshape(kh, kw, i, r).transpose(3, 2, 0, 1)
+        else:  # (kt * I, r) -> (r, I, kt, 1, 1)
+            o, i, kt = shape[:3]
+            d = down.reshape(kt, i, r).transpose(2, 1, 0).reshape(r, i, kt, 1, 1)
+        u = up.T.reshape((shape[0], r) + (1,) * (len(shape) - 2))
+        out[name] = {"down": _t(d), "up": _t(u)}
+    return out

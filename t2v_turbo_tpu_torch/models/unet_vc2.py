@@ -8,6 +8,13 @@ Submodule names are the reference UNetModel's state-dict keys
 
 The public `forward` takes and returns channels-last (B, T, H, W, C), like
 the JAX module; inside, frames are (B*T, C, H, W).
+
+`use_remat` recomputes each ResBlock, SpatialTransformer and
+TemporalTransformer (init_attn included) in the backward instead of keeping
+its activations, as the JAX module's `nn.remat` and the reference's
+`use_checkpoint` do: `torch.utils.checkpoint` (non-reentrant) around each
+call, which re-enters the same kernels' autograd functions when it
+recomputes. It acts only while gradients are being recorded.
 """
 
 from __future__ import annotations
@@ -17,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..diffusion.lcm import timestep_embedding
 from .layers import (
@@ -63,9 +71,10 @@ def _embedding_mlp(dim_in: int, dim: int) -> nn.Sequential:
 
 
 class UNetModel(nn.Module):
-    def __init__(self, cfg: UNetConfig = UNetConfig()):
+    def __init__(self, cfg: UNetConfig = UNetConfig(), use_remat: bool = False):
         super().__init__()
         self.cfg = cfg
+        self.use_remat = use_remat
         mc, ted, nhc = cfg.model_channels, cfg.time_embed_dim, cfg.num_head_channels
 
         self.time_embed = _embedding_mlp(mc, ted)
@@ -122,15 +131,20 @@ class UNetModel(nn.Module):
 
         self.out = nn.Sequential(GroupNorm(mc), nn.SiLU(), nn.Conv2d(mc, cfg.out_channels, 3, padding=1))
 
-    @staticmethod
-    def _run(layers, h, emb, context, batch):
+    def _block(self, layer, *args):
+        """A ResBlock or transformer call, recomputed in the backward under use_remat."""
+        if self.use_remat and torch.is_grad_enabled():
+            return checkpoint(layer, *args, use_reentrant=False)
+        return layer(*args)
+
+    def _run(self, layers, h, emb, context, batch):
         for layer in layers:
             if isinstance(layer, ResBlock):
-                h = layer(h, emb, batch)
+                h = self._block(layer, h, emb, batch)
             elif isinstance(layer, SpatialTransformer):
-                h = layer(h, context)
+                h = self._block(layer, h, context)
             elif isinstance(layer, TemporalTransformer):
-                h = to_frames(layer(to_clip(h, batch)))
+                h = to_frames(self._block(layer, to_clip(h, batch)))
             else:  # Downsample / Upsample
                 h = layer(h)
         return h
@@ -160,7 +174,7 @@ class UNetModel(nn.Module):
 
         h = x.reshape(b * t, hh, ww, cin).permute(0, 3, 1, 2).to(dtype).contiguous()
         h = self.input_blocks[0][0](h)
-        h = to_frames(self.init_attn[0](to_clip(h, b)))
+        h = to_frames(self._block(self.init_attn[0], to_clip(h, b)))
 
         hs = [h]
         for layers in self.input_blocks[1:]:

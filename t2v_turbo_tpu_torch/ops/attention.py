@@ -1,4 +1,4 @@
-"""Attention: plain PyTorch math, the CUDA flash-attention forward, and `sdpa`.
+"""Attention: plain PyTorch math, the CUDA flash-attention kernels, and `sdpa`.
 
 Tensors are (B, S, H, D) ("BSHD"), the layout the q/k/v Linears produce, as
 in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
@@ -7,12 +7,20 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
 - `attention`: the reference semantics of `attention_xla(_bshd)`: f32 logits
   and softmax, an optional additive bias and causal mask, the probabilities
   cast to v's dtype before the product, optional `return_probs`. It is the
-  path for short, biased or causal attention and the flash kernel's oracle.
+  path for short, biased or causal attention and the flash kernels' oracle.
   It uses matmul and softmax, never F.scaled_dot_product_attention.
-- `flash_attention`: the hand-written kernel of csrc/flash_attention.cu for a
-  CUDA tensor (head dims 64 and 512), `attention` for a CPU tensor. It raises
-  on anything else; it never falls back. `flash_attention.launches` counts
-  kernel launches.
+- `flash_attention`: `attention` for a CPU tensor. For a CUDA tensor, the
+  hand-written kernels of csrc/: when q, k or v needs a gradient, the
+  `FlashAttention` autograd function (forward with log-sum-exp, then the
+  two backward kernels), else the plain forward kernel. It raises on
+  anything else; it never falls back.
+- The kernel wrappers, each with its plain twin (run for CPU tensors, and
+  the card's oracle) and a `launches` counter:
+  `flash_attention` (B1: forward; counter on `flash_attention`),
+  `flash_attention_lse` (B2: forward + lse),
+  `flash_attention_bwd_dkv` and `flash_attention_bwd_dq` (B3). The kernels
+  take (batch, seq, head) strides, so the same wrappers are the BSHD family
+  (B6) of the JAX package.
 - `sdpa`: the dispatcher for unbiased, non-causal attention. Flash takes
   every call whose head dim the kernel has (64 and 512): on the main path
   that is the spatial self-attention at every level, the cross-attention to
@@ -20,7 +28,8 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   mid-block. The JAX package gated flash at Sq, Sk >= 1024 (XLA won below on
   the TPU); on the H100 the kernel beat the plain path at every one of those
   shapes (PERF.md), so the gate is the head dim alone. The causal CLIP
-  tower calls `attention` directly.
+  tower calls `attention` directly. The backward kernels take head dim 64
+  only: every attention of the UNet the trainer differentiates.
 """
 
 from __future__ import annotations
@@ -33,6 +42,7 @@ from . import cuda_lib
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 FLASH_HEAD_DIMS = (64, 512)
+FLASH_BWD_HEAD_DIMS = (64,)
 
 
 def attention(q, k, v, bias=None, causal=False, scale=None, return_probs=False):
@@ -53,14 +63,98 @@ def attention(q, k, v, bias=None, causal=False, scale=None, return_probs=False):
     return out
 
 
-def flash_attention(q, k, v, scale=None):
-    """Flash-attention forward on (B, S, H, D): the kernel for a CUDA
-    tensor, `attention` for a CPU tensor.
+# ---------------------------------------------------------------------------
+# plain twins of the training kernels (B2, B3)
+# ---------------------------------------------------------------------------
 
-    Replaces t2v_turbo_tpu/ops/attention.py::flash_attention (forward only).
+
+def _logits(q, k, scale):
+    return torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * scale
+
+
+def attention_lse_plain(q, k, v, scale):
+    """(o, lse): `attention` and the (B, H, Sq) f32 log-sum-exp of its logits."""
+    logits = _logits(q, k, scale)
+    out = torch.einsum("bhqk,bkhd->bqhd", torch.softmax(logits, -1).to(v.dtype), v).to(q.dtype)
+    return out, torch.logsumexp(logits, -1)
+
+
+def attention_bwd_delta(do, o):
+    """delta = rowsum(dO * O) in f32, (B, H, Sq): the backward's row term
+    (JAX `_flash_attention_bwd_impl`, computed outside its kernels)."""
+    return torch.einsum("bqhd,bqhd->bhq", do.float(), o.float()).contiguous()
+
+
+def _bwd_terms(q, k, v, do, lse, delta, scale):
+    p = torch.exp(_logits(q, k, scale) - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", do.float(), v.float())
+    return p, p * (dp - delta[..., None])
+
+
+def attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale):
+    """(dk, dv) from the saved lse: P = exp(s - lse), dV = P^T dO,
+    dS = P (dO V^T - delta), dK = scale dS^T Q (JAX `_flash_bwd_dkv_kernel`)."""
+    p, ds = _bwd_terms(q, k, v, do, lse, delta, scale)
+    dv = torch.einsum("bhqk,bqhd->bkhd", p, do.float())
+    dk = torch.einsum("bhqk,bqhd->bkhd", ds, q.float()) * scale
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
+def attention_bwd_dq_plain(q, k, v, do, lse, delta, scale):
+    """dq = scale dS K from the saved lse (JAX `_flash_bwd_dq_kernel`)."""
+    _, ds = _bwd_terms(q, k, v, do, lse, delta, scale)
+    return (torch.einsum("bhqk,bkhd->bqhd", ds, k.float()) * scale).to(q.dtype)
+
+
+# ---------------------------------------------------------------------------
+# kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check_flash(what, q, k, v, head_dims, *more):
+    """Raise unless the kernels take these (B, S, H, D) tensors."""
+    if q.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {q.device}")
+    b, _, h, d = q.shape
+    sk = k.shape[1]
+    tensors = (q, k, v) + more
+    if q.dtype not in cuda_lib.DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
+        raise TypeError(f"{what}: dtypes {[t.dtype for t in tensors]} not supported")
+    if d not in head_dims:
+        raise ValueError(f"{what}: head dim {d} not in {head_dims}")
+    if k.shape != (b, sk, h, d) or v.shape != k.shape or any(t.shape != q.shape for t in more):
+        raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in tensors]}")
+    if any(t.device != q.device for t in tensors):
+        raise ValueError(f"{what}: the tensors must share a device")
+    if any(t.stride(-1) != 1 for t in tensors):
+        raise ValueError(f"{what}: the head dimension must be contiguous")
+
+
+def _strides(*tensors):
+    """(batch, seq, head) element strides of each (B, S, H, D) tensor."""
+    vals = [t.stride(i) for t in tensors for i in (0, 1, 2)]
+    return (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _row_stats_strides(lse):
+    """(batch, head) strides of a (B, H, Sq) f32 row-statistics tensor."""
+    if lse.dtype != torch.float32 or lse.stride(-1) != 1:
+        raise ValueError("row statistics must be f32 with a contiguous sequence")
+    return (ctypes.c_longlong * 2)(lse.stride(0), lse.stride(1))
+
+
+def flash_attention(q, k, v, scale=None):
+    """Flash attention on (B, S, H, D): `attention` for a CPU tensor; for a
+    CUDA tensor the autograd function when a gradient is needed, else the
+    forward kernel.
+
+    Replaces t2v_turbo_tpu/ops/attention.py::flash_attention (and
+    flash_attention_bshd) with its custom VJP.
     """
     if q.device.type == "cpu":
         return attention(q, k, v, scale=scale)
+    if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        return FlashAttention.apply(q, k, v, scale)
     return flash_attention_cuda(q, k, v, scale)
 
 
@@ -68,35 +162,133 @@ flash_attention.launches = 0
 
 
 def flash_attention_cuda(q, k, v, scale=None):
-    """Launch csrc/flash_attention.cu; raises on anything it does not take."""
-    if q.device.type != "cuda":
-        raise RuntimeError(f"flash_attention_cuda: no kernel for device {q.device}")
+    """Launch the forward kernel (B1) of csrc/flash_attention.cu; raises on
+    anything it does not take."""
+    _check_flash("flash_attention_cuda", q, k, v, FLASH_HEAD_DIMS)
     b, sq, h, d = q.shape
-    sk = k.shape[1]
-    if q.dtype not in cuda_lib.DTYPE_CODES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention_cuda: dtypes {q.dtype}/{k.dtype}/{v.dtype} not supported")
-    if d not in FLASH_HEAD_DIMS:
-        raise ValueError(f"flash_attention_cuda: head dim {d} not in {FLASH_HEAD_DIMS}")
-    if k.shape != (b, sk, h, d) or v.shape != k.shape:
-        raise ValueError(f"flash_attention_cuda: shapes {q.shape}, {k.shape}, {v.shape}")
-    if k.device != q.device or v.device != q.device:
-        raise ValueError("flash_attention_cuda: q, k and v must share a device")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_attention_cuda: the head dimension must be contiguous")
-    if scale is None:
-        scale = d**-0.5
+    scale = d**-0.5 if scale is None else scale
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    strides = (ctypes.c_longlong * 12)(
-        *(t.stride(i) for t in (q, k, v, o) for i in (0, 1, 2))
-    )
     err = cuda_lib.lib().t2v_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, sk, d, strides, float(scale),
-        cuda_lib.stream_ptr(q.device),
+        cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, _strides(q, k, v, o),
+        float(scale), cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_cuda")
     flash_attention.launches += 1
     return o
+
+
+def flash_attention_lse(q, k, v, scale=None):
+    """(o, lse (B, H, Sq) f32): the forward with log-sum-exp (B2) for a CUDA
+    tensor, `attention_lse_plain` for a CPU tensor.
+
+    Replaces t2v_turbo_tpu/ops/attention.py::_flash_attention_fwd_lse_impl.
+    """
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return attention_lse_plain(q, k, v, scale)
+    _check_flash("flash_attention_lse", q, k, v, FLASH_HEAD_DIMS)
+    b, sq, h, d = q.shape
+    o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    err = cuda_lib.lib().t2v_flash_attention_fwd_lse(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
+        cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, _strides(q, k, v, o),
+        _row_stats_strides(lse), float(scale), cuda_lib.stream_ptr(q.device),
+    )
+    cuda_lib.check(err, "flash_attention_lse")
+    flash_attention_lse.launches += 1
+    return o, lse
+
+
+flash_attention_lse.launches = 0
+
+
+def _bwd_args(what, q, k, v, do, lse, delta):
+    _check_flash(what, q, k, v, FLASH_BWD_HEAD_DIMS, do)
+    b, sq, h, _ = q.shape
+    for t in (lse, delta):
+        if t.shape != (b, h, sq) or t.device != q.device:
+            raise ValueError(f"{what}: row statistics of shape {tuple(t.shape)}, expected {(b, h, sq)}")
+    if delta.stride() != lse.stride():
+        raise ValueError(f"{what}: lse and delta must share strides")
+    return _row_stats_strides(lse)
+
+
+def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=None):
+    """(dk, dv): the dK/dV backward kernel (B3) for a CUDA tensor,
+    `attention_bwd_dkv_plain` for a CPU tensor.
+
+    Replaces t2v_turbo_tpu/ops/attention.py::_flash_bwd_dkv_kernel.
+    """
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
+    lst = _bwd_args("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=k.device) for _ in range(2))
+    err = cuda_lib.lib().t2v_flash_attention_bwd_dkv(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dk.data_ptr(), dv.data_ptr(), cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
+        _strides(q, k, v, do, q, dk, dv), lst, float(scale), cuda_lib.stream_ptr(q.device),
+    )
+    cuda_lib.check(err, "flash_attention_bwd_dkv")
+    flash_attention_bwd_dkv.launches += 1
+    return dk, dv
+
+
+flash_attention_bwd_dkv.launches = 0
+
+
+def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=None):
+    """dq: the dQ backward kernel (B3) for a CUDA tensor,
+    `attention_bwd_dq_plain` for a CPU tensor.
+
+    Replaces t2v_turbo_tpu/ops/attention.py::_flash_bwd_dq_kernel.
+    """
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
+    if q.device.type == "cpu":
+        return attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
+    lst = _bwd_args("flash_attention_bwd_dq", q, k, v, do, lse, delta)
+    b, sq, h, d = q.shape
+    dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    err = cuda_lib.lib().t2v_flash_attention_bwd_dq(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+        dq.data_ptr(), cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
+        _strides(q, k, v, do, dq, k, v), lst, float(scale), cuda_lib.stream_ptr(q.device),
+    )
+    cuda_lib.check(err, "flash_attention_bwd_dq")
+    flash_attention_bwd_dq.launches += 1
+    return dq
+
+
+flash_attention_bwd_dq.launches = 0
+
+
+class FlashAttention(torch.autograd.Function):
+    """Flash attention with its backward, as `flash_attention`'s custom VJP
+    (t2v_turbo_tpu/ops/attention.py:1020-1057): the forward keeps
+    (q, k, v, o, lse); the backward forms delta = rowsum(dO * O) in f32 and
+    runs the dK/dV and dQ kernels. On CPU tensors the wrappers run their
+    plain twins, so the same function runs (and is tested) there."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale=None):
+        scale = q.shape[-1] ** -0.5 if scale is None else scale
+        o, lse = flash_attention_lse(q, k, v, scale)
+        ctx.save_for_backward(q, k, v, o, lse)
+        ctx.scale = scale
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, o, lse = ctx.saved_tensors
+        if do.stride(-1) != 1:
+            do = do.contiguous()
+        delta = attention_bwd_delta(do, o)
+        dk, dv = flash_attention_bwd_dkv(q, k, v, do, lse, delta, ctx.scale)
+        dq = flash_attention_bwd_dq(q, k, v, do, lse, delta, ctx.scale)
+        return dq, dk, dv, None
 
 
 def sdpa(q, k, v, scale=None):

@@ -2,7 +2,8 @@
 
 The kernels are compiled by `nvcc` into one shared library with a plain C
 interface and bound with `ctypes` (no PyTorch headers, so the build takes
-seconds). The build happens at first use, from the sources in this package,
+seconds): one `nvcc -c` per source, all started together, then one link.
+The build happens at first use, from the sources in this package,
 into `build/t2v_turbo_tpu_torch/<hash of the sources>/` beside the package,
 so a changed source rebuilds and an unchanged one loads the existing library.
 Nothing here runs when the module is imported.
@@ -27,7 +28,7 @@ CSRC_DIR = os.path.join(PACKAGE_DIR, "csrc")
 BUILD_ROOT = os.path.join(os.path.dirname(PACKAGE_DIR), "build", "t2v_turbo_tpu_torch")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-lineinfo", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
 )
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -61,14 +62,32 @@ def build() -> str:
         return out
     os.makedirs(os.path.dirname(out), exist_ok=True)
     tmp = f"{out}.{os.getpid()}.tmp"
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", tmp] + [s for s in _sources() if s.endswith(".cu")]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed ({proc.returncode}):\n{' '.join(cmd)}\n{proc.stdout}{proc.stderr}"
-        )
+    nvcc = _nvcc()
+    objs, procs = [], []
+    for src in (s for s in _sources() if s.endswith(".cu")):
+        obj = f"{tmp}.{os.path.basename(src)}.o"
+        cmd = [nvcc, *NVCC_FLAGS, "-c", src, "-o", obj]
+        procs.append((cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                            text=True)))
+        objs.append(obj)
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", tmp, *objs]
+    try:
+        outputs = [proc.communicate()[0] for _, proc in procs]  # wait for every compile
+        for (cmd, proc), output in zip(procs, outputs):
+            _finish(cmd, output, proc.returncode)
+        proc = subprocess.run(link, capture_output=True, text=True)
+        _finish(link, proc.stdout + proc.stderr, proc.returncode)
+    finally:
+        for obj in objs:
+            if os.path.exists(obj):
+                os.remove(obj)
     os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
     return out
+
+
+def _finish(cmd, output, returncode):
+    if returncode != 0:
+        raise RuntimeError(f"nvcc failed ({returncode}):\n{' '.join(cmd)}\n{output}")
 
 
 @functools.lru_cache(maxsize=None)
@@ -85,6 +104,19 @@ def lib() -> ctypes.CDLL:
         vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, ctypes.POINTER(i64), f32, vp,
     ]
     so.t2v_flash_attention_fwd.restype = i32
+    pi64 = ctypes.POINTER(i64)
+    so.t2v_flash_attention_fwd_lse.argtypes = [
+        vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, pi64, pi64, f32, vp,
+    ]
+    so.t2v_flash_attention_fwd_lse.restype = i32
+    so.t2v_flash_attention_bwd_dkv.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, pi64, pi64, f32, vp,
+    ]
+    so.t2v_flash_attention_bwd_dkv.restype = i32
+    so.t2v_flash_attention_bwd_dq.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, pi64, pi64, f32, vp,
+    ]
+    so.t2v_flash_attention_bwd_dq.restype = i32
     so.t2v_group_norm_scratch.argtypes = [i64, i32, i32, i32]
     so.t2v_group_norm_scratch.restype = i64
     so.t2v_group_norm_fwd.argtypes = [vp, vp, vp, vp, vp, i32, i64, i32, i32, i32, f32, i32, vp]

@@ -16,6 +16,12 @@ Dispatch: `group_norm` / `layer_norm` call the hand-written kernels
 wrappers run the plain version only for a tensor on the CPU; a CUDA tensor
 goes to the kernel, or the wrapper raises. Each wrapper counts its kernel
 launches in its `launches` attribute.
+
+Gradients: when an input needs one, a CUDA call goes through an
+`autograd.Function` whose forward is the kernel and whose backward
+differentiates the plain version on the saved (x, weight, bias), as the JAX
+package's `_gn_bwd` / `_ln_bwd` do (t2v_turbo_tpu/ops/fused_norms.py); the
+TPU has no backward kernel for the norms either.
 """
 
 from __future__ import annotations
@@ -79,16 +85,55 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: the kernel needs a contiguous tensor")
 
 
+def _plain_vjp(plain, ctx, dy):
+    """Gradients of `plain(x, weight, bias, *ctx.cfg)` at the saved inputs."""
+    needs = ctx.needs_input_grad[:3]
+    inputs = [t.detach().requires_grad_(n) for t, n in zip(ctx.saved_tensors, needs)]
+    with torch.enable_grad():
+        y = plain(*inputs, *ctx.cfg)
+    grads = iter(torch.autograd.grad(y, [t for t, n in zip(inputs, needs) if n], dy))
+    return tuple(next(grads) if n else None for n in needs)
+
+
+class _GroupNormFn(torch.autograd.Function):
+    """Kernel forward, plain-math backward (JAX `_gn_fwd` / `_gn_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, num_groups, eps, act):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.cfg = (num_groups, eps, act)
+        return group_norm_cuda(x, weight, bias, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _plain_vjp(group_norm_plain, ctx, dy) + (None, None, None)
+
+
+class _LayerNormFn(torch.autograd.Function):
+    """Kernel forward, plain-math backward (JAX `_ln_fwd` / `_ln_bwd`)."""
+
+    @staticmethod
+    def forward(ctx, x, weight, bias, eps, act):
+        ctx.save_for_backward(x, weight, bias)
+        ctx.cfg = (eps, act)
+        return layer_norm_cuda(x, weight, bias, eps, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _plain_vjp(layer_norm_plain, ctx, dy) + (None, None)
+
+
 def fused_group_norm(x, weight, bias, num_groups=32, eps=1e-5, act=None):
     """GroupNorm(+act) on a contiguous (N, C, *spatial) tensor.
 
     CUDA: the three-launch split-reduction kernel of csrc/norms.cu (any
-    group size; no shape gate). CPU: `group_norm_plain`.
+    group size; no shape gate), through `_GroupNormFn` (no graph is kept
+    when nothing needs a gradient). CPU: `group_norm_plain`.
     Replaces t2v_turbo_tpu/ops/fused_norms.py::fused_group_norm.
     """
     if x.device.type == "cpu":
         return group_norm_plain(x, weight, bias, num_groups, eps, act)
-    return group_norm_cuda(x, weight, bias, num_groups, eps, act)
+    return _GroupNormFn.apply(x, weight, bias, num_groups, eps, act)
 
 
 fused_group_norm.launches = 0
@@ -124,12 +169,13 @@ def group_norm_cuda(x, weight, bias, num_groups=32, eps=1e-5, act=None):
 def fused_layer_norm(x, weight, bias, eps=1e-5, act=None):
     """LayerNorm(+act) over the last axis of a contiguous tensor.
 
-    CUDA: the warp-per-row kernel of csrc/norms.cu. CPU: `layer_norm_plain`.
+    CUDA: the warp-per-row kernel of csrc/norms.cu, through `_LayerNormFn`
+    (no graph is kept when nothing needs a gradient). CPU: `layer_norm_plain`.
     Replaces t2v_turbo_tpu/ops/fused_norms.py::fused_layer_norm.
     """
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps, act)
-    return layer_norm_cuda(x, weight, bias, eps, act)
+    return _LayerNormFn.apply(x, weight, bias, eps, act)
 
 
 fused_layer_norm.launches = 0

@@ -1,22 +1,21 @@
-"""CLIP BPE tokenizer on the standard library's `re`.
+"""CLIP BPE tokenizer on the standard library (port of
+t2v_turbo_tpu/utils/tokenizer.py, which needs the third-party `regex`
+package for `\\p{L}` / `\\p{N}`; the card's Python has no `regex`).
 
-Port of t2v_turbo_tpu/utils/tokenizer.py, which needs the third-party `regex`
-package for `\\p{L}` / `\\p{N}`. Here the pre-tokenising pattern is written
-with stdlib classes:
+The JAX package pre-tokenises with
 
-  [\\p{L}]+          -> [^\\W\\d_]+          word characters minus digits and "_"
-  [\\p{N}]           -> \\d                  one decimal digit
-  [^\\s\\p{L}\\p{N}]+  -> (?:[^\\s\\w]|_)+     anything else but whitespace
+  <|startoftext|>|<|endoftext|>|'s|'t|'re|'ve|'m|'ll|'d
+  |[\\p{L}]+|[\\p{N}]|[^\\s\\p{L}\\p{N}]+            (case-insensitive)
 
-They agree on letters of every script (accented Latin included) and on
-decimal digits. They differ on numbers that are not decimal digits
-(Unicode No/Nl, e.g. superscripts "²", fractions "½", Roman numerals "Ⅻ"):
-`regex` splits each into its own \\p{N} token, stdlib `\\w` counts them as
-word characters and joins them to the letters around them.
+`_pretokenize` scans the same alternatives in the same order, classing each
+character with `unicodedata.category` (L* is \\p{L}, N* is \\p{N}) and
+`str.isspace` (\\s), so numbers that are not decimal digits (superscripts,
+fractions, Roman numerals) split from the letters they touch, as they do
+with `regex`.
 
-The merges vocabulary is the JAX package's asset
-`t2v_turbo_tpu/assets/bpe_simple_vocab_16e6.txt.gz` (read as a file; the
-JAX package is not imported).
+The merges vocabulary is the port's own copy of the public
+`bpe_simple_vocab_16e6.txt.gz` (the standard OpenAI CLIP vocabulary), in
+t2v_turbo_tpu_torch/assets/.
 """
 
 from __future__ import annotations
@@ -26,21 +25,56 @@ import gzip
 import html
 import os
 import re
+import unicodedata
 from typing import List, Optional, Sequence
 
 import numpy as np
 
 DEFAULT_BPE_PATH = os.path.join(
-    os.path.dirname(os.path.abspath(__file__)), "..", "..", "t2v_turbo_tpu", "assets",
+    os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "assets",
     "bpe_simple_vocab_16e6.txt.gz",
 )
 SOT = "<|startoftext|>"
 EOT = "<|endoftext|>"
-PATTERN = re.compile(
-    r"<\|startoftext\|>|<\|endoftext\|>|'s|'t|'re|'ve|'m|'ll|'d"
-    r"|[^\W\d_]+|\d|(?:[^\s\w]|_)+",
-    re.IGNORECASE,
-)
+_FIXED = (SOT, EOT, "'s", "'t", "'re", "'ve", "'m", "'ll", "'d")
+
+
+def _class(ch: str) -> str:
+    """'L' (\\p{L}), 'N' (\\p{N}), 'S' (\\s) or '' (anything else)."""
+    cat = unicodedata.category(ch)[0]
+    if cat in "LN":
+        return cat
+    return "S" if ch.isspace() else ""
+
+
+def _pretokenize(text: str) -> List[str]:
+    """The JAX package's `regex` findall, alternative by alternative."""
+    out: List[str] = []
+    i, n = 0, len(text)
+    while i < n:
+        fixed = next((f for f in _FIXED if text[i:i + len(f)].lower() == f), None)
+        if fixed is not None:
+            out.append(text[i:i + len(fixed)])
+            i += len(fixed)
+            continue
+        cls = _class(text[i])
+        if cls == "S":  # matched by no alternative: skipped
+            i += 1
+            continue
+        if cls == "N":  # one number character per token
+            out.append(text[i])
+            i += 1
+            continue
+        j = i + 1
+        if cls == "L":
+            while j < n and _class(text[j]) == "L":
+                j += 1
+        else:
+            while j < n and _class(text[j]) == "":
+                j += 1
+        out.append(text[i:j])
+        i = j
+    return out
 
 
 @functools.lru_cache()
@@ -128,7 +162,7 @@ class CLIPTokenizer:
 
     def encode_text(self, text: str) -> List[int]:
         ids: List[int] = []
-        for tok in PATTERN.findall(_clean(text)):
+        for tok in _pretokenize(_clean(text)):
             tok = "".join(self.byte_encoder[b] for b in tok.encode("utf-8"))
             ids.extend(self.encoder[t] for t in self._bpe(tok).split(" "))
         return ids

@@ -195,18 +195,19 @@ class TestKernelEntryPoints:
 
 
 def test_port_imports_no_jax():
-    """Every port module, apps.generate included, imports with jax and flax blocked."""
+    """Every port module, the apps and the training modules included, imports
+    with jax, flax and the JAX package blocked."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
-        sys.modules["jax"] = None
-        sys.modules["flax"] = None
+        for blocked in ("jax", "flax", "t2v_turbo_tpu"):
+            sys.modules[blocked] = None
         import t2v_turbo_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(t2v_turbo_tpu_torch.__path__, "t2v_turbo_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        import t2v_turbo_tpu.io.video  # the mp4/npy writer the port reuses
-        assert "t2v_turbo_tpu_torch.apps.generate" in names, names
+        for needed in ("apps.generate", "apps.train_v1", "io.video", "lora", "training.trainer"):
+            assert "t2v_turbo_tpu_torch." + needed in names, names
         print(len(names))
         """
     )
@@ -215,4 +216,4 @@ def test_port_imports_no_jax():
         [sys.executable, "-c", code], capture_output=True, text=True, timeout=120, cwd=repo
     )
     assert proc.returncode == 0, proc.stderr
-    assert int(proc.stdout.strip()) >= 15
+    assert int(proc.stdout.strip()) >= 24

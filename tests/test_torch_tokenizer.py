@@ -1,4 +1,4 @@
-"""The port's CLIP tokenizer (stdlib `re`) against the JAX package's (`regex`)."""
+"""The port's CLIP tokenizer (stdlib `unicodedata`) against the JAX package's (`regex`)."""
 
 import pytest
 
@@ -41,9 +41,10 @@ def test_batch_shape_and_padding(tokenizers):
 @pytest.mark.parametrize("prompt", ["x² + y²", "½cup", "Ⅻth chapter", "H₂O"])
 def test_documented_difference_on_non_decimal_numbers(tokenizers, prompt):
     """Superscripts, subscripts, vulgar fractions and Roman numerals are
-    \\p{N} but not \\d: `regex` splits them from the letters they touch,
-    stdlib `\\w` keeps them in the letter run (utils/tokenizer.py). These ids
-    differ by design; standing alone ("½ cup") they agree."""
+    \\p{N} but not decimal digits: the port classes them with
+    `unicodedata` and splits them from the letters they touch, as `regex`
+    does, so the ids equal the JAX tokenizer's (they differed while the
+    port used stdlib `\\w`); standing alone ("½ cup") they agree too."""
     port, ref = tokenizers
-    assert port(prompt).tolist() != ref(prompt).tolist()
+    assert port(prompt).tolist() == ref(prompt).tolist()
     assert port("½ cup").tolist() == ref("½ cup").tolist()
