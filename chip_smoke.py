@@ -7,13 +7,15 @@ Phases; the script exits non-zero, without the final result line, if any fails:
   1. device:    a CUDA device must exist; prints the card's name and power limit.
   2. build:     compiles the hand-written kernels from csrc/ with nvcc.
   3. kernels:   each kernel against its plain PyTorch version on the card, at the
-                main path's and the training path's shapes, with the stated
+                main path's and the training paths' shapes (ViCLIP's and the
+                VAE decoder's head of 512 included), with the stated
                 tolerance, from one table of cases; bf16 flash attention (the
                 forward's and the forward-with-lse's output, and the gradients
                 through the autograd function) and its plain version also
-                against f64 math; times kernel, plain and the one PyTorch
-                library call computing the same function (a yardstick only)
-                with CUDA events, beside the card's bound for the work.
+                against f64 math; times kernel, plain and each PyTorch library
+                call computing the same function (for attention every fused
+                SDPA backend that takes the inputs; the fastest is recorded; a
+                yardstick only) with CUDA events, beside the card's bound.
   4. main path: full-width VC2 (UNet 320/640/1280, VAE ch 128, ViT-H text tower
                 with 23 of 24 blocks), seeded random weights, bf16, through
                 apps/generate.py's build_pipeline and the pipeline call:
@@ -35,12 +37,22 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 weights did not, and that every kernel of the path launched;
                 one more step under torch.profiler (chiprun_out/profile_train.txt).
                 Runs without --use-remat, with it only if that does not fit.
-  7. training reference: one small f32 LCD step (heads of 64, so the flash
+  7. training with rewards: the same training with --reward-fn hpsv2
+                --video-rm-fn vi_clip: random ViT-H/14 (image reward, 5 random
+                frames) and ViCLIP-L (video reward, 8 strided frames) towers
+                and a VC2 VAE decoding those 13 frames with gradient; first
+                checks that the reward terms alone give a finite gradient,
+                non-zero in every LoRA up factor; then 1 warm-up and 3 timed
+                steps with finite reward losses, launches a step by head dim
+                (the D = 512 kernels at least twice a step), one profiled step
+                (chiprun_out/profile_train_rewards.txt).
+  8. training reference: one small f32 LCD step (heads of 64, so the flash
                 kernels run) through the trainer's gradient path
                 (LCDTrainer.loss_and_grads: the step's cached LoRA merge) on
-                the card, with remat off and on, against the same weights,
-                LoRA factors (non-zero ups) and draws on the CPU: loss and
-                every LoRA gradient.
+                the card, with remat off and on, and with both rewards (the
+                --tiny-model reward stack, decoding in checkpointed chunks),
+                against the same weights, LoRA factors (non-zero ups) and
+                draws on the CPU: loss, reward losses and every LoRA gradient.
 The last lines of standard output are the card's name and power limit, the
 kernels' JSON record and {"ok": true, "device": {...}}; the whole log is also
 written to chiprun_out/chip_smoke.log.
@@ -74,10 +86,21 @@ KERNELS = {
                                 "t2v_turbo_tpu/ops/attention.py:157"),
     "flash_attention_bwd_dq": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd.cu",
                                "t2v_turbo_tpu/ops/attention.py:213"),
+    # the same kernels at the VAE decoder's one head of 512 (reward feedback)
+    "flash_attention_fwd_lse_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
+                                     "t2v_turbo_tpu/ops/attention.py:106"),
+    "flash_attention_bwd_dkv_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd.cu",
+                                     "t2v_turbo_tpu/ops/attention.py:157"),
+    "flash_attention_bwd_dq_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd.cu",
+                                    "t2v_turbo_tpu/ops/attention.py:213"),
     "group_norm": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
     "layer_norm": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:136"),
 }
 SERVING_KERNELS = ("flash_attention", "group_norm", "layer_norm")
+TRAIN_KERNELS = SERVING_KERNELS + ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
+                                   "flash_attention_bwd_dq")
+D512_KERNELS = ("flash_attention_fwd_lse_d512", "flash_attention_bwd_dkv_d512",
+                "flash_attention_bwd_dq_d512")
 # The H100 SXM's published dense peaks (NVIDIA's H100 datasheet): bf16
 # on tensor cores; f32 outside them (the f32 kernels are scalar FMAs).
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -98,10 +121,22 @@ def wrappers():
 def reset_launches():
     for w in wrappers().values():
         w.launches = 0
+        if hasattr(w, "by_head_dim"):
+            w.by_head_dim.clear()
 
 
 def read_launches():
-    return {n: w.launches for n, w in wrappers().items()}
+    """Launches by kernel name; a `_d512` name counts its wrapper's
+    launches at head dim 512 (also in the wrapper's own total)."""
+    ws = wrappers()
+    out = {n: w.launches for n, w in ws.items()}
+    out.update({n: ws[n[:-len("_d512")]].by_head_dim[512] for n in D512_KERNELS})
+    return out
+
+
+def launches_by_head_dim():
+    """{wrapper: {head dim: launches}} of the three training kernels."""
+    return {n: dict(sorted(w.by_head_dim.items())) for n, w in wrappers().items() if hasattr(w, "by_head_dim")}
 
 
 def bound_ms(ops, nbytes, dtype):
@@ -195,22 +230,54 @@ def _of_max(tol):
     return (lambda ref: tol * max(1.0, float(ref.abs().max()))), f"{tol:g}*max(1,|ref|)"
 
 
+def _fused_sdpa(make):
+    """{backend name: call to time} for every fused SDPA backend (flash,
+    memory-efficient, cuDNN) that takes the inputs: `make()`, run under the
+    backend, sets up and returns the call (SDPA, or its backward). Empty if
+    none takes them (SDPA would fall back to its math backend, the plain
+    path's own arithmetic)."""
+    import torch
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    calls = {}
+    for backend in (SDPBackend.FLASH_ATTENTION, SDPBackend.EFFICIENT_ATTENTION, SDPBackend.CUDNN_ATTENTION):
+        try:
+            with sdpa_kernel([backend]):
+                call = make()
+                call()
+            torch.cuda.synchronize()
+        except RuntimeError:
+            continue
+
+        def timed(backend=backend, call=call):
+            with sdpa_kernel([backend]):
+                return call()
+        calls[backend.name] = timed
+    return calls
+
+
 def _sdpa_fwd(q, k, v, *_):
-    """The library forward on (B, S, H, D) inputs, as a call to time."""
+    """The library forward on contiguous (B, H, S, D) copies of (B, S, H, D)
+    inputs: SDPA's fused backends fault on misaligned views."""
     import torch.nn.functional as F
 
-    return lambda: F.scaled_dot_product_attention(q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2))
+    qq, kk, vv = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+    return _fused_sdpa(lambda: lambda: F.scaled_dot_product_attention(qq, kk, vv))
 
 
 def _sdpa_bwd(q, k, v, do, *_):
-    """The library backward (dq, dk and dv together), as a call to time. It
-    takes contiguous (B, H, S, D) copies: it faults on misaligned views."""
+    """The library backward alone (dq, dk and dv together, from one forward
+    kept for it), on contiguous (B, H, S, D) copies as `_sdpa_fwd`."""
     import torch
     import torch.nn.functional as F
 
     qq, kk, vv = (t.detach().transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
-    out, dout = F.scaled_dot_product_attention(qq, kk, vv), do.transpose(1, 2).contiguous()
-    return lambda: torch.autograd.grad(out, (qq, kk, vv), dout, retain_graph=True)
+    dout = do.transpose(1, 2).contiguous()
+
+    def make():
+        out = F.scaled_dot_product_attention(qq, kk, vv)
+        return lambda: torch.autograd.grad(out, (qq, kk, vv), dout, retain_graph=True)
+    return _fused_sdpa(make)
 
 
 def _kernel_cases():
@@ -218,7 +285,8 @@ def _kernel_cases():
     other name: checked only), label, make (inputs), fn, plain, outputs (their
     names), tols (one (bound, text) per output held to plain), why, exact
     (optional: the f64 values of the first outputs), iters, library (inputs ->
-    the one PyTorch call computing the same function, to time), bound."""
+    {name: PyTorch call computing the same function}, each timed, the
+    fastest recorded), bound."""
     import torch
     import torch.nn.functional as F
 
@@ -259,7 +327,8 @@ def _kernel_cases():
                     fn=lambda x, w, b: N.fused_group_norm(x, w, b, 32, eps, "silu"),
                     plain=lambda x, w, b: N.group_norm_plain(x, w, b, 32, eps, "silu"),
                     outputs=("y",), tols=[_elementwise(1e-2, 1e-2)], iters=iters, why=why_norm_bf,
-                    library=lambda x, w, b: lambda: F.silu(F.group_norm(x, 32, w.to(x.dtype), b.to(x.dtype), eps)),
+                    library=lambda x, w, b: {"F.group_norm+F.silu": lambda: F.silu(
+                        F.group_norm(x, 32, w.to(x.dtype), b.to(x.dtype), eps))},
                     bound=lambda x, w, b: norm_bound(x, c, 10))
 
     def ln(label, shape, c, dtype, atol, why):
@@ -267,7 +336,8 @@ def _kernel_cases():
                     fn=lambda x, w, b: N.fused_layer_norm(x, w, b, 1e-5),
                     plain=lambda x, w, b: N.layer_norm_plain(x, w, b, 1e-5),
                     outputs=("y",), tols=[_elementwise(atol, atol)], iters=20, why=why,
-                    library=lambda x, w, b: lambda: F.layer_norm(x, (c,), w.to(x.dtype), b.to(x.dtype), 1e-5),
+                    library=lambda x, w, b: {"F.layer_norm": lambda: F.layer_norm(
+                        x, (c,), w.to(x.dtype), b.to(x.dtype), 1e-5)},
                     bound=lambda x, w, b: norm_bound(x, c, 8))
 
     serving = [
@@ -294,21 +364,29 @@ def _kernel_cases():
     return serving + [case for args in TRAIN_ATTENTION_CASES for case in _train_attention_cases(*args)]
 
 
-# The training path's attentions (B, H, Sq, Sk, D = 64): every UNet attention
-# the student's gradient-carrying forward runs, plus ragged, strided and f32.
+# The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
+# student's gradient-carrying forward runs, plus ragged, strided and f32; and,
+# with reward feedback, ViCLIP's and the VAE decoder's mid-block attention
+# (one head of 512, recorded under the `_d512` names). The last field: the
+# backward kernels are held to their twins by B1's element-wise bound, not
+# the 2e-2*max(1,|ref|) of the rows before them.
 TRAIN_ATTENTION_CASES = [
-    ("UNet L0 self-attn (16,5,2560,2560,64) bf16", (16, 2560, 2560, 5), "bfloat16", 5),
-    ("UNet L1 self-attn (16,10,640,640,64) bf16", (16, 640, 640, 10), "bfloat16", 10),
-    ("UNet L0 cross-attn (16,5,2560,77,64) bf16", (16, 2560, 77, 5), "bfloat16", 10),
-    ("UNet L0 temporal attn (2560,5,16,16,64) bf16", (2560, 16, 16, 5), "bfloat16", 10),
-    ("init_attn temporal (2560,8,16,16,64) bf16", (2560, 16, 16, 8), "bfloat16", 10),
-    ("ragged S (2,5,1111,1111,64) bf16", (2, 1111, 1111, 5), "bfloat16", 5),
-    ("unaligned strided BSHD (2,5,300,300,64) bf16", (2, 300, 300, 5), "unaligned", 5),
-    ("UNet L1 self-attn (16,10,640,640,64) f32, TF32 off", (16, 640, 640, 10), "float32", 3),
+    ("UNet L0 self-attn (16,5,2560,2560,64) bf16", (16, 2560, 2560, 5, 64), "bfloat16", 5, False),
+    ("UNet L1 self-attn (16,10,640,640,64) bf16", (16, 640, 640, 10, 64), "bfloat16", 10, False),
+    ("UNet L0 cross-attn (16,5,2560,77,64) bf16", (16, 2560, 77, 5, 64), "bfloat16", 10, False),
+    ("UNet L0 temporal attn (2560,5,16,16,64) bf16", (2560, 16, 16, 5, 64), "bfloat16", 10, False),
+    ("init_attn temporal (2560,8,16,16,64) bf16", (2560, 16, 16, 8, 64), "bfloat16", 10, False),
+    ("ragged S (2,5,1111,1111,64) bf16", (2, 1111, 1111, 5, 64), "bfloat16", 5, False),
+    ("unaligned strided BSHD (2,5,300,300,64) bf16", (2, 300, 300, 5, 64), "unaligned", 5, False),
+    ("UNet L1 self-attn (16,10,640,640,64) f32, TF32 off", (16, 640, 640, 10, 64), "float32", 3, False),
+    ("ViCLIP self-attn (1,16,2049,2049,64) bf16", (1, 2049, 2049, 16, 64), "bfloat16", 10, True),
+    ("VAE mid attn, video reward (8,1,2560,2560,512) bf16", (8, 2560, 2560, 1, 512), "bfloat16", 3, True),
+    ("ragged unaligned strided (2,1,1111,1111,512) bf16", (2, 1111, 1111, 1, 512), "unaligned", 3, True),
+    ("VAE mid attn (2,1,1111,1111,512) f32, TF32 off", (2, 1111, 1111, 1, 512), "float32", 2, True),
 ]
 
 
-def _train_attention_cases(label, shape, kind, iters):
+def _train_attention_cases(label, shape, kind, iters, elementwise):
     """At one training shape: B2 (o held as B1's output is, and to f64; lse
     against logsumexp of the f32 logits), each B3 kernel against its twin
     given the same lse and delta, and dq, dk, dv through the autograd
@@ -317,15 +395,16 @@ def _train_attention_cases(label, shape, kind, iters):
 
     from t2v_turbo_tpu_torch.ops import attention as A
 
-    b, sq, sk, h = shape
+    b, sq, sk, h, d = shape
     dtype = torch.float32 if kind == "float32" else torch.bfloat16
-    scale = 64**-0.5
+    scale = d**-0.5
+    suffix = "_d512" if d == 512 else ""
 
     def base():  # q, k, v, dO
         if kind == "unaligned":
-            return _unaligned(b, sq, sk, h, 64, 4)()
+            return _unaligned(b, sq, sk, h, d, 4)()
         g = torch.Generator("cuda").manual_seed(sq * 31 + sk)
-        return [torch.randn((b, s, h, 64), generator=g, device="cuda").to(dtype) for s in (sq, sk, sk, sq)]
+        return [torch.randn((b, s, h, d), generator=g, device="cuda").to(dtype) for s in (sq, sk, sk, sq)]
 
     def with_row_stats():  # q, k, v, dO, lse, delta from the plain forward
         q, k, v, do = base()
@@ -345,24 +424,26 @@ def _train_attention_cases(label, shape, kind, iters):
     else:
         o_tol, why_o, twin_tol = _elementwise(2e-3, 2e-2), "bf16 output (as B1)", _of_max(2e-2)
     bf16 = dtype == torch.bfloat16
+    if elementwise:
+        twin_tol = o_tol
     # kernel vs its plain twin on the same inputs (lse and delta given): the
     # kernel rounds P and dS to bf16 (2^-9) before each product over up to
     # 2560 terms and rounds its output to bf16; the twin keeps them f32.
     why_twin = ("P and dS rounded to bf16 for their products" if bf16 else "f32 with TF32 off")
     return [
-        dict(kernel="flash_attention_fwd_lse", label=label, make=lambda: base()[:3],
+        dict(kernel="flash_attention_fwd_lse" + suffix, label=label, make=lambda: base()[:3],
              fn=lambda q, k, v: A.flash_attention_lse(q, k, v, scale),
              plain=lambda q, k, v: A.attention_lse_plain(q, k, v, scale), outputs=("o", "lse"),
              tols=[o_tol, _elementwise(1e-3, 0.0)], iters=iters, library=_sdpa_fwd,
              why=f"o: {why_o}; lse: f32 sums of exp in another order",
              bound=lambda q, k, v: attention_bound(q, k, "fwd_lse"),
              **({"exact": _attention_f64} if bf16 else {})),
-        dict(kernel="flash_attention_bwd_dkv", label=label, make=with_row_stats,
+        dict(kernel="flash_attention_bwd_dkv" + suffix, label=label, make=with_row_stats,
              fn=lambda *a: A.flash_attention_bwd_dkv(*a, scale),
              plain=lambda *a: A.attention_bwd_dkv_plain(*a, scale), outputs=("dk", "dv"),
              tols=[twin_tol, twin_tol], why=why_twin, iters=iters, library=_sdpa_bwd,
              bound=lambda q, k, *_: attention_bound(q, k, "bwd_dkv")),
-        dict(kernel="flash_attention_bwd_dq", label=label, make=with_row_stats,
+        dict(kernel="flash_attention_bwd_dq" + suffix, label=label, make=with_row_stats,
              fn=lambda *a: A.flash_attention_bwd_dq(*a, scale),
              plain=lambda *a: A.attention_bwd_dq_plain(*a, scale), outputs=("dq",),
              tols=[twin_tol], why=why_twin, iters=iters, library=_sdpa_bwd,
@@ -436,9 +517,9 @@ def _check_against_f64(what, label, got, ref, exact):
         raise AssertionError(f"{what} is less accurate than the plain path at {label}")
 
 
-def _timing_line(ms, plain_ms, library_ms, bound):
-    return (f"kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, library {library_ms:.4g} ms, "
-            f"bound {bound[0]:.4g} ms ({bound[1]})")
+def _timing_line(ms, plain_ms, library, bound):
+    lib = ", ".join(f"{n} {t:.4g} ms" for n, t in library.items()) or "none"
+    return f"kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, library {lib}, bound {bound[0]:.4g} ms ({bound[1]})"
 
 
 def phase_kernels(records):
@@ -463,11 +544,12 @@ def phase_kernels(records):
             f"{n} max_abs_err {e:.3e} (<= {text}); " for n, e, (_, text) in zip(case["outputs"], errs, case["tols"])
         ) + f"({case['why']}) {'OK' if ok else 'FAIL'}"
         if name in KERNELS:
+            library = {n: cuda_time_ms(c, case["iters"]) for n, c in case["library"](*inputs).items()}
             times = (cuda_time_ms(lambda: case["fn"](*inputs), case["iters"]),
                      cuda_time_ms(lambda: case["plain"](*inputs), case["iters"]),
-                     cuda_time_ms(case["library"](*inputs), case["iters"]))
+                     min(library.values(), default=None))  # the fastest library call
             bound = case["bound"](*inputs)
-            line += "; " + _timing_line(*times, bound)
+            line += "; " + _timing_line(*times[:2], library, bound)
             record(records, name, max(errs), *times, bound)
         log(line)
         if not ok:
@@ -705,7 +787,7 @@ def _train_full_width(records, remat):
             _moved({n: f[kind] for n, f in factors0.items()},
                    {n: f[kind].detach() for n, f in trainer.factors.items()}, kind)
             log(f"training: after step {i + 1} every LoRA {kind} factor moved ({len(factors0)})")
-    launches = read_launches()
+    launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS}
     log(f"training: kernel launches over the 4 steps {launches}")
     for name, n in launches.items():
         if n <= 0:
@@ -722,12 +804,12 @@ def _train_full_width(records, remat):
         f"{' '.join(f'{s:.3f}' for s in step_s[1:])} (mean {np.mean(step_s[1:]):.3f}); "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del frozen, now, factors0
-    _profile_train_step(trainer, data)
+    _profile_train_step(trainer, data, "profile_train.txt")
 
 
-def _profile_train_step(trainer, data):
+def _profile_train_step(trainer, data, name):
     """torch.profiler over one more training step: device time by kernel and
-    the idle share, into chiprun_out/profile_train.txt."""
+    the idle share, into chiprun_out/<name>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -741,12 +823,120 @@ def _profile_train_step(trainer, data):
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50, max_name_column_width=90)
-    with open(os.path.join(OUT_DIR, "profile_train.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, name), "w") as f:
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     log(f"training profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f} -> chiprun_out/profile_train.txt; top: "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f} -> chiprun_out/{name}; top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
+
+
+def phase_training_rewards(records):
+    """Full-width v1 LoRA LCD training with both rewards through
+    apps/train_v1.py's build_trainer."""
+    import gc
+
+    import torch
+
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            return _train_rewards_full_width(records, remat)
+        except torch.cuda.OutOfMemoryError:
+            if remat:
+                raise
+            log("training with rewards: out of memory without --use-remat; running with it")
+
+
+def _reward_gradient_check(trainer, host_batch):
+    """The reward terms' own gradient (autograd of reward_loss +
+    video_rm_loss alone) at the step's cached LoRA merge, with fresh draws:
+    finite everywhere and non-zero in every LoRA up factor (the ups start
+    at zero, so the downs' gradient is zero at the first step)."""
+    import math
+
+    import torch
+    from torch.nn.utils import parametrize
+
+    from t2v_turbo_tpu_torch.training.lcd import lcd_loss, sample_draws
+
+    batch = {k: torch.as_tensor(v).to(trainer.device) for k, v in host_batch.items() if not k.startswith("_")}
+    draws = sample_draws(trainer.lcd_cfg, batch["latents"].shape, torch.Generator().manual_seed(1))
+    with parametrize.cached():
+        for m in trainer._lora_modules:
+            m.weight  # fills the cache, as the trainer does
+        _, terms = lcd_loss(trainer.student, trainer.teacher, batch, draws, sched=trainer.sched,
+                            solver=trainer.solver, cfg=trainer.lcd_cfg, reward_fn=trainer.reward_fn,
+                            video_reward_fn=trainer.video_reward_fn)
+        grads = torch.autograd.grad(terms["reward_loss"] + terms["video_rm_loss"], trainer.params)
+    ups = grads[1::2]  # trainer.params alternates (down, up) per module
+    finite = all(bool(torch.isfinite(g).all()) for g in grads)
+    nonzero = sum(bool(g.abs().max() > 0) for g in ups)
+    norm = math.sqrt(sum(float(g.double().square().sum()) for g in ups))
+    ok = finite and nonzero == len(ups)
+    r, vr = (float(terms[k].detach()) for k in ("reward_loss", "video_rm_loss"))
+    log(f"training with rewards: the reward terms' own gradient at the first step (reward_loss "
+        f"{r:.6f}, video_rm_loss {vr:.6f}): finite {finite}, "
+        f"non-zero in {nonzero} of {len(ups)} LoRA up factors, their norm {norm:.4e} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the reward terms give no usable gradient to the LoRA up factors")
+
+
+def _train_rewards_full_width(records, remat):
+    import math
+
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import train_v1
+
+    steps = 4
+    argv = ["--random-weights", "--synthetic-data", "--device", "cuda:0", "--seed", "0",
+            "--reward-fn", "hpsv2", "--video-rm-fn", "vi_clip",
+            "--output-dir", os.path.join(OUT_DIR, "train_v1_rewards"), "--max-steps", str(steps),
+            "--checkpointing-steps", "1000000"] + (["--use-remat"] if remat else [])
+    t0 = time.perf_counter()
+    trainer, data, _ = train_v1.build_trainer(train_v1.parse_args(argv))
+    first = next(data)
+    torch.cuda.synchronize()
+    cells = trainer.reward_fn.__closure__ + trainer.video_reward_fn.__closure__
+    rf_models = {id(c.cell_contents): c.cell_contents for c in cells if isinstance(c.cell_contents, torch.nn.Module)}
+    n_frozen = {type(m).__name__: sum(p.numel() for p in m.parameters()) for m in rf_models.values()}
+    log(f"training with rewards: built in {time.perf_counter() - t0:.1f} s ({' '.join(argv)}); "
+        f"mode {'--use-remat' if remat else 'no remat'}; frozen reward models {n_frozen}; batch fields "
+        + ", ".join(f"{k} {tuple(np.shape(v))}" for k, v in first.items() if k.startswith(("reward", "video"))))
+    _reward_gradient_check(trainer, first)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.step_once(first if i == 0 else next(data))
+        vals = {k: float(metrics[k]) for k in ("loss", "distill_loss", "reward_loss", "video_rm_loss", "grad_norm")}
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        log(f"training with rewards: step {i + 1}{' (warm-up)' if i == 0 else ''}: {step_s[-1]:.3f} s, "
+            + ", ".join(f"{k} {v:.6f}" for k, v in vals.items())
+            + f", max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not all(math.isfinite(v) for v in vals.values()) or not vals["grad_norm"] > 0:
+            raise AssertionError(f"training step {i + 1} with rewards: {vals}")
+    by_dim = launches_by_head_dim()
+    per_step = {n: {d: c / steps for d, c in dims.items()} for n, dims in by_dim.items()}
+    launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS + D512_KERNELS}
+    log(f"training with rewards: launches a step by head dim {per_step}; over the {steps} steps {launches}")
+    for name, n in launches.items():
+        if n <= 0:
+            raise AssertionError(f"{name} was not launched on the rewards-ON training path")
+    for name in D512_KERNELS:
+        records[name]["launches"] = launches[name]
+        if launches[name] < 2 * steps:  # one a decode, two decodes a step
+            raise AssertionError(f"{name}: {launches[name]} launches in {steps} steps, expected >= 2 a step")
+    log(f"training with rewards: s/step (steps 2-{steps}, {'--use-remat' if remat else 'no remat'}) "
+        f"{' '.join(f'{s:.3f}' for s in step_s[1:])} (mean {np.mean(step_s[1:]):.3f}); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profile_train_step(trainer, data, "profile_train_rewards.txt")
 
 
 def _w_embedding_drift(w) -> float:
@@ -773,18 +963,24 @@ def _w_embedding_drift(w) -> float:
 
 def phase_training_reference():
     """One small f32 LCD step through the trainer's gradient path on the card
-    (kernels; remat off and on) against the CPU (plain versions) on the same
-    weights, factors and draws."""
+    (kernels; remat off and on; and with both rewards) against the CPU
+    (plain versions) on the same weights, factors and draws."""
+    import copy
     import dataclasses
     import functools
 
+    import numpy as np
     import torch
 
     from t2v_turbo_tpu_torch import lora as L
+    from t2v_turbo_tpu_torch.apps.train_v1 import TINY_REWARD_TEXT_KW, TINY_VAE_KW, TINY_VIT_KW
     from t2v_turbo_tpu_torch.diffusion import DDIMSolver, DiffusionSchedule
-    from t2v_turbo_tpu_torch.models import UNetConfig, UNetModel, seeded_init_
+    from t2v_turbo_tpu_torch.models import AutoencoderKL, CLIPTextConfig, UNetConfig, UNetModel, VAEConfig, seeded_init_
+    from t2v_turbo_tpu_torch.rewards.reward_fn import build_image_reward_model, build_video_reward_model
+    from t2v_turbo_tpu_torch.rewards.vit import VideoViTConfig, ViTConfig
     from t2v_turbo_tpu_torch.training.lcd import LCDConfig, sample_draws
     from t2v_turbo_tpu_torch.training.optim import make_optimizer
+    from t2v_turbo_tpu_torch.training.reward_adapters import make_reward_fns, sample_frame_indices
     from t2v_turbo_tpu_torch.training.trainer import LCDTrainer, TrainerConfig
 
     torch.backends.cudnn.allow_tf32 = False
@@ -804,60 +1000,85 @@ def phase_training_reference():
     w_drift = _w_embedding_drift(draws.w)
     sched = DiffusionSchedule.create()
     solver = DDIMSolver.create(sched.alphas_cumprod.numpy())
+    # the reward stack of apps/train_v1.py --tiny-model: the VAE's mid-block
+    # attention is one head of 64, so the flash kernels run in the decode
+    text_cfg = CLIPTextConfig(**TINY_REWARD_TEXT_KW)
+    rewards_cpu = (seeded_init_(AutoencoderKL(VAEConfig(**TINY_VAE_KW)), 24),
+                   build_image_reward_model(vit_cfg=ViTConfig(**TINY_VIT_KW), text_cfg=text_cfg, seed=25),
+                   build_video_reward_model(vit_cfg=VideoViTConfig(**TINY_VIT_KW, num_frames=8), text_cfg=text_cfg,
+                                            seed=26))
+    rng = np.random.RandomState(27)
+    reward_batch = {
+        "reward_frame_idx": torch.from_numpy(sample_frame_indices(rng, 1, 4, 2)),
+        "reward_text_feats": rewards_cpu[1].encode_texts([PROMPTS[0]]),
+        "reward_mask": torch.ones(1),
+        "video_frame_idx": torch.from_numpy(sample_frame_indices(rng, 1, 4, 4, strided=True)),
+        "video_text_feats": rewards_cpu[2].encode_texts([PROMPTS[0]]),
+        "video_reward_mask": torch.ones(1),
+    }
 
-    def step(device, remat):
+    def step(device, remat, rewards):
         student = UNetModel(cfg, use_remat=remat).to(device)
         student.load_state_dict(student_sd, strict=True)
         teacher = UNetModel(teacher_cfg).to(device)
         teacher.load_state_dict(teacher_sd, strict=True)
+        rf = vrf = None
+        if rewards:  # decode in chunks of 2 frames: the checkpointed path
+            rf, vrf = make_reward_fns(*(copy.deepcopy(m).to(device).requires_grad_(False) for m in rewards_cpu),
+                                      decode_chunk=2)
         trainer = LCDTrainer(student=student, teacher=teacher, sched=sched, solver=solver,
                              lcd_cfg=LCDConfig(), optimizer=functools.partial(make_optimizer, name="adamw"),
                              cfg=TrainerConfig(output_dir=os.path.join(OUT_DIR, "train_reference"),
-                                               lora_rank=8))
+                                               lora_rank=8), reward_fn=rf, video_reward_fn=vrf)
         with torch.no_grad():
             for n, f in trainer.factors.items():
                 for k, t in f.items():
                     t.copy_(factors[n][k])
         names = [f"{n}.{k}" for n in sorted(trainer.factors) for k in ("down", "up")]
         reset_launches()
-        loss, _, _ = trainer.loss_and_grads({k: v.to(device) for k, v in batch.items()}, draws)
+        full = {**batch, **(reward_batch if rewards else {})}
+        loss, metrics, _ = trainer.loss_and_grads({k: v.to(device) for k, v in full.items()}, draws)
         grads = [t.detach().cpu() for t in trainer._grad_views]
-        return float(loss.detach()), dict(zip(names, grads)), read_launches()
+        return ({k: float(v) for k, v in metrics.items()}, dict(zip(names, grads)),
+                {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS})
 
     # Bounds (f32, TF32 off; sums run in another order through three UNet
-    # passes): each LoRA gradient's max|diff| <= 1e-3 * its max|ref| + 1e-6 *
-    # the largest gradient of all. time_cond_proj's factors take the guidance
-    # embedding sin / cos(w * 1000 * f) as input: the card's f32 torch.exp
-    # gives some of the frequencies f one ulp away from the CPU's, which
-    # arguments up to 1.5e4 rad turn into ~1e-3 of the embedding (sin / cos
-    # of the same arguments agree to ~6e-8; both logged above). Their
-    # gradients are linear in the embedding, so their bound adds twice its
-    # measured drift.
+    # passes, and with rewards two VAE decodes and two towers): the loss and
+    # each reward term |diff| <= 1e-4 * max(1, |ref|); each LoRA gradient's
+    # max|diff| <= 1e-3 * its max|ref| + 1e-6 * the largest gradient of all.
+    # time_cond_proj's factors take the guidance embedding sin / cos(w * 1000
+    # * f) as input: the card's f32 torch.exp gives some of the frequencies
+    # f one ulp away from the CPU's, which arguments up to 1.5e4 rad turn
+    # into ~1e-3 of the embedding (sin / cos of the same arguments agree to
+    # ~6e-8; both logged above). Their gradients are linear in the
+    # embedding, so their bound adds twice its measured drift.
     w_input, rtol = "time_cond_proj.", 1e-3
     w_tol = rtol + 2 * w_drift
-    ref_loss, ref_grads, _ = step("cpu", False)
-    gmax = max(float(t.abs().max()) for t in ref_grads.values())
-    for remat in (False, True):
-        loss, grads, launches = step("cuda:0", remat)
-        ratios = {n: float((grads[n] - r).abs().max()) / (float(r.abs().max()) + 1e-6 * gmax)
-                  for n, r in ref_grads.items()}
-        rest = {n: v for n, v in ratios.items() if not n.startswith(w_input)}
-        worst = max(rest, key=rest.get)
-        w_worst = max(v for n, v in ratios.items() if n.startswith(w_input))
-        loss_err = abs(loss - ref_loss)
-        ran = all(n > 0 for n in launches.values())
-        ok = (loss_err <= 1e-4 * max(1.0, abs(ref_loss)) and rest[worst] <= rtol and w_worst <= w_tol
-              and ran)
-        log(f"training reference: 1 f32 LCD step, 4x16x16 latents, UNet 64/128 with heads "
-            f"of 64, {'remat' if remat else 'no remat'}, card vs CPU: loss {loss:.6f} vs {ref_loss:.6f} "
-            f"(|diff| {loss_err:.3e} <= 1e-4*max(1,|loss|)); {len(grads)} LoRA gradients, "
-            f"max|diff| / (max|ref| + 1e-6*max|all ref|): median "
-            f"{sorted(ratios.values())[len(ratios) // 2]:.3e}, worst {rest[worst]:.3e} at {worst} "
-            f"(<= {rtol:g}), time_cond_proj {w_worst:.3e} (<= {w_tol:.3e}: 1e-3 + 2x the embedding's drift); "
-            f"card launches {launches} "
-            f"{'OK' if ok else 'FAIL'}")
-        if not ok:
-            raise AssertionError("the card's LCD step disagrees with the CPU's")
+    for rewards, modes in ((False, (False, True)), (True, (False,))):
+        ref_metrics, ref_grads, _ = step("cpu", False, rewards)
+        gmax = max(float(t.abs().max()) for t in ref_grads.values())
+        for remat in modes:
+            metrics, grads, launches = step("cuda:0", remat, rewards)
+            ratios = {n: float((grads[n] - r).abs().max()) / (float(r.abs().max()) + 1e-6 * gmax)
+                      for n, r in ref_grads.items()}
+            rest = {n: v for n, v in ratios.items() if not n.startswith(w_input)}
+            worst = max(rest, key=rest.get)
+            w_worst = max(v for n, v in ratios.items() if n.startswith(w_input))
+            errs = {k: abs(metrics[k] - v) for k, v in ref_metrics.items()}
+            ran = all(n > 0 for n in launches.values())
+            ok = (all(e <= 1e-4 * max(1.0, abs(ref_metrics[k])) for k, e in errs.items())
+                  and rest[worst] <= rtol and w_worst <= w_tol and ran)
+            log(f"training reference: 1 f32 LCD step{' with both rewards' if rewards else ''}, 4x16x16 latents, "
+                f"UNet 64/128 with heads of 64, {'remat' if remat else 'no remat'}, card vs CPU: "
+                + ", ".join(f"{k} {metrics[k]:.6f} vs {v:.6f}" for k, v in ref_metrics.items())
+                + f" (max |diff| {max(errs.values()):.3e} <= 1e-4*max(1,|ref|)); {len(grads)} LoRA gradients, "
+                f"max|diff| / (max|ref| + 1e-6*max|all ref|): median "
+                f"{sorted(ratios.values())[len(ratios) // 2]:.3e}, worst {rest[worst]:.3e} at {worst} "
+                f"(<= {rtol:g}), time_cond_proj {w_worst:.3e} (<= {w_tol:.3e}: 1e-3 + 2x the embedding's drift); "
+                f"card launches {launches} "
+                f"{'OK' if ok else 'FAIL'}")
+            if not ok:
+                raise AssertionError("the card's LCD step disagrees with the CPU's")
     torch.backends.cudnn.allow_tf32 = True
 
 
@@ -881,6 +1102,7 @@ def main() -> int:
         ("main path", lambda: phase_main_path(records)),
         ("reference", phase_reference),
         ("training", lambda: phase_training(records)),
+        ("training with rewards", lambda: phase_training_rewards(records)),
         ("training reference", phase_training_reference),
     ]
     failed = []

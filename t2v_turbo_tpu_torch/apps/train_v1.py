@@ -3,6 +3,11 @@
 Usage (smoke mode: seeded random weights, synthetic latents and prompts):
   python -m t2v_turbo_tpu_torch.apps.train_v1 --random-weights --synthetic-data \\
       --max-steps 3 --output-dir runs/v1_torch
+With reward feedback (the reference v1 recipe: 5 random frames scored by
+the ViT-H/14 image reward, 8 strided frames by the ViCLIP-L video reward,
+both VAE-decoded from the student's prediction with gradient):
+  ... --reward-fn hpsv2 --video-rm-fn vi_clip [--reward-ckpt open_clip.pt]
+      [--video-rm-ckpt viclip.pt]
 
 With a VideoCrafter2 checkpoint, the teacher is its UNet and the student
 the same weights plus a zero `time_cond_proj` (the w-embedding input).
@@ -14,8 +19,13 @@ through their autograd functions (ops/). At the end the factors are written
 as `unet_lora.npz` (the JAX trainer's layout) and `unet_lora.pt` (the
 reference's list), both loadable by `apps/generate.py --lora-ckpt`.
 
+The reward towers and the reward VAE (the checkpoint's, or seeded random
+weights) are frozen, bf16 on the card; the text features come from the
+towers' pooled text branches, once per batch.
+
 Not yet ported: the real-data path (webdataset / CSV video with VAE and
-text encode), reward feedback, multi-host and FSDP.
+text encode), the BLIP and InternVideo2 rewards, HF-layout CLIP
+checkpoints, multi-host and FSDP.
 """
 
 from __future__ import annotations
@@ -62,6 +72,20 @@ def parse_args(argv=None):
     p.add_argument("--use-remat", action="store_true",
                    help="recompute each block's activations in the backward")
     p.add_argument("--device", default="cuda:0")
+    # reward feedback (the reference's --reward_fn_name / --video_rm_name ...)
+    p.add_argument("--reward-fn", default="none", choices=["none", "clip", "hpsv2", "pick"])
+    p.add_argument("--reward-ckpt", default=None, help="open_clip CLIP state dict (image reward)")
+    p.add_argument("--reward-scale", type=float, default=1.0)
+    p.add_argument("--reward-frames", type=int, default=5, help="random frames scored per sample")
+    p.add_argument("--reward-fraction", type=float, default=0.75,
+                   help="share of each batch carrying the image-reward loss")
+    p.add_argument("--video-rm-fn", default="none", choices=["none", "vi_clip"])
+    p.add_argument("--video-rm-ckpt", default=None, help="ViCLIP state dict (video reward)")
+    p.add_argument("--video-reward-scale", type=float, default=1.0)
+    p.add_argument("--video-rm-frames", type=int, default=8)
+    p.add_argument("--video-rm-fraction", type=float, default=0.25)
+    p.add_argument("--vae-decode-batch-size", type=int, default=16,
+                   help="frames decoded per checkpointed VAE chunk in the reward losses; 0 = one call")
     return p.parse_args(argv)
 
 
@@ -69,6 +93,13 @@ def parse_args(argv=None):
 TINY_UNET_KW = dict(model_channels=32, num_res_blocks=1, attention_resolutions=(2, 1),
                     channel_mult=(1, 2), num_head_channels=16, context_dim=16,
                     time_cond_proj_dim=8)
+
+
+# the JAX CLI's --tiny-model reward stack (t2v_turbo_tpu/apps/train_v1.py)
+TINY_VAE_KW = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1)
+TINY_VIT_KW = dict(image_size=28, patch_size=14, width=32, layers=2, heads=4, output_dim=16)
+TINY_REWARD_TEXT_KW = dict(vocab_size=49408, width=32, heads=4, layers=2, context_length=77,
+                           penultimate=False)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,8 +138,9 @@ def build_trainer(args):
         student = UNetModel(ucfg, use_remat=args.use_remat)
         teacher = UNetModel(dataclasses.replace(ucfg, time_cond_proj_dim=None))
 
+    vae_sd = None
     if args.checkpoint:
-        unet_sd, _, _ = split_vc2_checkpoint(load_checkpoint(args.checkpoint))
+        unet_sd, vae_sd, _ = split_vc2_checkpoint(load_checkpoint(args.checkpoint))
         teacher.load_state_dict(unet_sd, strict=True)
         # the student: the teacher's weights plus a zero w-embedding projection
         student.load_state_dict(
@@ -124,6 +156,7 @@ def build_trainer(args):
     for m in (student, teacher):
         cast_compute_dtype_(m, dtype).requires_grad_(False)
 
+    reward_fn, video_reward_fn, image_rm, video_rm = build_reward_stack(args, device, dtype, vae_sd)
     sched = DiffusionSchedule.create()
     trainer = LCDTrainer(
         student=student,
@@ -133,7 +166,8 @@ def build_trainer(args):
                                  ddim_timesteps=args.num_ddim_timesteps),
         lcd_cfg=LCDConfig(num_ddim_timesteps=args.num_ddim_timesteps, w_min=args.w_min,
                           w_max=args.w_max, w_embedding_dim=wdim, loss_type=args.loss_type,
-                          huber_c=args.huber_c),
+                          huber_c=args.huber_c, reward_scale=args.reward_scale,
+                          video_reward_scale=args.video_reward_scale),
         optimizer=functools.partial(make_optimizer, name=args.optimizer,
                                     learning_rate=args.learning_rate),
         cfg=TrainerConfig(
@@ -143,8 +177,78 @@ def build_trainer(args):
             max_grad_norm=args.max_grad_norm, lora_rank=args.lora_rank,
             grad_accum_steps=args.gradient_accumulation_steps,
         ),
+        reward_fn=reward_fn,
+        video_reward_fn=video_reward_fn,
     )
-    return trainer, synthetic_data(shape, args.fps), ucfg
+    data = synthetic_data(shape, args.fps)
+    if image_rm is not None or video_rm is not None:
+        data = add_reward_fields(data, args, shape.frames, shape.batch, image_rm, video_rm)
+    return trainer, data, ucfg
+
+
+def build_reward_stack(args, device, dtype, vae_sd=None):
+    """(reward_fn, video_reward_fn, image reward model, video reward model)
+    from the reward flags; Nones when both are "none". The reward VAE loads
+    `vae_sd` (the --checkpoint's), else takes seeded random weights (the JAX
+    CLI's tiny VAE with --tiny-model); the towers load --reward-ckpt /
+    --video-rm-ckpt, else seeded random weights. All are frozen, in `dtype`
+    but their norms."""
+    from ..io.convert import load_checkpoint
+    from ..models import AutoencoderKL, CLIPTextConfig, VAEConfig, cast_compute_dtype_, seeded_init_
+    from ..rewards.reward_fn import build_image_reward_model, build_video_reward_model
+    from ..rewards.vit import VideoViTConfig, ViTConfig
+    from ..training.reward_adapters import make_reward_fns
+
+    if args.reward_fn == "none" and args.video_rm_fn == "none":
+        return None, None, None, None
+    with torch.device(device):
+        vae = AutoencoderKL(VAEConfig(**TINY_VAE_KW) if args.tiny_model else VAEConfig())
+    if vae_sd is not None:
+        vae.load_state_dict(vae_sd, strict=True)
+    else:
+        seeded_init_(vae, args.seed + 2_000_000)
+    tiny_text = CLIPTextConfig(**TINY_REWARD_TEXT_KW)
+    image_rm = video_rm = None
+    if args.reward_fn != "none":
+        sd = load_checkpoint(args.reward_ckpt) if args.reward_ckpt else None
+        kw = dict(vit_cfg=ViTConfig(**TINY_VIT_KW), text_cfg=tiny_text) if args.tiny_model else {}
+        image_rm = build_image_reward_model(sd, seed=args.seed + 3_000_000, device=device, **kw)
+    if args.video_rm_fn != "none":
+        sd = load_checkpoint(args.video_rm_ckpt) if args.video_rm_ckpt else None
+        kw = dict(vit_cfg=VideoViTConfig(**TINY_VIT_KW, num_frames=8), text_cfg=tiny_text) \
+            if args.tiny_model else {}
+        video_rm = build_video_reward_model(sd, seed=args.seed + 4_000_000, device=device, **kw)
+    for m in (vae, image_rm, video_rm):
+        if m is not None:
+            cast_compute_dtype_(m, dtype).requires_grad_(False).eval()
+    rf, vrf = make_reward_fns(vae, image_rm, video_rm,
+                              decode_chunk=args.vae_decode_batch_size or None)
+    return rf, vrf, image_rm, video_rm
+
+
+def add_reward_fields(base_iter, args, frames: int, b: int, image_rm, video_rm):
+    """Batches with the reward fields added: frame indices (a numpy
+    RandomState seeded as the JAX CLI's, so both draw the same frames),
+    normalised text features of the batch's `_texts`, and role masks (the
+    first round(reward_fraction * B) examples carry the image reward, the
+    last round(video_rm_fraction * B) the video reward, at least one each)."""
+    from ..training.reward_adapters import precompute_text_feats, sample_frame_indices
+
+    rng = np.random.RandomState(args.seed % (2**31 - 1))
+    n_img = max(1, int(round(args.reward_fraction * b)))
+    n_vid = max(1, int(round(args.video_rm_fraction * b)))
+    for batch in base_iter:
+        texts = batch.get("_texts", [""] * b)
+        if image_rm is not None:
+            batch["reward_frame_idx"] = sample_frame_indices(rng, b, frames, min(args.reward_frames, frames))
+            batch["reward_text_feats"] = precompute_text_feats(image_rm, texts).cpu().numpy()
+            batch["reward_mask"] = (np.arange(b) < n_img).astype(np.float32)
+        if video_rm is not None:
+            batch["video_frame_idx"] = sample_frame_indices(
+                rng, b, frames, min(args.video_rm_frames, frames), strided=True)
+            batch["video_text_feats"] = precompute_text_feats(video_rm, texts).cpu().numpy()
+            batch["video_reward_mask"] = (np.arange(b) >= b - n_vid).astype(np.float32)
+        yield batch
 
 
 def synthetic_data(shape: DataShape, fps: float):
@@ -158,6 +262,7 @@ def synthetic_data(shape: DataShape, fps: float):
             "ctx": rng.randn(b, shape.ctx_len, shape.ctx_dim).astype(np.float32),
             "uncond_ctx": np.zeros((b, shape.ctx_len, shape.ctx_dim), np.float32),
             "fps": np.full((b,), float(fps), np.float32),
+            "_texts": ["synthetic sample"] * b,
         }
 
 

@@ -2,9 +2,11 @@
 
 - JAX parameter trees (nested dicts of numpy arrays, as `flax` `init` or
   `t2v_turbo_tpu.io.torch_import` produce them) -> the port's state dicts,
-  for the UNet, the VAE and the CLIP text tower. Each is the inverse of the
-  JAX package's `import_unet_params` / `import_vae_params` /
-  `import_clip_text_params` (t2v_turbo_tpu/io/torch_import.py), written with
+  for the UNet, the VAE, the CLIP text towers and the reward vision towers.
+  Each is the inverse of the JAX package's `import_unet_params` /
+  `import_vae_params` / `import_clip_text_params` /
+  `import_clip_text_pooled_params` / `import_clip_vision_params` /
+  `import_viclip_params` (t2v_turbo_tpu/io/torch_import.py), written with
   numpy alone: this module imports neither jax nor flax.
 - `split_vc2_checkpoint`: a VideoCrafter2 LatentDiffusion state dict ->
   (unet, vae, clip) state dicts with their prefixes stripped.
@@ -208,14 +210,8 @@ def vae_state_dict_from_jax(params: Mapping, cfg: VAEConfig = VAEConfig()) -> St
     return sd
 
 
-def clip_text_state_dict_from_jax(params: Mapping) -> StateDict:
-    """flax CLIPTextModel params -> the port's open_clip-keyed state dict."""
-    p = params.get("params", params)
-    sd: StateDict = {
-        "token_embedding.weight": _t(p["token_embedding"]),
-        "positional_embedding": _t(p["positional_embedding"]),
-    }
-    _norm(p["ln_final"], "ln_final", sd)
+def _clip_blocks(p, sd):
+    """`resblocks_{i}` (text or vision) -> `transformer.resblocks.{i}`."""
     for i in range(sum(k.startswith("resblocks_") for k in p)):
         node, rp = p[f"resblocks_{i}"], f"transformer.resblocks.{i}"
         _norm(node["ln_1"], f"{rp}.ln_1", sd)
@@ -225,6 +221,54 @@ def clip_text_state_dict_from_jax(params: Mapping) -> StateDict:
         _lin(node["out_proj"], f"{rp}.attn.out_proj", sd)
         _lin(node["c_fc"], f"{rp}.mlp.c_fc", sd)
         _lin(node["c_proj"], f"{rp}.mlp.c_proj", sd)
+
+
+def clip_text_state_dict_from_jax(params: Mapping) -> StateDict:
+    """flax CLIPTextModel params -> the port's open_clip-keyed state dict."""
+    p = params.get("params", params)
+    sd: StateDict = {
+        "token_embedding.weight": _t(p["token_embedding"]),
+        "positional_embedding": _t(p["positional_embedding"]),
+    }
+    _norm(p["ln_final"], "ln_final", sd)
+    _clip_blocks(p, sd)
+    return sd
+
+
+def clip_text_pooled_state_dict_from_jax(params: Mapping) -> StateDict:
+    """flax CLIPTextPooled params ({"tower", "text_projection"}) -> the
+    port's `CLIPTextPooled` state dict (open_clip's text keys)."""
+    p = params.get("params", params)
+    return {**clip_text_state_dict_from_jax(p["tower"]), "text_projection": _t(p["text_projection"])}
+
+
+def _vision_tower(p, sd):
+    for n in ("class_embedding", "positional_embedding", "proj"):
+        sd[n] = _t(p[n])
+    _norm(p["ln_pre"], "ln_pre", sd)
+    _norm(p["ln_post"], "ln_post", sd)
+    _clip_blocks(p, sd)
+
+
+def vit_state_dict_from_jax(params: Mapping) -> StateDict:
+    """flax rewards.vit.VisionTransformer params -> the port's (open_clip's
+    `visual.*` without the prefix) state dict."""
+    p = params.get("params", params)
+    sd: StateDict = {}
+    _conv2d(p["conv1"], "conv1", sd)
+    _vision_tower(p, sd)
+    return sd
+
+
+def video_vit_state_dict_from_jax(params: Mapping) -> StateDict:
+    """flax rewards.vit.VideoVisionTransformer params -> the port's (ViCLIP's
+    `vision_encoder.*` without the prefix) state dict; conv1 becomes the
+    reference's Conv3d weight (O, I, 1, P, P)."""
+    p = params.get("params", params)
+    sd: StateDict = {"temporal_positional_embedding": _t(p["temporal_positional_embedding"])}
+    _conv2d(p["conv1"], "conv1", sd)
+    sd["conv1.weight"] = sd["conv1.weight"][:, :, None]
+    _vision_tower(p, sd)
     return sd
 
 

@@ -20,7 +20,8 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   `flash_attention_lse` (B2: forward + lse),
   `flash_attention_bwd_dkv` and `flash_attention_bwd_dq` (B3). The kernels
   take (batch, seq, head) strides, so the same wrappers are the BSHD family
-  (B6) of the JAX package.
+  (B6) of the JAX package. The three training wrappers also count their
+  launches by head dim (`by_head_dim`).
 - `sdpa`: the dispatcher for unbiased, non-causal attention. Flash takes
   every call whose head dim the kernel has (64 and 512): on the main path
   that is the spatial self-attention at every level, the cross-attention to
@@ -28,12 +29,14 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   mid-block. The JAX package gated flash at Sq, Sk >= 1024 (XLA won below on
   the TPU); on the H100 the kernel beat the plain path at every one of those
   shapes (PERF.md), so the gate is the head dim alone. The causal CLIP
-  tower calls `attention` directly. The backward kernels take head dim 64
-  only: every attention of the UNet the trainer differentiates.
+  tower calls `attention` directly. The backward kernels take both head
+  dims too: the UNet's and ViCLIP's heads of 64 and the VAE decoder's one
+  head of 512, which reward feedback differentiates.
 """
 
 from __future__ import annotations
 
+import collections
 import ctypes
 
 import torch
@@ -42,7 +45,7 @@ from . import cuda_lib
 
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 FLASH_HEAD_DIMS = (64, 512)
-FLASH_BWD_HEAD_DIMS = (64,)
+FLASH_BWD_HEAD_DIMS = (64, 512)
 
 
 def attention(q, k, v, bias=None, causal=False, scale=None, return_probs=False):
@@ -198,10 +201,12 @@ def flash_attention_lse(q, k, v, scale=None):
     )
     cuda_lib.check(err, "flash_attention_lse")
     flash_attention_lse.launches += 1
+    flash_attention_lse.by_head_dim[d] += 1
     return o, lse
 
 
 flash_attention_lse.launches = 0
+flash_attention_lse.by_head_dim = collections.Counter()
 
 
 def _bwd_args(what, q, k, v, do, lse, delta):
@@ -234,10 +239,12 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=None):
     )
     cuda_lib.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
+    flash_attention_bwd_dkv.by_head_dim[d] += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
+flash_attention_bwd_dkv.by_head_dim = collections.Counter()
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=None):
@@ -259,10 +266,12 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=None):
     )
     cuda_lib.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
+    flash_attention_bwd_dq.by_head_dim[d] += 1
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
+flash_attention_bwd_dq.by_head_dim = collections.Counter()
 
 
 class FlashAttention(torch.autograd.Function):

@@ -1,5 +1,5 @@
 """Latent consistency distillation (LCD): the v1 trainer's loss (port of
-t2v_turbo_tpu/training/lcd.py, without the reward terms).
+t2v_turbo_tpu/training/lcd.py).
 
 Per batch: a DDIM grid index per example sets t_{n+k} (start) and t_n; the
 clean latents are noised to t_{n+k}; the student, given a random guidance
@@ -8,7 +8,11 @@ boundary-condition prediction; the frozen teacher's classifier-free-guided
 estimate (cond and uncond as two forwards) takes one DDIM step to x_prev;
 the student at t_n on x_prev gives the target; the loss is pseudo-Huber
 (or l2) between the two. The teacher and target branches run under
-`torch.no_grad()`, the JAX package's `stop_gradient` islands.
+`torch.no_grad()`, the JAX package's `stop_gradient` islands. With reward
+feedback, each reward fn scores the boundary-condition prediction (with
+its gradient) and adds -(r * mask).sum() / max(mask.sum(), 1) * scale; the
+per-example masks (`reward_mask`, `video_reward_mask`, ones when absent)
+select which examples carry each reward, as the JAX package's role masks.
 
 The random draws (grid index, noise, w) come from `sample_draws`, a
 function of a `torch.Generator`; `lcd_loss` takes them explicitly, so a
@@ -18,7 +22,7 @@ test can feed it the JAX package's own draws.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
@@ -45,6 +49,8 @@ class LCDConfig:
     prediction_type: str = "epsilon"
     loss_type: str = "huber"  # 'huber' | 'l2'
     huber_c: float = 0.001
+    reward_scale: float = 1.0
+    video_reward_scale: float = 1.0
 
 
 @dataclasses.dataclass
@@ -76,13 +82,19 @@ def lcd_loss(
     sched: DiffusionSchedule,
     solver: DDIMSolver,
     cfg: LCDConfig,
+    reward_fn: Optional[Callable] = None,
+    video_reward_fn: Optional[Callable] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """(loss, metrics) for one batch.
+    """(loss, terms) for one batch; `terms` holds distill_loss, loss and,
+    with their fns, reward_loss and video_rm_loss, not detached (so a
+    caller can differentiate one term alone).
 
     batch: latents (B, T, h, w, C) clean, scaled VAE latents; ctx and
-    uncond_ctx (B, L, D) prompt and empty-prompt embeddings; fps (B,).
-    student(x, t, ctx, fps=, timestep_cond=) and teacher(x, t, ctx, fps=)
-    are epsilon (or cfg.prediction_type) models on channels-last latents.
+    uncond_ctx (B, L, D) prompt and empty-prompt embeddings; fps (B,); and
+    the fields the reward fns read. student(x, t, ctx, fps=, timestep_cond=)
+    and teacher(x, t, ctx, fps=) are epsilon (or cfg.prediction_type)
+    models on channels-last latents. reward_fn(model_pred, batch) and
+    video_reward_fn give (B,) rewards.
     """
     latents = batch["latents"].float()
     ctx, uncond_ctx, fps = batch["ctx"], batch["uncond_ctx"], batch.get("fps")
@@ -125,4 +137,19 @@ def lcd_loss(
         distill = torch.mean((model_pred - target) ** 2)
     else:
         distill = huber_loss(model_pred, target, cfg.huber_c)
-    return distill, {"distill_loss": distill.detach(), "loss": distill.detach()}
+    terms = {"distill_loss": distill}
+    total = distill
+    b = latents.shape[0]
+    for name, fn, mask_key, scale in (
+        ("reward_loss", reward_fn, "reward_mask", cfg.reward_scale),
+        ("video_rm_loss", video_reward_fn, "video_reward_mask", cfg.video_reward_scale),
+    ):
+        if fn is None:
+            continue
+        mask = batch.get(mask_key)
+        mask = torch.ones(b, device=latents.device) if mask is None else mask.float()
+        r = fn(model_pred, batch)
+        terms[name] = -(r * mask).sum() / mask.sum().clamp_min(1.0) * scale
+        total = total + terms[name]
+    terms["loss"] = total
+    return total, terms

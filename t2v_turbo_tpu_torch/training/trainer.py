@@ -17,7 +17,8 @@ parallelism, the split step, EMA and multi-host).
   The resume step is folded into the draws' generator seed, so a resumed
   run does not replay the first steps' draws.
 - Metrics: one JSON row per logged step in output_dir/metrics.jsonl with
-  time_per_step_s, the losses, grad_norm and data_wait_frac (the share of
+  time_per_step_s, the losses (with reward feedback, reward_loss and
+  video_rm_loss too), grad_norm and data_wait_frac (the share of
   the window the host waited for the next batch); a heartbeat file and
   SIGTERM/SIGINT handling (training/watchdog.py) as in the JAX trainer.
 """
@@ -61,11 +62,16 @@ def draws_seed(seed: int, step: int) -> int:
 
 class LCDTrainer:
     def __init__(self, *, student, teacher, sched, solver, lcd_cfg: LCDConfig,
-                 optimizer: Callable[[List[torch.Tensor]], object], cfg: TrainerConfig):
+                 optimizer: Callable[[List[torch.Tensor]], object], cfg: TrainerConfig,
+                 reward_fn: Optional[Callable] = None, video_reward_fn: Optional[Callable] = None):
         """student: the UNet to distil into (its weights are frozen and get
         LoRA factors); teacher: the frozen UNet; optimizer: params ->
-        optimizer (e.g. functools.partial(optim.make_optimizer, name=...))."""
+        optimizer (e.g. functools.partial(optim.make_optimizer, name=...));
+        reward_fn / video_reward_fn: the reward feedback terms
+        (training/reward_adapters.py), whose models must be frozen: only the
+        LoRA factors get gradients."""
         self.cfg, self.lcd_cfg = cfg, lcd_cfg
+        self.reward_fn, self.video_reward_fn = reward_fn, video_reward_fn
         self.device = next(student.parameters()).device
         self.sched, self.solver = sched.to(self.device), solver.to(self.device)
         self.student, self.teacher = student, teacher.requires_grad_(False)
@@ -99,11 +105,12 @@ class LCDTrainer:
         with parametrize.cached():
             for m in self._lora_modules:
                 m.weight  # fills the cache
-            loss, metrics = lcd_loss(self.student, self.teacher, batch, draws, sched=self.sched,
-                                     solver=self.solver, cfg=self.lcd_cfg)
+            loss, terms = lcd_loss(self.student, self.teacher, batch, draws, sched=self.sched,
+                                   solver=self.solver, cfg=self.lcd_cfg, reward_fn=self.reward_fn,
+                                   video_reward_fn=self.video_reward_fn)
             grads = torch.autograd.grad(loss, self.params)
         torch._foreach_copy_(self._grad_views, grads)
-        return loss, metrics, self._grad_flat
+        return loss, {k: v.detach() for k, v in terms.items()}, self._grad_flat
 
     def train_step(self, batch: Dict[str, torch.Tensor], draws) -> Dict[str, torch.Tensor]:
         """One micro-step on a device batch with explicit draws; returns the

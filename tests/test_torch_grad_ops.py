@@ -28,11 +28,12 @@ from t2v_turbo_tpu_torch.ops import attention as A
 from t2v_turbo_tpu_torch.ops import norms as N
 
 ATOL = 2e-5
-CASES = [(1, 200, 200, 2), (1, 40, 77, 2), (2, 16, 16, 3)]  # ragged S, Sk = 77, S = 16
-IDS = ["ragged", "cross77", "temporal16"]
+# (B, Sq, Sk, H, D): ragged S, Sk = 77, S = 16, the VAE's one head of 512
+CASES = [(1, 200, 200, 2, 64), (1, 40, 77, 2, 64), (2, 16, 16, 3, 64), (1, 40, 40, 1, 512)]
+IDS = ["ragged", "cross77", "temporal16", "vae_head512"]
 
 
-def _qkvg(b, sq, sk, h, d=64, seed=0):
+def _qkvg(b, sq, sk, h, d, seed=0):
     rng = np.random.RandomState(seed)
     return [rng.randn(b, s, h, d).astype(np.float32) for s in (sq, sk, sk, sq)]
 
@@ -55,8 +56,8 @@ def _port_grads(fn, q, k, v, g):
 @pytest.fixture(scope="module", params=list(zip(CASES, IDS)), ids=IDS)
 def jax_flash_vjp(request):
     """Inputs and JAX flash_attention's output and (dq, dk, dv), (B, S, H, D)."""
-    (b, sq, sk, h), _ = request.param
-    q, k, v, g = _qkvg(b, sq, sk, h)
+    case, _ = request.param
+    q, k, v, g = _qkvg(*case)
     out, vjp = jax.vjp(jattn.flash_attention, _bhsd(q), _bhsd(k), _bhsd(v))
     grads = vjp(_bhsd(g))
     return (q, k, v, g), _from_bhsd(out), [_from_bhsd(t) for t in grads]
@@ -92,7 +93,7 @@ def test_kernel_twins_match_pallas_impls(case):
     they replace, on the same inputs: lse from `_flash_attention_fwd_lse_impl`,
     and dq, dk, dv from `_flash_attention_bwd_impl` given that lse."""
     q, k, v, g = _qkvg(*case, seed=2)
-    scale = 64**-0.5
+    scale = case[-1] ** -0.5
     o_ref, lse_ref = jattn._flash_attention_fwd_lse_impl(_bhsd(q), _bhsd(k), _bhsd(v), scale=scale,
                                                           interpret=True)
     qt, kt, vt, gt = (torch.from_numpy(t) for t in (q, k, v, g))
@@ -112,7 +113,7 @@ def test_kernel_twins_match_pallas_impls(case):
 def test_backward_counts_no_launch_on_cpu():
     counters = (A.flash_attention_lse, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq)
     before = [f.launches for f in counters]
-    q, k, v, g = _qkvg(1, 16, 16, 1)
+    q, k, v, g = _qkvg(1, 16, 16, 1, 64)
     _port_grads(lambda a, b, c: A.FlashAttention.apply(a, b, c, None), q, k, v, g)
     assert [f.launches for f in counters] == before
 

@@ -206,7 +206,8 @@ def test_port_imports_no_jax():
         names = [m.name for m in pkgutil.walk_packages(t2v_turbo_tpu_torch.__path__, "t2v_turbo_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
-        for needed in ("apps.generate", "apps.train_v1", "io.video", "lora", "training.trainer"):
+        for needed in ("apps.generate", "apps.train_v1", "io.video", "lora", "training.trainer",
+                       "rewards.reward_fn", "rewards.vit", "training.reward_adapters"):
             assert "t2v_turbo_tpu_torch." + needed in names, names
         print(len(names))
         """

@@ -27,52 +27,23 @@ import torch
 
 from t2v_turbo_tpu import diffusion as J
 from t2v_turbo_tpu import lora as jlora
-from t2v_turbo_tpu.io import torch_import as ti
-from t2v_turbo_tpu.models import UNetConfig as JUNetConfig
-from t2v_turbo_tpu.models import UNetModel as JUNet
 from t2v_turbo_tpu.training.lcd import LCDConfig as JLCDConfig
 from t2v_turbo_tpu.training.lcd import lcd_loss as jlcd_loss
 from t2v_turbo_tpu_torch import diffusion as P
 from t2v_turbo_tpu_torch import lora as L
 from t2v_turbo_tpu_torch.apps import train_v1
 from t2v_turbo_tpu_torch.io import convert
-from t2v_turbo_tpu_torch.models import UNetConfig, UNetModel
-from t2v_turbo_tpu_torch.training.lcd import LCDConfig, LCDDraws, lcd_loss
-from tinymodels import TINY_UNET_KW as JAX_TINY_KW
-from torch_parity import seeded_numpy_state_dict, to_torch
+from t2v_turbo_tpu_torch.models import UNetModel
+from t2v_turbo_tpu_torch.training.lcd import LCDConfig, lcd_loss
+from torch_parity import assert_lora_grads_close, jax_lcd_draws, lcd_unet_pair, seeded_lora_factors
 
-PORT_KW = {k: v for k, v in JAX_TINY_KW.items() if k != "temporal_length"}
 RANK, B = 4, 2
-
-
-def _models(seed):
-    """(port student, port teacher, JAX student, JAX teacher, their params)."""
-    out = []
-    for i, tcp in enumerate((PORT_KW["time_cond_proj_dim"], None)):
-        port = UNetModel(UNetConfig(**{**PORT_KW, "time_cond_proj_dim": tcp}))
-        sd = seeded_numpy_state_dict(port, seed + i)
-        port.load_state_dict(to_torch(sd), strict=True)
-        jcfg = JUNetConfig(**{**JAX_TINY_KW, "time_cond_proj_dim": tcp})
-        out.append((port, JUNet(cfg=jcfg), {"params": ti.import_unet_params(sd, jcfg)}))
-    return out
-
-
-def _factors(model, seed):
-    rng = np.random.RandomState(seed)
-    out = {}
-    for name, shape in L.target_shapes(model).items():
-        out[name] = {
-            "down": torch.from_numpy(rng.randn(RANK, *shape[1:]).astype(np.float32) / RANK),
-            "up": torch.from_numpy(0.1 * rng.randn(shape[0], RANK, *([1] * (len(shape) - 2)))
-                                   .astype(np.float32)),
-        }
-    return out
 
 
 @pytest.fixture(scope="module")
 def lcd_case():
-    (student, jstudent, sp), (teacher, jteacher, tp) = _models(10)
-    factors = _factors(student, 12)
+    (student, jstudent, sp), (teacher, jteacher, tp) = lcd_unet_pair(10)
+    factors = seeded_lora_factors(student, 12, RANK)
     rng = np.random.RandomState(13)
     batch = {
         "latents": rng.randn(B, 4, 8, 8, 4).astype(np.float32),
@@ -98,13 +69,7 @@ def lcd_case():
     lora_flat = {k: {n: jnp.asarray(a) for n, a in f.items()}
                  for k, f in convert.lora_to_jax(factors).items()}
     ref_loss, ref_grads = jax.jit(jax.value_and_grad(loss))(lora_flat)
-    # the draws lcd_loss takes from its key
-    k_idx, k_noise, k_w = jax.random.split(key, 3)
-    draws = LCDDraws(
-        index=torch.from_numpy(np.array(jax.random.randint(k_idx, (B,), 0, jcfg.num_ddim_timesteps))).long(),
-        noise=torch.from_numpy(np.array(jax.random.normal(k_noise, batch["latents"].shape, jnp.float32))),
-        w=torch.from_numpy(np.array(jcfg.w_min + (jcfg.w_max - jcfg.w_min) * jax.random.uniform(k_w, (B,)))),
-    )
+    draws = jax_lcd_draws(key, jcfg, batch["latents"].shape)
     return dict(student=student, teacher=teacher, factors=factors, batch=batch, draws=draws,
                 ref_loss=float(ref_loss), ref_grads=ref_grads)
 
@@ -132,18 +97,7 @@ def test_lcd_step_matches_jax_value_and_grad(lcd_case, use_remat):
     loss, grads = _port_step(lcd_case, use_remat)
     assert np.isfinite(loss) and loss > 0
     np.testing.assert_allclose(loss, lcd_case["ref_loss"], rtol=1e-5)
-    ref = lcd_case["ref_grads"]
-    got = convert.lora_to_jax(grads)
-    assert set(got) == set(ref)
-    gmax = max(float(np.abs(np.asarray(f[n])).max()) for f in ref.values() for n in ("down", "up"))
-    for k in ref:
-        for n in ("down", "up"):
-            r = np.asarray(ref[k][n])
-            # the timestep-embedding path's gradient is zero in exact math here
-            # (32 channels in 32 GroupNorm groups cancel a per-channel shift):
-            # both sides hold f32 round-off, bounded by 1e-7 x gmax
-            atol = max(1e-3 * float(np.abs(r).max()), 1e-7 * gmax)
-            np.testing.assert_allclose(got[k][n], r, atol=atol, err_msg=f"{k} {n}")
+    assert_lora_grads_close(convert.lora_to_jax(grads), lcd_case["ref_grads"])
 
 
 def test_remat_recomputes_the_same_step(lcd_case):
