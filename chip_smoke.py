@@ -11,11 +11,15 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 VAE decoder's head of 512 included), with the stated
                 tolerance, from one table of cases; bf16 flash attention (the
                 forward's and the forward-with-lse's output, and the gradients
-                through the autograd function) and its plain version also
-                against f64 math; times kernel, plain and each PyTorch library
-                call computing the same function (for attention every fused
-                SDPA backend that takes the inputs; the fastest is recorded; a
-                yardstick only) with CUDA events, beside the card's bound.
+                through the autograd function), the fused GroupNorm+SiLU+conv
+                and the short-sequence attention, and their plain versions,
+                also against f64 math; times kernel, plain and each PyTorch
+                library call computing the same function (for attention every
+                fused SDPA backend that takes the inputs; for the fused conv
+                the unfused GroupNorm+SiLU and cuDNN conv; the fastest is
+                recorded; a yardstick only) with CUDA events, beside the
+                card's bound; B1's time is logged beside the short-sequence
+                kernel's.
   4. main path: full-width VC2 (UNet 320/640/1280, VAE ch 128, ViT-H text tower
                 with 23 of 24 blocks), seeded random weights, bf16, through
                 apps/generate.py's build_pipeline and the pipeline call:
@@ -27,7 +31,8 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 chiprun_out/profile.txt).
   5. reference: a small pipeline (f32, 256x256, so flash attention still runs)
                 on the card against the same weights on the CPU, where every
-                kernel wrapper runs its plain version.
+                kernel wrapper runs its plain version; every serving kernel
+                must have launched on the card.
   6. training:  full-width v1 LoRA LCD training (a VC2 student with its
                 256-d w-embedding input and a teacher, LoRA rank 64, batch 1 of
                 16x40x64x4 latents and 77x1024 contexts, adamw8bit) built by
@@ -95,8 +100,11 @@ KERNELS = {
                                     "t2v_turbo_tpu/ops/attention.py:213"),
     "group_norm": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
     "layer_norm": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:136"),
+    "fused_gn_silu_conv": ("t2v_turbo_tpu_torch/csrc/fused_conv.cu", "t2v_turbo_tpu/ops/fused_conv.py:71"),
+    "small_seq_attention": ("t2v_turbo_tpu_torch/csrc/small_seq_attention.cu",
+                            "tests_tpu/bench_small_seq_attention.py:60"),
 }
-SERVING_KERNELS = ("flash_attention", "group_norm", "layer_norm")
+SERVING_KERNELS = ("flash_attention", "group_norm", "layer_norm", "fused_gn_silu_conv", "small_seq_attention")
 TRAIN_KERNELS = SERVING_KERNELS + ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
                                    "flash_attention_bwd_dq")
 D512_KERNELS = ("flash_attention_fwd_lse_d512", "flash_attention_bwd_dkv_d512",
@@ -110,12 +118,14 @@ PEAK_BYTES = 3.35e12
 def wrappers():
     """Kernel name -> the wrapper whose `launches` counts its launches."""
     from t2v_turbo_tpu_torch.ops import attention as A
+    from t2v_turbo_tpu_torch.ops import fused_conv as FC
     from t2v_turbo_tpu_torch.ops import norms as N
 
     return {"flash_attention": A.flash_attention, "flash_attention_fwd_lse": A.flash_attention_lse,
             "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
             "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
-            "group_norm": N.fused_group_norm, "layer_norm": N.fused_layer_norm}
+            "group_norm": N.fused_group_norm, "layer_norm": N.fused_layer_norm,
+            "fused_gn_silu_conv": FC.fused_gn_silu_conv, "small_seq_attention": A.small_seq_attention}
 
 
 def reset_launches():
@@ -162,6 +172,16 @@ def attention_bound(q, k, which):
         "bwd_dq": (3, e * (3 * qn + 2 * kn) + 2 * rows),
     }[which]
     return bound_ms(products * 2 * b * h * sq * sk * d, nbytes, q.dtype)
+
+
+def conv_bound(x, w, o):
+    """The fused conv: 2 flops a multiply-add over N*O*H*W*C*kh*kw; x read
+    once, the weight once and the output written once (the GN statistics
+    pass re-reads x: not counted, as the function need not)."""
+    n, c, hh, ww = x.shape
+    ops = 2 * n * o * hh * ww * w[0].numel()
+    nbytes = x.element_size() * (x.numel() + w.numel() + n * o * hh * ww)
+    return bound_ms(ops, nbytes, x.dtype)
 
 
 def norm_bound(x, c, ops_per_element):
@@ -291,6 +311,7 @@ def _kernel_cases():
     import torch.nn.functional as F
 
     from t2v_turbo_tpu_torch.ops import attention as A
+    from t2v_turbo_tpu_torch.ops import fused_conv as FC
     from t2v_turbo_tpu_torch.ops import norms as N
 
     def attn(b, s, h, d, dtype, sk=None):
@@ -340,6 +361,77 @@ def _kernel_cases():
                         x, (c,), w.to(x.dtype), b.to(x.dtype), 1e-5)},
                     bound=lambda x, w, b: norm_bound(x, c, 8))
 
+    def conv_inputs(n, c, hh, ww, o, kh, kw, dtype, film):
+        def make():
+            g = torch.Generator("cuda").manual_seed(c + o + kw)
+            x = (2.0 * torch.randn((n, c, hh, ww), generator=g, device="cuda") + 0.5).to(dtype)
+            gs = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
+            gb = 0.1 * torch.randn(c, generator=g, device="cuda")
+            w = (torch.randn((o, c, kh, kw), generator=g, device="cuda") / (c * kh * kw) ** 0.5).to(dtype)
+            b = (0.1 * torch.randn(o, generator=g, device="cuda")).to(dtype)
+            film_sh = [0.1 * torch.randn((n, c), generator=g, device="cuda") for _ in range(2)]
+            return [x, gs, gb, w, b] + (film_sh if film else [None, None])
+        return make
+
+    def unfused(x, gs, gb, w, b, fs, fh):
+        """The pair the port ran before B7 (B4 with SiLU, then cuDNN), and the
+        library's own GroupNorm; none computes a FiLM."""
+        pad = (w.shape[2] // 2, w.shape[3] // 2)
+        if fs is not None:
+            return {}
+        return {"B4+SiLU, cuDNN conv": lambda: F.conv2d(N.fused_group_norm(x, gs, gb, 32, 1e-5, "silu"), w, b,
+                                                        padding=pad),
+                "F.group_norm+F.silu+F.conv2d": lambda: F.conv2d(
+                    F.silu(F.group_norm(x, 32, gs.to(x.dtype), gb.to(x.dtype), 1e-5)), w, b, padding=pad)}
+
+    why_conv_bf = ("bf16 output; kernel and plain round the activation to bf16 at the same point, but the "
+                   "kernel folds the GroupNorm into x*a+b (an activation may land one bf16 ulp apart) and "
+                   "sums the C*kh*kw products in another order; both are also held to f64 math below")
+
+    def conv(label, shape, dtype=bf, film=False, iters=10):
+        n, c, hh, ww, o, kh, kw = shape
+        f32_case = dtype == torch.float32
+        return dict(kernel="fused_gn_silu_conv", label=label, make=conv_inputs(*shape, dtype, film),
+                    fn=lambda *a: FC.fused_gn_silu_conv(*a[:5], 32, 1e-5, *a[5:]),
+                    plain=lambda *a: FC.fused_gn_silu_conv_plain(*a[:5], 32, 1e-5, *a[5:]), outputs=("y",),
+                    tols=[_elementwise(1e-4, 1e-4) if f32_case else _elementwise(2e-2, 2e-2)],
+                    why=("f32 with TF32 off; the GroupNorm folded into x*a+b and the sums in another order"
+                         if f32_case else why_conv_bf), iters=iters, library=unfused,
+                    bound=lambda x, gs, gb, w, *_: conv_bound(x, w, o),
+                    **({} if f32_case else {"exact": _fused_conv_f64}))
+
+    def small_seq(label, make, iters=20, dtype=bf):
+        f32_case = dtype == torch.float32
+        return dict(kernel="small_seq_attention", label=label, make=make, fn=A.small_seq_attention,
+                    plain=A.attention, outputs=("o",),
+                    tols=[_elementwise(1e-5, 1e-4) if f32_case else _elementwise(2e-3, 2e-2)],
+                    why=("f32; only the summation order and expf differ" if f32_case else
+                         "bf16 output; both normalise P in f32 and round it to bf16 before P.V; the "
+                         "logits are summed in another order; both are also held to f64 math below"),
+                    iters=iters, library=_sdpa_fwd, beside={"B1 flash": A.flash_attention_cuda},
+                    bound=lambda q, k, v: attention_bound(q, k, "fwd"),
+                    **({} if f32_case else {"exact": _attention_f64}))
+
+    b7 = [
+        conv("UNet L0 ResBlock conv 320->320 3x3 (16,320,40,64) bf16", (16, 320, 40, 64, 320, 3, 3)),
+        conv("UNet L0 output block 640->320 3x3 (16,640,40,64) bf16", (16, 640, 40, 64, 320, 3, 3)),
+        conv("UNet level-3 output block 2560->1280 3x3 at 5x8 (16,2560,5,8) bf16", (16, 2560, 5, 8, 1280, 3, 3)),
+        conv("UNet L0 temporal conv (3,1) on the clip (1,320,16,2560) bf16", (1, 320, 16, 2560, 320, 3, 1)),
+        conv("UNet out head 320->4 3x3 (16,320,40,64) bf16", (16, 320, 40, 64, 4, 3, 3)),
+        conv("FiLM on, 320->320 3x3 (16,320,40,64) bf16", (16, 320, 40, 64, 320, 3, 3), film=True),
+        conv("odd sizes 96->70 (3,1) (2,96,5,300) bf16", (2, 96, 5, 300, 70, 3, 1), iters=5),
+        conv("f32 L0 320->320 3x3 (2,320,40,64), TF32 off", (2, 320, 40, 64, 320, 3, 3), torch.float32, iters=3),
+    ]
+    b8 = [
+        small_seq("UNet L0 temporal attn (2560,16,5,64) bf16", attn(2560, 16, 5, 64, bf)),
+        small_seq("init_attn temporal (2560,16,8,64) bf16", attn(2560, 16, 8, 64, bf)),
+        small_seq("UNet L1 temporal attn (640,16,10,64) bf16", attn(640, 16, 10, 64, bf)),
+        small_seq("UNet L2 temporal attn (160,16,20,64) bf16", attn(160, 16, 20, 64, bf)),
+        small_seq("ragged T = 13 (300,13,5,64) bf16", attn(300, 13, 5, 64, bf)),
+        small_seq("T = 48 (200,48,5,64) bf16", attn(200, 48, 5, 64, bf)),
+        small_seq("unaligned strided (300,16,5,64) bf16", _unaligned(300, 16, 16, 5, 64, 3)),
+        small_seq("f32 (2560,16,5,64)", attn(2560, 16, 5, 64, f32), iters=5, dtype=f32),
+    ]
     serving = [
         flash("UNet L0 self-attn (16,5,2560,2560,64) bf16", attn(16, 2560, 5, 64, bf), 2e-3, 2e-2, 10, why_bf),
         flash("UNet L0 self-attn (16,5,2560,2560,64) f32", attn(16, 2560, 5, 64, f32), 1e-5, 1e-4, 5, why_f32,
@@ -360,7 +452,7 @@ def _kernel_cases():
         gn("odd spatial size, element-wise path (2,64,5,7) bf16", (2, 64, 5, 7), 64, 1e-5, 5),
         ln("transformer LN (40960,320) bf16", (40960, 320), 320, bf, 1e-2, why_norm_bf),
         ln("transformer LN (2560,1280) f32", (2560, 1280), 1280, f32, 1e-5, "f32; only the summation order differs"),
-    ]
+    ] + b7 + b8
     return serving + [case for args in TRAIN_ATTENTION_CASES for case in _train_attention_cases(*args)]
 
 
@@ -478,6 +570,21 @@ def _attention_f64(q, k, v):
     return (torch.einsum("bhqk,bkhd->bqhd", logits.softmax(-1), v.double()),)
 
 
+def _fused_conv_f64(x, gs, gb, w, b, fs, fh):
+    """(y,): conv(silu(film(group_norm(x)))) + bias in f64 on the same inputs."""
+    import torch.nn.functional as F
+
+    n, c = x.shape[:2]
+    xd = x.double().reshape(n, 32, -1)
+    mean = xd.mean(-1, keepdim=True)
+    var = (xd - mean).square().mean(-1, keepdim=True)
+    h = ((xd - mean) / (var + 1e-5).sqrt()).reshape(x.shape) * gs.double()[:, None, None] + gb.double()[:, None, None]
+    if fs is not None:
+        h = h * (1 + fs.double()[:, :, None, None]) + fh.double()[:, :, None, None]
+    pad = (w.shape[2] // 2, w.shape[3] // 2)
+    return (F.conv2d(F.silu(h), w.double(), b.double(), padding=pad),)
+
+
 def _attention_grads_f64(q, k, v, do):
     """(dq, dk, dv) of softmax(q k^T / sqrt(D)) v in f64 on the same inputs."""
     import torch
@@ -550,6 +657,8 @@ def phase_kernels(records):
                      min(library.values(), default=None))  # the fastest library call
             bound = case["bound"](*inputs)
             line += "; " + _timing_line(*times[:2], library, bound)
+            for n, c in case.get("beside", {}).items():  # logged only
+                line += f"; {n} {cuda_time_ms(lambda c=c: c(*inputs), case['iters']):.4g} ms"
             record(records, name, max(errs), *times, bound)
         log(line)
         if not ok:
@@ -682,7 +791,6 @@ def phase_reference():
     from t2v_turbo_tpu_torch.models import (
         AutoencoderKL, CLIPTextConfig, CLIPTextModel, UNetConfig, UNetModel, VAEConfig, seeded_init_,
     )
-    from t2v_turbo_tpu_torch.ops import flash_attention
     from t2v_turbo_tpu_torch.pipelines.vc2 import T2VTurboVC2Pipeline
     from t2v_turbo_tpu_torch.utils.tokenizer import CLIPTokenizer
 
@@ -701,7 +809,7 @@ def phase_reference():
     g = torch.Generator().manual_seed(7)
     latents = torch.randn((1, 2, 32, 32, 4), generator=g)
     noise = [torch.randn(latents.shape, generator=g) for _ in range(2)]
-    flash_attention.launches = 0
+    reset_launches()
     for (unet, vae, text), device in ((cpu, "cpu"), (gpu, "cuda:0")):
         pipe = T2VTurboVC2Pipeline(unet=unet.eval(), vae=vae.eval(), text_model=text.eval(),
                                    tokenizer=CLIPTokenizer(), schedule=spec.make_schedule(),
@@ -710,10 +818,11 @@ def phase_reference():
                            latents=latents, noise=noise).cpu())
     err = float((videos[0] - videos[1]).abs().max())
     scale = float(videos[0].abs().max())
-    ok = err <= 1e-3 * max(1.0, scale) and flash_attention.launches > 0
+    launches = {n: c for n, c in read_launches().items() if n in SERVING_KERNELS}
+    ok = err <= 1e-3 * max(1.0, scale) and all(n > 0 for n in launches.values())
     log(f"reference: 2-step f32 pipeline, 2x256x256, card vs CPU: max_abs_err {err:.3e} "
         f"(|ref| max {scale:.3f}; bound 1e-3*max(1,|ref|): f32, TF32 off, sums in another order), "
-        f"flash launches {flash_attention.launches} {'OK' if ok else 'FAIL'}")
+        f"card launches {launches} {'OK' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError("the card's pipeline disagrees with the CPU's")
     torch.backends.cudnn.allow_tf32 = True

@@ -27,6 +27,9 @@
 // 50 MB L2 at the UNet's per-frame shapes. Rows move as 16-byte vectors
 // when the pointers are aligned and the spatial size is a multiple of the
 // vector width (every shape on the main path), else element by element.
+// The fused GroupNorm+SiLU+conv (fused_conv.cu) reuses the first two passes
+// through t2v_group_norm_affine, whose third launch folds the statistics
+// into per-(sample, channel) scale and shift instead.
 //
 // LayerNorm: one warp per row of (R, C) (C is at most a few thousand on the
 // path), lanes stride the row, warp shuffles reduce. The row's second and
@@ -195,6 +198,60 @@ static cudaError_t launch_group_norm(const void* x, const float* w, const float*
   return cudaGetLastError();
 }
 
+// The fused GroupNorm+SiLU+conv (fused_conv.cu) takes the statistics from
+// the first two passes above, folded with the affine and an optional per-
+// (sample, channel) FiLM into a = rstd*w*(1+fs), b = (bias - mean*rstd*w)*(1+fs)
+// + fsh: normalised = x*a + b, as the TPU path's _gn_affine_vectors.
+// One thread per (sample, channel); each sums its group's partials in the
+// same fixed order as gn_apply_kernel.
+__global__ void gn_affine_kernel(const float* __restrict__ part1, const float* __restrict__ part2,
+                                 int P, int L, int C, int cg, long long NC,
+                                 const float* __restrict__ w, const float* __restrict__ b,
+                                 const float* __restrict__ film_scale,
+                                 const float* __restrict__ film_shift, float eps,
+                                 float* __restrict__ a_out, float* __restrict__ b_out) {
+  const long long i = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= NC) return;
+  const int c = (int)(i % C);
+  const long long r = (i / C) * (C / cg) + c / cg;  // (sample, group) row
+  const float mean = serial_sum(part1 + r * P, P) / (float)L;
+  const float var = serial_sum(part2 + r * P, P) / (float)L;
+  float av = rsqrtf(var + eps) * w[c];
+  float bv = b[c] - mean * av;
+  if (film_scale != nullptr) {
+    const float s = 1.0f + film_scale[i];
+    av *= s;
+    bv = bv * s + film_shift[i];
+  }
+  a_out[i] = av;
+  b_out[i] = bv;
+}
+
+template <typename T>
+static cudaError_t launch_group_norm_affine(const void* x, const float* w, const float* b,
+                                            const float* fs, const float* fsh, float* a_out,
+                                            float* b_out, float* scratch, long long N, int C,
+                                            int G, int S, float eps, cudaStream_t stream) {
+  const int cg = C / G;
+  const int L = cg * S;
+  const int P = (L + kGnChunk - 1) / kGnChunk;
+  const long long R = N * G;
+  const T* xt = static_cast<const T*>(x);
+  const dim3 grid((unsigned)R, P);
+  float* part2 = scratch + R * P;
+  if (reinterpret_cast<uintptr_t>(x) % 16 == 0 && S % Pack<T, true>::N == 0) {
+    gn_sum_kernel<T, true><<<grid, kGnThreads, 0, stream>>>(xt, L, scratch);
+    gn_sqdev_kernel<T, true><<<grid, kGnThreads, 0, stream>>>(xt, L, scratch, part2);
+  } else {
+    gn_sum_kernel<T, false><<<grid, kGnThreads, 0, stream>>>(xt, L, scratch);
+    gn_sqdev_kernel<T, false><<<grid, kGnThreads, 0, stream>>>(xt, L, scratch, part2);
+  }
+  const long long NC = N * C;
+  gn_affine_kernel<<<(unsigned)((NC + 255) / 256), 256, 0, stream>>>(
+      scratch, part2, P, L, C, cg, NC, w, b, fs, fsh, eps, a_out, b_out);
+  return cudaGetLastError();
+}
+
 constexpr int kLnRowsPerBlock = 8;
 
 template <typename T>
@@ -260,6 +317,29 @@ int t2v_group_norm_fwd(const void* x, const void* w, const void* b, void* y,
   if (dtype == t2v::kBF16)
     return t2v::launch_group_norm<__nv_bfloat16>(x, wf, bf, y, sc, N, C, G, S, eps,
                                                  act, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// x: (N, C, S) contiguous, dtype `dtype`; w, b: (C,) float32; film_scale,
+// film_shift: (N, C) float32 or both null; a, b out: (N, C) float32;
+// scratch: t2v_group_norm_scratch(N, C, G, S) floats.
+int t2v_group_norm_affine(const void* x, const void* w, const void* b, const void* film_scale,
+                          const void* film_shift, void* a_out, void* b_out, void* scratch,
+                          int dtype, long long N, int C, int G, int S, float eps, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const float* wf = static_cast<const float*>(w);
+  const float* bf = static_cast<const float*>(b);
+  const float* fs = static_cast<const float*>(film_scale);
+  const float* fsh = static_cast<const float*>(film_shift);
+  float* ao = static_cast<float*>(a_out);
+  float* bo = static_cast<float*>(b_out);
+  float* sc = static_cast<float*>(scratch);
+  if ((fs == nullptr) != (fsh == nullptr)) return (int)cudaErrorInvalidValue;
+  if (dtype == t2v::kF32)
+    return t2v::launch_group_norm_affine<float>(x, wf, bf, fs, fsh, ao, bo, sc, N, C, G, S, eps, st);
+  if (dtype == t2v::kBF16)
+    return t2v::launch_group_norm_affine<__nv_bfloat16>(x, wf, bf, fs, fsh, ao, bo, sc, N, C, G,
+                                                         S, eps, st);
   return (int)cudaErrorInvalidValue;
 }
 

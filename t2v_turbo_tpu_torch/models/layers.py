@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops import group_norm, layer_norm, sdpa
+from ..ops import fused_gn_silu_conv, group_norm, layer_norm, sdpa
 
 
 class GroupNorm(nn.Module):
@@ -48,6 +48,20 @@ class LayerNorm(nn.Module):
 
     def forward(self, x, act: Optional[str] = None):
         return layer_norm(x, self.weight, self.bias, self.eps, act)
+
+
+def gn_silu_conv(norm: GroupNorm, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+    """conv(silu(norm(x))) through the fused kernel (B7): a 'same' Conv2d on
+    frames (N, C, H, W), or a (k, 1, 1) Conv3d on a clip (B, C, T, H, W),
+    run as a (k, 1) conv on the clip viewed as (B, C, T, H*W), so the
+    statistics span the clip. `conv.weight` is the module's parametrised
+    (LoRA-merged) weight, so the LoRA factors get their gradient."""
+    w, shape = conv.weight, x.shape
+    if x.dim() == 5:
+        x, w = x.reshape(*shape[:3], -1), w.reshape(*w.shape[:3], 1)
+    y = fused_gn_silu_conv(x.contiguous(), norm.weight, norm.bias, w.contiguous(), conv.bias,
+                           norm.num_groups, norm.eps)
+    return y.view(shape[0], -1, *shape[2:])
 
 
 def dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -204,7 +218,7 @@ class TemporalConvBlock(nn.Module):
     def forward(self, x):
         h = x
         for stage in (self.conv1, self.conv2, self.conv3, self.conv4):
-            h = stage[-1](stage[0](h, act="silu"))
+            h = gn_silu_conv(stage[0], stage[-1], h)
         return x + h
 
 
@@ -244,9 +258,9 @@ class ResBlock(nn.Module):
         self.temopral_conv = TemporalConvBlock(out)  # the reference's spelling
 
     def forward(self, x, emb, batch_size: int):
-        h = self.in_layers[2](self.in_layers[0](x, act="silu"))
+        h = gn_silu_conv(self.in_layers[0], self.in_layers[2], x)
         h = h + self.emb_layers(emb)[:, :, None, None]
-        h = self.out_layers[3](self.out_layers[0](h, act="silu"))
+        h = gn_silu_conv(self.out_layers[0], self.out_layers[3], h)
         h = self.skip_connection(x) + h
         return to_frames(self.temopral_conv(to_clip(h, batch_size)))
 

@@ -35,6 +35,7 @@ from .layers import (
     TemporalTransformer,
     Upsample,
     compute_dtype,
+    gn_silu_conv,
     to_clip,
     to_frames,
 )
@@ -184,5 +185,5 @@ class UNetModel(nn.Module):
         for layers in self.output_blocks:
             h = self._run(layers, torch.cat([h, hs.pop()], dim=1), emb_f, ctx_f, b)
 
-        h = self.out[2](self.out[0](h, act="silu"))
+        h = gn_silu_conv(self.out[0], self.out[2], h)
         return h.view(b, t, cfg.out_channels, hh, ww).permute(0, 1, 3, 4, 2).to(x.dtype).contiguous()

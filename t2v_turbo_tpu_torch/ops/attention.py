@@ -22,16 +22,26 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   take (batch, seq, head) strides, so the same wrappers are the BSHD family
   (B6) of the JAX package. The three training wrappers also count their
   launches by head dim (`by_head_dim`).
-- `sdpa`: the dispatcher for unbiased, non-causal attention. Flash takes
-  every call whose head dim the kernel has (64 and 512): on the main path
-  that is the spatial self-attention at every level, the cross-attention to
-  the 77 text tokens, the temporal self-attention over 16 frames and the VAE
-  mid-block. The JAX package gated flash at Sq, Sk >= 1024 (XLA won below on
-  the TPU); on the H100 the kernel beat the plain path at every one of those
-  shapes (PERF.md), so the gate is the head dim alone. The causal CLIP
-  tower calls `attention` directly. The backward kernels take both head
-  dims too: the UNet's and ViCLIP's heads of 64 and the VAE decoder's one
-  head of 512, which reward feedback differentiates.
+- `small_seq_attention` (B8): the short-sequence kernel of
+  csrc/small_seq_attention.cu, one warp per (batch, head) at Sq = Sk <= 64,
+  head dim 64, forward only (the JAX package has no backward for it either);
+  its plain twin is `attention`.
+- `sdpa`: the dispatcher for unbiased, non-causal attention.
+  Self-shaped calls (Sq == Sk <= 64, head dim 64) that need no gradient go
+  to `small_seq_attention`: on the main path that is the temporal
+  self-attention over 16 frames (`attn1` and `attn2` of every
+  TemporalTransformer, `init_attn` included), in serving and in the LCD
+  teacher and target passes; B1's 64-row tiles would spend 75% of their
+  work on padding there. Every other call whose head dim the flash kernels
+  have (64 and 512) goes to flash: the spatial self-attention at every
+  level, the cross-attention to the 77 text tokens, the VAE mid-block, and
+  the temporal attention when it needs a gradient (the student's
+  forward). The JAX package gated flash at Sq, Sk >= 1024 (XLA won below on
+  the TPU); on the H100 the kernel beat the plain path at every one of
+  those shapes (PERF.md), so the flash gate is the head dim alone. The
+  causal CLIP tower calls `attention` directly. The backward kernels take
+  both head dims: the UNet's and ViCLIP's heads of 64 and the VAE
+  decoder's one head of 512, which reward feedback differentiates.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from . import cuda_lib
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 FLASH_HEAD_DIMS = (64, 512)
 FLASH_BWD_HEAD_DIMS = (64, 512)
+SMALL_SEQ_HEAD_DIM, SMALL_SEQ_MAX = 64, 64
 
 
 def attention(q, k, v, bias=None, causal=False, scale=None, return_probs=False):
@@ -300,9 +311,52 @@ class FlashAttention(torch.autograd.Function):
         return dq, dk, dv, None
 
 
+def small_seq_attention(q, k, v, scale=None):
+    """Self-attention over short sequences on (B, S, H, 64), S <= 64 (B8):
+    `attention` for a CPU tensor, the kernel for a CUDA one (forward only).
+
+    Replaces tests_tpu/bench_small_seq_attention.py::small_seq_attention.
+    """
+    if q.device.type == "cpu":
+        return attention(q, k, v, scale=scale)
+    return small_seq_attention_cuda(q, k, v, scale)
+
+
+small_seq_attention.launches = 0
+
+
+def small_seq_attention_cuda(q, k, v, scale=None):
+    """Launch the kernel of csrc/small_seq_attention.cu; raises on anything
+    it does not take."""
+    what = "small_seq_attention_cuda"
+    _check_flash(what, q, k, v, (SMALL_SEQ_HEAD_DIM,))
+    b, s, h, d = q.shape
+    if k.shape[1] != s or not 1 <= s <= SMALL_SEQ_MAX:
+        raise ValueError(f"{what}: Sq = {s}, Sk = {k.shape[1]}; the kernel takes Sq == Sk <= {SMALL_SEQ_MAX}")
+    scale = d**-0.5 if scale is None else scale
+    o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    err = cuda_lib.lib().t2v_small_seq_attention(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), cuda_lib.DTYPE_CODES[q.dtype],
+        b, s, h, d, _strides(q, k, v, o), float(scale), cuda_lib.stream_ptr(q.device),
+    )
+    cuda_lib.check(err, what)
+    small_seq_attention.launches += 1
+    return o
+
+
+def _small_seq(q, k, v):
+    """True for self-shaped, short, head-dim-64 calls that need no gradient."""
+    needs_grad = torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad)
+    return (q.shape[-1] == SMALL_SEQ_HEAD_DIM and q.shape[1] == k.shape[1] <= SMALL_SEQ_MAX
+            and not needs_grad)
+
+
 def sdpa(q, k, v, scale=None):
-    """(B, S, H, D) attention dispatcher: flash for the head dims the kernel
-    has, `attention` otherwise."""
+    """(B, S, H, D) attention dispatcher: the short-sequence kernel for
+    self-shaped calls at S <= 64 without a gradient, flash for the other
+    calls at the head dims it has, `attention` otherwise."""
+    if _small_seq(q, k, v):
+        return small_seq_attention(q, k, v, scale)
     if q.shape[-1] in FLASH_HEAD_DIMS:
         return flash_attention(q, k, v, scale)
     return attention(q, k, v, scale=scale)

@@ -123,6 +123,16 @@ def lib() -> ctypes.CDLL:
     so.t2v_group_norm_fwd.restype = i32
     so.t2v_layer_norm_fwd.argtypes = [vp, vp, vp, vp, i32, i64, i32, f32, i32, vp]
     so.t2v_layer_norm_fwd.restype = i32
+    so.t2v_group_norm_affine.argtypes = [
+        vp, vp, vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, i32, f32, vp,
+    ]
+    so.t2v_group_norm_affine.restype = i32
+    so.t2v_gn_silu_conv_fwd.argtypes = [
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp,
+    ]
+    so.t2v_gn_silu_conv_fwd.restype = i32
+    so.t2v_small_seq_attention.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, i32, pi64, f32, vp]
+    so.t2v_small_seq_attention.restype = i32
     so.t2v_error_string.argtypes = [i32]
     so.t2v_error_string.restype = ctypes.c_char_p
     return so

@@ -48,18 +48,29 @@ def _act_code(act: Optional[str]) -> int:
     return 1 if act == "silu" else 0
 
 
-def group_norm_plain(x, weight, bias, num_groups=32, eps=1e-5, act=None):
-    """Plain GroupNorm(+act) on (N, C, *spatial); the kernel's oracle."""
+def group_stats(x, num_groups, eps):
+    """Per-(sample, group) f32 mean and rstd of (N, C, *spatial), each (N, G, 1)."""
     n, c = x.shape[:2]
     if c % num_groups:
         raise ValueError(f"{c} channels do not split into {num_groups} groups")
     xf = x.float().reshape(n, num_groups, -1)
     mean = xf.mean(dim=-1, keepdim=True)
     var = (xf - mean).square().mean(dim=-1, keepdim=True)
-    xf = ((xf - mean) * torch.rsqrt(var + eps)).reshape(x.shape)
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_f32(x, weight, bias, num_groups=32, eps=1e-5):
+    """GroupNorm with its affine on (N, C, *spatial), left in f32."""
+    n, c = x.shape[:2]
+    mean, rstd = group_stats(x, num_groups, eps)
+    xf = ((x.float().reshape(n, num_groups, -1) - mean) * rstd).reshape(x.shape)
     shape = (1, c) + (1,) * (x.dim() - 2)
-    y = xf * weight.float().reshape(shape) + bias.float().reshape(shape)
-    return apply_act(y, act).to(x.dtype)
+    return xf * weight.float().reshape(shape) + bias.float().reshape(shape)
+
+
+def group_norm_plain(x, weight, bias, num_groups=32, eps=1e-5, act=None):
+    """Plain GroupNorm(+act) on (N, C, *spatial); the kernel's oracle."""
+    return apply_act(group_norm_f32(x, weight, bias, num_groups, eps), act).to(x.dtype)
 
 
 def layer_norm_plain(x, weight, bias, eps=1e-5, act=None):

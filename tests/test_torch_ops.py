@@ -26,6 +26,7 @@ from t2v_turbo_tpu.ops import fused_norms as jfused
 from t2v_turbo_tpu.ops import norms as jnorms
 from t2v_turbo_tpu_torch.ops import attention as A
 from t2v_turbo_tpu_torch.ops import cuda_lib
+from t2v_turbo_tpu_torch.ops import fused_conv as FC
 from t2v_turbo_tpu_torch.ops import norms as N
 
 ATOL = 1e-5
@@ -148,8 +149,9 @@ class TestAttention:
 
     @pytest.mark.parametrize("d,route", [(64, "flash"), (512, "flash"), (32, "plain"), (80, "plain")])
     def test_sdpa_routes_by_head_dim(self, monkeypatch, d, route):
-        """sdpa sends head dims 64 and 512 to flash_attention and every other
-        head dim to the plain math."""
+        """Above the short-sequence gate (S = 65; tests/test_torch_small_seq.py
+        covers the gate) sdpa sends head dims 64 and 512 to flash_attention
+        and every other head dim to the plain math."""
         taken = []
 
         def flash(q, k, v, scale=None):
@@ -157,7 +159,7 @@ class TestAttention:
             return A.attention(q, k, v, scale=scale)
 
         monkeypatch.setattr(A, "flash_attention", flash)
-        q = torch.randn(1, 8, 1, d)
+        q = torch.randn(1, 65, 1, d)
         A.sdpa(q, q, q)
         assert taken == (["flash"] if route == "flash" else [])
 
@@ -176,6 +178,10 @@ class TestKernelEntryPoints:
         q = torch.randn(1, 8, 1, 64)
         with pytest.raises(RuntimeError, match="no kernel"):
             A.flash_attention_cuda(q, q, q)
+        with pytest.raises(RuntimeError, match="no kernel"):
+            A.small_seq_attention_cuda(q, q, q)
+        with pytest.raises(RuntimeError, match="no kernel"):
+            FC.fused_gn_silu_conv_cuda(x, w, b, torch.ones(8, 32, 3, 3))
 
     def test_library_needs_a_card(self):
         if torch.cuda.is_available():
@@ -184,13 +190,16 @@ class TestKernelEntryPoints:
             cuda_lib.lib()
 
     def test_dispatchers_count_no_launch_on_cpu(self):
-        counters = (A.flash_attention, N.fused_group_norm, N.fused_layer_norm)
+        counters = (A.flash_attention, A.small_seq_attention, N.fused_group_norm, N.fused_layer_norm,
+                    FC.fused_gn_silu_conv)
         before = [f.launches for f in counters]
         x = torch.randn(1, 32, 4, 4)
         N.group_norm(x, torch.ones(32), torch.zeros(32))
         N.layer_norm(x, torch.ones(4), torch.zeros(4))
-        q = torch.randn(1, 1024, 1, 64)
-        A.sdpa(q, q, q)
+        FC.fused_gn_silu_conv(x, torch.ones(32), torch.zeros(32), torch.ones(8, 32, 3, 3))
+        for s in (1024, 16):  # flash, then the short-sequence route
+            q = torch.randn(1, s, 1, 64)
+            A.sdpa(q, q, q)
         assert [f.launches for f in counters] == before
 
 
@@ -207,7 +216,7 @@ def test_port_imports_no_jax():
         for name in names:
             importlib.import_module(name)
         for needed in ("apps.generate", "apps.train_v1", "io.video", "lora", "training.trainer",
-                       "rewards.reward_fn", "rewards.vit", "training.reward_adapters"):
+                       "rewards.reward_fn", "rewards.vit", "training.reward_adapters", "ops.fused_conv"):
             assert "t2v_turbo_tpu_torch." + needed in names, names
         print(len(names))
         """

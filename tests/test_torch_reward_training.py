@@ -11,7 +11,7 @@ package's, on the CPU.
   adapters' reward fns, one compile) against the port's `lcd_loss` with
   `make_reward_fns`, fed the same draws, frame indices, text features and
   masks. Decodes run in chunks of 2 frames on both sides.
-- The CLI with both rewards writes their losses.
+- The CLI with both rewards (tests/test_torch_trainer.py).
 
 Tolerances (f32): the decode's output 1e-5 and its gradient 1e-5 x its
 largest entry (one chain of ops in another summation order); chunked
@@ -22,8 +22,6 @@ the LCD step as tests/test_torch_training.py holds it (loss 1e-5 relative,
 each LoRA gradient 1e-3 x its largest entry) and each reward term 1e-5
 relative.
 """
-
-import os
 
 import jax
 import jax.numpy as jnp
@@ -41,7 +39,6 @@ from t2v_turbo_tpu.training.lcd import LCDConfig as JLCDConfig
 from t2v_turbo_tpu.training.lcd import lcd_loss as jlcd_loss
 from t2v_turbo_tpu_torch import diffusion as P
 from t2v_turbo_tpu_torch import lora as L
-from t2v_turbo_tpu_torch.apps import train_v1
 from t2v_turbo_tpu_torch.io import convert
 from t2v_turbo_tpu_torch.models import AutoencoderKL, VAEConfig
 from t2v_turbo_tpu_torch.training.lcd import LCDConfig, lcd_loss
@@ -160,17 +157,3 @@ def test_reward_lcd_step_matches_jax_value_and_grad(reward_lcd_case):
     grads = torch.autograd.grad(loss, [factors[n][k] for n in names for k in ("down", "up")])
     got = convert.lora_to_jax({n: {"down": grads[2 * i], "up": grads[2 * i + 1]} for i, n in enumerate(names)})
     assert_lora_grads_close(got, case["ref_grads"])
-
-
-def test_cli_trains_with_both_rewards(tmp_path):
-    train_v1.main(["--tiny-model", "--synthetic-data", "--random-weights", "--max-steps", "2", "--device", "cpu",
-                   "--output-dir", str(tmp_path), "--lora-rank", "4", "--reward-fn", "hpsv2",
-                   "--video-rm-fn", "vi_clip"])
-    import json
-
-    rows = [json.loads(line) for line in open(os.path.join(tmp_path, "metrics.jsonl"))]
-    assert len(rows) == 2
-    for row in rows:
-        assert np.isfinite(row["reward_loss"]) and np.isfinite(row["video_rm_loss"])
-        assert row["loss"] == pytest.approx(row["distill_loss"] + row["reward_loss"] + row["video_rm_loss"],
-                                            rel=1e-5)

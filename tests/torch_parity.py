@@ -9,6 +9,13 @@ tests already use (tests/test_pipeline.py, tests/test_torch_import.py).
 import numpy as np
 import torch
 
+# The port's CPU tests run their tiny models on one intra-op thread. The
+# suite runs several xdist workers on the machine's cores, and torch's
+# default of one thread per core in every worker oversubscribes them: the
+# trainer's checkpoint/resume test alone took 31 s on 8 threads and 9 s on
+# one, and far longer beside five other busy workers.
+torch.set_num_threads(1)
+
 # tests/test_pipeline.py's tiny UNet / VAE / text tower
 TINY_UNET_KW = dict(
     model_channels=32,
