@@ -19,7 +19,10 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 the unfused GroupNorm+SiLU and cuDNN conv; the fastest is
                 recorded; a yardstick only) with CUDA events, beside the
                 card's bound; B1's time is logged beside the short-sequence
-                kernel's.
+                kernel's. Each backward case also checks its route (wgmma
+                for aligned bf16 at head dim 64, mma for the unaligned views
+                and head dim 512, f32), and at L0 two launches of each
+                backward kernel must give equal bits.
   4. main path: full-width VC2 (UNet 320/640/1280, VAE ch 128, ViT-H text tower
                 with 23 of 24 blocks), seeded random weights, bf16, through
                 apps/generate.py's build_pipeline and the pipeline call:
@@ -40,7 +43,9 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 --synthetic-data: 1 warm-up and 3 timed steps; checks finite
                 loss and grad_norm, that every LoRA factor moved and the frozen
                 weights did not, and that every kernel of the path launched;
-                one more step under torch.profiler (chiprun_out/profile_train.txt).
+                one more step under torch.profiler (chiprun_out/profile_train.txt);
+                every head-dim-64 backward launch must have taken the
+                wgmma route (launches by route beside those by head dim).
                 Runs without --use-remat, with it only if that does not fit.
   7. training with rewards: the same training with --reward-fn hpsv2
                 --video-rm-fn vi_clip: random ViT-H/14 (image reward, 5 random
@@ -49,7 +54,8 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 checks that the reward terms alone give a finite gradient,
                 non-zero in every LoRA up factor; then 1 warm-up and 3 timed
                 steps with finite reward losses, launches a step by head dim
-                (the D = 512 kernels at least twice a step), one profiled step
+                (the D = 512 kernels at least twice a step, on mma; every
+                D = 64 one on wgmma), one profiled step
                 (chiprun_out/profile_train_rewards.txt).
   8. training reference: one small f32 LCD step (heads of 64, so the flash
                 kernels run) through the trainer's gradient path
@@ -87,9 +93,9 @@ KERNELS = {
                         "t2v_turbo_tpu/ops/attention.py:257"),
     "flash_attention_fwd_lse": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
                                 "t2v_turbo_tpu/ops/attention.py:106"),
-    "flash_attention_bwd_dkv": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
                                 "t2v_turbo_tpu/ops/attention.py:157"),
-    "flash_attention_bwd_dq": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
                                "t2v_turbo_tpu/ops/attention.py:213"),
     # the same kernels at the VAE decoder's one head of 512 (reward feedback)
     "flash_attention_fwd_lse_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
@@ -131,8 +137,9 @@ def wrappers():
 def reset_launches():
     for w in wrappers().values():
         w.launches = 0
-        if hasattr(w, "by_head_dim"):
-            w.by_head_dim.clear()
+        for counts in ("by_head_dim", "by_route"):
+            if hasattr(w, counts):
+                getattr(w, counts).clear()
 
 
 def read_launches():
@@ -147,6 +154,21 @@ def read_launches():
 def launches_by_head_dim():
     """{wrapper: {head dim: launches}} of the three training kernels."""
     return {n: dict(sorted(w.by_head_dim.items())) for n, w in wrappers().items() if hasattr(w, "by_head_dim")}
+
+
+def check_bwd_routes(what):
+    """Log the backward kernels' launches by route beside those by head dim,
+    and raise unless every head-dim-64 launch went through wgmma (the path's
+    bf16 tensors are TMA-aligned) and every other one through mma."""
+    from t2v_turbo_tpu_torch.ops import attention as A
+
+    for w in (A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq):
+        want = {r: n for r, n in (("wgmma", w.by_head_dim[64]), ("mma", w.by_head_dim[512])) if n}
+        ok = dict(w.by_route) == want
+        log(f"{what}: {w.__name__} launches by route {dict(w.by_route)}, by head dim "
+            f"{dict(sorted(w.by_head_dim.items()))} (every D = 64 launch on wgmma) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{what}: {w.__name__} took routes {dict(w.by_route)}, expected {want}")
 
 
 def bound_ms(ops, nbytes, dtype):
@@ -469,6 +491,10 @@ TRAIN_ATTENTION_CASES = [
     ("UNet L0 temporal attn (2560,5,16,16,64) bf16", (2560, 16, 16, 5, 64), "bfloat16", 10, False),
     ("init_attn temporal (2560,8,16,16,64) bf16", (2560, 16, 16, 8, 64), "bfloat16", 10, False),
     ("ragged S (2,5,1111,1111,64) bf16", (2, 1111, 1111, 5, 64), "bfloat16", 5, False),
+    # S one row past two 64-row tiles; Sk one row past one; Sq != Sk with Sk < 64
+    ("tile edges (2,5,129,129,64) bf16", (2, 129, 129, 5, 64), "bfloat16", 3, False),
+    ("tile edges (2,5,191,65,64) bf16", (2, 191, 65, 5, 64), "bfloat16", 3, False),
+    ("short keys (2,5,100,40,64) bf16", (2, 100, 40, 5, 64), "bfloat16", 3, False),
     ("unaligned strided BSHD (2,5,300,300,64) bf16", (2, 300, 300, 5, 64), "unaligned", 5, False),
     ("UNet L1 self-attn (16,10,640,640,64) f32, TF32 off", (16, 640, 640, 10, 64), "float32", 3, False),
     ("ViCLIP self-attn (1,16,2049,2049,64) bf16", (1, 2049, 2049, 16, 64), "bfloat16", 10, True),
@@ -522,6 +548,12 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
     # kernel rounds P and dS to bf16 (2^-9) before each product over up to
     # 2560 terms and rounds its output to bf16; the twin keeps them f32.
     why_twin = ("P and dS rounded to bf16 for their products" if bf16 else "f32 with TF32 off")
+    route = "f32" if not bf16 else "wgmma" if d == 64 and kind != "unaligned" else "mma"
+    both = lambda *a: A.flash_attention_bwd_dkv(*a, scale) + (A.flash_attention_bwd_dq(*a, scale),)
+    determinism = [dict(
+        kernel="flash_attention_bwd determinism", label=label, make=with_row_stats, fn=both, plain=both,
+        outputs=("dk", "dv", "dq"), tols=3 * [_elementwise(0.0, 0.0)],
+        why="two launches of each kernel: no atomics, a fixed summation order, so equal bits")]
     return [
         dict(kernel="flash_attention_fwd_lse" + suffix, label=label, make=lambda: base()[:3],
              fn=lambda q, k, v: A.flash_attention_lse(q, k, v, scale),
@@ -534,19 +566,19 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
              fn=lambda *a: A.flash_attention_bwd_dkv(*a, scale),
              plain=lambda *a: A.attention_bwd_dkv_plain(*a, scale), outputs=("dk", "dv"),
              tols=[twin_tol, twin_tol], why=why_twin, iters=iters, library=_sdpa_bwd,
-             bound=lambda q, k, *_: attention_bound(q, k, "bwd_dkv")),
+             route=(A.flash_attention_bwd_dkv, route), bound=lambda q, k, *_: attention_bound(q, k, "bwd_dkv")),
         dict(kernel="flash_attention_bwd_dq" + suffix, label=label, make=with_row_stats,
              fn=lambda *a: A.flash_attention_bwd_dq(*a, scale),
              plain=lambda *a: A.attention_bwd_dq_plain(*a, scale), outputs=("dq",),
              tols=[twin_tol], why=why_twin, iters=iters, library=_sdpa_bwd,
-             bound=lambda q, k, *_: attention_bound(q, k, "bwd_dq")),
+             route=(A.flash_attention_bwd_dq, route), bound=lambda q, k, *_: attention_bound(q, k, "bwd_dq")),
         dict(kernel="flash_attention autograd", label=label, make=base,
              fn=grads(lambda q, k, v: A.flash_attention(q, k, v, scale)),
              plain=grads(lambda q, k, v: A.attention(q, k, v, scale=scale)), outputs=("dq", "dk", "dv"),
              tols=[] if bf16 else 3 * [_of_max(1e-5)],
              why="bf16: held to f64 math below" if bf16 else "f32 with TF32 off",
              **({"exact": _attention_grads_f64} if bf16 else {})),
-    ]
+    ] + (determinism if shape == (16, 2560, 2560, 5, 64) else [])
 
 
 def _unaligned(b, sq, sk, h, d, n):
@@ -637,8 +669,11 @@ def phase_kernels(records):
     for case in _kernel_cases():
         name, label = case["kernel"], case["label"]
         inputs = case["make"]()
+        counter, route = case.get("route", (None, None))  # a backward kernel's expected route
+        before = counter.by_route.copy() if counter else None
         got = _as_tuple(case["fn"](*inputs))
         torch.cuda.synchronize()
+        taken = dict(counter.by_route - before) if counter else None
         ref = _as_tuple(case["plain"](*inputs))
         finite = all(bool(torch.isfinite(t).all()) for t in got)
         ok, errs = finite, []
@@ -647,9 +682,11 @@ def phase_kernels(records):
             errs.append(float(err.max()))
             ok = ok and bool((err <= tol(r.float())).all())
             del err
+        if counter:
+            ok = ok and taken == {route: 1}
         line = f"kernel {name}: {label}: finite {finite}; " + "".join(
             f"{n} max_abs_err {e:.3e} (<= {text}); " for n, e, (_, text) in zip(case["outputs"], errs, case["tols"])
-        ) + f"({case['why']}) {'OK' if ok else 'FAIL'}"
+        ) + (f"route {taken} (expected {route}); " if counter else "") + f"({case['why']}) {'OK' if ok else 'FAIL'}"
         if name in KERNELS:
             library = {n: cuda_time_ms(c, case["iters"]) for n, c in case["library"](*inputs).items()}
             times = (cuda_time_ms(lambda: case["fn"](*inputs), case["iters"]),
@@ -898,6 +935,7 @@ def _train_full_width(records, remat):
             log(f"training: after step {i + 1} every LoRA {kind} factor moved ({len(factors0)})")
     launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS}
     log(f"training: kernel launches over the 4 steps {launches}")
+    check_bwd_routes("training")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the training path")
@@ -1035,6 +1073,7 @@ def _train_rewards_full_width(records, remat):
     per_step = {n: {d: c / steps for d, c in dims.items()} for n, dims in by_dim.items()}
     launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS + D512_KERNELS}
     log(f"training with rewards: launches a step by head dim {per_step}; over the {steps} steps {launches}")
+    check_bwd_routes("training with rewards")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the rewards-ON training path")

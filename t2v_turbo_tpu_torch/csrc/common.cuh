@@ -25,6 +25,13 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16_rn(x);
 }
 
+// Two floats rounded to one bf16 pair (lo in the low half): the register
+// form of two neighbouring bf16 elements, as tensor-core operands take them.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);  // .x (low half) = lo
+  return *reinterpret_cast<uint32_t*>(&v);
+}
+
 // x * sigmoid(x), the activation every GN->SiLU call site fuses
 __device__ __forceinline__ float silu(float x) { return x / (1.0f + expf(-x)); }
 

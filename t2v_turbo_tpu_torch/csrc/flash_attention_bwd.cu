@@ -28,11 +28,14 @@
 //   tiles; the query tile's dQ accumulates in registers.
 // Each recomputes P, so the logits are computed twice in all, as on the TPU.
 //
-// What bounds it on the H100: 5 matrix products of Sq x Sk x D each (two
+// What bounds it on the H100: 7 matrix products of Sq x Sk x D each (two
 // logit recomputations, dP twice, and dV, dK, dQ once) against reading
 // q, k, v, dO and writing dq, dk, dv once: the arithmetic, as in the
-// forward. Two paths do it, each for D = 64 and D = 512:
-// - bf16: tensor cores through mma.sync.m16n8k16 (flash_mma.cuh). Each warp
+// forward. Three routes do it; the wrapper picks one and passes it in:
+// - wgmma (bf16 at D = 64, TMA-aligned tensors): flash_attention_bwd_sm90.cu,
+//   wgmma products fed by a TMA ring.
+// - mma (bf16: D = 64 views that TMA cannot read, and D = 512): tensor
+//   cores through mma.sync.m16n8k16 (flash_mma.cuh). Each warp
 //   keeps its rows of the block's own side (K and V for dK/dV; Q and dO for
 //   dQ) in registers as A fragments for the whole loop; the other side is
 //   staged in shared memory per tile (BwdTiling says how the warps split
@@ -44,6 +47,15 @@
 #include "flash_mma.cuh"
 
 namespace t2v {
+
+// route codes shared with the Python wrappers (ops/attention.py BWD_ROUTES):
+// the mma.sync or f32 kernels of this file, or the sm_90a wgmma kernels
+enum BwdRoute : int { kRouteMma = 0, kRouteWgmma = 1 };
+
+int flash_bwd_sm90(bool dkv, const void* q, const void* k, const void* v, const void* g,
+                   const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
+                   int H, int Sq, int Sk, const long long* strides, const long long* lse_strides,
+                   float scale, void* stream);
 
 template <typename T>
 struct BwdArgs {
@@ -627,27 +639,26 @@ static cudaError_t launch(Kern kern, const Args& a, int tiles, int BH, int threa
   return cudaGetLastError();
 }
 
-template <int D>
-static cudaError_t launch_mma(bool dkv, const BwdArgs<__nv_bfloat16>& a, bool vec, int BH,
-                              cudaStream_t st) {
+template <int D, bool VEC>
+static cudaError_t launch_mma(bool dkv, const BwdArgs<__nv_bfloat16>& a, int BH, cudaStream_t st) {
   using Tl = BwdTiling<D>;
   constexpr int rows = 16 * Tl::ROW_GROUPS, threads = 32 * Tl::WARPS;
   const int tiles = ((dkv ? a.Sk : a.Sq) + rows - 1) / rows;
-  if (dkv) {
-    const size_t smem = BwdSmem<D>::dkv_bytes;
-    return vec ? launch(flash_bwd_dkv_mma_kernel<D, true>, a, tiles, BH, threads, smem, st)
-               : launch(flash_bwd_dkv_mma_kernel<D, false>, a, tiles, BH, threads, smem, st);
-  }
-  const size_t smem = BwdSmem<D>::dq_bytes;
-  return vec ? launch(flash_bwd_dq_mma_kernel<D, true>, a, tiles, BH, threads, smem, st)
-             : launch(flash_bwd_dq_mma_kernel<D, false>, a, tiles, BH, threads, smem, st);
+  return dkv ? launch(flash_bwd_dkv_mma_kernel<D, VEC>, a, tiles, BH, threads, BwdSmem<D>::dkv_bytes, st)
+             : launch(flash_bwd_dq_mma_kernel<D, VEC>, a, tiles, BH, threads, BwdSmem<D>::dq_bytes, st);
 }
 
 static int flash_bwd(bool dkv, const void* q, const void* k, const void* v, const void* g,
                      const float* lse, const float* delta, void* dq, void* dk, void* dv, int dtype,
                      int B, int H, int Sq, int Sk, int D, const long long* strides,
-                     const long long* lse_strides, float scale, void* stream) {
+                     const long long* lse_strides, float scale, int route, void* stream) {
   if (D != 64 && D != 512) return (int)cudaErrorInvalidValue;
+  if (route == kRouteWgmma) {
+    if (dtype != kBF16 || D != 64) return (int)cudaErrorInvalidValue;
+    return flash_bwd_sm90(dkv, q, k, v, g, lse, delta, dq, dk, dv, B, H, Sq, Sk, strides,
+                          lse_strides, scale, stream);
+  }
+  if (route != kRouteMma) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32) {
     const auto a = make_args<float>(q, k, v, g, lse, delta, dq, dk, dv, H, Sq, Sk, strides,
@@ -666,10 +677,12 @@ static int flash_bwd(bool dkv, const void* q, const void* k, const void* v, cons
   if (dtype == kBF16) {
     const auto a = make_args<__nv_bfloat16>(q, k, v, g, lse, delta, dq, dk, dv, H, Sq, Sk,
                                             strides, lse_strides, scale);
+    // D = 64 comes here only for views TMA cannot read: element-wise staging
+    if (D == 64) return launch_mma<64, false>(dkv, a, B * H, st);
     // the staged side: q and dO for dK/dV, k and v for dQ
     const bool vec = dkv ? rows_aligned16(q, strides) && rows_aligned16(g, strides + 9)
                          : rows_aligned16(k, strides + 3) && rows_aligned16(v, strides + 6);
-    return D == 64 ? launch_mma<64>(dkv, a, vec, B * H, st) : launch_mma<512>(dkv, a, vec, B * H, st);
+    return vec ? launch_mma<512, true>(dkv, a, B * H, st) : launch_mma<512, false>(dkv, a, B * H, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -682,23 +695,26 @@ extern "C" {
 // all addressed by element strides st = [sb, ss, sh] of q, k, v, g, dq, dk,
 // dv (21 values) with a contiguous last dimension; lse and delta: (B, H, Sq)
 // f32 at strides lse_strides = [l_sb, l_sh] with a contiguous sequence.
-// D must be 64 or 512. Writes dk and dv.
+// D must be 64 or 512. route: kRouteWgmma (bf16, D = 64, 16-byte aligned
+// q, k, v, g with strides of multiples of 8 elements; refused otherwise) or
+// kRouteMma. Writes dk and dv.
 int t2v_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                                 const float* lse, const float* delta, void* dk, void* dv,
                                 int dtype, int B, int H, int Sq, int Sk, int D,
                                 const long long* strides, const long long* lse_strides,
-                                float scale, void* stream) {
+                                float scale, int route, void* stream) {
   return t2v::flash_bwd(true, q, k, v, g, lse, delta, nullptr, dk, dv, dtype, B, H, Sq, Sk, D,
-                        strides, lse_strides, scale, stream);
+                        strides, lse_strides, scale, route, stream);
 }
 
 // As t2v_flash_attention_bwd_dkv; writes dq.
 int t2v_flash_attention_bwd_dq(const void* q, const void* k, const void* v, const void* g,
                                const float* lse, const float* delta, void* dq, int dtype, int B,
                                int H, int Sq, int Sk, int D, const long long* strides,
-                               const long long* lse_strides, float scale, void* stream) {
+                               const long long* lse_strides, float scale, int route,
+                               void* stream) {
   return t2v::flash_bwd(false, q, k, v, g, lse, delta, dq, nullptr, nullptr, dtype, B, H, Sq, Sk,
-                        D, strides, lse_strides, scale, stream);
+                        D, strides, lse_strides, scale, route, stream);
 }
 
 }  // extern "C"

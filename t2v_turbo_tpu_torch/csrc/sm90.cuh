@@ -1,0 +1,200 @@
+// Hopper (sm_90a) building blocks: TMA tile loads into shared memory,
+// mbarriers, and warpgroup matrix products (wgmma) on bf16 tiles of 64 rows
+// x 64 columns (128 bytes a row) in the 128-byte swizzled layout that TMA's
+// CU_TENSOR_MAP_SWIZZLE_128B writes and wgmma's 128-byte swizzle mode reads.
+//
+// Such a tile is 8 KB and starts on a 1024-byte boundary; the 16-byte chunk
+// c of row r sits at chunk c ^ (r % 8) of that row. One tile serves wgmma in
+// two ways:
+// - K-major (the product's depth along the row, the head dim): the
+//   descriptor of depth slice kk (16 columns) starts kk * 32 bytes into the
+//   tile, with 1024 bytes between groups of 8 rows.
+// - MN-major (the depth down the rows, the product's N along the row): the
+//   descriptor of depth slice kk (16 rows) starts kk * 2048 bytes into the
+//   tile, again with 1024 bytes between groups of 8 rows; a 64-wide N is one
+//   swizzle atom, so the offset between atoms along N is never used.
+//
+// Accumulator layout of m64nNk16 (f32): warp w of the warpgroup holds rows
+// 16 w + g and 16 w + g + 8 (lane = 4 g + t), columns 8 i + 2 t and 8 i + 2 t
+// + 1 of each 8-column block i, in d[4 i + 0..3] = (g, 2t), (g, 2t + 1),
+// (g + 8, 2t), (g + 8, 2t + 1): mma.sync's C fragment, block by block. A
+// bf16 A operand from registers uses mma.sync's m16n8k16 A fragment, so two
+// neighbouring accumulator blocks pack into one k16 slice of A.
+#pragma once
+
+#include <cuda.h>
+
+#include "common.cuh"
+
+namespace t2v {
+namespace sm90 {
+
+constexpr int kTileBytes = 64 * 64 * 2;
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// ---- mbarriers -------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(smem_addr(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes the initialised barriers visible to the async proxy (TMA) and the
+// other threads; follow with a block barrier.
+__device__ __forceinline__ void mbar_fence_init() {
+  asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_addr(bar)) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_addr(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// Wait until the barrier's phase of this parity has completed.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_addr(bar);
+  uint32_t done = 0, polls = 0;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    // a phase that never completes is a bug: fault (the launch reports it)
+    // rather than hang the card
+    if (++polls == (1u << 28)) __trap();
+  } while (!done);
+}
+
+// ---- TMA -------------------------------------------------------------------
+
+__device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// The box at coordinates (c0, c1, c2, c3) of a 4-D map into shared memory;
+// completion counts the box's bytes on `bar`.
+__device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                            int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// ---- wgmma -----------------------------------------------------------------
+
+// Shared-memory matrix descriptor of a 128-byte swizzled operand at `p`:
+// start address, leading offset (unused by both forms here: 1), stride
+// offset 1024 bytes between 8-row groups, layout 1 = 128-byte swizzle.
+__device__ __forceinline__ uint64_t desc_sw128(const void* p) {
+  const uint64_t addr = smem_addr(p);
+  return ((addr & 0x3FFFF) >> 4) | (1ull << 16) | ((1024ull >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+template <int N> __device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Keeps the compiler from moving reads or writes of these registers across
+// a wgmma issue or wait (the hardware updates them asynchronously).
+__device__ __forceinline__ void fence_regs(float (&d)[32]) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
+}
+
+#define T2V_WGMMA_D32                                                                        \
+  "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, %18, %19, " \
+  "%20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}"
+#define T2V_WGMMA_D32_ARGS(d)                                                                 \
+  "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),          \
+      "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]),   \
+      "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),             \
+      "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), "+f"(d[25]),             \
+      "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
+
+// d (+)= A B for a 64 x 64 x 16 slice, A and B both K-major in shared memory
+// (B given as its N x K rows); accumulate = 0 overwrites d.
+__device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " T2V_WGMMA_D32
+      ", %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : T2V_WGMMA_D32_ARGS(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d += A B for a 64 x 64 x 16 slice, A from registers (four bf16 pairs), B
+// MN-major in shared memory (its K x N rows, N contiguous).
+__device__ __forceinline__ void wgmma_rs_mn(float (&d)[32], const uint32_t (&a)[4], uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " T2V_WGMMA_D32
+      ", {%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : T2V_WGMMA_D32_ARGS(d)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(1));
+}
+
+#undef T2V_WGMMA_D32
+#undef T2V_WGMMA_D32_ARGS
+
+// d = X Y^T over a 64-deep head dim: X (this warpgroup's 64 rows) and Y (64
+// rows) are K-major tiles; four k16 slices, issued, not waited for.
+__device__ __forceinline__ void gemm_xyt(float (&d)[32], const void* x, const void* y) {
+  const uint64_t dx = desc_sw128(x), dy = desc_sw128(y);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_ss(d, dx + 2 * kk, dy + 2 * kk, kk);  // +32 bytes a slice
+}
+
+// d += A Y with A (64 x 64, four k16 slices of A fragments) from registers
+// and Y the 64 x 64 tile read MN-major; issued, not waited for.
+__device__ __forceinline__ void gemm_ay(float (&d)[32], const uint32_t (&a)[4][4], const void* y) {
+  const uint64_t dy = desc_sw128(y);
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(d, a[kk], dy + 128 * kk);  // +2048 bytes a slice
+}
+
+// Pack an accumulator (64 x 64 f32) into A fragments of bf16 for a product
+// whose depth runs along its columns: slice kk is blocks 2 kk and 2 kk + 1.
+__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&d)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    a[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
+    a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
+    a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);
+    a[kk][3] = pack_bf16(d[8 * kk + 6], d[8 * kk + 7]);
+  }
+}
+
+__device__ __forceinline__ float ex2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+}  // namespace sm90
+}  // namespace t2v

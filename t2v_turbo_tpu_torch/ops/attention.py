@@ -21,7 +21,10 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   `flash_attention_bwd_dkv` and `flash_attention_bwd_dq` (B3). The kernels
   take (batch, seq, head) strides, so the same wrappers are the BSHD family
   (B6) of the JAX package. The three training wrappers also count their
-  launches by head dim (`by_head_dim`).
+  launches by head dim (`by_head_dim`). The backward picks its route with
+  `flash_bwd_route` (bf16 at head dim 64 on tensors TMA can read: the
+  wgmma kernels of csrc/flash_attention_bwd_sm90.cu; other bf16: the
+  mma.sync kernels; f32: the scalar ones) and counts it (`by_route`).
 - `small_seq_attention` (B8): the short-sequence kernel of
   csrc/small_seq_attention.cu, one warp per (batch, head) at Sq = Sk <= 64,
   head dim 64, forward only (the JAX package has no backward for it either);
@@ -56,6 +59,8 @@ from . import cuda_lib
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 FLASH_HEAD_DIMS = (64, 512)
 FLASH_BWD_HEAD_DIMS = (64, 512)
+# the backward's routes, as csrc/flash_attention_bwd.cu's BwdRoute codes
+BWD_ROUTES = {"mma": 0, "f32": 0, "wgmma": 1}
 SMALL_SEQ_HEAD_DIM, SMALL_SEQ_MAX = 64, 64
 
 
@@ -220,6 +225,23 @@ flash_attention_lse.launches = 0
 flash_attention_lse.by_head_dim = collections.Counter()
 
 
+def _tma_rows(t):
+    """True if TMA can read t's (B, S, H, D) rows: a 16-byte aligned base and
+    (batch, seq, head) strides that are multiples of 16 bytes."""
+    e = t.element_size()
+    return t.data_ptr() % 16 == 0 and all(t.stride(i) * e % 16 == 0 for i in range(3))
+
+
+def flash_bwd_route(q, k, v, do):
+    """The backward kernels' route: "wgmma" for bf16 at head dim 64 when TMA
+    can read q, k, v and dO; "f32" for f32; else "mma"."""
+    if q.dtype == torch.float32:
+        return "f32"
+    if q.dtype == torch.bfloat16 and q.shape[-1] == 64 and all(_tma_rows(t) for t in (q, k, v, do)):
+        return "wgmma"
+    return "mma"
+
+
 def _bwd_args(what, q, k, v, do, lse, delta):
     _check_flash(what, q, k, v, FLASH_BWD_HEAD_DIMS, do)
     b, sq, h, _ = q.shape
@@ -242,20 +264,24 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=None):
         return attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
     lst = _bwd_args("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
+    route = flash_bwd_route(q, k, v, do)
     dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=k.device) for _ in range(2))
     err = cuda_lib.lib().t2v_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
-        _strides(q, k, v, do, q, dk, dv), lst, float(scale), cuda_lib.stream_ptr(q.device),
+        _strides(q, k, v, do, q, dk, dv), lst, float(scale), BWD_ROUTES[route],
+        cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_bwd_dkv")
     flash_attention_bwd_dkv.launches += 1
     flash_attention_bwd_dkv.by_head_dim[d] += 1
+    flash_attention_bwd_dkv.by_route[route] += 1
     return dk, dv
 
 
 flash_attention_bwd_dkv.launches = 0
 flash_attention_bwd_dkv.by_head_dim = collections.Counter()
+flash_attention_bwd_dkv.by_route = collections.Counter()
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=None):
@@ -269,20 +295,24 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=None):
         return attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
     lst = _bwd_args("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
+    route = flash_bwd_route(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     err = cuda_lib.lib().t2v_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
-        _strides(q, k, v, do, dq, k, v), lst, float(scale), cuda_lib.stream_ptr(q.device),
+        _strides(q, k, v, do, dq, k, v), lst, float(scale), BWD_ROUTES[route],
+        cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_bwd_dq")
     flash_attention_bwd_dq.launches += 1
     flash_attention_bwd_dq.by_head_dim[d] += 1
+    flash_attention_bwd_dq.by_route[route] += 1
     return dq
 
 
 flash_attention_bwd_dq.launches = 0
 flash_attention_bwd_dq.by_head_dim = collections.Counter()
+flash_attention_bwd_dq.by_route = collections.Counter()
 
 
 class FlashAttention(torch.autograd.Function):

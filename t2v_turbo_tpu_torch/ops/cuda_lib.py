@@ -110,11 +110,11 @@ def lib() -> ctypes.CDLL:
     ]
     so.t2v_flash_attention_fwd_lse.restype = i32
     so.t2v_flash_attention_bwd_dkv.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, pi64, pi64, f32, vp,
+        vp, vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, pi64, pi64, f32, i32, vp,
     ]
     so.t2v_flash_attention_bwd_dkv.restype = i32
     so.t2v_flash_attention_bwd_dq.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, pi64, pi64, f32, vp,
+        vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, pi64, pi64, f32, i32, vp,
     ]
     so.t2v_flash_attention_bwd_dq.restype = i32
     so.t2v_group_norm_scratch.argtypes = [i64, i32, i32, i32]

@@ -28,9 +28,11 @@ from t2v_turbo_tpu_torch.ops import attention as A
 from t2v_turbo_tpu_torch.ops import norms as N
 
 ATOL = 2e-5
-# (B, Sq, Sk, H, D): ragged S, Sk = 77, S = 16, the VAE's one head of 512
-CASES = [(1, 200, 200, 2, 64), (1, 40, 77, 2, 64), (2, 16, 16, 3, 64), (1, 40, 40, 1, 512)]
-IDS = ["ragged", "cross77", "temporal16", "vae_head512"]
+# (B, Sq, Sk, H, D): ragged S, Sk = 77, S = 16, the VAE's one head of 512,
+# and one row past a 128-row (queries) and a 64-row (keys) tile
+CASES = [(1, 200, 200, 2, 64), (1, 40, 77, 2, 64), (2, 16, 16, 3, 64), (1, 40, 40, 1, 512),
+         (1, 129, 65, 2, 64)]
+IDS = ["ragged", "cross77", "temporal16", "vae_head512", "tile_edge"]
 
 
 def _qkvg(b, sq, sk, h, d, seed=0):
