@@ -22,15 +22,21 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 kernel's. Each backward case also checks its route (wgmma
                 for aligned bf16 at head dim 64, mma for the unaligned views
                 and head dim 512, f32), and at L0 two launches of each
-                backward kernel must give equal bits.
+                backward kernel must give equal bits. The fused conv is also
+                checked and timed at every distinct shape of a UNet step
+                (15 spatial 3x3, 4 temporal (3,1)), each case on its route
+                (wgmma for bf16, f32), and two launches at L0 must give
+                equal bits.
   4. main path: full-width VC2 (UNet 320/640/1280, VAE ch 128, ViT-H text tower
                 with 23 of 24 blocks), seeded random weights, bf16, through
                 apps/generate.py's build_pipeline and the pipeline call:
                 3 prompts, 4 steps, 16 frames at 320x512, timed as plain calls.
                 Checks every video and that each kernel launched during this
-                run. Then one more video with each stage's forward timed
-                (synchronised hooks), and one under torch.profiler (device time
-                by kernel and the device's idle share, into
+                run; logs the fused conv's launches a UNet step by shape and
+                fails unless every one took the wgmma route. Then one more
+                video with each stage's forward timed (synchronised hooks),
+                and one under torch.profiler (device time by kernel, the
+                fused conv's device time and the device's idle share, into
                 chiprun_out/profile.txt).
   5. reference: a small pipeline (f32, 256x256, so flash attention still runs)
                 on the card against the same weights on the CPU, where every
@@ -45,7 +51,8 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 weights did not, and that every kernel of the path launched;
                 one more step under torch.profiler (chiprun_out/profile_train.txt);
                 every head-dim-64 backward launch must have taken the
-                wgmma route (launches by route beside those by head dim).
+                wgmma route (launches by route beside those by head dim), and
+                every fused conv launch the wgmma route.
                 Runs without --use-remat, with it only if that does not fit.
   7. training with rewards: the same training with --reward-fn hpsv2
                 --video-rm-fn vi_clip: random ViT-H/14 (image reward, 5 random
@@ -55,7 +62,7 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 non-zero in every LoRA up factor; then 1 warm-up and 3 timed
                 steps with finite reward losses, launches a step by head dim
                 (the D = 512 kernels at least twice a step, on mma; every
-                D = 64 one on wgmma), one profiled step
+                D = 64 one on wgmma; every fused conv on wgmma), one profiled step
                 (chiprun_out/profile_train_rewards.txt).
   8. training reference: one small f32 LCD step (heads of 64, so the flash
                 kernels run) through the trainer's gradient path
@@ -73,6 +80,7 @@ from __future__ import annotations
 
 import json
 import os
+from math import prod
 import subprocess
 import sys
 import time
@@ -137,7 +145,7 @@ def wrappers():
 def reset_launches():
     for w in wrappers().values():
         w.launches = 0
-        for counts in ("by_head_dim", "by_route"):
+        for counts in ("by_head_dim", "by_route", "by_shape"):
             if hasattr(w, counts):
                 getattr(w, counts).clear()
 
@@ -169,6 +177,21 @@ def check_bwd_routes(what):
             f"{dict(sorted(w.by_head_dim.items()))} (every D = 64 launch on wgmma) {'OK' if ok else 'FAIL'}")
         if not ok:
             raise AssertionError(f"{what}: {w.__name__} took routes {dict(w.by_route)}, expected {want}")
+
+
+def check_conv_routes(what, unet_passes):
+    """Log the fused conv's launches a UNet pass by shape (N, C, H, W, O, kh,
+    kw) and raise unless every launch took the wgmma route (the path is
+    bf16)."""
+    from t2v_turbo_tpu_torch.ops import fused_conv as FC
+
+    w = FC.fused_gn_silu_conv
+    per_pass = {k: c / unet_passes for k, c in sorted(w.by_shape.items())}
+    ok = dict(w.by_route) == {"wgmma": w.launches}
+    log(f"{what}: fused_gn_silu_conv launches by route {dict(w.by_route)} (all {w.launches} on wgmma) "
+        f"{'OK' if ok else 'FAIL'}; a UNet pass by shape {per_pass}")
+    if not ok:
+        raise AssertionError(f"{what}: fused conv routes {dict(w.by_route)}, expected all {w.launches} on wgmma")
 
 
 def bound_ms(ops, nbytes, dtype):
@@ -332,6 +355,7 @@ def _kernel_cases():
     import torch
     import torch.nn.functional as F
 
+    from t2v_turbo_tpu_torch.apps.time_fused_conv import UNET_STEP_SHAPES
     from t2v_turbo_tpu_torch.ops import attention as A
     from t2v_turbo_tpu_torch.ops import fused_conv as FC
     from t2v_turbo_tpu_torch.ops import norms as N
@@ -410,17 +434,21 @@ def _kernel_cases():
                    "kernel folds the GroupNorm into x*a+b (an activation may land one bf16 ulp apart) and "
                    "sums the C*kh*kw products in another order; both are also held to f64 math below")
 
-    def conv(label, shape, dtype=bf, film=False, iters=10):
+    def conv(label, shape, dtype=bf, film=False, iters=10, f64=True):
         n, c, hh, ww, o, kh, kw = shape
         f32_case = dtype == torch.float32
+        plan = FC.conv_plan(*shape, dtype)
+        if not f32_case:
+            label += f" [{plan.tw}x{plan.tr} tiles, {plan.splits} split(s), {prod(plan.grid)} blocks]"
         return dict(kernel="fused_gn_silu_conv", label=label, make=conv_inputs(*shape, dtype, film),
+                    route=(FC.fused_gn_silu_conv, plan.route),
                     fn=lambda *a: FC.fused_gn_silu_conv(*a[:5], 32, 1e-5, *a[5:]),
                     plain=lambda *a: FC.fused_gn_silu_conv_plain(*a[:5], 32, 1e-5, *a[5:]), outputs=("y",),
                     tols=[_elementwise(1e-4, 1e-4) if f32_case else _elementwise(2e-2, 2e-2)],
                     why=("f32 with TF32 off; the GroupNorm folded into x*a+b and the sums in another order"
                          if f32_case else why_conv_bf), iters=iters, library=unfused,
                     bound=lambda x, gs, gb, w, *_: conv_bound(x, w, o),
-                    **({} if f32_case else {"exact": _fused_conv_f64}))
+                    **({"exact": _fused_conv_f64} if f64 and not f32_case else {}))
 
     def small_seq(label, make, iters=20, dtype=bf):
         f32_case = dtype == torch.float32
@@ -444,6 +472,17 @@ def _kernel_cases():
         conv("odd sizes 96->70 (3,1) (2,96,5,300) bf16", (2, 96, 5, 300, 70, 3, 1), iters=5),
         conv("f32 L0 320->320 3x3 (2,320,40,64), TF32 off", (2, 320, 40, 64, 320, 3, 3), torch.float32, iters=3),
     ]
+    # B7 at every shape of a UNet step, and its determinism: last in the
+    # table, after the cases of earlier PRs, so the phases after this one
+    # start from the same allocator state as before they were added (with
+    # them in the middle the rewards-ON peak read 0.01 GiB higher, PERF.md).
+    b7_unet = [conv(f"UNet step shape {shape[1]}->{shape[4]} ({shape[5]},{shape[6]}) {shape[:4]} bf16", shape,
+                    f64=False) for shape in UNET_STEP_SHAPES] + [dict(
+        kernel="fused_gn_silu_conv determinism", label="UNet L0 320->320 3x3 (16,320,40,64) bf16",
+        make=conv_inputs(16, 320, 40, 64, 320, 3, 3, bf, False),
+        fn=lambda *a: FC.fused_gn_silu_conv(*a[:5], 32, 1e-5), plain=lambda *a: FC.fused_gn_silu_conv(*a[:5], 32, 1e-5),
+        outputs=("y",), tols=[_elementwise(0.0, 0.0)],
+        why="two launches: no atomics, a fixed summation order, so equal bits")]
     b8 = [
         small_seq("UNet L0 temporal attn (2560,16,5,64) bf16", attn(2560, 16, 5, 64, bf)),
         small_seq("init_attn temporal (2560,16,8,64) bf16", attn(2560, 16, 8, 64, bf)),
@@ -475,7 +514,7 @@ def _kernel_cases():
         ln("transformer LN (40960,320) bf16", (40960, 320), 320, bf, 1e-2, why_norm_bf),
         ln("transformer LN (2560,1280) f32", (2560, 1280), 1280, f32, 1e-5, "f32; only the summation order differs"),
     ] + b7 + b8
-    return serving + [case for args in TRAIN_ATTENTION_CASES for case in _train_attention_cases(*args)]
+    return serving + [case for args in TRAIN_ATTENTION_CASES for case in _train_attention_cases(*args)] + b7_unet
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -771,6 +810,7 @@ def phase_main_path(records):
     log(f"main path: s/video (videos 2-3, no hooks) {' '.join(f'{s:.3f}' for s in video_s[1:])}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     log(f"main path: kernel launches {launches}")
+    check_conv_routes("main path", len(PROMPTS) * 4)  # 4 UNet steps a video
     for name, n in launches.items():
         records[name]["launches"] = n
         if n <= 0:
@@ -814,8 +854,10 @@ def _profile_one_video(pipe):
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
+    b7_ms = sum(e.self_device_time_total for e in events if "gn_silu_conv" in e.key) / 1e3
     log(f"profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f} -> chiprun_out/profile.txt")
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's kernels (B7) {b7_ms:.1f} ms "
+        "-> chiprun_out/profile.txt")
 
 
 def phase_reference():
@@ -936,6 +978,7 @@ def _train_full_width(records, remat):
     launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS}
     log(f"training: kernel launches over the 4 steps {launches}")
     check_bwd_routes("training")
+    check_conv_routes("training", 4 * 4)  # 4 steps of 4 UNet passes (student, teacher x2, target)
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the training path")
@@ -973,8 +1016,10 @@ def _profile_train_step(trainer, data, name):
     with open(os.path.join(OUT_DIR, name), "w") as f:
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
+    b7_ms = sum(e.self_device_time_total for e in events if "gn_silu_conv" in e.key) / 1e3
     log(f"training profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f} -> chiprun_out/{name}; top: "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's forward kernels (B7) {b7_ms:.1f} ms "
+        f"-> chiprun_out/{name}; top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
 
 
@@ -1074,6 +1119,7 @@ def _train_rewards_full_width(records, remat):
     launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS + D512_KERNELS}
     log(f"training with rewards: launches a step by head dim {per_step}; over the {steps} steps {launches}")
     check_bwd_routes("training with rewards")
+    check_conv_routes("training with rewards", 4 * steps)
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the rewards-ON training path")

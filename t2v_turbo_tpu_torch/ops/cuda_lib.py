@@ -128,7 +128,7 @@ def lib() -> ctypes.CDLL:
     ]
     so.t2v_group_norm_affine.restype = i32
     so.t2v_gn_silu_conv_fwd.argtypes = [
-        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, vp,
+        vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
     ]
     so.t2v_gn_silu_conv_fwd.restype = i32
     so.t2v_small_seq_attention.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, i32, pi64, f32, vp]

@@ -17,13 +17,19 @@ and the `out` head.
 - `fused_gn_silu_conv_plain`: the f32 GroupNorm and affine, the FiLM, the
   SiLU, one cast to x's dtype and `F.conv2d`. The CPU path and the kernel's
   oracle: the activation is rounded where the kernel rounds it.
+- `conv_plan`: the launch plan, a pure function of the shape and dtype:
+  route (`wgmma` for bf16, `f32`), the bf16 kernel's pixel tile (TR image
+  rows x TW columns over all N*H rows, so a tile may span images), its
+  output-channel tile BN, the slab size, and the split of the 64-channel
+  input chunks that fills the card when the tiles alone would not.
 - `fused_gn_silu_conv_cuda`: the launcher: the statistics and a, b from
   norms.cu's split reduction (`t2v_group_norm_affine`), the weight permuted
-  to (O, kh, kw, C), then the fused kernel of csrc/fused_conv.cu. It raises
-  on a CPU tensor or anything else the kernels do not take.
-- `fused_gn_silu_conv`: the entry point, with a `launches` counter. CPU:
-  the plain version. CUDA: the kernel, through `FusedGnSiluConv` when an
-  input needs a gradient.
+  to (O, kh, kw, C), then the fused kernel of csrc/fused_conv.cu on the
+  plan. It raises on a CPU tensor or anything else the kernels do not take.
+- `fused_gn_silu_conv`: the entry point, with a `launches` counter and its
+  split `by_route` and `by_shape` ((N, C, H, W, O, kh, kw)). CPU: the plain
+  version. CUDA: the kernel, through `FusedGnSiluConv` when an input needs
+  a gradient.
 - `FusedGnSiluConv`: the forward is the kernel (the plain version on CPU
   tensors, so the backward runs in the CPU tests) and keeps only the inputs;
   the backward is the unfused composition's gradient, as JAX `_fused_bwd`:
@@ -33,6 +39,11 @@ and the `out` head.
 """
 
 from __future__ import annotations
+
+import collections
+import functools
+import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -87,6 +98,92 @@ def fused_gn_silu_conv_plain(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, 
     return F.conv2d(h, conv_kernel.to(x.dtype), bias, padding=_padding(conv_kernel))
 
 
+# The bf16 kernel's fixed sizes (csrc/fused_conv.cu): pixels a block,
+# input channels a chunk, slab positions a buffer, SMs of the H100.
+PIXELS, CHUNK, MAX_SLAB, SMS = 128, 64, 480, 132
+
+
+class ConvPlan(NamedTuple):
+    route: str             # "wgmma" (bf16) or "f32"
+    bn: int = 0            # output channels a block: 160, or 32 for O <= 32
+    tw: int = 0            # pixel tile: tw columns ...
+    tr: int = 0            # ... of tr image rows, counted over all N*H rows
+    npos: int = 0          # slab positions a buffer: the most any tile needs
+    chunks_per_split: int = 0
+    splits: int = 1        # a cluster of that many CTAs adds its f32 sums in split order
+    grid: tuple = ()       # (pixel tiles, output-channel tiles, splits)
+
+
+def _ext(r, h, kh):
+    """Extended row of image row r (of all N*H): each image's h rows stand
+    between its kh // 2 halo rows above and below."""
+    return (r // h) * (h + kh - 1) + r % h + kh // 2
+
+
+def slab_positions(n, h, kh, kw, tw, tr):
+    """The most slab positions a tile of tr rows x tw columns needs: the
+    extended rows its image rows span, with the halo, tw + kw - 1 wide. The
+    pattern repeats every h tiles; the clipped last tile needs fewer."""
+    rows = n * h
+    most = 0
+    for r0 in range(0, min(rows, tr * h), tr):
+        last = min(r0 + tr, rows) - 1
+        most = max(most, (_ext(last, h, kh) - _ext(r0, h, kh) + kh) * (tw + kw - 1))
+    return most
+
+
+@functools.lru_cache(maxsize=None)
+def conv_plan(n, c, h, w, o, kh, kw, dtype=torch.bfloat16):
+    """Tiles, grid and route of the fused conv on (n, c, h, w) -> o channels.
+
+    bf16: BN = 160 output channels a block (it divides 320, 640 and 1280;
+    32 when o <= 32). The pixel tile is tw columns x tr rows (tr * tw <= 128,
+    the slab at most 480 positions): of the widths 16, 32, 64, 128 and w
+    itself (up to w; w itself when w < 16) the one with the least
+    tiles x (128 + positions / 4), i.e. the fewest blocks first, then the
+    least staging.
+
+    The input channels' 64-wide chunks may be split over 2, 4 or 8 blocks:
+    the splits of a tile are one thread block cluster, which adds their f32
+    sums in split order in shared memory. One block an SM, so a launch takes
+    ceil(blocks / 132) waves of blocks that each stream their chunks plus
+    about one chunk's worth of fill and epilogue, and a split costs about
+    two chunks more a doubling (the cluster's sum; clusters of 3, 5 or 6
+    packed the card worse). The split with the least waves x (chunks a
+    split + 1 + 2 log2 splits) wins, the smaller on a tie. So, as measured
+    on the H100 (PERF.md), the level-3 temporal conv (48 blocks) runs 2
+    splits, 96 blocks in one wave, rather than 4 in two, and the 10x16
+    convs run 2 splits, not 4.
+    """
+    if dtype == torch.float32:
+        return ConvPlan("f32")
+    if dtype != torch.bfloat16:
+        raise TypeError(f"conv_plan: no kernel for dtype {dtype}")
+    bn = 32 if o <= 32 else 160
+    widths = sorted({min(w, t) for t in (16, 32, 64, 128)} | ({w} if w <= PIXELS else set()))
+    best = None
+    for tw in widths:
+        tr = PIXELS // tw
+        while tr > 1 and slab_positions(n, h, kh, kw, tw, tr) > MAX_SLAB:
+            tr -= 1
+        npos = slab_positions(n, h, kh, kw, tw, tr)
+        tiles = math.ceil(n * h / tr) * math.ceil(w / tw)
+        score = tiles * (PIXELS + npos / 4)
+        if best is None or score < best[0]:
+            best = (score, tw, tr, npos, tiles)
+    _, tw, tr, npos, tiles = best
+    blocks = tiles * math.ceil(o / bn)
+    chunks = math.ceil(c / CHUNK)
+    cost = []
+    for splits in (1, 2, 4, 8):
+        cps = math.ceil(chunks / splits)
+        if math.ceil(chunks / cps) == splits:
+            waves = math.ceil(blocks * splits / SMS)
+            cost.append((waves * (cps + 1 + 2 * math.log2(splits)), splits, cps))
+    _, splits, cps = min(cost)
+    return ConvPlan("wgmma", bn, tw, tr, npos, cps, splits, (tiles, math.ceil(o / bn), splits))
+
+
 def _f32_vector(t, shape, device, what):
     t = t.to(device=device, dtype=torch.float32).contiguous()
     if tuple(t.shape) != shape:
@@ -118,8 +215,9 @@ def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, n
         raise TypeError(f"{what}: the kernel and bias must have x's dtype {x.dtype} and device")
     if not x.is_contiguous():
         raise ValueError(f"{what}: the kernel needs a contiguous x")
-    if x.dtype == torch.bfloat16 and c % 8:
-        raise ValueError(f"{what}: the bf16 kernel streams channels in runs of 8; C = {c}")
+    if x.dtype == torch.bfloat16 and (c % 8 or x.numel() >= 2**31):
+        raise ValueError(f"{what}: the bf16 kernel streams channels in runs of 8 and indexes x with "
+                         f"32-bit offsets; x {tuple(x.shape)}")
     if conv_bias is not None and tuple(conv_bias.shape) != (o,):
         raise ValueError(f"{what}: bias of shape {tuple(conv_bias.shape)}, expected ({o},)")
     gs = _f32_vector(gn_scale, (c,), x.device, "gn_scale")
@@ -140,14 +238,17 @@ def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, n
     )
     cuda_lib.check(err, f"{what} (statistics)")
     y = torch.empty((n, o, hh, ww), dtype=x.dtype, device=x.device)
-    w_ohwc = conv_kernel.permute(0, 2, 3, 1).contiguous()  # the kernel streams 16-byte channel runs
+    w_ohwc = conv_kernel.permute(0, 2, 3, 1).contiguous()  # one tap's channels are one TMA row
+    plan = conv_plan(n, c, hh, ww, o, kh, kw, x.dtype)
     err = lib.t2v_gn_silu_conv_fwd(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), w_ohwc.data_ptr(),
-        None if conv_bias is None else conv_bias.data_ptr(), y.data_ptr(), code, n, c, hh, ww, o, kh,
-        kw, stream,
+        None if conv_bias is None else conv_bias.data_ptr(), y.data_ptr(), code, n, c, hh, ww, o, kh, kw,
+        plan.bn, plan.tw, plan.tr, plan.npos, plan.chunks_per_split, stream,
     )
     cuda_lib.check(err, what)
     fused_gn_silu_conv.launches += 1
+    fused_gn_silu_conv.by_route[plan.route] += 1
+    fused_gn_silu_conv.by_shape[(n, c, hh, ww, o, kh, kw)] += 1
     return y
 
 
@@ -206,3 +307,5 @@ def fused_gn_silu_conv(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, num_gr
 
 
 fused_gn_silu_conv.launches = 0
+fused_gn_silu_conv.by_route = collections.Counter()
+fused_gn_silu_conv.by_shape = collections.Counter()

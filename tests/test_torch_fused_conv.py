@@ -22,6 +22,7 @@ import torch
 
 import torch_parity  # noqa: F401  (one intra-op thread for the port's CPU tests)
 from t2v_turbo_tpu.ops import fused_conv as jfc
+from t2v_turbo_tpu_torch.apps.time_fused_conv import UNET_STEP_SHAPES
 from t2v_turbo_tpu_torch.models import layers as players
 from t2v_turbo_tpu_torch.ops import fused_conv as FC
 
@@ -148,3 +149,138 @@ def test_model_stage_equals_the_unfused_modules(stage):
     got = players.gn_silu_conv(norm, conv, x)
     assert got.shape == want.shape
     torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+
+
+# ---- the bf16 kernel's launch plan (ops/fused_conv.py::conv_plan), checked
+# on the CPU by enumerating its tiles and replaying its slab indexing.
+
+# Every distinct fused-conv shape of a VC2 UNet step, and an odd size.
+PLAN_SHAPES = UNET_STEP_SHAPES + [(2, 96, 5, 300, 70, 3, 1)]
+
+
+def _ids(shapes):
+    return ["x".join(map(str, s)) for s in shapes]
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=_ids(PLAN_SHAPES))
+def test_plan_takes_the_wgmma_route(shape):
+    n, c, h, w, o, kh, kw = shape
+    plan = FC.conv_plan(*shape)
+    assert plan.route == "wgmma"
+    assert plan.bn in (32, 160) and plan.tw * plan.tr <= FC.PIXELS
+    assert plan.npos == FC.slab_positions(n, h, kh, kw, plan.tw, plan.tr) <= FC.MAX_SLAB
+    chunks = -(-c // FC.CHUNK)
+    assert plan.splits == -(-chunks // plan.chunks_per_split)
+    assert plan.grid == (-(-n * h // plan.tr) * -(-w // plan.tw), -(-o // plan.bn), plan.splits)
+    assert FC.conv_plan(*shape, torch.float32).route == "f32"
+
+
+def _plan_tiles(plan, n, h, w):
+    """The pixels of each block of a bf16 plan, as the kernel maps its 128
+    rows (csrc/fused_conv.cu: r0 = (tile / tiles_w) * TR, w0 = (tile %
+    tiles_w) * TW, row m at image row r0 + m / TW, column w0 + m % TW):
+    {(tile, row): (image, h, w)} for the rows it stores."""
+    rows, tiles_w = n * h, -(-w // plan.tw)
+    out = {}
+    for tile in range(plan.grid[0]):
+        r0, w0 = (tile // tiles_w) * plan.tr, (tile % tiles_w) * plan.tw
+        for m in range(plan.tr * plan.tw):
+            r, col = r0 + m // plan.tw, w0 + m % plan.tw
+            if r < rows and col < w:
+                out[(tile, m)] = (r // h, r % h, col)
+    return out
+
+
+@pytest.mark.parametrize("shape", PLAN_SHAPES, ids=_ids(PLAN_SHAPES))
+def test_plan_tiles_cover_every_output_pixel_once(shape):
+    """The kernel's map from (tile, row) to (image, h, w), replayed in
+    Python: every pixel of every image exactly once, tiles that span images
+    and ragged edges included."""
+    n, c, h, w, o, kh, kw = shape
+    plan = FC.conv_plan(*shape)
+    pixels = list(_plan_tiles(plan, n, h, w).values())
+    assert len(pixels) == n * h * w
+    assert set(pixels) == {(i, r, col) for i in range(n) for r in range(h) for col in range(w)}
+
+
+def test_plan_folds_images_and_splits_the_small_levels():
+    """At 5x8 a tile holds three frames and more. Where the tiles alone
+    leave most of the 132 SMs idle (the 5x8 level: 40 blocks; the level-3
+    temporal conv: 48) the input channels are split, in 2, 4 or 8 (a
+    cluster); the L0 convs, 640 blocks, are not."""
+    plan = FC.conv_plan(16, 2560, 5, 8, 1280, 3, 3)
+    tiles = _plan_tiles(plan, 16, 5, 8)
+    assert max(len({img for (t, _), (img, _, _) in tiles.items() if t == tile}) for tile in range(plan.grid[0])) >= 3
+    for shape in ((16, 2560, 5, 8, 1280, 3, 3), (16, 1280, 5, 8, 1280, 3, 3), (1, 1280, 16, 40, 1280, 3, 1)):
+        assert FC.conv_plan(*shape).splits > 1
+    assert FC.conv_plan(16, 320, 40, 64, 320, 3, 3).splits == 1
+    assert all(FC.conv_plan(*shape).splits in (1, 2, 4, 8) for shape in PLAN_SHAPES)
+
+
+def _replay(plan, h_act, wk):
+    """conv(h_act, wk) ('same', stride 1) computed as the bf16 kernel indexes
+    it: each tile's slab filled from the extended rows its positions map to
+    (zeros in the halo), each output row reading its slab position plus the
+    tap's shift. h_act (N, C, H, W), wk (O, C, kh, kw); numpy f64."""
+    n, c, h, w = h_act.shape
+    o, _, kh, kw = wk.shape
+    eh, sw = h + kh - 1, plan.tw + kw - 1
+    ext = lambda r: (r // h) * eh + r % h + kh // 2  # noqa: E731
+    rows = n * h
+    tiles_w = -(-w // plan.tw)
+    y = np.full((n, o, h, w), np.nan)
+    for tile in range(plan.grid[0]):
+        r0, w0 = (tile // tiles_w) * plan.tr, (tile % tiles_w) * plan.tw
+        e0 = ext(r0)
+        npos = (ext(min(r0 + plan.tr, rows) - 1) - e0 + kh) * sw
+        assert npos <= plan.npos
+        slab = np.zeros((npos, c))
+        for pos in range(npos):
+            es = e0 - kh // 2 + pos // sw
+            img, hh, ww = es // eh, es % eh - kh // 2, w0 - kw // 2 + pos % sw
+            if img < n and 0 <= hh < h and 0 <= ww < w:
+                slab[pos] = h_act[img, :, hh, ww]
+        for m in range(plan.tr * plan.tw):
+            r, col = r0 + m // plan.tw, w0 + m % plan.tw
+            if r >= rows or col >= w:
+                continue
+            base = (ext(r) - e0) * sw + m % plan.tw
+            acc = np.zeros(o)
+            for i in range(kh):
+                for j in range(kw):
+                    acc += wk[:, :, i, j] @ slab[base + i * sw + j]
+            assert np.isnan(y[r // h, :, r % h, col]).all()
+            y[r // h, :, r % h, col] = acc
+    return y
+
+
+@pytest.mark.parametrize("shape", [(16, 8, 5, 8, 4, 3, 3), (3, 8, 7, 9, 4, 3, 3), (2, 8, 5, 300, 4, 3, 1),
+                                   (1, 8, 16, 40, 4, 3, 1), (5, 8, 1, 1, 4, 3, 3)],
+                         ids=["5x8_frames", "odd_7x9", "temporal_300", "temporal_40", "1x1"])
+def test_plan_slab_indexing_replays_the_conv(shape):
+    """The plan's tiles and the kernel's slab indexing, replayed in numpy,
+    equal a 'same' convolution of the activation (zero halo after it)."""
+    n, c, h, w, o, kh, kw = shape
+    rng = np.random.RandomState(sum(shape))
+    h_act = rng.randn(n, c, h, w)
+    wk = rng.randn(o, c, kh, kw)
+    want = torch.nn.functional.conv2d(torch.from_numpy(h_act), torch.from_numpy(wk), padding=(kh // 2, kw // 2))
+    got = _replay(FC.conv_plan(*shape), h_act, wk)
+    np.testing.assert_allclose(got, want.numpy(), atol=1e-10, rtol=1e-10)
+
+
+def test_cuda_wrapper_raises_and_counts_nothing_off_the_card():
+    """No fallback: a tensor that is not on the CPU goes to the kernel
+    launcher, which raises where no kernel takes it; the counters move only
+    on a launch. A dtype no route takes is refused by the plan."""
+    t = _port_args(_inputs(1, 4, 4, 32, 8, 3, 3, seed=13))
+    meta = [t[k].to("meta") for k in ("x", "gs", "gb", "wk", "bias")]
+    before = (FC.fused_gn_silu_conv.launches, dict(FC.fused_gn_silu_conv.by_route))
+    with pytest.raises(RuntimeError, match="no kernel for device meta"):
+        FC.fused_gn_silu_conv(*meta, G, EPS)
+    with pytest.raises(RuntimeError, match="no kernel for device cpu"):
+        FC.fused_gn_silu_conv_cuda(t["x"], t["gs"], t["gb"], t["wk"], t["bias"], G, EPS)
+    FC.fused_gn_silu_conv(t["x"], t["gs"], t["gb"], t["wk"], t["bias"], G, EPS)  # the plain version
+    assert (FC.fused_gn_silu_conv.launches, dict(FC.fused_gn_silu_conv.by_route)) == before
+    with pytest.raises(TypeError, match="no kernel for dtype"):
+        FC.conv_plan(1, 32, 4, 4, 8, 3, 3, torch.float16)
