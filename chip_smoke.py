@@ -19,10 +19,12 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 the unfused GroupNorm+SiLU and cuDNN conv; the fastest is
                 recorded; a yardstick only) with CUDA events, beside the
                 card's bound; B1's time is logged beside the short-sequence
-                kernel's. Each backward case also checks its route (wgmma
-                for aligned bf16 at head dim 64, mma for the unaligned views
-                and head dim 512, f32), and at L0 two launches of each
-                backward kernel must give equal bits. The fused conv is also
+                kernel's. B1 and B2 run at every bf16 head-dim-64 forward
+                shape of the paths (apps/time_flash.py's FWD_SHAPES). Each
+                flash case also checks its route (wgmma for aligned bf16 at
+                head dim 64, mma for the unaligned views, head dim 512 and
+                a negative scale, f32), and at L0 two launches of each flash
+                kernel must give equal bits. The fused conv is also
                 checked and timed at every distinct shape of a UNet step
                 (15 spatial 3x3, 4 temporal (3,1)), each case on its route
                 (wgmma for bf16, f32), and two launches at L0 must give
@@ -32,12 +34,13 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 apps/generate.py's build_pipeline and the pipeline call:
                 3 prompts, 4 steps, 16 frames at 320x512, timed as plain calls.
                 Checks every video and that each kernel launched during this
-                run; logs the fused conv's launches a UNet step by shape and
-                fails unless every one took the wgmma route. Then one more
+                run; logs the fused conv's and the flash forward's launches a
+                UNet step by shape and fails unless every bf16 launch of
+                either at head dim 64 took the wgmma route. Then one more
                 video with each stage's forward timed (synchronised hooks),
                 and one under torch.profiler (device time by kernel, the
-                fused conv's device time and the device's idle share, into
-                chiprun_out/profile.txt).
+                fused conv's and the flash forward's device time and the
+                device's idle share, into chiprun_out/profile.txt).
   5. reference: a small pipeline (f32, 256x256, so flash attention still runs)
                 on the card against the same weights on the CPU, where every
                 kernel wrapper runs its plain version; every serving kernel
@@ -50,9 +53,10 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 loss and grad_norm, that every LoRA factor moved and the frozen
                 weights did not, and that every kernel of the path launched;
                 one more step under torch.profiler (chiprun_out/profile_train.txt);
-                every head-dim-64 backward launch must have taken the
-                wgmma route (launches by route beside those by head dim), and
-                every fused conv launch the wgmma route.
+                every head-dim-64 flash launch (B1, B2, B3) must have taken
+                the wgmma route (launches by route beside those by head dim;
+                the forwards' also by shape), and every fused conv launch the
+                wgmma route.
                 Runs without --use-remat, with it only if that does not fit.
   7. training with rewards: the same training with --reward-fn hpsv2
                 --video-rm-fn vi_clip: random ViT-H/14 (image reward, 5 random
@@ -62,7 +66,7 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 non-zero in every LoRA up factor; then 1 warm-up and 3 timed
                 steps with finite reward losses, launches a step by head dim
                 (the D = 512 kernels at least twice a step, on mma; every
-                D = 64 one on wgmma; every fused conv on wgmma), one profiled step
+                D = 64 flash launch on wgmma; every fused conv on wgmma), one profiled step
                 (chiprun_out/profile_train_rewards.txt).
   8. training reference: one small f32 LCD step (heads of 64, so the flash
                 kernels run) through the trainer's gradient path
@@ -97,13 +101,13 @@ PROMPTS = (
     "Waves crashing against a lighthouse at sunset",
 )
 KERNELS = {
-    "flash_attention": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                         "t2v_turbo_tpu/ops/attention.py:257"),
-    "flash_attention_fwd_lse": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
+    "flash_attention_fwd_lse": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                 "t2v_turbo_tpu/ops/attention.py:106"),
-    "flash_attention_bwd_dkv": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+    "flash_attention_bwd_dkv": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                 "t2v_turbo_tpu/ops/attention.py:157"),
-    "flash_attention_bwd_dq": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd_sm90.cu",
+    "flash_attention_bwd_dq": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                "t2v_turbo_tpu/ops/attention.py:213"),
     # the same kernels at the VAE decoder's one head of 512 (reward feedback)
     "flash_attention_fwd_lse_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
@@ -160,23 +164,34 @@ def read_launches():
 
 
 def launches_by_head_dim():
-    """{wrapper: {head dim: launches}} of the three training kernels."""
+    """{wrapper: {head dim: launches}} of the four flash kernels."""
     return {n: dict(sorted(w.by_head_dim.items())) for n, w in wrappers().items() if hasattr(w, "by_head_dim")}
 
 
-def check_bwd_routes(what):
-    """Log the backward kernels' launches by route beside those by head dim,
-    and raise unless every head-dim-64 launch went through wgmma (the path's
-    bf16 tensors are TMA-aligned) and every other one through mma."""
+def check_flash_routes(what, passes, per):
+    """Log the four flash kernels' launches by route beside those by head
+    dim, and the forwards' launches by (B, H, Sq, Sk, D) shape over `passes`
+    (UNet passes or training steps: `per` names them); raise unless every
+    head-dim-64 launch went through wgmma (the path's bf16 tensors are
+    TMA-aligned) and every other one through mma (D = 512)."""
     from t2v_turbo_tpu_torch.ops import attention as A
 
-    for w in (A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq):
+    for w in (A.flash_attention, A.flash_attention_lse, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq):
         want = {r: n for r, n in (("wgmma", w.by_head_dim[64]), ("mma", w.by_head_dim[512])) if n}
         ok = dict(w.by_route) == want
+        shapes = (f"; a {per} by shape {dict((k, c / passes) for k, c in sorted(w.by_shape.items()))}"
+                  if hasattr(w, "by_shape") else "")
         log(f"{what}: {w.__name__} launches by route {dict(w.by_route)}, by head dim "
-            f"{dict(sorted(w.by_head_dim.items()))} (every D = 64 launch on wgmma) {'OK' if ok else 'FAIL'}")
+            f"{dict(sorted(w.by_head_dim.items()))} (every D = 64 launch on wgmma) {'OK' if ok else 'FAIL'}"
+            + shapes)
         if not ok:
             raise AssertionError(f"{what}: {w.__name__} took routes {dict(w.by_route)}, expected {want}")
+
+
+def flash_device_ms(events):
+    """(forward, backward) device ms of the flash kernels in profiler events."""
+    return tuple(sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+                 for name in ("flash_fwd", "flash_bwd"))
 
 
 def check_conv_routes(what, unet_passes):
@@ -355,6 +370,7 @@ def _kernel_cases():
     import torch
     import torch.nn.functional as F
 
+    from t2v_turbo_tpu_torch.apps.time_flash import FWD_SHAPES
     from t2v_turbo_tpu_torch.apps.time_fused_conv import UNET_STEP_SHAPES
     from t2v_turbo_tpu_torch.ops import attention as A
     from t2v_turbo_tpu_torch.ops import fused_conv as FC
@@ -365,6 +381,7 @@ def _kernel_cases():
             g = torch.Generator("cuda").manual_seed(s + d)
             shapes = [(b, s, h, d)] + 2 * [(b, sk or s, h, d)]
             return [torch.randn(sh, generator=g, device="cuda").to(dtype) for sh in shapes]
+        make.shape = (b, h, s, sk or s)  # (B, H, Sq, Sk): the forward cases' coverage
         return make
 
     def norm_inputs(shape, c, dtype):
@@ -383,11 +400,22 @@ def _kernel_cases():
                  "both are also held to f64 math below")
     why_f32 = "f32 with TF32 off; only the summation order and expf differ"
     why_norm_bf = "bf16 output; f32 statistics summed in another order can move a value by one bf16 ulp"
-    def flash(label, make, atol, rtol, iters, why, f64=True):
+    def flash(label, make, atol, rtol, iters, why, f64=True, route="wgmma"):
         return dict(kernel="flash_attention", label=label, make=make, fn=A.flash_attention,
                     plain=A.attention, outputs=("o",), tols=[_elementwise(atol, rtol)], why=why,
-                    iters=iters, library=_sdpa_fwd, bound=lambda q, k, v: attention_bound(q, k, "fwd"),
+                    route=(A.flash_attention, route), shape=getattr(make, "shape", None), iters=iters,
+                    library=_sdpa_fwd,
+                    bound=lambda q, k, v: attention_bound(q, k, "fwd"),
                     **({"exact": _attention_f64} if f64 else {}))
+
+    def flash_lse(label, make, atol, rtol, iters, why):
+        return dict(kernel="flash_attention_fwd_lse", label=label, make=make,
+                    fn=lambda q, k, v: A.flash_attention_lse(q, k, v), plain=lambda q, k, v: A.attention_lse_plain(
+                        q, k, v, q.shape[-1] ** -0.5), outputs=("o", "lse"),
+                    tols=[_elementwise(atol, rtol), _elementwise(1e-3, 0.0)], iters=iters, library=_sdpa_fwd,
+                    why=f"o: {why}; lse: f32 sums of exp in another order", route=(A.flash_attention_lse, "wgmma"),
+                    shape=make.shape,
+                    bound=lambda q, k, v: attention_bound(q, k, "fwd_lse"), exact=_attention_f64)
 
     def gn(label, shape, c, eps, iters):
         return dict(kernel="group_norm", label=label, make=norm_inputs(shape, c, bf),
@@ -496,17 +524,18 @@ def _kernel_cases():
     serving = [
         flash("UNet L0 self-attn (16,5,2560,2560,64) bf16", attn(16, 2560, 5, 64, bf), 2e-3, 2e-2, 10, why_bf),
         flash("UNet L0 self-attn (16,5,2560,2560,64) f32", attn(16, 2560, 5, 64, f32), 1e-5, 1e-4, 5, why_f32,
-              f64=False),
-        flash("VAE mid attn (16,1,2560,2560,512) bf16", attn(16, 2560, 1, 512, bf), 2e-3, 2e-2, 5, why_bf),
+              f64=False, route="f32"),
+        flash("VAE mid attn (16,1,2560,2560,512) bf16", attn(16, 2560, 1, 512, bf), 2e-3, 2e-2, 5, why_bf,
+              route="mma"),
         flash("UNet L1 self-attn (16,10,640,640,64) bf16", attn(16, 640, 10, 64, bf), 2e-3, 2e-2, 20, why_bf),
         flash("UNet L0 cross-attn (16,5,2560,77,64) bf16", attn(16, 2560, 5, 64, bf, sk=77), 2e-2, 2e-2, 20,
               why_short),
         flash("UNet L0 temporal attn (2560,5,16,16,64) bf16", attn(2560, 16, 5, 64, bf), 2e-2, 2e-2, 20,
               why_short),
         flash("ragged S (2,5,1111,1111,64) bf16", attn(2, 1111, 5, 64, bf), 2e-3, 2e-2, 5, why_bf),
-        flash("ragged S (2,1,1111,1111,512) bf16", attn(2, 1111, 1, 512, bf), 2e-3, 2e-2, 5, why_bf),
+        flash("ragged S (2,1,1111,1111,512) bf16", attn(2, 1111, 1, 512, bf), 2e-3, 2e-2, 5, why_bf, route="mma"),
         flash("unaligned strided K/V (2,5,300,300,64) bf16", _unaligned(2, 300, 300, 5, 64, 3), 2e-3, 2e-2, 5,
-              why_bf),
+              why_bf, route="mma"),
         gn("UNet L0 GN+SiLU per frame (16,320,40,64) bf16", (16, 320, 40, 64), 320, 1e-5, 20),
         gn("whole-clip GN+SiLU (1,320,16,40,64) bf16", (1, 320, 16, 40, 64), 320, 1e-5, 20),
         gn("VAE full-res GN+SiLU (16,128,320,512) bf16", (16, 128, 320, 512), 128, 1e-6, 10),
@@ -514,7 +543,32 @@ def _kernel_cases():
         ln("transformer LN (40960,320) bf16", (40960, 320), 320, bf, 1e-2, why_norm_bf),
         ln("transformer LN (2560,1280) f32", (2560, 1280), 1280, f32, 1e-5, "f32; only the summation order differs"),
     ] + b7 + b8
-    return serving + [case for args in TRAIN_ATTENTION_CASES for case in _train_attention_cases(*args)] + b7_unet
+    train = [case for args in TRAIN_ATTENTION_CASES for case in _train_attention_cases(*args)]
+    # B1 and B2 at every bf16 head-dim-64 forward shape of the paths
+    # (time_flash.FWD_SHAPES) that no wgmma case above holds, a negative
+    # scale (mma route: the wgmma forward takes positive scales only), and
+    # two launches of each at L0 with equal bits
+    covered = {(c["kernel"], c.get("shape")) for c in serving + train if c.get("route", (0, ""))[1] == "wgmma"}
+    fwd_path = []
+    for (b, h, sq, sk), name, b1, b2, b2_rewards in FWD_SHAPES:
+        label = f"UNet {name} ({b},{h},{sq},{sk},64) bf16"
+        why, atol = (why_short, 2e-2) if sk <= 77 else (why_bf, 2e-3)
+        if b1 and ("flash_attention", (b, h, sq, sk)) not in covered:
+            fwd_path.append(flash(label, attn(b, sq, h, 64, bf, sk=sk), atol, 2e-2, 20, why))
+        if b2 + b2_rewards and ("flash_attention_fwd_lse", (b, h, sq, sk)) not in covered:
+            fwd_path.append(flash_lse(label, attn(b, sq, h, 64, bf, sk=sk), atol, 2e-2, 20, why))
+    fwd_path.append(dict(
+        kernel="flash_attention_fwd_lse negative scale", label="ragged S (2,5,1111,1111,64) bf16, scale -1/8",
+        make=attn(2, 1111, 5, 64, bf), fn=lambda q, k, v: A.flash_attention_lse(q, k, v, -0.125),
+        plain=lambda q, k, v: A.attention_lse_plain(q, k, v, -0.125), outputs=("o", "lse"),
+        tols=[_elementwise(2e-3, 2e-2), _elementwise(1e-3, 0.0)], route=(A.flash_attention_lse, "mma"),
+        why=f"o: {why_bf}; lse: f32 sums of exp in another order; a scale <= 0 takes the mma route"))
+    both = lambda q, k, v: (A.flash_attention(q, k, v),) + A.flash_attention_lse(q, k, v)  # noqa: E731
+    fwd_path.append(dict(
+        kernel="flash_attention forward determinism", label="UNet L0 self-attn (16,5,2560,2560,64) bf16",
+        make=attn(16, 2560, 5, 64, bf), fn=both, plain=both, outputs=("o (B1)", "o (B2)", "lse"),
+        tols=3 * [_elementwise(0.0, 0.0)], why="two launches of each: a fixed summation order, so equal bits"))
+    return serving + train + fwd_path + b7_unet
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -598,6 +652,7 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
              fn=lambda q, k, v: A.flash_attention_lse(q, k, v, scale),
              plain=lambda q, k, v: A.attention_lse_plain(q, k, v, scale), outputs=("o", "lse"),
              tols=[o_tol, _elementwise(1e-3, 0.0)], iters=iters, library=_sdpa_fwd,
+             route=(A.flash_attention_lse, route), shape=(b, h, sq, sk),
              why=f"o: {why_o}; lse: f32 sums of exp in another order",
              bound=lambda q, k, v: attention_bound(q, k, "fwd_lse"),
              **({"exact": _attention_f64} if bf16 else {})),
@@ -810,7 +865,8 @@ def phase_main_path(records):
     log(f"main path: s/video (videos 2-3, no hooks) {' '.join(f'{s:.3f}' for s in video_s[1:])}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
     log(f"main path: kernel launches {launches}")
-    check_conv_routes("main path", len(PROMPTS) * 4)  # 4 UNet steps a video
+    check_flash_routes("main path", len(PROMPTS) * 4, "UNet pass")  # 4 UNet steps a video
+    check_conv_routes("main path", len(PROMPTS) * 4)
     for name, n in launches.items():
         records[name]["launches"] = n
         if n <= 0:
@@ -856,8 +912,8 @@ def _profile_one_video(pipe):
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
     b7_ms = sum(e.self_device_time_total for e in events if "gn_silu_conv" in e.key) / 1e3
     log(f"profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's kernels (B7) {b7_ms:.1f} ms "
-        "-> chiprun_out/profile.txt")
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's kernels (B7) {b7_ms:.1f} ms; the flash "
+        f"forward's kernels (B1) {flash_device_ms(events)[0]:.1f} ms -> chiprun_out/profile.txt")
 
 
 def phase_reference():
@@ -977,7 +1033,7 @@ def _train_full_width(records, remat):
             log(f"training: after step {i + 1} every LoRA {kind} factor moved ({len(factors0)})")
     launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS}
     log(f"training: kernel launches over the 4 steps {launches}")
-    check_bwd_routes("training")
+    check_flash_routes("training", 4, "step")
     check_conv_routes("training", 4 * 4)  # 4 steps of 4 UNet passes (student, teacher x2, target)
     for name, n in launches.items():
         if n <= 0:
@@ -1017,9 +1073,10 @@ def _profile_train_step(trainer, data, name):
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     b7_ms = sum(e.self_device_time_total for e in events if "gn_silu_conv" in e.key) / 1e3
+    fwd_ms, bwd_ms = flash_device_ms(events)
     log(f"training profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
-        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's forward kernels (B7) {b7_ms:.1f} ms "
-        f"-> chiprun_out/{name}; top: "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's forward kernels (B7) {b7_ms:.1f} ms; flash "
+        f"forward (B1, B2) {fwd_ms:.1f} ms, backward (B3) {bwd_ms:.1f} ms -> chiprun_out/{name}; top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
 
 
@@ -1118,7 +1175,7 @@ def _train_rewards_full_width(records, remat):
     per_step = {n: {d: c / steps for d, c in dims.items()} for n, dims in by_dim.items()}
     launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS + D512_KERNELS}
     log(f"training with rewards: launches a step by head dim {per_step}; over the {steps} steps {launches}")
-    check_bwd_routes("training with rewards")
+    check_flash_routes("training with rewards", steps, "step")
     check_conv_routes("training with rewards", 4 * steps)
     for name, n in launches.items():
         if n <= 0:

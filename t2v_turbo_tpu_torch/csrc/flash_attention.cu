@@ -10,26 +10,31 @@
 // one B2, which also writes lse = m + log(l) per query row in f32. The
 // (B, S, H, D) strides make it the BSHD family's forward too (B6: the TPU's
 // _flash_fwd_kernel_bshd and _flash_fwd_kernel_bshd_lse).
-// On the main path B1 runs every attention of the VC2 UNet (spatial
-// self-attention at S = 2560, 640, 160 and 40, cross-attention to 77 text
-// tokens, temporal self-attention over 16 frames; heads of 64) and the VAE's
-// mid-block attention (S = 2560, one head of 512); in training B2 runs every
-// UNet attention of the student's gradient-carrying forward.
+// On the main path B1 runs the VC2 UNet's spatial self-attention at S =
+// 2560, 640 and 160 and its cross-attention to 77 text tokens (heads of 64),
+// and the VAE's mid-block attention (S = 2560, one head of 512); in training
+// B2 runs every UNet attention of the student's gradient-carrying forward
+// (the temporal and the middle block's too).
 //
 // What bounds it on the H100: the plain version writes and reads the f32
 // logits, 2.1 GB per level-0 call; this kernel reads q, k, v once per query
 // tile and writes o (and 4 bytes of lse a row) once, so device-memory traffic
-// stops mattering and the arithmetic decides. Two paths do that arithmetic:
-// - bf16, the main path's dtype: tensor cores through mma.sync.m16n8k16 in
-//   FlashAttention-2's register layout (flash_mma.cuh). wgmma, TMA and a
-//   pipelined K/V ring are later work.
+// stops mattering and the arithmetic decides. Three routes do that
+// arithmetic; the wrapper picks one (ops/attention.py::flash_route) and
+// passes it in:
+// - wgmma (bf16 at D = 64, tensors TMA can read, scale > 0: every call of
+//   the UNet and ViCLIP): flash_attention_sm90.cu, wgmma products fed by a
+//   TMA ring.
+// - mma (bf16: D = 64 views that TMA cannot read or a scale <= 0, and
+//   D = 512): tensor cores through mma.sync.m16n8k16 in FlashAttention-2's
+//   register layout (flash_mma.cuh), below.
 // - f32: scalar f32 FMAs out of shared memory, exact enough to hold against
 //   the plain f32 math. Each thread owns a small register tile of the logits
 //   and of the output, so every shared-memory load feeds several FMAs;
 //   shared-memory bandwidth is the limit it hits.
 //
-// Common to both (the TPU kernel's sequential K grid axis becomes a loop in
-// the block):
+// Common to the mma and f32 routes (the TPU kernel's sequential K grid axis
+// becomes a loop in the block):
 // - one block per (batch*head, tile of queries);
 // - per tile of keys: stage K and V in shared memory, compute the logits,
 //   update the running max m, sum l and the f32 output accumulator
@@ -48,6 +53,10 @@
 #include "flash_mma.cuh"
 
 namespace t2v {
+
+int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                   int Sq, int Sk, const long long* strides, const long long* lse_strides, float scale,
+                   void* stream);
 
 constexpr int kFlashThreads = 256;
 
@@ -225,7 +234,7 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// Tensor-core path: bf16 on mma.sync.m16n8k16 (bf16 in, f32 accumulate), in
+// The mma route: bf16 on mma.sync.m16n8k16 (bf16 in, f32 accumulate), in
 // FlashAttention-2's register layout (flash_mma.cuh). Per tile of keys, K
 // and V are staged in shared memory row-major ([key][d], rows padded by 8
 // elements so fragment loads and ldmatrix rows fall in distinct banks), with
@@ -234,10 +243,9 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // query row is spread over the 4 lanes of a quad), and the probabilities,
 // rounded to bf16, are reused in registers as the A operand of P.V, whose B
 // fragments come from V through ldmatrix.trans. Each lane keeps a partial
-// row sum, reduced once at the end. No cp.async/TMA pipelining yet: loads
-// and math alternate.
-// - D = 64 (the UNet's level-0 self-attention): 4 warps, each owning 16
-//   queries (64 per block) and its Q fragments for the whole K loop.
+// row sum, reduced once at the end. No pipelining: loads and math alternate.
+// - D = 64 (views TMA cannot read): 4 warps, each owning 16 queries (64 per
+//   block) and its Q fragments for the whole K loop.
 // - D = 512 (the VAE's one head): a warp's 16 x 512 f32 accumulators would
 //   not fit its registers, so 8 warps take 32 queries: two groups of 16 rows,
 //   and within each, 4 warps own a 128-wide slice of the head dim. Each warp
@@ -417,10 +425,10 @@ static cudaError_t launch_flash_mma(const void* q, const void* k, const void* v,
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
+  // D = 64 comes here only for views TMA cannot read (or a scale <= 0):
+  // element-wise staging
+  if (D == 64) return launch_mma<64, false>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
   const bool vec = rows_aligned16(k, st + 3) && rows_aligned16(v, st + 6);
-  if (D == 64)
-    return vec ? launch_mma<64, true>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream)
-               : launch_mma<64, false>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
   if (D == 512)
     return vec ? launch_mma<512, true>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream)
                : launch_mma<512, false>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
@@ -462,7 +470,12 @@ static cudaError_t launch_flash_scalar(const void* q, const void* k, const void*
 
 static int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
                      int B, int H, int Sq, int Sk, int D, const long long* strides,
-                     const long long* lse_strides, float scale, void* stream) {
+                     const long long* lse_strides, float scale, int route, void* stream) {
+  if (route == kRouteWgmma) {
+    if (dtype != kBF16 || D != 64) return (int)cudaErrorInvalidValue;
+    return flash_fwd_sm90(q, k, v, o, lse, B, H, Sq, Sk, strides, lse_strides, scale, stream);
+  }
+  if (route != kRouteMma) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (dtype == kF32)
     return launch_flash_scalar(q, k, v, o, lse, B, H, Sq, Sk, D, strides, lse_strides, scale, st);
@@ -478,12 +491,14 @@ extern "C" {
 // q: (B, Sq, H, D), k/v: (B, Sk, H, D), o: (B, Sq, H, D), all addressed by
 // element strides st = [q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
 // o_sb, o_ss, o_sh] with a contiguous last dimension. D must be 64 or 512.
+// route: kRouteWgmma (bf16, D = 64, scale > 0, 16-byte aligned q, k, v with
+// strides of multiples of 8 elements; refused otherwise) or kRouteMma.
 int t2v_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                             int dtype, int B, int H, int Sq, int Sk, int D,
-                            const long long* strides, float scale, void* stream) {
+                            const long long* strides, float scale, int route, void* stream) {
   const long long no_lse[2] = {0, 0};
   return t2v::flash_fwd(q, k, v, o, nullptr, dtype, B, H, Sq, Sk, D, strides, no_lse, scale,
-                        stream);
+                        route, stream);
 }
 
 // As t2v_flash_attention_fwd, and lse: (B, H, Sq) f32 at element strides
@@ -491,9 +506,9 @@ int t2v_flash_attention_fwd(const void* q, const void* k, const void* v, void* o
 int t2v_flash_attention_fwd_lse(const void* q, const void* k, const void* v, void* o, float* lse,
                                 int dtype, int B, int H, int Sq, int Sk, int D,
                                 const long long* strides, const long long* lse_strides,
-                                float scale, void* stream) {
+                                float scale, int route, void* stream) {
   return t2v::flash_fwd(q, k, v, o, lse, dtype, B, H, Sq, Sk, D, strides, lse_strides, scale,
-                        stream);
+                        route, stream);
 }
 
 }  // extern "C"

@@ -32,7 +32,7 @@
 // logit recomputations, dP twice, and dV, dK, dQ once) against reading
 // q, k, v, dO and writing dq, dk, dv once: the arithmetic, as in the
 // forward. Three routes do it; the wrapper picks one and passes it in:
-// - wgmma (bf16 at D = 64, TMA-aligned tensors): flash_attention_bwd_sm90.cu,
+// - wgmma (bf16 at D = 64, TMA-aligned tensors): flash_attention_sm90.cu,
 //   wgmma products fed by a TMA ring.
 // - mma (bf16: D = 64 views that TMA cannot read, and D = 512): tensor
 //   cores through mma.sync.m16n8k16 (flash_mma.cuh). Each warp
@@ -47,10 +47,6 @@
 #include "flash_mma.cuh"
 
 namespace t2v {
-
-// route codes shared with the Python wrappers (ops/attention.py BWD_ROUTES):
-// the mma.sync or f32 kernels of this file, or the sm_90a wgmma kernels
-enum BwdRoute : int { kRouteMma = 0, kRouteWgmma = 1 };
 
 int flash_bwd_sm90(bool dkv, const void* q, const void* k, const void* v, const void* g,
                    const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,

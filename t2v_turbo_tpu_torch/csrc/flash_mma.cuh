@@ -18,6 +18,11 @@ namespace t2v {
 
 constexpr float kMaskValue = -0.7f * 3.4028234663852886e38f;  // the reference's
 
+// route codes shared with the Python wrappers (ops/attention.py ROUTES): the
+// mma.sync or f32 kernels of flash_attention.cu and flash_attention_bwd.cu,
+// or the sm_90a wgmma kernels of flash_attention_sm90.cu
+enum Route : int { kRouteMma = 0, kRouteWgmma = 1 };
+
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4], uint32_t b0,
                                           uint32_t b1) {
   asm volatile(

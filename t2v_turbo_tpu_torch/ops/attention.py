@@ -16,15 +16,16 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   anything else; it never falls back.
 - The kernel wrappers, each with its plain twin (run for CPU tensors, and
   the card's oracle) and a `launches` counter:
-  `flash_attention` (B1: forward; counter on `flash_attention`),
+  `flash_attention` (B1: forward; counters on `flash_attention`),
   `flash_attention_lse` (B2: forward + lse),
   `flash_attention_bwd_dkv` and `flash_attention_bwd_dq` (B3). The kernels
   take (batch, seq, head) strides, so the same wrappers are the BSHD family
-  (B6) of the JAX package. The three training wrappers also count their
-  launches by head dim (`by_head_dim`). The backward picks its route with
-  `flash_bwd_route` (bf16 at head dim 64 on tensors TMA can read: the
-  wgmma kernels of csrc/flash_attention_bwd_sm90.cu; other bf16: the
-  mma.sync kernels; f32: the scalar ones) and counts it (`by_route`).
+  (B6) of the JAX package. Each also counts its launches by head dim
+  (`by_head_dim`) and by route (`by_route`), and the two forwards by shape
+  (`by_shape`, (B, H, Sq, Sk, D)). All four pick their route with
+  `flash_route` (bf16 at head dim 64 on tensors TMA can read: the wgmma
+  kernels of csrc/flash_attention_sm90.cu; other bf16: the mma.sync
+  kernels; f32: the scalar ones).
 - `small_seq_attention` (B8): the short-sequence kernel of
   csrc/small_seq_attention.cu, one warp per (batch, head) at Sq = Sk <= 64,
   head dim 64, forward only (the JAX package has no backward for it either);
@@ -59,8 +60,8 @@ from . import cuda_lib
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 FLASH_HEAD_DIMS = (64, 512)
 FLASH_BWD_HEAD_DIMS = (64, 512)
-# the backward's routes, as csrc/flash_attention_bwd.cu's BwdRoute codes
-BWD_ROUTES = {"mma": 0, "f32": 0, "wgmma": 1}
+# the kernels' routes, as csrc/flash_mma.cuh's Route codes
+ROUTES = {"mma": 0, "f32": 0, "wgmma": 1}
 SMALL_SEQ_HEAD_DIM, SMALL_SEQ_MAX = 64, 64
 
 
@@ -135,31 +136,39 @@ def _check_flash(what, q, k, v, head_dims, *more):
     if q.device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {q.device}")
     b, _, h, d = q.shape
-    sk = k.shape[1]
     tensors = (q, k, v) + more
-    if q.dtype not in cuda_lib.DTYPE_CODES or any(t.dtype != q.dtype for t in tensors):
-        raise TypeError(f"{what}: dtypes {[t.dtype for t in tensors]} not supported")
+    dtype, device = q.dtype, q.device
+    if dtype not in cuda_lib.DTYPE_CODES:
+        raise TypeError(f"{what}: dtype {dtype} not supported")
     if d not in head_dims:
         raise ValueError(f"{what}: head dim {d} not in {head_dims}")
-    if k.shape != (b, sk, h, d) or v.shape != k.shape or any(t.shape != q.shape for t in more):
+    if k.shape != (b, k.shape[1], h, d) or v.shape != k.shape:
         raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in tensors]}")
-    if any(t.device != q.device for t in tensors):
-        raise ValueError(f"{what}: the tensors must share a device")
-    if any(t.stride(-1) != 1 for t in tensors):
-        raise ValueError(f"{what}: the head dimension must be contiguous")
+    # one loop, not a generator per check: this runs before every launch, and
+    # at the path's small shapes the host's time per call is the call's time
+    for i, t in enumerate(tensors):
+        if t.dtype != dtype:
+            raise TypeError(f"{what}: dtypes {[t.dtype for t in tensors]} not supported")
+        if i > 2 and t.shape != q.shape:
+            raise ValueError(f"{what}: shapes {[tuple(t.shape) for t in tensors]}")
+        if t.device != device:
+            raise ValueError(f"{what}: the tensors must share a device")
+        if t.stride(-1) != 1:
+            raise ValueError(f"{what}: the head dimension must be contiguous")
 
 
 def _strides(*tensors):
     """(batch, seq, head) element strides of each (B, S, H, D) tensor."""
-    vals = [t.stride(i) for t in tensors for i in (0, 1, 2)]
+    vals = [s for t in tensors for s in t.stride()[:3]]
     return (ctypes.c_longlong * len(vals))(*vals)
 
 
 def _row_stats_strides(lse):
     """(batch, head) strides of a (B, H, Sq) f32 row-statistics tensor."""
-    if lse.dtype != torch.float32 or lse.stride(-1) != 1:
+    sb, sh, ss = lse.stride()
+    if lse.dtype != torch.float32 or ss != 1:
         raise ValueError("row statistics must be f32 with a contiguous sequence")
-    return (ctypes.c_longlong * 2)(lse.stride(0), lse.stride(1))
+    return (ctypes.c_longlong * 2)(sb, sh)
 
 
 def flash_attention(q, k, v, scale=None):
@@ -177,23 +186,43 @@ def flash_attention(q, k, v, scale=None):
     return flash_attention_cuda(q, k, v, scale)
 
 
-flash_attention.launches = 0
+def _count(wrapper, route, shape):
+    """One launch of a flash kernel wrapper: its total, by head dim, by route
+    and, for the forwards, by (B, H, Sq, Sk, D)."""
+    wrapper.launches += 1
+    wrapper.by_head_dim[shape[-1]] += 1
+    wrapper.by_route[route] += 1
+    if hasattr(wrapper, "by_shape"):
+        wrapper.by_shape[shape] += 1
+
+
+def _counters(wrapper, shapes=False):
+    wrapper.launches = 0
+    wrapper.by_head_dim = collections.Counter()
+    wrapper.by_route = collections.Counter()
+    if shapes:
+        wrapper.by_shape = collections.Counter()
+
+
+_counters(flash_attention, shapes=True)
 
 
 def flash_attention_cuda(q, k, v, scale=None):
-    """Launch the forward kernel (B1) of csrc/flash_attention.cu; raises on
-    anything it does not take."""
+    """Launch the forward kernel (B1) on the route `flash_route` picks
+    (csrc/flash_attention_sm90.cu or flash_attention.cu); raises on anything
+    no kernel takes."""
     _check_flash("flash_attention_cuda", q, k, v, FLASH_HEAD_DIMS)
     b, sq, h, d = q.shape
     scale = d**-0.5 if scale is None else scale
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
+    route, strides = _layout((q, k, v, o), 3, scale)
     err = cuda_lib.lib().t2v_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
-        cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, _strides(q, k, v, o),
-        float(scale), cuda_lib.stream_ptr(q.device),
+        cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, strides,
+        float(scale), ROUTES[route], cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_cuda")
-    flash_attention.launches += 1
+    _count(flash_attention, route, (b, h, sq, k.shape[1], d))
     return o
 
 
@@ -210,36 +239,49 @@ def flash_attention_lse(q, k, v, scale=None):
     b, sq, h, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
+    route, strides = _layout((q, k, v, o), 3, scale)
     err = cuda_lib.lib().t2v_flash_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
-        cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, _strides(q, k, v, o),
-        _row_stats_strides(lse), float(scale), cuda_lib.stream_ptr(q.device),
+        cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, strides,
+        _row_stats_strides(lse), float(scale), ROUTES[route], cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_lse")
-    flash_attention_lse.launches += 1
-    flash_attention_lse.by_head_dim[d] += 1
+    _count(flash_attention_lse, route, (b, h, sq, k.shape[1], d))
     return o, lse
 
 
-flash_attention_lse.launches = 0
-flash_attention_lse.by_head_dim = collections.Counter()
+_counters(flash_attention_lse, shapes=True)
 
 
-def _tma_rows(t):
-    """True if TMA can read t's (B, S, H, D) rows: a 16-byte aligned base and
-    (batch, seq, head) strides that are multiples of 16 bytes."""
-    e = t.element_size()
-    return t.data_ptr() % 16 == 0 and all(t.stride(i) * e % 16 == 0 for i in range(3))
-
-
-def flash_bwd_route(q, k, v, do):
-    """The backward kernels' route: "wgmma" for bf16 at head dim 64 when TMA
-    can read q, k, v and dO; "f32" for f32; else "mma"."""
+def _layout(tensors, n_read, fwd_scale=None):
+    """(route, strides) of a flash launch on (B, S, H, D) tensors: the C entry
+    points' (batch, seq, head) element strides of each tensor, and the route:
+    "wgmma" for bf16 at head dim 64 when TMA can read the first n_read
+    tensors (16-byte aligned bases, strides of multiples of 16 bytes; the
+    kernels write their outputs, which the wrappers allocate, without TMA)
+    and, for a forward (fwd_scale given), the scale is positive (the wgmma
+    forward's running max is over the unscaled logits); "f32" for f32; else
+    "mma". One stride() call a tensor: this runs before every launch, and
+    at the path's small shapes the host's time per call is the call's time."""
+    strides = [t.stride() for t in tensors]
+    q = tensors[0]
     if q.dtype == torch.float32:
-        return "f32"
-    if q.dtype == torch.bfloat16 and q.shape[-1] == 64 and all(_tma_rows(t) for t in (q, k, v, do)):
-        return "wgmma"
-    return "mma"
+        route = "f32"
+    elif q.dtype == torch.bfloat16 and q.shape[-1] == 64 and (fwd_scale is None or fwd_scale > 0) and all(
+            t.data_ptr() % 16 == 0 and sb % 8 == 0 and ss % 8 == 0 and sh % 8 == 0  # bf16: 8 elements a 16 bytes
+            for t, (sb, ss, sh, _) in zip(tensors[:n_read], strides)):
+        route = "wgmma"
+    else:
+        route = "mma"
+    vals = [x for st in strides for x in st[:3]]
+    return route, (ctypes.c_longlong * len(vals))(*vals)
+
+
+def flash_route(q, k, v, *more, fwd_scale=None):
+    """The flash kernels' route, forward (q, k, v, and its scale) and backward
+    (more = dO), by `_layout`'s rule."""
+    tensors = (q, k, v) + more
+    return _layout(tensors, len(tensors), fwd_scale)[0]
 
 
 def _bwd_args(what, q, k, v, do, lse, delta):
@@ -264,24 +306,20 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=None):
         return attention_bwd_dkv_plain(q, k, v, do, lse, delta, scale)
     lst = _bwd_args("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
-    route = flash_bwd_route(q, k, v, do)
     dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=k.device) for _ in range(2))
+    route, strides = _layout((q, k, v, do, q, dk, dv), 4)
     err = cuda_lib.lib().t2v_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
-        _strides(q, k, v, do, q, dk, dv), lst, float(scale), BWD_ROUTES[route],
+        strides, lst, float(scale), ROUTES[route],
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_bwd_dkv")
-    flash_attention_bwd_dkv.launches += 1
-    flash_attention_bwd_dkv.by_head_dim[d] += 1
-    flash_attention_bwd_dkv.by_route[route] += 1
+    _count(flash_attention_bwd_dkv, route, (b, h, sq, k.shape[1], d))
     return dk, dv
 
 
-flash_attention_bwd_dkv.launches = 0
-flash_attention_bwd_dkv.by_head_dim = collections.Counter()
-flash_attention_bwd_dkv.by_route = collections.Counter()
+_counters(flash_attention_bwd_dkv)
 
 
 def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=None):
@@ -295,24 +333,20 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=None):
         return attention_bwd_dq_plain(q, k, v, do, lse, delta, scale)
     lst = _bwd_args("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
-    route = flash_bwd_route(q, k, v, do)
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    route, strides = _layout((q, k, v, do, dq, k, v), 4)
     err = cuda_lib.lib().t2v_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
-        _strides(q, k, v, do, dq, k, v), lst, float(scale), BWD_ROUTES[route],
+        strides, lst, float(scale), ROUTES[route],
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_bwd_dq")
-    flash_attention_bwd_dq.launches += 1
-    flash_attention_bwd_dq.by_head_dim[d] += 1
-    flash_attention_bwd_dq.by_route[route] += 1
+    _count(flash_attention_bwd_dq, route, (b, h, sq, k.shape[1], d))
     return dq
 
 
-flash_attention_bwd_dq.launches = 0
-flash_attention_bwd_dq.by_head_dim = collections.Counter()
-flash_attention_bwd_dq.by_route = collections.Counter()
+_counters(flash_attention_bwd_dq)
 
 
 class FlashAttention(torch.autograd.Function):

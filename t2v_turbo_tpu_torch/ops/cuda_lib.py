@@ -101,12 +101,12 @@ def lib() -> ctypes.CDLL:
     so = ctypes.CDLL(build())
     vp, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
     so.t2v_flash_attention_fwd.argtypes = [
-        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, ctypes.POINTER(i64), f32, vp,
+        vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, ctypes.POINTER(i64), f32, i32, vp,
     ]
     so.t2v_flash_attention_fwd.restype = i32
     pi64 = ctypes.POINTER(i64)
     so.t2v_flash_attention_fwd_lse.argtypes = [
-        vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, pi64, pi64, f32, vp,
+        vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, pi64, pi64, f32, i32, vp,
     ]
     so.t2v_flash_attention_fwd_lse.restype = i32
     so.t2v_flash_attention_bwd_dkv.argtypes = [
