@@ -20,11 +20,16 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 recorded; a yardstick only) with CUDA events, beside the
                 card's bound; B1's time is logged beside the short-sequence
                 kernel's. B1 and B2 run at every bf16 head-dim-64 forward
-                shape of the paths (apps/time_flash.py's FWD_SHAPES). Each
-                flash case also checks its route (wgmma for aligned bf16 at
-                head dim 64, mma for the unaligned views, head dim 512 and
-                a negative scale, f32), and at L0 two launches of each flash
-                kernel must give equal bits. The fused conv is also
+                shape of the paths (apps/time_flash.py's FWD_SHAPES), and at
+                head dim 512 at the VAE mid block's shapes and tile edges.
+                Each flash case also checks its route (wgmma for aligned
+                bf16 forwards at head dims 64 and 512 and backwards at 64,
+                mma for the unaligned views, the backward at 512 and a
+                negative scale, f32), and at L0 and at the VAE mid block
+                two launches of each flash forward must give equal bits
+                (of B3 at L0); first, the wgmma forward's C entry must
+                refuse an unaligned view, a scale <= 0 and f32 at both head
+                dims (no fallback). The fused conv is also
                 checked and timed at every distinct shape of a UNet step
                 (15 spatial 3x3, 4 temporal (3,1)), each case on its route
                 (wgmma for bf16, f32), and two launches at L0 must give
@@ -34,13 +39,15 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 apps/generate.py's build_pipeline and the pipeline call:
                 3 prompts, 4 steps, 16 frames at 320x512, timed as plain calls.
                 Checks every video and that each kernel launched during this
-                run; logs the fused conv's and the flash forward's launches a
+                run (B1 at head dim 512 once a video, in the VAE's mid block);
+                logs the fused conv's and the flash forward's launches a
                 UNet step by shape and fails unless every bf16 launch of
-                either at head dim 64 took the wgmma route. Then one more
+                either took the wgmma route. Then one more
                 video with each stage's forward timed (synchronised hooks),
                 and one under torch.profiler (device time by kernel, the
-                fused conv's and the flash forward's device time and the
-                device's idle share, into chiprun_out/profile.txt).
+                fused conv's and the flash forward's device time (the part
+                at head dim 512 apart) and the device's idle share, into
+                chiprun_out/profile.txt).
   5. reference: a small pipeline (f32, 256x256, so flash attention still runs)
                 on the card against the same weights on the CPU, where every
                 kernel wrapper runs its plain version; every serving kernel
@@ -65,8 +72,11 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 checks that the reward terms alone give a finite gradient,
                 non-zero in every LoRA up factor; then 1 warm-up and 3 timed
                 steps with finite reward losses, launches a step by head dim
-                (the D = 512 kernels at least twice a step, on mma; every
-                D = 64 flash launch on wgmma; every fused conv on wgmma), one profiled step
+                (the D = 512 kernels at least twice a step, once in each
+                decode, at batch 8 and at batch 5: B2 on wgmma, B3 on mma,
+                each shape held to its plain twin in phase 3; every D = 64
+                flash launch on wgmma; every fused conv
+                on wgmma), one profiled step
                 (chiprun_out/profile_train_rewards.txt).
   8. training reference: one small f32 LCD step (heads of 64, so the flash
                 kernels run) through the trainer's gradient path
@@ -109,8 +119,11 @@ KERNELS = {
                                 "t2v_turbo_tpu/ops/attention.py:157"),
     "flash_attention_bwd_dq": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                "t2v_turbo_tpu/ops/attention.py:213"),
-    # the same kernels at the VAE decoder's one head of 512 (reward feedback)
-    "flash_attention_fwd_lse_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
+    # the same kernels at the VAE's one head of 512: B1 in the mid block when
+    # serving, B2 and B3 in its decode with gradient (reward feedback)
+    "flash_attention_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
+                             "t2v_turbo_tpu/ops/attention.py:257"),
+    "flash_attention_fwd_lse_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                      "t2v_turbo_tpu/ops/attention.py:106"),
     "flash_attention_bwd_dkv_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd.cu",
                                      "t2v_turbo_tpu/ops/attention.py:157"),
@@ -126,7 +139,8 @@ SERVING_KERNELS = ("flash_attention", "group_norm", "layer_norm", "fused_gn_silu
 TRAIN_KERNELS = SERVING_KERNELS + ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
                                    "flash_attention_bwd_dq")
 D512_KERNELS = ("flash_attention_fwd_lse_d512", "flash_attention_bwd_dkv_d512",
-                "flash_attention_bwd_dq_d512")
+                "flash_attention_bwd_dq_d512")  # on the rewards-ON training path
+D512_SERVING = "flash_attention_d512"  # once a video, in the VAE's mid block
 # The H100 SXM's published dense peaks (NVIDIA's H100 datasheet): bf16
 # on tensor cores; f32 outside them (the f32 kernels are scalar FMAs).
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}
@@ -159,7 +173,7 @@ def read_launches():
     launches at head dim 512 (also in the wrapper's own total)."""
     ws = wrappers()
     out = {n: w.launches for n, w in ws.items()}
-    out.update({n: ws[n[:-len("_d512")]].by_head_dim[512] for n in D512_KERNELS})
+    out.update({n: ws[n[:-len("_d512")]].by_head_dim[512] for n in D512_KERNELS + (D512_SERVING,)})
     return out
 
 
@@ -172,26 +186,33 @@ def check_flash_routes(what, passes, per):
     """Log the four flash kernels' launches by route beside those by head
     dim, and the forwards' launches by (B, H, Sq, Sk, D) shape over `passes`
     (UNet passes or training steps: `per` names them); raise unless every
-    head-dim-64 launch went through wgmma (the path's bf16 tensors are
-    TMA-aligned) and every other one through mma (D = 512)."""
+    forward launch and every head-dim-64 backward launch went through wgmma
+    (the path's bf16 tensors are TMA-aligned) and every backward launch at
+    head dim 512 through mma."""
     from t2v_turbo_tpu_torch.ops import attention as A
 
     for w in (A.flash_attention, A.flash_attention_lse, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq):
-        want = {r: n for r, n in (("wgmma", w.by_head_dim[64]), ("mma", w.by_head_dim[512])) if n}
+        fwd = hasattr(w, "by_shape")
+        d64, d512 = w.by_head_dim[64], w.by_head_dim[512]
+        want = {r: n for r, n in (("wgmma", d64 + d512 if fwd else d64), ("mma", 0 if fwd else d512)) if n}
         ok = dict(w.by_route) == want
-        shapes = (f"; a {per} by shape {dict((k, c / passes) for k, c in sorted(w.by_shape.items()))}"
-                  if hasattr(w, "by_shape") else "")
+        shapes = f"; a {per} by shape {dict((k, c / passes) for k, c in sorted(w.by_shape.items()))}" if fwd else ""
+        rule = "every launch on wgmma" if fwd else "D = 64 on wgmma, D = 512 on mma"
         log(f"{what}: {w.__name__} launches by route {dict(w.by_route)}, by head dim "
-            f"{dict(sorted(w.by_head_dim.items()))} (every D = 64 launch on wgmma) {'OK' if ok else 'FAIL'}"
-            + shapes)
+            f"{dict(sorted(w.by_head_dim.items()))} ({rule}) {'OK' if ok else 'FAIL'}" + shapes)
         if not ok:
             raise AssertionError(f"{what}: {w.__name__} took routes {dict(w.by_route)}, expected {want}")
 
 
 def flash_device_ms(events):
-    """(forward, backward) device ms of the flash kernels in profiler events."""
-    return tuple(sum(e.self_device_time_total for e in events if name in e.key) / 1e3
-                 for name in ("flash_fwd", "flash_bwd"))
+    """(forward, backward, the forward at head dim 512) device ms of the flash
+    kernels in profiler events (the wgmma kernel `flash_fwd_d512_...`, or
+    the mma template's `<512, ...>` instance)."""
+    fwd, bwd = (sum(e.self_device_time_total for e in events if name in e.key) / 1e3
+                for name in ("flash_fwd", "flash_bwd"))
+    d512 = sum(e.self_device_time_total for e in events
+               if "flash_fwd" in e.key and ("d512" in e.key or "<512" in e.key)) / 1e3
+    return fwd, bwd, d512
 
 
 def check_conv_routes(what, unet_passes):
@@ -400,8 +421,8 @@ def _kernel_cases():
                  "both are also held to f64 math below")
     why_f32 = "f32 with TF32 off; only the summation order and expf differ"
     why_norm_bf = "bf16 output; f32 statistics summed in another order can move a value by one bf16 ulp"
-    def flash(label, make, atol, rtol, iters, why, f64=True, route="wgmma"):
-        return dict(kernel="flash_attention", label=label, make=make, fn=A.flash_attention,
+    def flash(label, make, atol, rtol, iters, why, f64=True, route="wgmma", kernel="flash_attention"):
+        return dict(kernel=kernel, label=label, make=make, fn=A.flash_attention,
                     plain=A.attention, outputs=("o",), tols=[_elementwise(atol, rtol)], why=why,
                     route=(A.flash_attention, route), shape=getattr(make, "shape", None), iters=iters,
                     library=_sdpa_fwd,
@@ -526,14 +547,15 @@ def _kernel_cases():
         flash("UNet L0 self-attn (16,5,2560,2560,64) f32", attn(16, 2560, 5, 64, f32), 1e-5, 1e-4, 5, why_f32,
               f64=False, route="f32"),
         flash("VAE mid attn (16,1,2560,2560,512) bf16", attn(16, 2560, 1, 512, bf), 2e-3, 2e-2, 5, why_bf,
-              route="mma"),
+              kernel="flash_attention_d512"),
         flash("UNet L1 self-attn (16,10,640,640,64) bf16", attn(16, 640, 10, 64, bf), 2e-3, 2e-2, 20, why_bf),
         flash("UNet L0 cross-attn (16,5,2560,77,64) bf16", attn(16, 2560, 5, 64, bf, sk=77), 2e-2, 2e-2, 20,
               why_short),
         flash("UNet L0 temporal attn (2560,5,16,16,64) bf16", attn(2560, 16, 5, 64, bf), 2e-2, 2e-2, 20,
               why_short),
         flash("ragged S (2,5,1111,1111,64) bf16", attn(2, 1111, 5, 64, bf), 2e-3, 2e-2, 5, why_bf),
-        flash("ragged S (2,1,1111,1111,512) bf16", attn(2, 1111, 1, 512, bf), 2e-3, 2e-2, 5, why_bf, route="mma"),
+        flash("ragged S (2,1,1111,1111,512) bf16", attn(2, 1111, 1, 512, bf), 2e-3, 2e-2, 5, why_bf,
+              kernel="flash_attention_d512"),
         flash("unaligned strided K/V (2,5,300,300,64) bf16", _unaligned(2, 300, 300, 5, 64, 3), 2e-3, 2e-2, 5,
               why_bf, route="mma"),
         gn("UNet L0 GN+SiLU per frame (16,320,40,64) bf16", (16, 320, 40, 64), 320, 1e-5, 20),
@@ -564,17 +586,36 @@ def _kernel_cases():
         tols=[_elementwise(2e-3, 2e-2), _elementwise(1e-3, 0.0)], route=(A.flash_attention_lse, "mma"),
         why=f"o: {why_bf}; lse: f32 sums of exp in another order; a scale <= 0 takes the mma route"))
     both = lambda q, k, v: (A.flash_attention(q, k, v),) + A.flash_attention_lse(q, k, v)  # noqa: E731
-    fwd_path.append(dict(
-        kernel="flash_attention forward determinism", label="UNet L0 self-attn (16,5,2560,2560,64) bf16",
-        make=attn(16, 2560, 5, 64, bf), fn=both, plain=both, outputs=("o (B1)", "o (B2)", "lse"),
-        tols=3 * [_elementwise(0.0, 0.0)], why="two launches of each: a fixed summation order, so equal bits"))
+    for label, make in (("UNet L0 self-attn (16,5,2560,2560,64) bf16", attn(16, 2560, 5, 64, bf)),
+                        ("VAE mid attn (16,1,2560,2560,512) bf16", attn(16, 2560, 1, 512, bf))):
+        fwd_path.append(dict(
+            kernel="flash_attention forward determinism", label=label, make=make, fn=both, plain=both,
+            outputs=("o (B1)", "o (B2)", "lse"), tols=3 * [_elementwise(0.0, 0.0)],
+            why="two launches of each: a fixed summation order (at D = 512 the two warpgroups' partial "
+                "logits added in one order), so equal bits"))
+    # B1 at head dim 512 on the edges of its 64-row tiles (S one row past two
+    # tiles; Sk one row past one; Sq != Sk with Sk < 64), and an unaligned
+    # view, which the wgmma forward cannot read (mma route)
+    fwd_path += [
+        flash("tile edges (2,1,129,129,512) bf16", attn(2, 129, 1, 512, bf), 2e-3, 2e-2, 3, why_bf,
+              kernel="flash_attention_d512"),
+        flash("tile edges (2,1,191,65,512) bf16", attn(2, 191, 1, 512, bf, sk=65), 2e-2, 2e-2, 3, why_short,
+              kernel="flash_attention_d512"),
+        flash("short keys (2,1,100,40,512) bf16", attn(2, 100, 1, 512, bf, sk=40), 2e-2, 2e-2, 3, why_short,
+              kernel="flash_attention_d512"),
+        # checked, not recorded: the record of flash_attention_d512 is the wgmma kernel's
+        flash("unaligned strided q/k/v (2,1,300,300,512) bf16", _unaligned(2, 300, 300, 1, 512, 3), 2e-3, 2e-2, 3,
+              why_bf, route="mma", kernel="flash_attention_d512 on mma"),
+    ]
     return serving + train + fwd_path + b7_unet
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
 # student's gradient-carrying forward runs, plus ragged, strided and f32; and,
 # with reward feedback, ViCLIP's and the VAE decoder's mid-block attention
-# (one head of 512, recorded under the `_d512` names). The last field: the
+# (one head of 512, recorded under the `_d512` names), once a step in each of
+# the two decodes: 8 frames for the video reward, 5 for the image reward
+# (the record keeps the first's times). The last field: the
 # backward kernels are held to their twins by B1's element-wise bound, not
 # the 2e-2*max(1,|ref|) of the rows before them.
 TRAIN_ATTENTION_CASES = [
@@ -592,6 +633,7 @@ TRAIN_ATTENTION_CASES = [
     ("UNet L1 self-attn (16,10,640,640,64) f32, TF32 off", (16, 640, 640, 10, 64), "float32", 3, False),
     ("ViCLIP self-attn (1,16,2049,2049,64) bf16", (1, 2049, 2049, 16, 64), "bfloat16", 10, True),
     ("VAE mid attn, video reward (8,1,2560,2560,512) bf16", (8, 2560, 2560, 1, 512), "bfloat16", 3, True),
+    ("VAE mid attn, image reward (5,1,2560,2560,512) bf16", (5, 2560, 2560, 1, 512), "bfloat16", 3, True),
     ("ragged unaligned strided (2,1,1111,1111,512) bf16", (2, 1111, 1111, 1, 512), "unaligned", 3, True),
     ("VAE mid attn (2,1,1111,1111,512) f32, TF32 off", (2, 1111, 1111, 1, 512), "float32", 2, True),
 ]
@@ -641,7 +683,9 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
     # kernel rounds P and dS to bf16 (2^-9) before each product over up to
     # 2560 terms and rounds its output to bf16; the twin keeps them f32.
     why_twin = ("P and dS rounded to bf16 for their products" if bf16 else "f32 with TF32 off")
-    route = "f32" if not bf16 else "wgmma" if d == 64 and kind != "unaligned" else "mma"
+    # the forward takes wgmma at both head dims on aligned bf16, the backward at 64 only
+    fwd_route = "f32" if not bf16 else "mma" if kind == "unaligned" else "wgmma"
+    route = "mma" if fwd_route == "wgmma" and d == 512 else fwd_route
     both = lambda *a: A.flash_attention_bwd_dkv(*a, scale) + (A.flash_attention_bwd_dq(*a, scale),)
     determinism = [dict(
         kernel="flash_attention_bwd determinism", label=label, make=with_row_stats, fn=both, plain=both,
@@ -652,7 +696,7 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
              fn=lambda q, k, v: A.flash_attention_lse(q, k, v, scale),
              plain=lambda q, k, v: A.attention_lse_plain(q, k, v, scale), outputs=("o", "lse"),
              tols=[o_tol, _elementwise(1e-3, 0.0)], iters=iters, library=_sdpa_fwd,
-             route=(A.flash_attention_lse, route), shape=(b, h, sq, sk),
+             route=(A.flash_attention_lse, fwd_route), shape=(b, h, sq, sk),
              why=f"o: {why_o}; lse: f32 sums of exp in another order",
              bound=lambda q, k, v: attention_bound(q, k, "fwd_lse"),
              **({"exact": _attention_f64} if bf16 else {})),
@@ -755,11 +799,42 @@ def _timing_line(ms, plain_ms, library, bound):
     return f"kernel {ms:.4g} ms, plain {plain_ms:.4g} ms, library {lib}, bound {bound[0]:.4g} ms ({bound[1]})"
 
 
+def check_wgmma_refusals():
+    """No fallback in the C entry: a forward on the wgmma route that its
+    kernels cannot take (an unaligned view, a scale <= 0, f32), at both head
+    dims, returns an error instead of running."""
+    import ctypes
+
+    import torch
+
+    from t2v_turbo_tpu_torch.ops import attention as A
+    from t2v_turbo_tpu_torch.ops import cuda_lib
+
+    for d in (64, 512):
+        g = torch.Generator("cuda").manual_seed(d)
+        q, k, v = (torch.randn((2, 130, 1, d), generator=g, device="cuda").bfloat16() for _ in range(3))
+        requests = {"unaligned q": (_unaligned(2, 130, 130, 1, d, 1)()[0], k, v, 0.125),
+                    "scale -1/8": (q, k, v, -0.125), "scale 0": (q, k, v, 0.0),
+                    "f32": (q.float(), k.float(), v.float(), 0.125)}
+        for what, (qq, kk, vv, scale) in requests.items():
+            o = torch.empty_like(qq)
+            strides = A._strides(qq, kk, vv, o)
+            err = cuda_lib.lib().t2v_flash_attention_fwd(
+                qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), o.data_ptr(), cuda_lib.DTYPE_CODES[qq.dtype], 2, 1,
+                130, 130, d, strides, ctypes.c_float(scale), A.ROUTES["wgmma"], cuda_lib.stream_ptr(qq.device))
+            torch.cuda.synchronize()
+            log(f"kernels: the wgmma forward at D = {d} given {what}: error {err} "
+                f"({'refused, OK' if err else 'ran, FAIL'})")
+            if not err:
+                raise AssertionError(f"the wgmma forward at D = {d} ran a request it cannot take ({what})")
+
+
 def phase_kernels(records):
     import torch
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
+    check_wgmma_refusals()
     for case in _kernel_cases():
         name, label = case["kernel"], case["label"]
         inputs = case["make"]()
@@ -860,7 +935,7 @@ def phase_main_path(records):
             path = os.path.join(OUT_DIR, "chip_smoke_video0.npy")
             np.save(path, video_to_uint8(video)[0])  # (T, H, W, 3) uint8, as save_video writes .npy
             log(f"main path: wrote {os.path.relpath(path, HERE)}")
-    launches = {n: c for n, c in read_launches().items() if n in SERVING_KERNELS}
+    launches = {n: c for n, c in read_launches().items() if n in SERVING_KERNELS or n == D512_SERVING}
     peak = torch.cuda.max_memory_allocated()
     log(f"main path: s/video (videos 2-3, no hooks) {' '.join(f'{s:.3f}' for s in video_s[1:])}; "
         f"max_memory_allocated {peak / 2**30:.2f} GiB")
@@ -911,9 +986,10 @@ def _profile_one_video(pipe):
     with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
     b7_ms = sum(e.self_device_time_total for e in events if "gn_silu_conv" in e.key) / 1e3
+    fwd_ms, _, fwd512_ms = flash_device_ms(events)
     log(f"profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's kernels (B7) {b7_ms:.1f} ms; the flash "
-        f"forward's kernels (B1) {flash_device_ms(events)[0]:.1f} ms -> chiprun_out/profile.txt")
+        f"forward's kernels (B1) {fwd_ms:.2f} ms, of which D = 512 {fwd512_ms:.2f} -> chiprun_out/profile.txt")
 
 
 def phase_reference():
@@ -1073,10 +1149,11 @@ def _profile_train_step(trainer, data, name):
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     b7_ms = sum(e.self_device_time_total for e in events if "gn_silu_conv" in e.key) / 1e3
-    fwd_ms, bwd_ms = flash_device_ms(events)
+    fwd_ms, bwd_ms, fwd512_ms = flash_device_ms(events)
     log(f"training profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's forward kernels (B7) {b7_ms:.1f} ms; flash "
-        f"forward (B1, B2) {fwd_ms:.1f} ms, backward (B3) {bwd_ms:.1f} ms -> chiprun_out/{name}; top: "
+        f"forward (B1, B2) {fwd_ms:.2f} ms (D = 512: {fwd512_ms:.2f}), backward (B3) {bwd_ms:.1f} ms "
+        f"-> chiprun_out/{name}; top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
 
 

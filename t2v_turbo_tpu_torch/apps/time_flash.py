@@ -5,8 +5,9 @@ Usage (from a checkout, on a CUDA card):
   python3 t2v_turbo_tpu_torch/apps/time_flash.py [--root DIR] [--label NAME]
 
 Times `flash_attention_cuda` (B1) and `flash_attention_lse` (B2), each on
-bf16 (B, S, H, 64) tensors, at every distinct head-dim-64 forward shape of
-the serving, training and reward paths (`FWD_SHAPES`). --root imports
+bf16 (B, S, H, D) tensors, at every distinct head-dim-64 forward shape of
+the serving, training and reward paths (`FWD_SHAPES`) and at the VAE mid
+block's head of 512 (`D512_SHAPES`). --root imports
 `t2v_turbo_tpu_torch` from another checkout (e.g. an older commit unpacked
 with `git archive`), so two trees can be timed in turns in one run on one
 card. Prints the card's name and power limit, then one line per shape and kernel: "call",
@@ -51,6 +52,15 @@ FWD_SHAPES = [  # (B, H, Sq, Sk), label, B1 a UNet pass, B2 a training step, B2 
     ((160, 20, 16, 16), "L2 temporal", 0, 10, 0),
     ((40, 20, 16, 16), "mid temporal", 0, 2, 0),
     ((1, 16, 2049, 2049), "ViCLIP self", 0, 0, 24),
+]
+# The VAE mid block's one head of 512 (B, H, Sq, Sk), with its launches: B1
+# once a video (the decode of 16 frames), B2 once in each of a rewards-ON
+# training step's two decodes with gradient (8 frames for the video reward,
+# 5 for the image reward).
+D512_SHAPES = [
+    ((16, 1, 2560, 2560), "VAE mid", "B1 1 a video"),
+    ((8, 1, 2560, 2560), "VAE mid, video reward", "B2 1 a reward step"),
+    ((5, 1, 2560, 2560), "VAE mid, image reward", "B2 1 a reward step"),
 ]
 
 
@@ -104,16 +114,17 @@ def main(argv=None) -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
-    for (b, h, sq, sk), name, *_ in FWD_SHAPES:
+    shapes = [(shape, name, 64) for shape, name, *_ in FWD_SHAPES] + [(shape, name, 512) for shape, name, _ in D512_SHAPES]
+    for (b, h, sq, sk), name, d in shapes:
         g = torch.Generator("cuda").manual_seed(sq + sk)
-        q, k, v = (torch.randn((b, s, h, 64), generator=g, device="cuda").bfloat16() for s in (sq, sk, sk))
+        q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16() for s in (sq, sk, sk))
         iters = 10 if sq * sk >= 2**22 else 30
         by_route = getattr(A.flash_attention, "by_route", None)  # an older tree may not count routes
         before = by_route.copy() if by_route is not None else None
         t1 = _time_ms(lambda: A.flash_attention_cuda(q, k, v), iters)
         t2 = _time_ms(lambda: A.flash_attention_lse(q, k, v), iters)
         routes = sorted(by_route - before) if by_route is not None else "not counted"
-        print(f"{args.label}{name} ({b},{h},{sq},{sk},64): B1 call {t1[0]:.4f} graph {t1[1]:.4f} ms, "
+        print(f"{args.label}{name} ({b},{h},{sq},{sk},{d}): B1 call {t1[0]:.4f} graph {t1[1]:.4f} ms, "
               f"B2 call {t2[0]:.4f} graph {t2[1]:.4f} ms, B1 route {routes}", flush=True)
         del q, k, v
         torch.cuda.empty_cache()

@@ -22,11 +22,11 @@
 // stops mattering and the arithmetic decides. Three routes do that
 // arithmetic; the wrapper picks one (ops/attention.py::flash_route) and
 // passes it in:
-// - wgmma (bf16 at D = 64, tensors TMA can read, scale > 0: every call of
-//   the UNet and ViCLIP): flash_attention_sm90.cu, wgmma products fed by a
-//   TMA ring.
-// - mma (bf16: D = 64 views that TMA cannot read or a scale <= 0, and
-//   D = 512): tensor cores through mma.sync.m16n8k16 in FlashAttention-2's
+// - wgmma (bf16 at D = 64 or 512, tensors TMA can read, scale > 0: every
+//   call of the UNet, ViCLIP and the VAE's mid block): flash_attention_sm90.cu,
+//   wgmma products fed by TMA.
+// - mma (bf16 views that TMA cannot read, or a scale <= 0, at either head
+//   dim): tensor cores through mma.sync.m16n8k16 in FlashAttention-2's
 //   register layout (flash_mma.cuh), below.
 // - f32: scalar f32 FMAs out of shared memory, exact enough to hold against
 //   the plain f32 math. Each thread owns a small register tile of the logits
@@ -55,8 +55,8 @@
 namespace t2v {
 
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                   int Sq, int Sk, const long long* strides, const long long* lse_strides, float scale,
-                   void* stream);
+                   int Sq, int Sk, int D, const long long* strides, const long long* lse_strides,
+                   float scale, void* stream);
 
 constexpr int kFlashThreads = 256;
 
@@ -237,21 +237,22 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // The mma route: bf16 on mma.sync.m16n8k16 (bf16 in, f32 accumulate), in
 // FlashAttention-2's register layout (flash_mma.cuh). Per tile of keys, K
 // and V are staged in shared memory row-major ([key][d], rows padded by 8
-// elements so fragment loads and ldmatrix rows fall in distinct banks), with
-// 16-byte loads when the tensors are 16-byte aligned. The logits accumulate
+// elements so fragment loads and ldmatrix rows fall in distinct banks),
+// element by element, since the views this route takes need not be aligned
+// (an aligned one comes only with a scale <= 0). The logits accumulate
 // in registers (K fragments by 32-bit loads), the softmax runs on them (each
 // query row is spread over the 4 lanes of a quad), and the probabilities,
 // rounded to bf16, are reused in registers as the A operand of P.V, whose B
 // fragments come from V through ldmatrix.trans. Each lane keeps a partial
 // row sum, reduced once at the end. No pipelining: loads and math alternate.
-// - D = 64 (views TMA cannot read): 4 warps, each owning 16 queries (64 per
-//   block) and its Q fragments for the whole K loop.
-// - D = 512 (the VAE's one head): a warp's 16 x 512 f32 accumulators would
-//   not fit its registers, so 8 warps take 32 queries: two groups of 16 rows,
-//   and within each, 4 warps own a 128-wide slice of the head dim. Each warp
-//   computes partial logits over its slice; the 4 partials are summed through
-//   shared memory in a fixed order, so the 4 warps of a row group hold the
-//   same logits and softmax.
+// - D = 64 (views TMA cannot read, or a scale <= 0): 4 warps, each owning
+//   16 queries (64 per block) and its Q fragments for the whole K loop.
+// - D = 512 (the same views and scales): a warp's 16 x 512 f32 accumulators
+//   would not fit its registers, so 8 warps take 32 queries: two groups of
+//   16 rows, and within each, 4 warps own a 128-wide slice of the head dim.
+//   Each warp computes partial logits over its slice; the 4 partials are
+//   summed through shared memory in a fixed order, so the 4 warps of a row
+//   group hold the same logits and softmax.
 // ---------------------------------------------------------------------------
 
 // Online-softmax update of one logits tile held in mma C-fragments: scale,
@@ -320,7 +321,7 @@ template <int D> struct MmaSmem {
       kv_bytes + (Tl::D_SLICES > 1 ? sizeof(float) * Tl::WARPS * 16 * LDS : 0);
 };
 
-template <int D, bool VEC>
+template <int D>
 __global__ void __launch_bounds__(32 * MmaTiling<D>::WARPS)
 flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
                      const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
@@ -360,7 +361,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   for (int k0 = 0; k0 < Sk; k0 += BK) {
     __syncthreads();  // the previous tile's reads are done
-    stage_pair<D, BK, LD, NTHREADS, VEC>(sK, sV, kb, vb, k_ss, v_ss, k0, Sk);
+    stage_pair<D, BK, LD, NTHREADS, false>(sK, sV, kb, vb, k_ss, v_ss, k0, Sk);
     __syncthreads();
     float s[NT][4];
     qk_tile<NT, KC, LD>(s, qa, sK, d0, g, t);
@@ -398,14 +399,14 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
   }
 }
 
-template <int D, bool VEC>
+template <int D>
 static cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
                               const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int B, int H,
                               int Sq, int Sk, const long long* st, const long long* lst,
                               float scale, cudaStream_t stream) {
   using Tl = MmaTiling<D>;
   const size_t smem = MmaSmem<D>::bytes;
-  auto kern = flash_fwd_mma_kernel<D, VEC>;
+  auto kern = flash_fwd_mma_kernel<D>;
   cudaError_t err =
       cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
@@ -425,13 +426,10 @@ static cudaError_t launch_flash_mma(const void* q, const void* k, const void* v,
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
-  // D = 64 comes here only for views TMA cannot read (or a scale <= 0):
-  // element-wise staging
-  if (D == 64) return launch_mma<64, false>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
-  const bool vec = rows_aligned16(k, st + 3) && rows_aligned16(v, st + 6);
-  if (D == 512)
-    return vec ? launch_mma<512, true>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream)
-               : launch_mma<512, false>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
+  // bf16 comes here only for views TMA cannot read (or a scale <= 0), so K
+  // and V are staged element by element
+  if (D == 64) return launch_mma<64>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
+  if (D == 512) return launch_mma<512>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
   return cudaErrorInvalidValue;
 }
 
@@ -472,8 +470,8 @@ static int flash_fwd(const void* q, const void* k, const void* v, void* o, float
                      int B, int H, int Sq, int Sk, int D, const long long* strides,
                      const long long* lse_strides, float scale, int route, void* stream) {
   if (route == kRouteWgmma) {
-    if (dtype != kBF16 || D != 64) return (int)cudaErrorInvalidValue;
-    return flash_fwd_sm90(q, k, v, o, lse, B, H, Sq, Sk, strides, lse_strides, scale, stream);
+    if (dtype != kBF16) return (int)cudaErrorInvalidValue;
+    return flash_fwd_sm90(q, k, v, o, lse, B, H, Sq, Sk, D, strides, lse_strides, scale, stream);
   }
   if (route != kRouteMma) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -491,8 +489,8 @@ extern "C" {
 // q: (B, Sq, H, D), k/v: (B, Sk, H, D), o: (B, Sq, H, D), all addressed by
 // element strides st = [q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
 // o_sb, o_ss, o_sh] with a contiguous last dimension. D must be 64 or 512.
-// route: kRouteWgmma (bf16, D = 64, scale > 0, 16-byte aligned q, k, v with
-// strides of multiples of 8 elements; refused otherwise) or kRouteMma.
+// route: kRouteWgmma (bf16, scale > 0, 16-byte aligned q, k, v with strides
+// of multiples of 8 elements; refused otherwise) or kRouteMma.
 int t2v_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                             int dtype, int B, int H, int Sq, int Sk, int D,
                             const long long* strides, float scale, int route, void* stream) {

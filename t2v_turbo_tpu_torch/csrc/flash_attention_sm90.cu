@@ -1,7 +1,8 @@
-// Flash attention at head dim 64 in bf16 for Hopper (sm_90a): the forward
-// and the backward on wgmma products fed by a TMA ring in shared memory. The
+// Flash attention in bf16 for Hopper (sm_90a): the forward at head dims 64
+// and 512 and the backward at head dim 64, on wgmma products fed by TMA. The
 // `wgmma` route of flash_attention.cu's and flash_attention_bwd.cu's entry
-// points; misaligned views, D = 512 and f32 take those files' kernels.
+// points; misaligned views, the backward at D = 512 and f32 take those
+// files' kernels.
 //
 // Replaces the Pallas TPU kernels of t2v_turbo_tpu/ops/attention.py at head
 // dim 64, and through their (batch, seq, head) strides the BSHD family's
@@ -33,6 +34,10 @@
 //   tiles.
 // - The backward does 7 such products (the logits and dP in each of its two
 //   kernels, then dV and dK, and dQ); the operations bound it.
+// - At the VAE's one head of 512 (16 x 2560 x 2560) the forward's operations
+//   bound it at 0.217 ms. Each of a head's 40 query tiles reads the head's K
+//   and V (5.2 MB) from L2, 3.4 GB a call, which L2's rate may make the
+//   real floor. Its kernel and design are under "forward at head dim 512".
 //
 // Design. Every kernel is one block of a consumer warpgroup owning 64 rows
 // of one side of one (batch, head), loaded once by TMA, and one producer
@@ -167,7 +172,7 @@ struct Layout {
 // ---- forward ---------------------------------------------------------------
 
 struct Sm90FwdArgs {
-  __nv_bfloat16* o;   // (B, Sq, H, 64) at (sb, ss, sh) = os
+  __nv_bfloat16* o;   // (B, Sq, H, D) at (sb, ss, sh) = os
   float* lse;         // B2: (B, H, Sq) f32 at (l_sb, l_sh), contiguous seq; B1: null
   long long os[3];
   long long l_sb, l_sh;
@@ -317,6 +322,168 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_const
       *reinterpret_cast<__nv_bfloat162*>(o + r * a.os[1] + 8 * i + 2 * t) =
           __floats2bfloat162_rn(acc[4 * i + 2 * e] * inv, acc[4 * i + 2 * e + 1] * inv);
     if (a.lse != nullptr && t == 0) a.lse[b * a.l_sb + h * a.l_sh + r] = m[e] * a.scale + logf(l[e]);
+  }
+}
+
+// ---- forward at head dim 512 -----------------------------------------------
+//
+// The VAE mid block's one head of 512 (B1 when serving, B2 in reward
+// training). A 64 x 512 f32 output accumulator would take one warpgroup 256
+// registers a thread, so a block has two warpgroups, each owning half of the
+// head dim (64 x 256 f32, 128 registers a thread). With no producer warp a
+// thread may hold 255 registers; one thread of the first warpgroup issues
+// the TMA loads. One block an SM (225 KB of shared memory).
+// - Shared memory: Q (64 rows x 512, eight 64 x 64 tiles, loaded once), one
+//   K slot and one V slot of 64 keys x 512 (eight tiles each) with their full
+//   barriers, V's empty barrier, and the two warpgroups' partial logits.
+//   K_{j+1} is issued once both warpgroups are done with S_j and loads under
+//   tile j's softmax and P V; V_{j+1} is issued once both are done with
+//   P_j V_j and loads under S_{j+1} and its softmax.
+// - Logits: warpgroup w computes the partial S_w = Q[:, 256 w +: 256]
+//   K_j[:, 256 w +: 256]^T (16 k16 slices of m64n64k16). The two partials are
+//   exchanged through shared memory behind a named barrier of the 256
+//   threads; each warpgroup adds the other's to its own (the same sum, f32
+//   addition being commutative), so both run the same online softmax on the
+//   same numbers. Deterministic: no atomics, a fixed order.
+// - P V: P (64 x 64 keys, bf16 A fragments from registers) times warpgroup
+//   w's 256 columns of V_j, four m64n256k16 a tile; V is read MN-major, its
+//   256 columns four swizzle atoms 8 KB (one tile) apart.
+// - Named barriers: 1, both partials written (so both warpgroups are done
+//   with K_j); 2 + w, warpgroup 1 - w has read warpgroup w's partial, so w
+//   may overwrite it.
+// - Measured against the alternatives (PERF.md): a producer warp beside the
+//   two warpgroups caps ptxas at 168 registers a thread (setmaxnreg did not
+//   lift it), which spilled; one warpgroup computing the whole S and the
+//   softmax for both, the role alternating by tile, and a CTA pair
+//   multicasting K and V to each other were slower.
+constexpr int kD512Threads = 256;  // two warpgroups
+constexpr int kRowTiles = 8;        // 64 x 64 tiles a 64-row slab of 512 columns
+
+struct D512Layout {
+  static constexpr int slab = kRowTiles * kTileBytes;  // 64 KB
+  static constexpr int q = 0, k = slab, v = 2 * slab;
+  static constexpr int xch = 3 * slab;  // [2 warpgroups][32 values][128 threads] f32
+  static constexpr int bars = xch + 2 * 32 * 128 * 4;
+  static constexpr int alloc = bars + 8 * 4 + 1024;  // room to align to 1024
+};
+
+// The 64 rows from `row` of one (head, batch) of a D = 512 map: eight boxes
+// of 64 columns, completing on `bar`.
+__device__ __forceinline__ void load_slab(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int h,
+                                          int row, int b) {
+  mbar_arrive_expect_tx(bar, kRowTiles * kTileBytes);
+#pragma unroll
+  for (int c = 0; c < kRowTiles; ++c) tma_load_4d(dst + c * kTileBytes, map, bar, 64 * c, h, row, b);
+}
+
+__global__ void __launch_bounds__(kD512Threads, 1)
+flash_fwd_d512_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                           const __grid_constant__ CUtensorMap mv, const Sm90FwdArgs a) {
+  using L = D512Layout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = FwdLayout::base(smem_raw);  // any Layout's 1024-byte alignment
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t *q_full = bar, *k_full = bar + 1, *v_full = bar + 2, *v_empty = bar + 3;
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * 64;
+  const int n_tiles = (a.Sk + 63) / 64;
+  const bool loader = threadIdx.x == 0;
+
+  if (loader) {
+    mbar_init(q_full, 1);
+    mbar_init(k_full, 1);
+    mbar_init(v_full, 1);
+    mbar_init(v_empty, 8);  // a lane of each warp
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (loader) {
+    tma_prefetch(&mq);
+    tma_prefetch(&mk);
+    tma_prefetch(&mv);
+    load_slab(smem + L::q, &mq, q_full, h, q0, b);
+    load_slab(smem + L::k, &mk, k_full, h, 0, b);
+    load_slab(smem + L::v, &mv, v_full, h, 0, b);
+  }
+
+  // warpgroup wg: query rows q0 + [0, 64), head-dim columns 256 wg + [0, 256)
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = q0 + 16 * warp + g;  // this thread's rows: row, row + 8
+  const unsigned char* qt = smem + L::q + 4 * wg * kTileBytes;
+  const unsigned char* kt = smem + L::k + 4 * wg * kTileBytes;
+  const unsigned char* vt = smem + L::v + 4 * wg * kTileBytes;
+  float* xch_own = reinterpret_cast<float*>(smem + L::xch) + wg * 32 * 128 + tid;
+  const float* xch_peer = reinterpret_cast<float*>(smem + L::xch) + (1 - wg) * 32 * 128 + tid;
+  const float sl2 = a.scale * kLog2e;
+
+  float acc[128], sc[32], alpha[2];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  float m[2] = {-INFINITY, -INFINITY}, l[2] = {0.0f, 0.0f};  // raw-logit max, partial sums
+  uint32_t pa[4][4];
+
+  mbar_wait(q_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    mbar_wait(k_full, j & 1);
+    wgmma_fence();
+#pragma unroll
+    for (int c = 0; c < 4; ++c) {  // this half's partial S = Q K_j^T, 4 tiles of 4 k16 slices
+      const uint64_t dq = desc_sw128(qt + c * kTileBytes), dk = desc_sw128(kt + c * kTileBytes);
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, dq + 2 * kk, dk + 2 * kk, c | kk);
+    }
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(sc);
+
+    if (j > 0) named_bar_sync(2 + wg, 256);  // the peer has read this warpgroup's last partial
+#pragma unroll
+    for (int i = 0; i < 32; ++i) xch_own[i * 128] = sc[i];
+    named_bar_sync(1, 256);
+    if (loader && j + 1 < n_tiles) load_slab(smem + L::k, &mk, k_full, h, 64 * (j + 1), b);
+#pragma unroll
+    for (int i = 0; i < 32; ++i) sc[i] += xch_peer[i * 128];
+    if (j + 1 < n_tiles) named_bar_arrive(3 - wg, 256);  // the peer may overwrite its partial
+
+    online_softmax(sc, m, l, alpha, a.Sk - j * 64, t, sl2);
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[4 * i + e] *= alpha[e >> 1];
+    acc_to_a(pa, sc);
+
+    mbar_wait(v_full, j & 1);
+    wgmma_fence();
+    const uint64_t dv = desc_sw128(vt, kTileBytes);  // 4 atoms along N, a tile apart
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(acc, pa[kk], dv + 128 * kk);  // +2048 bytes a slice
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(v_empty);
+    if (loader && j + 1 < n_tiles) {
+      mbar_wait(v_empty, j & 1);  // both warpgroups are done with V_j
+      load_slab(smem + L::v, &mv, v_full, h, 64 * (j + 1), b);
+    }
+  }
+
+  __nv_bfloat16* o = a.o + b * a.os[0] + h * a.os[2] + 256 * wg;
+  l[0] = quad_sum(l[0]);  // every lane of the warp, before any leaves
+  l[1] = quad_sum(l[1]);
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = row + 8 * e;
+    if (r >= a.Sq) continue;
+    const float inv = 1.0f / l[e];
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(o + r * a.os[1] + 8 * i + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * e] * inv, acc[4 * i + 2 * e + 1] * inv);
+    if (a.lse != nullptr && wg == 0 && t == 0) a.lse[b * a.l_sb + h * a.l_sh + r] = m[e] * a.scale + logf(l[e]);
   }
 }
 
@@ -479,12 +646,12 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap own1,
 
 // ---- host side -------------------------------------------------------------
 
-// The 4-D map over (D = 64, H, S, B) of a (B, S, H, 64) bf16 tensor at
-// element strides st = (sb, ss, sh): 64 x 64 boxes, 128-byte swizzle, rows
-// past S read as zeros.
-bool make_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B, int S, int H,
+// The 4-D map over (D, H, S, B) of a (B, S, H, D) bf16 tensor at element
+// strides st = (sb, ss, sh): 64 x 64 boxes (D / 64 of them across a row),
+// 128-byte swizzle, rows past S read as zeros.
+bool make_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B, int S, int H, int D,
               const long long* st) {
-  const cuuint64_t dims[4] = {64, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2, (cuuint64_t)st[0] * 2};
   const cuuint32_t box[4] = {64, 1, 64, 1}, elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
@@ -492,18 +659,18 @@ bool make_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B, int
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The maps of n (B, S, H, 64) tensors, tensor i over S[i] rows at strides
+// The maps of n (B, S, H, D) tensors, tensor i over S[i] rows at strides
 // strides + 3 i; cudaErrorInvalidValue unless TMA can read every one
 // (16-byte aligned bases, strides of multiples of 16 bytes).
 template <int N>
 cudaError_t make_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N], const int (&S)[N], int B,
-                      int H, const long long* strides) {
+                      int H, int D, const long long* strides) {
   for (int i = 0; i < N; ++i)
     if (!rows_aligned16(ptrs[i], strides + 3 * i)) return cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   for (int i = 0; i < N; ++i)
-    if (!make_map(&maps[i], encode, ptrs[i], B, S[i], H, strides + 3 * i)) return cudaErrorInvalidValue;
+    if (!make_map(&maps[i], encode, ptrs[i], B, S[i], H, D, strides + 3 * i)) return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -520,16 +687,17 @@ cudaError_t launch(int smem, dim3 grid, int threads, cudaStream_t st, Args... ar
 
 }  // namespace
 
-// The wgmma route of flash_attention.cu's entry points (bf16, D = 64;
-// arguments as there): o, and lse when it is not null. Refuses tensors that
-// break TMA's rule, and a scale that is not positive.
+// The wgmma route of flash_attention.cu's entry points (bf16, D = 64 or 512;
+// arguments as there): o, and lse when it is not null. Refuses another head
+// dim, tensors that break TMA's rule, and a scale that is not positive.
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
-                   int Sq, int Sk, const long long* strides, const long long* lse_strides, float scale,
-                   void* stream) {
+                   int Sq, int Sk, int D, const long long* strides, const long long* lse_strides,
+                   float scale, void* stream) {
+  if (D != 64 && D != 512) return (int)cudaErrorInvalidValue;
   CUtensorMap m[3];  // q, k, v; o is written by the threads
   const void* const ptrs[3] = {q, k, v};
   const int rows[3] = {Sq, Sk, Sk};
-  const cudaError_t err = make_maps(m, ptrs, rows, B, H, strides);
+  const cudaError_t err = make_maps(m, ptrs, rows, B, H, D, strides);
   if (err != cudaSuccess) return (int)err;
   if (!(scale > 0.0f)) return (int)cudaErrorInvalidValue;  // online_softmax's max
   Sm90FwdArgs a;
@@ -542,8 +710,11 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* 
   a.Sq = Sq;
   a.Sk = Sk;
   a.scale = scale;
-  return (int)launch<flash_fwd_sm90_kernel>(FwdLayout::alloc, dim3((Sq + 63) / 64, B * H), kThreads,
-                                            static_cast<cudaStream_t>(stream), m[0], m[1], m[2], a);
+  const dim3 grid((Sq + 63) / 64, B * H);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (D == 512)
+    return (int)launch<flash_fwd_d512_sm90_kernel>(D512Layout::alloc, grid, kD512Threads, st, m[0], m[1], m[2], a);
+  return (int)launch<flash_fwd_sm90_kernel>(FwdLayout::alloc, grid, kThreads, st, m[0], m[1], m[2], a);
 }
 
 // The wgmma route of flash_attention_bwd.cu's entry points (bf16, D = 64;
@@ -555,7 +726,7 @@ int flash_bwd_sm90(bool dkv, const void* q, const void* k, const void* v, const 
   CUtensorMap m[4];  // q, k, v, dO
   const void* const ptrs[4] = {q, k, v, g};
   const int rows[4] = {Sq, Sk, Sk, Sq};
-  const cudaError_t err = make_maps(m, ptrs, rows, B, H, strides);
+  const cudaError_t err = make_maps(m, ptrs, rows, B, H, 64, strides);
   if (err != cudaSuccess) return (int)err;
   Sm90BwdArgs a;
   a.lse = lse;
