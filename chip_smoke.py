@@ -23,13 +23,15 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 shape of the paths (apps/time_flash.py's FWD_SHAPES), and at
                 head dim 512 at the VAE mid block's shapes and tile edges.
                 Each flash case also checks its route (wgmma for aligned
-                bf16 forwards at head dims 64 and 512 and backwards at 64,
-                mma for the unaligned views, the backward at 512 and a
-                negative scale, f32), and at L0 and at the VAE mid block
-                two launches of each flash forward must give equal bits
-                (of B3 at L0); first, the wgmma forward's C entry must
-                refuse an unaligned view, a scale <= 0 and f32 at both head
-                dims (no fallback). The fused conv is also
+                bf16 forwards and backwards at head dims 64 and 512, mma
+                for the unaligned views and a forward's negative scale,
+                f32), and at L0 and at the VAE mid block two launches of
+                each flash forward must give equal bits (of B3 at L0 and at
+                the video reward's VAE mid block); B3 at head dim 512 also
+                runs at its tiles' edges (ragged, 129, 65 and 40 keys);
+                first, the wgmma C entries must refuse an unaligned view
+                and f32 at both head dims, and the forward a scale <= 0 (no
+                fallback). The fused conv is also
                 checked and timed at every distinct shape of a UNet step
                 (15 spatial 3x3, 4 temporal (3,1)), each case on its route
                 (wgmma for bf16, f32), and two launches at L0 must give
@@ -73,11 +75,11 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 non-zero in every LoRA up factor; then 1 warm-up and 3 timed
                 steps with finite reward losses, launches a step by head dim
                 (the D = 512 kernels at least twice a step, once in each
-                decode, at batch 8 and at batch 5: B2 on wgmma, B3 on mma,
-                each shape held to its plain twin in phase 3; every D = 64
-                flash launch on wgmma; every fused conv
-                on wgmma), one profiled step
-                (chiprun_out/profile_train_rewards.txt).
+                decode, at batch 8 and at batch 5, each shape held to its
+                plain twin in phase 3; every flash launch and every fused
+                conv on wgmma), one profiled step (the flash backward's
+                device ms with D = 512 apart;
+                chiprun_out/profile_train_rewards.txt).
   8. training reference: one small f32 LCD step (heads of 64, so the flash
                 kernels run) through the trainer's gradient path
                 (LCDTrainer.loss_and_grads: the step's cached LoRA merge) on
@@ -125,9 +127,9 @@ KERNELS = {
                              "t2v_turbo_tpu/ops/attention.py:257"),
     "flash_attention_fwd_lse_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                      "t2v_turbo_tpu/ops/attention.py:106"),
-    "flash_attention_bwd_dkv_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dkv_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                      "t2v_turbo_tpu/ops/attention.py:157"),
-    "flash_attention_bwd_dq_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention_bwd.cu",
+    "flash_attention_bwd_dq_d512": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                     "t2v_turbo_tpu/ops/attention.py:213"),
     "group_norm": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
     "layer_norm": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:136"),
@@ -186,33 +188,30 @@ def check_flash_routes(what, passes, per):
     """Log the four flash kernels' launches by route beside those by head
     dim, and the forwards' launches by (B, H, Sq, Sk, D) shape over `passes`
     (UNet passes or training steps: `per` names them); raise unless every
-    forward launch and every head-dim-64 backward launch went through wgmma
-    (the path's bf16 tensors are TMA-aligned) and every backward launch at
-    head dim 512 through mma."""
+    launch, forward and backward at head dims 64 and 512, went through wgmma
+    (the path's bf16 tensors are TMA-aligned)."""
     from t2v_turbo_tpu_torch.ops import attention as A
 
     for w in (A.flash_attention, A.flash_attention_lse, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq):
         fwd = hasattr(w, "by_shape")
-        d64, d512 = w.by_head_dim[64], w.by_head_dim[512]
-        want = {r: n for r, n in (("wgmma", d64 + d512 if fwd else d64), ("mma", 0 if fwd else d512)) if n}
+        want = {"wgmma": w.launches} if w.launches else {}
         ok = dict(w.by_route) == want
         shapes = f"; a {per} by shape {dict((k, c / passes) for k, c in sorted(w.by_shape.items()))}" if fwd else ""
-        rule = "every launch on wgmma" if fwd else "D = 64 on wgmma, D = 512 on mma"
         log(f"{what}: {w.__name__} launches by route {dict(w.by_route)}, by head dim "
-            f"{dict(sorted(w.by_head_dim.items()))} ({rule}) {'OK' if ok else 'FAIL'}" + shapes)
+            f"{dict(sorted(w.by_head_dim.items()))} (every launch on wgmma) {'OK' if ok else 'FAIL'}" + shapes)
         if not ok:
             raise AssertionError(f"{what}: {w.__name__} took routes {dict(w.by_route)}, expected {want}")
 
 
 def flash_device_ms(events):
-    """(forward, backward, the forward at head dim 512) device ms of the flash
-    kernels in profiler events (the wgmma kernel `flash_fwd_d512_...`, or
-    the mma template's `<512, ...>` instance)."""
-    fwd, bwd = (sum(e.self_device_time_total for e in events if name in e.key) / 1e3
-                for name in ("flash_fwd", "flash_bwd"))
-    d512 = sum(e.self_device_time_total for e in events
-               if "flash_fwd" in e.key and ("d512" in e.key or "<512" in e.key)) / 1e3
-    return fwd, bwd, d512
+    """(forward, backward, the forward at head dim 512, the backward at head
+    dim 512) device ms of the flash kernels in profiler events (at D = 512
+    the wgmma kernels `flash_fwd_d512_...` and `flash_bwd_d512_...`, or the
+    mma templates' `<512, ...>` instances)."""
+    def ms(kind, d512=False):
+        return sum(e.self_device_time_total for e in events if kind in e.key
+                   and (not d512 or "d512" in e.key or "<512" in e.key)) / 1e3
+    return ms("flash_fwd"), ms("flash_bwd"), ms("flash_fwd", True), ms("flash_bwd", True)
 
 
 def check_conv_routes(what, unet_passes):
@@ -615,7 +614,11 @@ def _kernel_cases():
 # with reward feedback, ViCLIP's and the VAE decoder's mid-block attention
 # (one head of 512, recorded under the `_d512` names), once a step in each of
 # the two decodes: 8 frames for the video reward, 5 for the image reward
-# (the record keeps the first's times). The last field: the
+# (the record keeps the first's times), then the D = 512 kernels' tile edges
+# (ragged S; S one row past two 64-row tiles; Sk one row past two 32-row
+# tiles; Sk < 64 and Sq != Sk); the unaligned and f32 rows at D = 512 are
+# checked under their own names (`... on mma`, `... on f32`), so that the
+# `_d512` records hold the wgmma kernels alone. The last field: the
 # backward kernels are held to their twins by B1's element-wise bound, not
 # the 2e-2*max(1,|ref|) of the rows before them.
 TRAIN_ATTENTION_CASES = [
@@ -634,6 +637,10 @@ TRAIN_ATTENTION_CASES = [
     ("ViCLIP self-attn (1,16,2049,2049,64) bf16", (1, 2049, 2049, 16, 64), "bfloat16", 10, True),
     ("VAE mid attn, video reward (8,1,2560,2560,512) bf16", (8, 2560, 2560, 1, 512), "bfloat16", 3, True),
     ("VAE mid attn, image reward (5,1,2560,2560,512) bf16", (5, 2560, 2560, 1, 512), "bfloat16", 3, True),
+    ("ragged S (2,1,1111,1111,512) bf16", (2, 1111, 1111, 1, 512), "bfloat16", 3, True),
+    ("tile edges (2,1,129,129,512) bf16", (2, 129, 129, 1, 512), "bfloat16", 3, True),
+    ("tile edges (2,1,191,65,512) bf16", (2, 191, 65, 1, 512), "bfloat16", 3, True),
+    ("short keys (2,1,100,40,512) bf16", (2, 100, 40, 1, 512), "bfloat16", 3, True),
     ("ragged unaligned strided (2,1,1111,1111,512) bf16", (2, 1111, 1111, 1, 512), "unaligned", 3, True),
     ("VAE mid attn (2,1,1111,1111,512) f32, TF32 off", (2, 1111, 1111, 1, 512), "float32", 2, True),
 ]
@@ -683,9 +690,10 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
     # kernel rounds P and dS to bf16 (2^-9) before each product over up to
     # 2560 terms and rounds its output to bf16; the twin keeps them f32.
     why_twin = ("P and dS rounded to bf16 for their products" if bf16 else "f32 with TF32 off")
-    # the forward takes wgmma at both head dims on aligned bf16, the backward at 64 only
-    fwd_route = "f32" if not bf16 else "mma" if kind == "unaligned" else "wgmma"
-    route = "mma" if fwd_route == "wgmma" and d == 512 else fwd_route
+    # wgmma at both head dims on aligned bf16
+    route = "f32" if not bf16 else "mma" if kind == "unaligned" else "wgmma"
+    if d == 512 and route != "wgmma":
+        suffix += f" on {route}"
     both = lambda *a: A.flash_attention_bwd_dkv(*a, scale) + (A.flash_attention_bwd_dq(*a, scale),)
     determinism = [dict(
         kernel="flash_attention_bwd determinism", label=label, make=with_row_stats, fn=both, plain=both,
@@ -696,7 +704,7 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
              fn=lambda q, k, v: A.flash_attention_lse(q, k, v, scale),
              plain=lambda q, k, v: A.attention_lse_plain(q, k, v, scale), outputs=("o", "lse"),
              tols=[o_tol, _elementwise(1e-3, 0.0)], iters=iters, library=_sdpa_fwd,
-             route=(A.flash_attention_lse, fwd_route), shape=(b, h, sq, sk),
+             route=(A.flash_attention_lse, route), shape=(b, h, sq, sk),
              why=f"o: {why_o}; lse: f32 sums of exp in another order",
              bound=lambda q, k, v: attention_bound(q, k, "fwd_lse"),
              **({"exact": _attention_f64} if bf16 else {})),
@@ -716,7 +724,7 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
              tols=[] if bf16 else 3 * [_of_max(1e-5)],
              why="bf16: held to f64 math below" if bf16 else "f32 with TF32 off",
              **({"exact": _attention_grads_f64} if bf16 else {})),
-    ] + (determinism if shape == (16, 2560, 2560, 5, 64) else [])
+    ] + (determinism if shape in ((16, 2560, 2560, 5, 64), (8, 2560, 2560, 1, 512)) else [])
 
 
 def _unaligned(b, sq, sk, h, d, n):
@@ -800,9 +808,10 @@ def _timing_line(ms, plain_ms, library, bound):
 
 
 def check_wgmma_refusals():
-    """No fallback in the C entry: a forward on the wgmma route that its
-    kernels cannot take (an unaligned view, a scale <= 0, f32), at both head
-    dims, returns an error instead of running."""
+    """No fallback in the C entries: a forward on the wgmma route that its
+    kernels cannot take (an unaligned view, a scale <= 0, f32), and a
+    backward (dK/dV and dQ) given an unaligned view or f32, at both head
+    dims, return an error instead of running."""
     import ctypes
 
     import torch
@@ -827,6 +836,22 @@ def check_wgmma_refusals():
                 f"({'refused, OK' if err else 'ran, FAIL'})")
             if not err:
                 raise AssertionError(f"the wgmma forward at D = {d} ran a request it cannot take ({what})")
+        do = torch.randn((2, 130, 1, d), generator=g, device="cuda").bfloat16()
+        lse, delta = (torch.zeros((2, 1, 130), device="cuda") for _ in range(2))
+        for what, (qq, kk, vv, dd) in {"unaligned q": (_unaligned(2, 130, 130, 1, d, 1)()[0], k, v, do),
+                                       "f32": (q.float(), k.float(), v.float(), do.float())}.items():
+            outs = [torch.empty_like(t) for t in (qq, kk, vv)]
+            strides = A._strides(qq, kk, vv, dd, *outs)
+            common = (cuda_lib.DTYPE_CODES[qq.dtype], 2, 1, 130, 130, d, strides, A._row_stats_strides(lse),
+                      ctypes.c_float(0.125), A.ROUTES["wgmma"], cuda_lib.stream_ptr(qq.device))
+            ptrs = [t.data_ptr() for t in (qq, kk, vv, dd, lse, delta)]
+            errs = (cuda_lib.lib().t2v_flash_attention_bwd_dkv(*ptrs, outs[1].data_ptr(), outs[2].data_ptr(), *common),
+                    cuda_lib.lib().t2v_flash_attention_bwd_dq(*ptrs, outs[0].data_ptr(), *common))
+            torch.cuda.synchronize()
+            log(f"kernels: the wgmma backward (dK/dV, dQ) at D = {d} given {what}: errors {errs} "
+                f"({'refused, OK' if all(errs) else 'ran, FAIL'})")
+            if not all(errs):
+                raise AssertionError(f"the wgmma backward at D = {d} ran a request it cannot take ({what})")
 
 
 def phase_kernels(records):
@@ -986,7 +1011,7 @@ def _profile_one_video(pipe):
     with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
     b7_ms = sum(e.self_device_time_total for e in events if "gn_silu_conv" in e.key) / 1e3
-    fwd_ms, _, fwd512_ms = flash_device_ms(events)
+    fwd_ms, _, fwd512_ms, _ = flash_device_ms(events)
     log(f"profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's kernels (B7) {b7_ms:.1f} ms; the flash "
         f"forward's kernels (B1) {fwd_ms:.2f} ms, of which D = 512 {fwd512_ms:.2f} -> chiprun_out/profile.txt")
@@ -1149,10 +1174,11 @@ def _profile_train_step(trainer, data, name):
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
     b7_ms = sum(e.self_device_time_total for e in events if "gn_silu_conv" in e.key) / 1e3
-    fwd_ms, bwd_ms, fwd512_ms = flash_device_ms(events)
+    fwd_ms, bwd_ms, fwd512_ms, bwd512_ms = flash_device_ms(events)
     log(f"training profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's forward kernels (B7) {b7_ms:.1f} ms; flash "
         f"forward (B1, B2) {fwd_ms:.2f} ms (D = 512: {fwd512_ms:.2f}), backward (B3) {bwd_ms:.1f} ms "
+        f"(D = 512: {bwd512_ms:.2f}) "
         f"-> chiprun_out/{name}; top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
 

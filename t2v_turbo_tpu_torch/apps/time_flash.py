@@ -1,13 +1,17 @@
-"""Time the flash-attention forward (B1, and B2 with its lse) on the card,
-shape by shape.
+"""Time the flash-attention forward (B1, and B2 with its lse) and the
+head-dim-512 backward (B3) on the card, shape by shape.
 
 Usage (from a checkout, on a CUDA card):
-  python3 t2v_turbo_tpu_torch/apps/time_flash.py [--root DIR] [--label NAME]
+  python3 t2v_turbo_tpu_torch/apps/time_flash.py [--root DIR] [--label NAME] [--only fwd|bwd]
 
 Times `flash_attention_cuda` (B1) and `flash_attention_lse` (B2), each on
 bf16 (B, S, H, D) tensors, at every distinct head-dim-64 forward shape of
 the serving, training and reward paths (`FWD_SHAPES`) and at the VAE mid
-block's head of 512 (`D512_SHAPES`). --root imports
+block's head of 512 (`D512_SHAPES`); then `flash_attention_bwd_dkv` and
+`flash_attention_bwd_dq` (B3) at the two reward shapes of `D512_SHAPES`,
+beside memory-efficient SDPA's whole backward (dq, dk and dv from one kept
+forward, on contiguous (B, H, S, D) copies; call time only: a yardstick the
+port never calls). --only times one of the two. --root imports
 `t2v_turbo_tpu_torch` from another checkout (e.g. an older commit unpacked
 with `git archive`), so two trees can be timed in turns in one run on one
 card. Prints the card's name and power limit, then one line per shape and kernel: "call",
@@ -16,7 +20,7 @@ chip_smoke.py times a kernel; at small shapes the host's time to issue a
 call decides it), and "graph", the same calls captured in one CUDA graph
 and replayed (the device's time); each the best of five runs, since the
 host's time per call varies by tens of microseconds from run to run.
-Then the route B1 took.
+Then the route B1 (or B3) took.
 """
 
 from __future__ import annotations
@@ -103,6 +107,7 @@ def main(argv=None) -> int:
     ap.add_argument("--root", default=os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__)))),
                     help="checkout to import t2v_turbo_tpu_torch from")
     ap.add_argument("--label", default="", help="prefix of every printed line")
+    ap.add_argument("--only", choices=("fwd", "bwd"), help="time the forwards or the backward alone")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -115,7 +120,7 @@ def main(argv=None) -> int:
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
     shapes = [(shape, name, 64) for shape, name, *_ in FWD_SHAPES] + [(shape, name, 512) for shape, name, _ in D512_SHAPES]
-    for (b, h, sq, sk), name, d in shapes:
+    for (b, h, sq, sk), name, d in shapes if args.only != "bwd" else []:
         g = torch.Generator("cuda").manual_seed(sq + sk)
         q, k, v = (torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16() for s in (sq, sk, sk))
         iters = 10 if sq * sk >= 2**22 else 30
@@ -128,7 +133,42 @@ def main(argv=None) -> int:
               f"B2 call {t2[0]:.4f} graph {t2[1]:.4f} ms, B1 route {routes}", flush=True)
         del q, k, v
         torch.cuda.empty_cache()
+    for (b, h, sq, sk), name, launches in D512_SHAPES if args.only != "fwd" else []:
+        if "B2" in launches:  # the decodes with gradient, whose backward runs B3
+            _time_bwd(A, args.label, name, (b, h, sq, sk, 512))
     return 0
+
+
+def _time_bwd(A, label, name, shape):
+    """One line: B3's dK/dV and dQ (call and graph ms, on the lse and delta
+    of the plain forward) and memory-efficient SDPA's whole backward."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    b, h, sq, sk, d = shape
+    g = torch.Generator("cuda").manual_seed(sq + sk)
+    q, k, v, do = (torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16() for s in (sq, sk, sk, sq))
+    scale = d**-0.5
+    o, lse = A.attention_lse_plain(q, k, v, scale)
+    delta = A.attention_bwd_delta(do, o)
+    before = A.flash_attention_bwd_dkv.by_route.copy()
+    dkv = _time_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), 10)
+    dq = _time_ms(lambda: A.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), 10)
+    routes = sorted(A.flash_attention_bwd_dkv.by_route - before)
+    qq, kk, vv = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
+    dout = do.transpose(1, 2).contiguous()
+    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+        out = F.scaled_dot_product_attention(qq, kk, vv)
+        grad = lambda: torch.autograd.grad(out, (qq, kk, vv), dout, retain_graph=True)  # noqa: E731
+        for _ in range(2):
+            grad()
+        sdpa = _best_ms(lambda: [grad() for _ in range(5)], 5)
+    print(f"{label}{name} backward ({b},{h},{sq},{sk},{d}): B3 dK/dV call {dkv[0]:.4f} graph {dkv[1]:.4f} ms, "
+          f"dQ call {dq[0]:.4f} graph {dq[1]:.4f} ms, sum of graphs {dkv[1] + dq[1]:.4f} ms; "
+          f"mem-eff SDPA whole backward call {sdpa:.4f} ms; B3 route {routes}", flush=True)
+    del q, k, v, do, o, lse, delta, qq, kk, vv, dout, out
+    torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":

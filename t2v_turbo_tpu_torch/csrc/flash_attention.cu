@@ -361,7 +361,7 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
 
   for (int k0 = 0; k0 < Sk; k0 += BK) {
     __syncthreads();  // the previous tile's reads are done
-    stage_pair<D, BK, LD, NTHREADS, false>(sK, sV, kb, vb, k_ss, v_ss, k0, Sk);
+    stage_pair<D, BK, LD, NTHREADS>(sK, sV, kb, vb, k_ss, v_ss, k0, Sk);
     __syncthreads();
     float s[NT][4];
     qk_tile<NT, KC, LD>(s, qa, sK, d0, g, t);

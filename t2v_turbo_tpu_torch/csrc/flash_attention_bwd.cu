@@ -32,10 +32,10 @@
 // logit recomputations, dP twice, and dV, dK, dQ once) against reading
 // q, k, v, dO and writing dq, dk, dv once: the arithmetic, as in the
 // forward. Three routes do it; the wrapper picks one and passes it in:
-// - wgmma (bf16 at D = 64, TMA-aligned tensors): flash_attention_sm90.cu,
-//   wgmma products fed by a TMA ring.
-// - mma (bf16: D = 64 views that TMA cannot read, and D = 512): tensor
-//   cores through mma.sync.m16n8k16 (flash_mma.cuh). Each warp
+// - wgmma (bf16, TMA-aligned tensors, D = 64 and 512):
+//   flash_attention_sm90.cu, wgmma products fed by TMA.
+// - mma (bf16 views that TMA cannot read): tensor cores through
+//   mma.sync.m16n8k16 (flash_mma.cuh). Each warp
 //   keeps its rows of the block's own side (K and V for dK/dV; Q and dO for
 //   dQ) in registers as A fragments for the whole loop; the other side is
 //   staged in shared memory per tile (BwdTiling says how the warps split
@@ -50,7 +50,7 @@ namespace t2v {
 
 int flash_bwd_sm90(bool dkv, const void* q, const void* k, const void* v, const void* g,
                    const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
-                   int H, int Sq, int Sk, const long long* strides, const long long* lse_strides,
+                   int H, int Sq, int Sk, int D, const long long* strides, const long long* lse_strides,
                    float scale, void* stream);
 
 template <typename T>
@@ -136,7 +136,7 @@ __device__ __forceinline__ void sum_slices(float (&s)[NT][4], float (&dp)[NT][4]
     }
 }
 
-template <int D, bool VEC>
+template <int D>
 __global__ void __launch_bounds__(32 * BwdTiling<D>::WARPS)
 flash_bwd_dkv_mma_kernel(const BwdArgs<__nv_bfloat16> a) {
   using Tl = BwdTiling<D>;
@@ -176,7 +176,7 @@ flash_bwd_dkv_mma_kernel(const BwdArgs<__nv_bfloat16> a) {
 
   for (int q0 = 0; q0 < a.Sq; q0 += BQ) {
     __syncthreads();  // the previous tile's reads are done
-    stage_pair<D, BQ, LD, NTHREADS, VEC>(sQ, sG, qb, gb, st[1], st[10], q0, a.Sq);
+    stage_pair<D, BQ, LD, NTHREADS>(sQ, sG, qb, gb, st[1], st[10], q0, a.Sq);
     for (int i = threadIdx.x; i < BQ; i += NTHREADS) {
       const bool in = q0 + i < a.Sq;
       sL[i] = in ? lb[q0 + i] : 0.0f;
@@ -204,7 +204,7 @@ flash_bwd_dkv_mma_kernel(const BwdArgs<__nv_bfloat16> a) {
   store_acc<DT>(dv, 1.0f, 1.0f, a.dv + b * st[18] + h * st[20], st[19], r0, a.Sk, d0, t);
 }
 
-template <int D, bool VEC>
+template <int D>
 __global__ void __launch_bounds__(32 * BwdTiling<D>::WARPS)
 flash_bwd_dq_mma_kernel(const BwdArgs<__nv_bfloat16> a) {
   using Tl = BwdTiling<D>;
@@ -242,7 +242,7 @@ flash_bwd_dq_mma_kernel(const BwdArgs<__nv_bfloat16> a) {
 
   for (int k0 = 0; k0 < a.Sk; k0 += BK) {
     __syncthreads();  // the previous tile's reads are done
-    stage_pair<D, BK, LD, NTHREADS, VEC>(sK, sV, kb, vb, st[4], st[7], k0, a.Sk);
+    stage_pair<D, BK, LD, NTHREADS>(sK, sV, kb, vb, st[4], st[7], k0, a.Sk);
     __syncthreads();
     float s[NT][4], dp[NT][4];
     qk_tile<NT, KC, LD>(s, qa, sK, d0, g, t);   // S: queries x keys
@@ -635,13 +635,13 @@ static cudaError_t launch(Kern kern, const Args& a, int tiles, int BH, int threa
   return cudaGetLastError();
 }
 
-template <int D, bool VEC>
+template <int D>
 static cudaError_t launch_mma(bool dkv, const BwdArgs<__nv_bfloat16>& a, int BH, cudaStream_t st) {
   using Tl = BwdTiling<D>;
   constexpr int rows = 16 * Tl::ROW_GROUPS, threads = 32 * Tl::WARPS;
   const int tiles = ((dkv ? a.Sk : a.Sq) + rows - 1) / rows;
-  return dkv ? launch(flash_bwd_dkv_mma_kernel<D, VEC>, a, tiles, BH, threads, BwdSmem<D>::dkv_bytes, st)
-             : launch(flash_bwd_dq_mma_kernel<D, VEC>, a, tiles, BH, threads, BwdSmem<D>::dq_bytes, st);
+  return dkv ? launch(flash_bwd_dkv_mma_kernel<D>, a, tiles, BH, threads, BwdSmem<D>::dkv_bytes, st)
+             : launch(flash_bwd_dq_mma_kernel<D>, a, tiles, BH, threads, BwdSmem<D>::dq_bytes, st);
 }
 
 static int flash_bwd(bool dkv, const void* q, const void* k, const void* v, const void* g,
@@ -650,8 +650,8 @@ static int flash_bwd(bool dkv, const void* q, const void* k, const void* v, cons
                      const long long* lse_strides, float scale, int route, void* stream) {
   if (D != 64 && D != 512) return (int)cudaErrorInvalidValue;
   if (route == kRouteWgmma) {
-    if (dtype != kBF16 || D != 64) return (int)cudaErrorInvalidValue;
-    return flash_bwd_sm90(dkv, q, k, v, g, lse, delta, dq, dk, dv, B, H, Sq, Sk, strides,
+    if (dtype != kBF16) return (int)cudaErrorInvalidValue;
+    return flash_bwd_sm90(dkv, q, k, v, g, lse, delta, dq, dk, dv, B, H, Sq, Sk, D, strides,
                           lse_strides, scale, stream);
   }
   if (route != kRouteMma) return (int)cudaErrorInvalidValue;
@@ -673,12 +673,8 @@ static int flash_bwd(bool dkv, const void* q, const void* k, const void* v, cons
   if (dtype == kBF16) {
     const auto a = make_args<__nv_bfloat16>(q, k, v, g, lse, delta, dq, dk, dv, H, Sq, Sk,
                                             strides, lse_strides, scale);
-    // D = 64 comes here only for views TMA cannot read: element-wise staging
-    if (D == 64) return launch_mma<64, false>(dkv, a, B * H, st);
-    // the staged side: q and dO for dK/dV, k and v for dQ
-    const bool vec = dkv ? rows_aligned16(q, strides) && rows_aligned16(g, strides + 9)
-                         : rows_aligned16(k, strides + 3) && rows_aligned16(v, strides + 6);
-    return vec ? launch_mma<512, true>(dkv, a, B * H, st) : launch_mma<512, false>(dkv, a, B * H, st);
+    // bf16 comes here only for views TMA cannot read
+    return D == 64 ? launch_mma<64>(dkv, a, B * H, st) : launch_mma<512>(dkv, a, B * H, st);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -691,9 +687,9 @@ extern "C" {
 // all addressed by element strides st = [sb, ss, sh] of q, k, v, g, dq, dk,
 // dv (21 values) with a contiguous last dimension; lse and delta: (B, H, Sq)
 // f32 at strides lse_strides = [l_sb, l_sh] with a contiguous sequence.
-// D must be 64 or 512. route: kRouteWgmma (bf16, D = 64, 16-byte aligned
-// q, k, v, g with strides of multiples of 8 elements; refused otherwise) or
-// kRouteMma. Writes dk and dv.
+// D must be 64 or 512. route: kRouteWgmma (bf16, 16-byte aligned q, k, v, g
+// with strides of multiples of 8 elements; refused otherwise) or kRouteMma.
+// Writes dk and dv.
 int t2v_flash_attention_bwd_dkv(const void* q, const void* k, const void* v, const void* g,
                                 const float* lse, const float* delta, void* dk, void* dv,
                                 int dtype, int B, int H, int Sq, int Sk, int D,

@@ -1,8 +1,7 @@
-// Flash attention in bf16 for Hopper (sm_90a): the forward at head dims 64
-// and 512 and the backward at head dim 64, on wgmma products fed by TMA. The
-// `wgmma` route of flash_attention.cu's and flash_attention_bwd.cu's entry
-// points; misaligned views, the backward at D = 512 and f32 take those
-// files' kernels.
+// Flash attention in bf16 for Hopper (sm_90a): the forward and the backward
+// at head dims 64 and 512, on wgmma products fed by TMA. The `wgmma` route of
+// flash_attention.cu's and flash_attention_bwd.cu's entry points; misaligned
+// views and f32 take those files' kernels.
 //
 // Replaces the Pallas TPU kernels of t2v_turbo_tpu/ops/attention.py at head
 // dim 64, and through their (batch, seq, head) strides the BSHD family's
@@ -37,11 +36,14 @@
 // - At the VAE's one head of 512 (16 x 2560 x 2560) the forward's operations
 //   bound it at 0.217 ms. Each of a head's 40 query tiles reads the head's K
 //   and V (5.2 MB) from L2, 3.4 GB a call, which L2's rate may make the
-//   real floor. Its kernel and design are under "forward at head dim 512".
+//   real floor. Its kernel and design are under "forward at head dim 512";
+//   the backward's, which cannot keep the D = 64 design's two accumulators a
+//   block, under "backward at head dim 512".
 //
-// Design. Every kernel is one block of a consumer warpgroup owning 64 rows
-// of one side of one (batch, head), loaded once by TMA, and one producer
-// warp that streams the other side's 64-row tiles through a ring (`Ring`).
+// Design at head dim 64. Every kernel is one block of a consumer warpgroup
+// owning 64 rows of one side of one (batch, head), loaded once by TMA, and one
+// producer warp that streams the other side's 64-row tiles through a ring
+// (`Ring`).
 //   forward: owns Q; streams K, V:
 //            S = Q K^T, online softmax, O = O * alpha + P V.
 //   dK/dV:   owns K, V; streams Q, dO (and lse, delta rows):
@@ -367,13 +369,27 @@ struct D512Layout {
   static constexpr int alloc = bars + 8 * 4 + 1024;  // room to align to 1024
 };
 
-// The 64 rows from `row` of one (head, batch) of a D = 512 map: eight boxes
-// of 64 columns, completing on `bar`.
+// The ROWS rows from `row` of one (head, batch) of a D = 512 map whose box is
+// 64 columns x ROWS rows: eight boxes of ROWS * 128 bytes, completing on `bar`.
+template <int ROWS = 64>
 __device__ __forceinline__ void load_slab(unsigned char* dst, const CUtensorMap* map, uint64_t* bar, int h,
                                           int row, int b) {
-  mbar_arrive_expect_tx(bar, kRowTiles * kTileBytes);
+  mbar_arrive_expect_tx(bar, kRowTiles * ROWS * 128);
 #pragma unroll
-  for (int c = 0; c < kRowTiles; ++c) tma_load_4d(dst + c * kTileBytes, map, bar, 64 * c, h, row, b);
+  for (int c = 0; c < kRowTiles; ++c) tma_load_4d(dst + c * ROWS * 128, map, bar, 64 * c, h, row, b);
+}
+
+// d (+)= X Y^T over one warpgroup's half of the 512-deep head dim: X its four
+// 64 x 64 own tiles, Y four boxes of N rows (N * 128 bytes apart), both
+// K-major; 16 k16 slices, issued, not waited for.
+template <int N>
+__device__ __forceinline__ void gemm_half_xyt(float (&d)[N / 2], const unsigned char* x, const unsigned char* y) {
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    const uint64_t dx = desc_sw128(x + c * kTileBytes), dy = desc_sw128(y + c * N * 128);
+#pragma unroll
+    for (int kk = 0; kk < 4; ++kk) wgmma_ss(d, dx + 2 * kk, dy + 2 * kk, c | kk);
+  }
 }
 
 __global__ void __launch_bounds__(kD512Threads, 1)
@@ -429,12 +445,7 @@ flash_fwd_d512_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_
   for (int j = 0; j < n_tiles; ++j) {
     mbar_wait(k_full, j & 1);
     wgmma_fence();
-#pragma unroll
-    for (int c = 0; c < 4; ++c) {  // this half's partial S = Q K_j^T, 4 tiles of 4 k16 slices
-      const uint64_t dq = desc_sw128(qt + c * kTileBytes), dk = desc_sw128(kt + c * kTileBytes);
-#pragma unroll
-      for (int kk = 0; kk < 4; ++kk) wgmma_ss(sc, dq + 2 * kk, dk + 2 * kk, c | kk);
-    }
+    gemm_half_xyt<64>(sc, qt, kt);  // this half's partial S = Q K_j^T
     wgmma_commit();
     wgmma_wait<0>();
     fence_regs(sc);
@@ -491,7 +502,7 @@ flash_fwd_d512_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_
 
 struct Sm90BwdArgs {
   const float *lse, *delta;  // (B, H, Sq) f32 at (l_sb, l_sh), contiguous seq
-  __nv_bfloat16 *out1, *out2;  // dK and dV, or dQ: (B, S_own, H, 64)
+  __nv_bfloat16 *out1, *out2;  // dK and dV, or dQ (D = 512: dV, dK or dQ): (B, S_own, H, D)
   long long o1[3], o2[3];      // (sb, ss, sh) of out1, out2
   long long l_sb, l_sh;
   int H, own_len, str_len;     // rows of the own side and of the streamed side
@@ -644,33 +655,313 @@ flash_bwd_sm90_kernel(const __grid_constant__ CUtensorMap own1,
   }
 }
 
+// ---- backward at head dim 512 ----------------------------------------------
+//
+// The VAE mid block's one head of 512 with gradient (reward feedback): B3's
+// dK/dV and dQ. What one block can hold decides the design:
+// - Registers: a 64-row own tile's dK and dV accumulators are 2 x 64 x 512
+//   f32 = 256 KB, the SM's whole register file. Two warpgroups can each hold
+//   64 x 256 f32 of one accumulator (128 registers a thread), not of two.
+// - Shared memory: a 64 x 512 bf16 slab is 64 KB. dK/dV reads K, V, Q_i and
+//   dO_i, dQ reads Q, dO, K_j and V_j: 256 KB at 64 rows each, past the
+//   227 KB a block may have.
+// So three kernels, each owning 64 rows and one output of 64 x 512, with two
+// warpgroups each owning 256 of its columns (m64n256k16, as the forward):
+//   dV: owns K; streams Q_i (the logits' tile) and dO_i (the product's), 64
+//       rows each: S^T = K Q_i^T, P^T = exp(S^T - lse_i), dV += P^T dO_i;
+//   dK: owns K, V; streams dO_i and Q_i, 32 rows each: dP^T = V dO_i^T,
+//       S^T = K Q_i^T, dS^T = P^T (dP^T - delta_i), dK += dS^T Q_i;
+//   dQ: owns Q, dO; streams V_j and K_j, 32 rows each: dP = dO V_j^T,
+//       S = Q K_j^T, dS = P (dP - delta), dQ += dS K_j.
+// 8 products in all (the logits three times), not 7: the price of one
+// accumulator a block. dK and dV are one launch (z = 0 and 1).
+// - Logits: each warpgroup computes a partial over its half of the depth
+//   (m64n64k16 for dV, m64n32k16 for dK and dQ; both operands K-major in
+//   shared memory). The partials are summed through shared memory in the
+//   streamed slot the logits just read (`xs`), so no exchange buffer is
+//   needed: named barrier 1 (both warpgroups are done reading xs), each
+//   writes its 16 KB, named barrier 2, each adds the peer's to its own (the
+//   same sum in both, f32 addition being commutative), every warp arrives on
+//   xs's empty mbarrier and thread 0 reloads xs with the next tile.
+// - The product's streamed tile (`fs`, read MN-major: 256 columns as four
+//   swizzle atoms a box apart) has slots of its own: one of 64 rows for dV,
+//   loaded under the next tile's logits and exchange; two stages of 32 rows
+//   for dK and dQ, whose logits read it too, so that tile j + 1's is in place
+//   when tile j ends.
+// - Shared memory: dV 64 (K) + 64 (xs) + 64 (fs) = 192 KB; dK, dQ 128 (own)
+//   + 32 (xs) + 2 x 32 (fs) = 224 KB. One block an SM. 256 threads, thread 0
+//   issuing every TMA load: no producer warp, which capped ptxas at 168
+//   registers in the forward.
+// - Registers a thread: the accumulator 128, the logits 32 (S, or S and dP),
+//   P or dS as A fragments 16 or 8, the streamed rows' lse and delta 16;
+//   ptxas: 227 (dK/dV) and 209 (dQ), no spills.
+// - Measured against the alternatives (PERF.md): dV and dK as two launches
+//   (each 2.4 waves at batch 8) took 31% longer than one; keeping tile j's
+//   product in flight under tile j + 1's logits, and a dedicated exchange
+//   buffer for dV with three 32-row buffers rotating through the roles for
+//   dK and dQ (so that each tile loads earlier), were slower. With the
+//   loads after the first tile skipped the pair took 30% less time; with
+//   the exp2 skipped 3-4% less, with the exchange skipped dQ 6% less.
+// - P = exp2(s * scale * log2(e) - lse * log2(e)) from the saved lse, so any
+//   scale works (no running max). Queries past Sq read lse = +inf (P = 0;
+//   their Q and dO rows are TMA's zeros); keys past Sk get P = 0 in dQ; in dV
+//   and dK their rows are not stored. The grid is the forward's: x = own
+//   tiles, y = batch * head, so a head's streamed 5.2 MB stays in L2.
+// Deterministic: no atomics, a fixed order; each output row is written once.
+enum Bwd512Mode : int { kModeDV, kModeDK, kModeDQ };
+
+template <int MODE>
+struct Bwd512Layout {
+  static constexpr int BN = MODE == kModeDV ? 64 : 32;  // streamed rows a tile
+  static constexpr int OWN = MODE == kModeDV ? 1 : 2;   // own 64 x 512 slabs
+  static constexpr int FS = MODE == kModeDV ? 1 : 2;    // stages of fs
+  static constexpr int box = BN * 128;                  // a streamed tile's 64-column box
+  static constexpr int tile = kRowTiles * box;          // a streamed tile
+  static constexpr int xs = OWN * kRowTiles * kTileBytes;
+  static constexpr int fs = xs + tile;
+  static constexpr int bars = fs + FS * tile;  // own_full, xs_full, xs_empty, fs_full[FS], fs_empty[FS]
+  static constexpr int alloc = bars + 8 * (3 + 2 * FS) + 1024;  // room to align to 1024
+  static_assert(tile >= 2 * 32 * 128 * 4, "xs holds the two warpgroups' partial logits");
+};
+
+// One block of the MODE kernel: own rows 64 x, the maps' tensors as above.
+template <int MODE>
+__device__ __forceinline__ void bwd_d512_block(const CUtensorMap* own1, const CUtensorMap* own2,
+                                               const CUtensorMap* xs_map, const CUtensorMap* fs_map,
+                                               const Sm90BwdArgs& a, int x) {
+  using L = Bwd512Layout<MODE>;
+  constexpr int BN = L::BN, FS = L::FS, NA = BN / 16;  // NA: k16 slices of P or dS
+  constexpr bool DV = MODE == kModeDV, DQ = MODE == kModeDQ;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = FwdLayout::base(smem_raw);  // any Layout's 1024-byte alignment
+  uint64_t* bar = reinterpret_cast<uint64_t*>(smem + L::bars);
+  uint64_t *own_full = bar, *xs_full = bar + 1, *xs_empty = bar + 2, *fs_full = bar + 3, *fs_empty = bar + 3 + FS;
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int own0 = x * 64;
+  const int n_tiles = (a.str_len + BN - 1) / BN;
+  const bool loader = threadIdx.x == 0;
+
+  if (loader) {
+    mbar_init(own_full, L::OWN);
+    mbar_init(xs_full, 1);
+    mbar_init(xs_empty, 8);  // a lane of each warp
+    for (int s = 0; s < FS; ++s) {
+      mbar_init(&fs_full[s], 1);
+      mbar_init(&fs_empty[s], 8);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+  if (loader) {
+    tma_prefetch(own1);
+    tma_prefetch(xs_map);
+    tma_prefetch(fs_map);
+    load_slab(smem, own1, own_full, h, own0, b);
+    if constexpr (!DV) {
+      tma_prefetch(own2);
+      load_slab(smem + kRowTiles * kTileBytes, own2, own_full, h, own0, b);
+    }
+    load_slab<BN>(smem + L::xs, xs_map, xs_full, h, 0, b);
+    for (int s = 0; s < FS && s < n_tiles; ++s) load_slab<BN>(smem + L::fs + s * L::tile, fs_map, &fs_full[s], h, BN * s, b);
+  }
+
+  // warpgroup wg: own rows own0 + [0, 64), head-dim columns 256 wg + [0, 256)
+  const int wg = threadIdx.x / 128, tid = threadIdx.x % 128;
+  const int warp = tid / 32, lane = tid % 32;
+  const int g = lane / 4, t = lane % 4;
+  const int row = own0 + 16 * warp + g;  // this thread's own rows: row, row + 8
+  const unsigned char* x1 = smem + 4 * wg * kTileBytes;  // this half of own slab 1 (K, or Q)
+  const unsigned char* x2 = x1 + kRowTiles * kTileBytes;  // and of own slab 2 (V, or dO)
+  unsigned char* xs = smem + L::xs;
+  float* xch_own = reinterpret_cast<float*>(xs) + wg * 32 * 128 + tid;
+  const float* xch_peer = reinterpret_cast<float*>(xs) + (1 - wg) * 32 * 128 + tid;
+  const float sl2 = a.scale * kLog2e;
+  const float* lse = a.lse + b * a.l_sb + h * a.l_sh;
+  const float* delta = a.delta + b * a.l_sb + h * a.l_sh;
+
+  float lse_r[2] = {0.0f, 0.0f}, dl_r[2] = {0.0f, 0.0f};  // dQ: the own rows' statistics
+  if constexpr (DQ) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e)
+      if (row + 8 * e < a.own_len) {
+        lse_r[e] = lse[row + 8 * e] * kLog2e;
+        dl_r[e] = delta[row + 8 * e];
+      }
+  }
+  float acc[128], sc[BN / 2], dp[DV ? 1 : BN / 2];
+#pragma unroll
+  for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+  uint32_t pa[NA][4];
+
+  mbar_wait(own_full, 0);
+  for (int j = 0; j < n_tiles; ++j) {
+    const int s = j % FS;
+    const unsigned char* xt = xs + 4 * wg * L::box;                        // this half of xs_j
+    const unsigned char* ft = smem + L::fs + s * L::tile + 4 * wg * L::box;  // and of fs_j
+    // dV, dK: the streamed queries' statistics, columns 8 i + 2 t (+ 1)
+    float lse_c[DQ ? 1 : BN / 4], dl_c[DQ ? 1 : BN / 4];
+    if constexpr (!DQ) {
+#pragma unroll
+      for (int c = 0; c < BN / 4; ++c) {
+        const int q = j * BN + 8 * (c / 2) + 2 * t + (c & 1);
+        const bool in = q < a.str_len;
+        lse_c[c] = in ? lse[q] * kLog2e : INFINITY;
+        dl_c[c] = in && !DV ? delta[q] : 0.0f;
+      }
+    }
+    mbar_wait(xs_full, j & 1);
+    wgmma_fence();
+    if constexpr (DV)
+      gemm_half_xyt<BN>(sc, x1, xt);  // S^T = K Q_j^T, this half's partial
+    else
+      gemm_half_xyt<BN>(dp, x2, xt);  // dP^T = V dO_j^T, or dP = dO V_j^T
+    wgmma_commit();
+    if constexpr (!DV) {
+      mbar_wait(&fs_full[s], (j / FS) & 1);
+      gemm_half_xyt<BN>(sc, x1, ft);  // S^T = K Q_j^T, or S = Q K_j^T
+      wgmma_commit();
+    }
+    wgmma_wait<0>();
+    fence_regs(sc);
+    if constexpr (!DV) fence_regs(dp);
+
+    named_bar_sync(1, 256);  // both warpgroups are done reading xs_j
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) xch_own[i * 128] = sc[i];
+    if constexpr (!DV) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) xch_own[(BN / 2 + i) * 128] = dp[i];
+    }
+    named_bar_sync(2, 256);  // both partials written
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sc[i] += xch_peer[i * 128];
+    if constexpr (!DV) {
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) dp[i] += xch_peer[(BN / 2 + i) * 128];
+    }
+    fence_proxy_async();  // the partials' writes before TMA's refill of xs
+    __syncwarp();
+    if (lane == 0) mbar_arrive(xs_empty);
+    if (loader && j + 1 < n_tiles) {
+      mbar_wait(xs_empty, j & 1);  // every warp has read both partials
+      load_slab<BN>(xs, xs_map, xs_full, h, BN * (j + 1), b);
+    }
+
+    // P, or dS = P (dP - delta), in the accumulator layout (this thread's
+    // rows g and g + 8, columns 8 i + 2 t and + 1)
+    const int valid = a.str_len - j * BN;  // dQ: keys of this tile inside Sk
+#pragma unroll
+    for (int i = 0; i < BN / 8; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int k = 4 * i + e;
+        if constexpr (DQ) {
+          float p = ex2(fmaf(sc[k], sl2, -lse_r[e >> 1]));
+          if (valid < BN && 8 * i + 2 * t + (e & 1) >= valid) p = 0.0f;
+          dp[k] = p * (dp[k] - dl_r[e >> 1]);
+        } else {
+          const float p = ex2(fmaf(sc[k], sl2, -lse_c[2 * i + (e & 1)]));
+          if constexpr (DV)
+            sc[k] = p;
+          else
+            dp[k] = p * (dp[k] - dl_c[2 * i + (e & 1)]);
+        }
+      }
+    if constexpr (DV)
+      acc_to_a(pa, sc);
+    else
+      acc_to_a(pa, dp);
+
+    if constexpr (DV) mbar_wait(&fs_full[s], (j / FS) & 1);
+    wgmma_fence();
+    const uint64_t df = desc_sw128(ft, L::box);  // 4 atoms along N, a box apart
+#pragma unroll
+    for (int kk = 0; kk < NA; ++kk) wgmma_rs_mn(acc, pa[kk], df + 128 * kk);  // +2048 bytes a k16 slice
+    wgmma_commit();
+    wgmma_wait<0>();
+    fence_regs(acc);
+    fence_regs(pa);
+    if (lane == 0) mbar_arrive(&fs_empty[s]);
+    if (loader && j + FS < n_tiles) {
+      mbar_wait(&fs_empty[s], (j / FS) & 1);  // both warpgroups are done with fs_j
+      load_slab<BN>(smem + L::fs + s * L::tile, fs_map, &fs_full[s], h, BN * (j + FS), b);
+    }
+  }
+
+  // out1 = acc (dV), or scale * acc (dK, dQ)
+  const float mult = DV ? 1.0f : a.scale;
+  __nv_bfloat16* o = a.out1 + b * a.o1[0] + h * a.o1[2] + 256 * wg;
+#pragma unroll
+  for (int e = 0; e < 2; ++e) {
+    const int r = row + 8 * e;
+    if (r >= a.own_len) continue;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      *reinterpret_cast<__nv_bfloat162*>(o + r * a.o1[1] + 8 * i + 2 * t) =
+          __floats2bfloat162_rn(acc[4 * i + 2 * e] * mult, acc[4 * i + 2 * e + 1] * mult);
+  }
+}
+
+// dK and dV in one grid (z = 0: the dK blocks, z = 1: the dV blocks), so
+// that the two share waves: at (8, 1, 2560, 2560) each has 320 blocks, 2.4
+// waves of one block an SM. The dK blocks, which take about twice as long,
+// are launched first and the dV blocks fill the tail (13% less time at
+// batch 5, 2% at batch 8, than dV first). Maps: k, v, q, dO in 64-row
+// boxes, dO and q in 32-row boxes; av writes dV, ak dK.
+__global__ void __launch_bounds__(kD512Threads, 1)
+flash_bwd_d512_dkv_sm90_kernel(const __grid_constant__ CUtensorMap k64, const __grid_constant__ CUtensorMap v64,
+                               const __grid_constant__ CUtensorMap q64, const __grid_constant__ CUtensorMap g64,
+                               const __grid_constant__ CUtensorMap g32, const __grid_constant__ CUtensorMap q32,
+                               const Sm90BwdArgs av, const Sm90BwdArgs ak) {
+  if (blockIdx.z == 0)
+    bwd_d512_block<kModeDK>(&k64, &v64, &g32, &q32, ak, blockIdx.x);
+  else
+    bwd_d512_block<kModeDV>(&k64, &k64, &q64, &g64, av, blockIdx.x);
+}
+
+// dQ. Maps: q, dO in 64-row boxes, v, k in 32-row boxes.
+__global__ void __launch_bounds__(kD512Threads, 1)
+flash_bwd_d512_dq_sm90_kernel(const __grid_constant__ CUtensorMap q64, const __grid_constant__ CUtensorMap g64,
+                              const __grid_constant__ CUtensorMap v32, const __grid_constant__ CUtensorMap k32,
+                              const Sm90BwdArgs a) {
+  bwd_d512_block<kModeDQ>(&q64, &g64, &v32, &k32, a, blockIdx.x);
+}
+
 // ---- host side -------------------------------------------------------------
 
 // The 4-D map over (D, H, S, B) of a (B, S, H, D) bf16 tensor at element
-// strides st = (sb, ss, sh): 64 x 64 boxes (D / 64 of them across a row),
-// 128-byte swizzle, rows past S read as zeros.
+// strides st = (sb, ss, sh): boxes of 64 columns x `rows` rows (D / 64 of
+// them across a row), 128-byte swizzle, rows past S read as zeros.
 bool make_map(CUtensorMap* map, EncodeTiled encode, const void* base, int B, int S, int H, int D,
-              const long long* st) {
+              const long long* st, int rows) {
   const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
   const cuuint64_t strides[3] = {(cuuint64_t)st[2] * 2, (cuuint64_t)st[1] * 2, (cuuint64_t)st[0] * 2};
-  const cuuint32_t box[4] = {64, 1, 64, 1}, elem[4] = {1, 1, 1, 1};
+  const cuuint32_t box[4] = {64, 1, (cuuint32_t)rows, 1}, elem[4] = {1, 1, 1, 1};
   return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(base), dims, strides,
                 box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-// The maps of n (B, S, H, D) tensors, tensor i over S[i] rows at strides
-// strides + 3 i; cudaErrorInvalidValue unless TMA can read every one
-// (16-byte aligned bases, strides of multiples of 16 bytes).
+// One map to make: a (B, S, H, D) tensor at `ptr` over S rows at element
+// strides st, in boxes of `rows` rows.
+struct MapSpec {
+  const void* ptr;
+  const long long* st;
+  int S, rows;
+};
+
+// The maps of N tensors; cudaErrorInvalidValue unless TMA can read every
+// one (16-byte aligned bases, strides of multiples of 16 bytes).
 template <int N>
-cudaError_t make_maps(CUtensorMap (&maps)[N], const void* const (&ptrs)[N], const int (&S)[N], int B,
-                      int H, int D, const long long* strides) {
-  for (int i = 0; i < N; ++i)
-    if (!rows_aligned16(ptrs[i], strides + 3 * i)) return cudaErrorInvalidValue;
+cudaError_t make_maps(CUtensorMap (&maps)[N], const MapSpec (&spec)[N], int B, int H, int D) {
+  for (const MapSpec& m : spec)
+    if (!rows_aligned16(m.ptr, m.st)) return cudaErrorInvalidValue;
   const EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return cudaErrorNotSupported;
   for (int i = 0; i < N; ++i)
-    if (!make_map(&maps[i], encode, ptrs[i], B, S[i], H, D, strides + 3 * i)) return cudaErrorInvalidValue;
+    if (!make_map(&maps[i], encode, spec[i].ptr, B, spec[i].S, H, D, spec[i].st, spec[i].rows))
+      return cudaErrorInvalidValue;
   return cudaSuccess;
 }
 
@@ -695,9 +986,8 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* 
                    float scale, void* stream) {
   if (D != 64 && D != 512) return (int)cudaErrorInvalidValue;
   CUtensorMap m[3];  // q, k, v; o is written by the threads
-  const void* const ptrs[3] = {q, k, v};
-  const int rows[3] = {Sq, Sk, Sk};
-  const cudaError_t err = make_maps(m, ptrs, rows, B, H, D, strides);
+  const cudaError_t err =
+      make_maps(m, {{q, strides, Sq, 64}, {k, strides + 3, Sk, 64}, {v, strides + 6, Sk, 64}}, B, H, D);
   if (err != cudaSuccess) return (int)err;
   if (!(scale > 0.0f)) return (int)cudaErrorInvalidValue;  // online_softmax's max
   Sm90FwdArgs a;
@@ -717,42 +1007,66 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* 
   return (int)launch<flash_fwd_sm90_kernel>(FwdLayout::alloc, grid, kThreads, st, m[0], m[1], m[2], a);
 }
 
-// The wgmma route of flash_attention_bwd.cu's entry points (bf16, D = 64;
-// arguments as there). Refuses tensors that break TMA's rule.
+// The wgmma route of flash_attention_bwd.cu's entry points (bf16, D = 64 or
+// 512; arguments as there). Refuses another head dim and tensors that break
+// TMA's rule.
 int flash_bwd_sm90(bool dkv, const void* q, const void* k, const void* v, const void* g,
                    const float* lse, const float* delta, void* dq, void* dk, void* dv, int B,
-                   int H, int Sq, int Sk, const long long* strides, const long long* lse_strides,
+                   int H, int Sq, int Sk, int D, const long long* strides, const long long* lse_strides,
                    float scale, void* stream) {
-  CUtensorMap m[4];  // q, k, v, dO
-  const void* const ptrs[4] = {q, k, v, g};
-  const int rows[4] = {Sq, Sk, Sk, Sq};
-  const cudaError_t err = make_maps(m, ptrs, rows, B, H, 64, strides);
-  if (err != cudaSuccess) return (int)err;
-  Sm90BwdArgs a;
+  if (D != 64 && D != 512) return (int)cudaErrorInvalidValue;
+  Sm90BwdArgs a{};
   a.lse = lse;
   a.delta = delta;
   a.l_sb = lse_strides[0];
   a.l_sh = lse_strides[1];
   a.H = H;
   a.scale = scale;
+  a.own_len = dkv ? Sk : Sq;
+  a.str_len = dkv ? Sq : Sk;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dkv) {
-    a.out1 = static_cast<__nv_bfloat16*>(dk);
-    a.out2 = static_cast<__nv_bfloat16*>(dv);
-    for (int i = 0; i < 3; ++i) {
-      a.o1[i] = strides[15 + i];
-      a.o2[i] = strides[18 + i];
+  const long long *sq = strides, *sk = strides + 3, *sv = strides + 6, *sg = strides + 9;
+  const auto out = [&](void* p, int i) {  // out1 = tensor i of (dq, dk, dv)
+    a.out1 = static_cast<__nv_bfloat16*>(p);
+    for (int c = 0; c < 3; ++c) a.o1[c] = strides[12 + 3 * i + c];
+  };
+  if (D == 512) {
+    constexpr int T = kD512Threads;
+    if (!dkv) {
+      CUtensorMap m[4];
+      const cudaError_t err =
+          make_maps(m, {{q, sq, Sq, 64}, {g, sg, Sq, 64}, {v, sv, Sk, 32}, {k, sk, Sk, 32}}, B, H, D);
+      if (err != cudaSuccess) return (int)err;
+      out(dq, 0);
+      return (int)launch<flash_bwd_d512_dq_sm90_kernel>(Bwd512Layout<kModeDQ>::alloc, dim3((Sq + 63) / 64, B * H),
+                                                         T, st, m[0], m[1], m[2], m[3], a);
     }
-    a.own_len = Sk;
-    a.str_len = Sq;
+    CUtensorMap m[6];
+    const cudaError_t err = make_maps(
+        m, {{k, sk, Sk, 64}, {v, sv, Sk, 64}, {q, sq, Sq, 64}, {g, sg, Sq, 64}, {g, sg, Sq, 32}, {q, sq, Sq, 32}},
+        B, H, D);
+    if (err != cudaSuccess) return (int)err;
+    out(dv, 2);
+    const Sm90BwdArgs av = a;
+    out(dk, 1);
+    constexpr int smem = Bwd512Layout<kModeDK>::alloc;
+    static_assert(smem >= Bwd512Layout<kModeDV>::alloc, "the dK blocks need the most");
+    return (int)launch<flash_bwd_d512_dkv_sm90_kernel>(smem, dim3((Sk + 63) / 64, B * H, 2), T, st, m[0], m[1], m[2],
+                                                        m[3], m[4], m[5], av, a);
+  }
+  CUtensorMap m[4];  // q, k, v, dO
+  const cudaError_t err = make_maps(
+      m, {{q, sq, Sq, 64}, {k, sk, Sk, 64}, {v, sv, Sk, 64}, {g, sg, Sq, 64}}, B, H, D);
+  if (err != cudaSuccess) return (int)err;
+  if (dkv) {
+    out(dk, 1);
+    a.out2 = static_cast<__nv_bfloat16*>(dv);
+    for (int c = 0; c < 3; ++c) a.o2[c] = strides[18 + c];
     return (int)launch<flash_bwd_sm90_kernel<true>>(BwdLayout<true>::alloc, dim3((Sk + 63) / 64, B * H),
                                                     kThreads, st, m[1], m[2], m[0], m[3], a);
   }
-  a.out1 = static_cast<__nv_bfloat16*>(dq);
+  out(dq, 0);
   a.out2 = nullptr;
-  for (int i = 0; i < 3; ++i) a.o1[i] = a.o2[i] = strides[12 + i];
-  a.own_len = Sq;
-  a.str_len = Sk;
   return (int)launch<flash_bwd_sm90_kernel<false>>(BwdLayout<false>::alloc, dim3((Sq + 63) / 64, B * H),
                                                    kThreads, st, m[0], m[3], m[1], m[2], a);
 }

@@ -71,28 +71,17 @@ __device__ __forceinline__ void load_a_frags(uint32_t (&a)[KC][4], const __nv_bf
 }
 
 // Stage rows [r0, r0 + BR) of two (seq, D) slices as [row][d] tiles of
-// stride LD; zeros past n_rows. VEC moves 8 elements (16 bytes) at a time.
-template <int D, int BR, int LD, int NTHREADS, bool VEC>
+// stride LD, element by element (the mma kernels take the views TMA cannot
+// read, whose rows need not be 16-byte aligned); zeros past n_rows.
+template <int D, int BR, int LD, int NTHREADS>
 __device__ __forceinline__ void stage_pair(__nv_bfloat16* sA, __nv_bfloat16* sB,
                                            const __nv_bfloat16* a, const __nv_bfloat16* b,
                                            long long a_ss, long long b_ss, int r0, int n_rows) {
-  constexpr int W = VEC ? 8 : 1;
-  for (int i = threadIdx.x; i < BR * (D / W); i += NTHREADS) {
-    const int r = i / (D / W), c = (i % (D / W)) * W;
-    const int row = r0 + r;
-    if constexpr (VEC) {
-      uint4 av = make_uint4(0u, 0u, 0u, 0u), bv = av;
-      if (row < n_rows) {
-        av = *reinterpret_cast<const uint4*>(a + (long long)row * a_ss + c);
-        bv = *reinterpret_cast<const uint4*>(b + (long long)row * b_ss + c);
-      }
-      *reinterpret_cast<uint4*>(sA + r * LD + c) = av;
-      *reinterpret_cast<uint4*>(sB + r * LD + c) = bv;
-    } else {
-      const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
-      sA[r * LD + c] = row < n_rows ? a[(long long)row * a_ss + c] : zero;
-      sB[r * LD + c] = row < n_rows ? b[(long long)row * b_ss + c] : zero;
-    }
+  const __nv_bfloat16 zero = __float2bfloat16_rn(0.0f);
+  for (int i = threadIdx.x; i < BR * D; i += NTHREADS) {
+    const int r = i / D, c = i % D, row = r0 + r;
+    sA[r * LD + c] = row < n_rows ? a[(long long)row * a_ss + c] : zero;
+    sB[r * LD + c] = row < n_rows ? b[(long long)row * b_ss + c] : zero;
   }
 }
 
@@ -136,8 +125,9 @@ __device__ __forceinline__ void pv_tile(float (&acc)[DT][4], const float (&s)[NT
   }
 }
 
-// 16-byte staging needs 16-byte aligned bf16 rows at every (batch, seq, head):
-// the base pointer and the three element strides st3.
+// 16-byte loads (the short-sequence kernel's staging) and TMA (the wgmma
+// route) need 16-byte aligned bf16 rows at every (batch, seq, head): the base
+// pointer and the three element strides st3.
 inline bool rows_aligned16(const void* p, const long long* st3) {
   return reinterpret_cast<uintptr_t>(p) % 16 == 0 && st3[0] % 8 == 0 && st3[1] % 8 == 0 &&
          st3[2] % 8 == 0;

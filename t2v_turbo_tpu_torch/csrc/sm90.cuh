@@ -172,6 +172,12 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo = 16)
   return ((addr & 0x3FFFF) >> 4) | ((uint64_t)(lbo >> 4) << 16) | ((1024ull >> 4) << 32) | (1ull << 62);
 }
 
+// Orders this thread's generic-proxy accesses to shared memory before later
+// async-proxy ones (a TMA load that overwrites what the threads wrote).
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // Named barrier `id` (1-15; 0 is __syncthreads') over `count` threads:
 // arrive and wait, or arrive only.
 __device__ __forceinline__ void named_bar_sync(int id, int count) {
@@ -197,9 +203,9 @@ template <int N> __device__ __forceinline__ void fence_regs(float (&d)[N]) {
 #pragma unroll
   for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
 }
-__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+template <int K> __device__ __forceinline__ void fence_regs(uint32_t (&a)[K][4]) {
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < K; ++i)
 #pragma unroll
     for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
@@ -222,6 +228,19 @@ __device__ __forceinline__ void wgmma_ss(float (&d)[32], uint64_t a, uint64_t b,
       "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 " T2V_WGMMA_D32
       ", %32, %33, p, 1, 1, 0, 0;\n}\n"
       : T2V_WGMMA_D32_ARGS(d)
+      : "l"(a), "l"(b), "r"(accumulate));
+}
+
+// d (+)= A B for a 64 x 32 x 16 slice, A and B both K-major in shared memory
+// (B given as its 32 x K rows).
+__device__ __forceinline__ void wgmma_ss(float (&d)[16], uint64_t a, uint64_t b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(a), "l"(b), "r"(accumulate));
 }
 
@@ -327,11 +346,11 @@ __device__ __forceinline__ void gemm_ay(float (&d)[32], const uint32_t (&a)[4][4
   for (int kk = 0; kk < 4; ++kk) wgmma_rs_mn(d, a[kk], dy + 128 * kk);  // +2048 bytes a slice
 }
 
-// Pack an accumulator (64 x 64 f32) into A fragments of bf16 for a product
+// Pack an accumulator (64 x 16 K f32) into A fragments of bf16 for a product
 // whose depth runs along its columns: slice kk is blocks 2 kk and 2 kk + 1.
-__device__ __forceinline__ void acc_to_a(uint32_t (&a)[4][4], const float (&d)[32]) {
+template <int K> __device__ __forceinline__ void acc_to_a(uint32_t (&a)[K][4], const float (&d)[8 * K]) {
 #pragma unroll
-  for (int kk = 0; kk < 4; ++kk) {
+  for (int kk = 0; kk < K; ++kk) {
     a[kk][0] = pack_bf16(d[8 * kk + 0], d[8 * kk + 1]);
     a[kk][1] = pack_bf16(d[8 * kk + 2], d[8 * kk + 3]);
     a[kk][2] = pack_bf16(d[8 * kk + 4], d[8 * kk + 5]);

@@ -23,10 +23,9 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   (B6) of the JAX package. Each also counts its launches by head dim
   (`by_head_dim`) and by route (`by_route`), and the two forwards by shape
   (`by_shape`, (B, H, Sq, Sk, D)). All four pick their route with
-  `flash_route` (bf16 on tensors TMA can read, at head dim 64 and, for the
-  forwards, 512: the wgmma kernels of csrc/flash_attention_sm90.cu; other
-  bf16, the backward at 512 included: the mma.sync kernels; f32: the
-  scalar ones).
+  `flash_route` (bf16 on tensors TMA can read, at head dims 64 and 512: the
+  wgmma kernels of csrc/flash_attention_sm90.cu; other bf16, and a forward
+  whose scale is not positive: the mma.sync kernels; f32: the scalar ones).
 - `small_seq_attention` (B8): the short-sequence kernel of
   csrc/small_seq_attention.cu, one warp per (batch, head) at Sq = Sk <= 64,
   head dim 64, forward only (the JAX package has no backward for it either);
@@ -257,24 +256,17 @@ _counters(flash_attention_lse, shapes=True)
 def _layout(tensors, n_read, fwd_scale=None):
     """(route, strides) of a flash launch on (B, S, H, D) tensors: the C entry
     points' (batch, seq, head) element strides of each tensor, and the route.
-    "wgmma" for bf16 when TMA can read the first n_read tensors (16-byte
-    aligned bases, strides of multiples of 16 bytes; the kernels write their
-    outputs, which the wrappers allocate, without TMA) and either
-    - a forward (fwd_scale given) at head dim 64 or 512 whose scale is
-      positive (the wgmma forwards' running max is over the
-      unscaled logits), or
-    - a backward (no fwd_scale) at head dim 64 (the backward at 512 is on
-      mma.sync alone);
-    "f32" for f32; else "mma". One stride() call a tensor: this runs before
+    "wgmma" for bf16 at head dim 64 or 512 when TMA can read the first
+    n_read tensors (16-byte aligned bases, strides of multiples of 16 bytes;
+    the kernels write their outputs, which the wrappers allocate, without
+    TMA): a backward (no fwd_scale) at any scale, a forward (fwd_scale
+    given) at a positive one (the wgmma forwards' running max is over the
+    unscaled logits); "f32" for f32; else "mma". One stride() call a tensor: this runs before
     every launch, and at the path's small shapes the host's time per call is
     the call's time."""
     strides = [t.stride() for t in tensors]
     q = tensors[0]
-    d = q.shape[-1]
-    if fwd_scale is not None:
-        wgmma_shape = d in (64, 512) and fwd_scale > 0
-    else:
-        wgmma_shape = d == 64
+    wgmma_shape = q.shape[-1] in (64, 512) and (fwd_scale is None or fwd_scale > 0)
     if q.dtype == torch.float32:
         route = "f32"
     elif q.dtype == torch.bfloat16 and wgmma_shape and all(

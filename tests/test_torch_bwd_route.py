@@ -3,10 +3,10 @@ the backward (q, k, v, dO) and the forward (q, k, v, o).
 
 bf16 goes to the wgmma kernels when TMA can read every tensor (16-byte
 aligned bases, (batch, seq, head) strides of multiples of 16 bytes) at head
-dim 64, and for a forward with a positive scale also at head dim 512; other
-bf16 (the backward at 512 included) to the mma.sync kernels, f32 to the
-scalar ones. CPU tensors have real addresses, so the predicate is tested on
-them; on the CPU the wrappers run their plain twins and count no route.
+dims 64 and 512, a forward only at a positive scale; other bf16 to the
+mma.sync kernels, f32 to the scalar ones. CPU tensors have real addresses,
+so the predicate is tested on them; on the CPU the wrappers run their plain
+twins and count no route.
 """
 
 import pytest
@@ -47,9 +47,15 @@ def test_views_one_element_off_take_mma():
         assert A.flash_route(*(views[j] if j == i else aligned[j] for j in range(4))) == "mma"
 
 
-def test_head_dim_512_takes_mma():
+@pytest.mark.parametrize("kind, route", [("aligned", "wgmma"), ("off_by_one", "mma")])
+def test_head_dim_512_takes_mma(kind, route):
+    """The backward at head dim 512 (q, k, v, dO): wgmma when TMA can read
+    every tensor, mma.sync for a view one element off."""
     q, k, v, do = (_bshd(b=1, s=16, h=1, d=512, seed=i) for i in range(4))
-    assert A.flash_route(q, k, v, do) == "mma"
+    if kind == "off_by_one":
+        q = torch.randn((1, 16, 513)).to(torch.bfloat16)[..., 1:].view(1, 16, 1, 512)
+        assert q.data_ptr() % 16 != 0
+    assert A.flash_route(q, k, v, do) == route
 
 
 def test_f32_takes_the_f32_route():
@@ -115,26 +121,29 @@ def test_forward_route_by_scale(scale, route):
 
 @pytest.mark.parametrize("scale, route", [(0.125, "wgmma"), (2.0, "wgmma"), (-0.125, "mma"), (0.0, "mma")])
 def test_forward_route_by_scale_d512(scale, route):
-    """The same rule at head dim 512 for the forward; its backward stays on
-    mma.sync whatever the scale."""
+    """The same rule at head dim 512; the backward's route ignores the scale
+    there too."""
     q, k, v = _fwd_case("d512_contiguous")
     assert A.flash_route(q, k, v, fwd_scale=scale) == route
-    assert A.flash_route(q, k, v, _bshd(h=1, d=512, seed=3)) == "mma"
+    assert A.flash_route(q, k, v, _bshd(h=1, d=512, seed=3)) == "wgmma"
 
 
 @pytest.mark.parametrize("kind", ["contiguous", "fused_qkv"])
 def test_aligned_backward_d512_takes_mma(kind):
     """A TMA-readable backward at head dim 512, as the flash_attention_bwd_dkv
-    and _dq wrappers lay it out (q, k, v, dO read; their outputs after), is
-    not a forward: it takes the mma.sync kernels."""
+    and _dq wrappers lay it out (q, k, v, dO read; their outputs after),
+    takes the wgmma kernels; the same layout with dO one element off takes
+    the mma.sync kernels."""
     if kind == "fused_qkv":
         q, k, v = torch.randn((2, 40, 3, 1, 512)).to(torch.bfloat16).unbind(2)
     else:
         q, k, v = (_bshd(h=1, d=512, seed=i) for i in range(3))
     do = _bshd(h=1, d=512, seed=3)
-    assert A.flash_route(q, k, v, do) == "mma"
-    assert A._layout((q, k, v, do, q, k, v), 4)[0] == "mma"
-    assert A._layout((q, k, v, do, do, k, v), 4)[0] == "mma"
+    assert A.flash_route(q, k, v, do) == "wgmma"
+    assert A._layout((q, k, v, do, q, k, v), 4)[0] == "wgmma"
+    assert A._layout((q, k, v, do, do, k, v), 4)[0] == "wgmma"
+    bad = torch.randn((2, 40, 513)).to(torch.bfloat16)[..., 1:].view(2, 40, 1, 512)
+    assert A._layout((q, k, v, bad, q, k, v), 4)[0] == "mma"
 
 
 @pytest.mark.parametrize("fwd", ["flash_attention", "flash_attention_lse"])
