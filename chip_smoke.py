@@ -35,7 +35,21 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 checked and timed at every distinct shape of a UNet step
                 (15 spatial 3x3, 4 temporal (3,1)), each case on its route
                 (wgmma for bf16, f32), and two launches at L0 must give
-                equal bits.
+                equal bits. The norms: GroupNorm+SiLU (B4) at the UNet's,
+                the whole clip's and the VAE decoder's shapes (the 256-
+                channel full-resolution row and the reward decodes' 8 and
+                5 frames included), in f32, on each route (cta, cluster
+                (an f32 row beyond 16 blocks' shared memory among them),
+                split for the whole clip, element-wise for a misaligned x
+                or an odd spatial size); its statistics mode for B7 against
+                group_stats and the affine fold, FiLM on and off; LayerNorm
+                (B5) at the UNet's, the text tower's and the reward towers'
+                widths in bf16, in f32 and element-wise; two launches of B4
+                (cta, split, cluster) and of its statistics mode with equal
+                bits. The norms' `ms` is back-to-back calls, as every
+                kernel's (host time included: their calls are host-bound);
+                their `graph_ms` the device time by CUDA-graph replay over
+                enough input copies that the bytes come from device memory.
   4. main path: full-width VC2 (UNet 320/640/1280, VAE ch 128, ViT-H text tower
                 with 23 of 24 blocks), seeded random weights, bf16, through
                 apps/generate.py's build_pipeline and the pipeline call:
@@ -44,12 +58,15 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 run (B1 at head dim 512 once a video, in the VAE's mid block);
                 logs the fused conv's and the flash forward's launches a
                 UNet step by shape and fails unless every bf16 launch of
-                either took the wgmma route. Then one more
+                either took the wgmma route, and the norms' launches by
+                route and shape, failing unless every GroupNorm launch (and
+                its statistics mode's) took cta or cluster and every
+                LayerNorm launch the vector route. Then one more
                 video with each stage's forward timed (synchronised hooks),
                 and one under torch.profiler (device time by kernel, the
-                fused conv's and the flash forward's device time (the part
-                at head dim 512 apart) and the device's idle share, into
-                chiprun_out/profile.txt).
+                fused conv's, the flash forward's (the part at head dim 512
+                apart) and the norms' device time and the device's idle
+                share, into chiprun_out/profile.txt).
   5. reference: a small pipeline (f32, 256x256, so flash attention still runs)
                 on the card against the same weights on the CPU, where every
                 kernel wrapper runs its plain version; every serving kernel
@@ -64,8 +81,8 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 one more step under torch.profiler (chiprun_out/profile_train.txt);
                 every head-dim-64 flash launch (B1, B2, B3) must have taken
                 the wgmma route (launches by route beside those by head dim;
-                the forwards' also by shape), and every fused conv launch the
-                wgmma route.
+                the forwards' also by shape), every fused conv launch the
+                wgmma route, and the norms their staged and vector routes.
                 Runs without --use-remat, with it only if that does not fit.
   7. training with rewards: the same training with --reward-fn hpsv2
                 --video-rm-fn vi_clip: random ViT-H/14 (image reward, 5 random
@@ -133,11 +150,15 @@ KERNELS = {
                                     "t2v_turbo_tpu/ops/attention.py:213"),
     "group_norm": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
     "layer_norm": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:136"),
+    # B4's statistics mode, for the fused conv (B7's GroupNorm statistics and
+    # affine fold; the TPU path computed them with XLA around its kernel)
+    "group_norm_stats": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
     "fused_gn_silu_conv": ("t2v_turbo_tpu_torch/csrc/fused_conv.cu", "t2v_turbo_tpu/ops/fused_conv.py:71"),
     "small_seq_attention": ("t2v_turbo_tpu_torch/csrc/small_seq_attention.cu",
                             "tests_tpu/bench_small_seq_attention.py:60"),
 }
-SERVING_KERNELS = ("flash_attention", "group_norm", "layer_norm", "fused_gn_silu_conv", "small_seq_attention")
+SERVING_KERNELS = ("flash_attention", "group_norm", "group_norm_stats", "layer_norm", "fused_gn_silu_conv",
+                   "small_seq_attention")
 TRAIN_KERNELS = SERVING_KERNELS + ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
                                    "flash_attention_bwd_dq")
 D512_KERNELS = ("flash_attention_fwd_lse_d512", "flash_attention_bwd_dkv_d512",
@@ -158,7 +179,8 @@ def wrappers():
     return {"flash_attention": A.flash_attention, "flash_attention_fwd_lse": A.flash_attention_lse,
             "flash_attention_bwd_dkv": A.flash_attention_bwd_dkv,
             "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
-            "group_norm": N.fused_group_norm, "layer_norm": N.fused_layer_norm,
+            "group_norm": N.fused_group_norm, "group_norm_stats": N.group_norm_affine_cuda,
+            "layer_norm": N.fused_layer_norm,
             "fused_gn_silu_conv": FC.fused_gn_silu_conv, "small_seq_attention": A.small_seq_attention}
 
 
@@ -229,6 +251,40 @@ def check_conv_routes(what, unet_passes):
         raise AssertionError(f"{what}: fused conv routes {dict(w.by_route)}, expected all {w.launches} on wgmma")
 
 
+def check_norm_routes(what, passes, per):
+    """Log B4's, its statistics mode's and B5's launches by route and, a
+    `per` over `passes`, by shape; raise unless every GroupNorm launch took
+    `cta`, `cluster` or (B4's whole-clip rows) `split`, and every LayerNorm
+    launch the `vector` route (the paths' norms are aligned bf16 rows, which
+    never take the element-wise routes)."""
+    from t2v_turbo_tpu_torch.ops import norms as N
+
+    for w, routes in ((N.fused_group_norm, N.GN_STAGED + ("split",)), (N.group_norm_affine_cuda, N.GN_STAGED),
+                      (N.fused_layer_norm, ("vector",))):
+        ok = set(w.by_route) <= set(routes)
+        shapes = {k: c / passes for k, c in sorted(w.by_shape.items())}
+        log(f"{what}: {w.__name__} launches {w.launches} by route {dict(w.by_route)} (all on {'/'.join(routes)}) "
+            f"{'OK' if ok else 'FAIL'}; a {per} by shape {shapes}")
+        if not ok:
+            raise AssertionError(f"{what}: {w.__name__} took routes {dict(w.by_route)}, expected only {routes}")
+
+
+def norm_device_ms(events):
+    """(B4, of which its split route, its statistics mode, B5, B4's
+    element-wise route) device ms in profiler events."""
+    def ms(*keys):
+        return sum(e.self_device_time_total for e in events if any(k in e.key for k in keys)) / 1e3
+    split = ms("gn_split_part_kernel", "gn_split_apply_kernel")
+    return (ms("gn_staged_apply") + split, split, ms("gn_staged_stats"), ms("ln_vec_kernel", "ln_kernel"),
+            ms("gn_sum_kernel", "gn_sqdev_kernel", "gn_apply_kernel", "gn_affine_kernel"))
+
+
+def _norm_profile(events):
+    gn, split, stats, ln, elementwise = norm_device_ms(events)
+    return (f"GroupNorm (B4) {gn:.2f} ms (split route {split:.2f}), its statistics mode for B7 {stats:.2f} ms, "
+            f"LayerNorm (B5) {ln:.2f} ms, B4's element-wise route {elementwise:.2f} ms")
+
+
 def bound_ms(ops, nbytes, dtype):
     """(least ms the card could take, "operations" or "bytes"): the larger of
     ops over the peak rate for the dtype and bytes over the memory rate."""
@@ -271,11 +327,13 @@ def norm_bound(x, c, ops_per_element):
                     "float32")
 
 
-def record(records, name, max_err, ms, plain_ms, library_ms, bound):
-    """Keep the first case's times (the path's main shape) and the largest error."""
+def record(records, name, max_err, ms, plain_ms, library_ms, bound, graph_ms=None):
+    """Keep the first case's times (the path's main shape) and the largest
+    error. `ms`: back-to-back calls (CUDA events), host time included;
+    `graph_ms`: the norms' device time by graph replay (`_graph_times`)."""
     rec = records.setdefault(name, {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
                                     "library_ms": library_ms, "bound_ms": bound[0],
-                                    "bound_by": bound[1]})
+                                    "bound_by": bound[1], "graph_ms": graph_ms})
     rec["max_abs_err"] = max(rec["max_abs_err"], max_err)
 
 
@@ -404,13 +462,20 @@ def _kernel_cases():
         make.shape = (b, h, s, sk or s)  # (B, H, Sq, Sk): the forward cases' coverage
         return make
 
-    def norm_inputs(shape, c, dtype):
+    def norm_inputs(shape, c, dtype, film=None, offset=0):
+        """x (3 N(0,1) + 1), weight, bias; with `film` (True/False) also the
+        FiLM (N, C) or two Nones; `offset` elements: x starts that far into
+        its allocation (misaligned for offset % 8)."""
         def make():
             g = torch.Generator("cuda").manual_seed(c)
-            x = (3.0 * torch.randn(shape, generator=g, device="cuda") + 1.0).to(dtype)
+            x = (3.0 * torch.randn(prod(shape) + offset, generator=g, device="cuda") + 1.0).to(dtype)
+            x = x[offset:].view(shape)
             w = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
             b = 0.1 * torch.randn(c, generator=g, device="cuda")
-            return [x, w, b]
+            if film is None:
+                return [x, w, b]
+            return [x, w, b] + ([0.1 * torch.randn((shape[0], c), generator=g, device="cuda") for _ in range(2)]
+                                if film else [None, None])
         return make
 
     bf, f32 = torch.bfloat16, torch.float32
@@ -420,6 +485,7 @@ def _kernel_cases():
                  "both are also held to f64 math below")
     why_f32 = "f32 with TF32 off; only the summation order and expf differ"
     why_norm_bf = "bf16 output; f32 statistics summed in another order can move a value by one bf16 ulp"
+    why_norm_f32 = "f32; only the summation order (and the SiLU's fast exp and division) differ"
     def flash(label, make, atol, rtol, iters, why, f64=True, route="wgmma", kernel="flash_attention"):
         return dict(kernel=kernel, label=label, make=make, fn=A.flash_attention,
                     plain=A.attention, outputs=("o",), tols=[_elementwise(atol, rtol)], why=why,
@@ -437,23 +503,50 @@ def _kernel_cases():
                     shape=make.shape,
                     bound=lambda q, k, v: attention_bound(q, k, "fwd_lse"), exact=_attention_f64)
 
-    def gn(label, shape, c, eps, iters):
-        return dict(kernel="group_norm", label=label, make=norm_inputs(shape, c, bf),
+    def gn(label, shape, c, eps, iters, dtype=bf, offset=0):
+        plan = N.gn_plan(shape[0], c, 32, prod(shape[2:]), dtype, offset % 8 == 0)
+        label += f" [{plan.route}" + (f", {plan.k} x {plan.chunk} elements, {plan.staged} held]"
+                                      if plan.route in N.GN_STAGED else
+                                      f", {plan.k} chunks of {plan.chunk}]" if plan.route == "split" else "]")
+        f32_case = dtype == torch.float32
+        return dict(kernel="group_norm", label=label, make=norm_inputs(shape, c, dtype, offset=offset),
                     fn=lambda x, w, b: N.fused_group_norm(x, w, b, 32, eps, "silu"),
-                    plain=lambda x, w, b: N.group_norm_plain(x, w, b, 32, eps, "silu"),
-                    outputs=("y",), tols=[_elementwise(1e-2, 1e-2)], iters=iters, why=why_norm_bf,
+                    plain=lambda x, w, b: N.group_norm_plain(x, w, b, 32, eps, "silu"), outputs=("y",),
+                    tols=[_elementwise(1e-5, 1e-5) if f32_case else _elementwise(1e-2, 1e-2)], iters=iters,
+                    why=why_norm_f32 if f32_case else why_norm_bf, route=(N.fused_group_norm, plan.route), graph=True,
                     library=lambda x, w, b: {"F.group_norm+F.silu": lambda: F.silu(
                         F.group_norm(x, 32, w.to(x.dtype), b.to(x.dtype), eps))},
                     bound=lambda x, w, b: norm_bound(x, c, 10))
 
+    def gn_stats(label, shape, c, film, iters=20):
+        plan = N.gn_plan(shape[0], c, 32, prod(shape[2:]), bf, stats=True)
+        label += f" [{plan.route}, {plan.k} x {plan.chunk} elements, {plan.staged} held]"
+        return dict(kernel="group_norm_stats", label=label, make=norm_inputs(shape, c, bf, film=film),
+                    fn=lambda x, w, b, fs, fh: N.group_norm_affine_cuda(x, w, b, 32, 1e-5, fs, fh),
+                    plain=lambda x, w, b, fs, fh: FC.gn_affine_vectors(x, w, b, 32, 1e-5, fs, fh),
+                    outputs=("a", "b"), tols=2 * [_elementwise(1e-5, 1e-5)], iters=iters, graph=True,
+                    why="f32 (N, C) vectors (group_stats + the affine and FiLM fold); the statistics summed in "
+                        "another order", route=(N.group_norm_affine_cuda, plan.route), library=lambda *_: {},
+                    bound=lambda x, *_: bound_ms(3 * x.numel(), x.numel() * x.element_size() + 8 * x.shape[0] * c
+                                                 + 8 * c, "float32"))
+
     def ln(label, shape, c, dtype, atol, why):
+        plan = N.ln_plan(shape[0], c, dtype)
+        label += f" [{plan.route}" + (f", {plan.lanes} lanes x {plan.vecs} vectors]" if plan.lanes else "]")
         return dict(kernel="layer_norm", label=label, make=norm_inputs(shape, c, dtype),
                     fn=lambda x, w, b: N.fused_layer_norm(x, w, b, 1e-5),
                     plain=lambda x, w, b: N.layer_norm_plain(x, w, b, 1e-5),
-                    outputs=("y",), tols=[_elementwise(atol, atol)], iters=20, why=why,
+                    outputs=("y",), tols=[_elementwise(atol, atol)], iters=20, why=why, graph=True,
+                    route=(N.fused_layer_norm, plan.route),
                     library=lambda x, w, b: {"F.layer_norm": lambda: F.layer_norm(
                         x, (c,), w.to(x.dtype), b.to(x.dtype), 1e-5)},
                     bound=lambda x, w, b: norm_bound(x, c, 8))
+
+    def norm_determinism(kernel, label, make, fn):
+        return dict(kernel=f"{kernel} determinism", label=label, make=make, fn=fn, plain=fn,
+                    outputs=("y",) if kernel == "group_norm" else ("a", "b"),
+                    tols=(1 if kernel == "group_norm" else 2) * [_elementwise(0.0, 0.0)],
+                    why="two launches: partials added in a fixed order (blocks in rank order), so equal bits")
 
     def conv_inputs(n, c, hh, ww, o, kh, kw, dtype, film):
         def make():
@@ -606,7 +699,40 @@ def _kernel_cases():
         flash("unaligned strided q/k/v (2,1,300,300,512) bf16", _unaligned(2, 300, 300, 1, 512, 3), 2e-3, 2e-2, 3,
               why_bf, route="mma", kernel="flash_attention_d512 on mma"),
     ]
-    return serving + train + fwd_path + b7_unet
+    # B4, its statistics mode and B5 at the paths' other shapes, on every
+    # route, and their determinism: last, after the earlier PRs' cases
+    norms = [
+        gn("VAE full-res 256-ch GN+SiLU (16,256,320,512) bf16", (16, 256, 320, 512), 256, 1e-6, 5),
+        gn("VAE full-res GN+SiLU, image-reward decode (5,128,320,512) bf16", (5, 128, 320, 512), 128, 1e-6, 10),
+        gn("VAE 256-ch GN+SiLU, video-reward decode (8,256,320,512) bf16", (8, 256, 320, 512), 256, 1e-6, 5),
+        gn("VAE mid block GN+SiLU (16,512,40,64) bf16", (16, 512, 40, 64), 512, 1e-6, 20),
+        gn("whole-clip GN+SiLU at L2 (1,1280,16,10,16) bf16", (1, 1280, 16, 10, 16), 1280, 1e-5, 20),
+        gn("f32 GN+SiLU (2,320,40,64)", (2, 320, 40, 64), 320, 1e-5, 20, f32),
+        gn("f32 row beyond 16 blocks' shared memory (1,256,320,512)", (1, 256, 320, 512), 256, 1e-6, 5, f32),
+        gn("misaligned x (one element in), element-wise path (2,64,40,64) bf16", (2, 64, 40, 64), 64, 1e-5, 5,
+           offset=1),
+        gn_stats("B7 statistics, UNet L0 (16,320,40,64) bf16, no FiLM", (16, 320, 40, 64), 320, False),
+        gn_stats("B7 statistics, UNet L0 (16,320,40,64) bf16, FiLM", (16, 320, 40, 64), 320, True),
+        gn_stats("B7 statistics, L0 temporal conv on the clip (1,320,16,2560) bf16", (1, 320, 16, 2560), 320, False),
+        gn_stats("B7 statistics, (16,1920,20,32) bf16, FiLM", (16, 1920, 20, 32), 1920, True),
+        norm_determinism("group_norm", "UNet L0 per frame (16,320,40,64) bf16 [cta]",
+                         norm_inputs((16, 320, 40, 64), 320, bf), lambda *a: N.fused_group_norm(*a, 32, 1e-5, "silu")),
+        norm_determinism("group_norm", "whole clip (1,320,16,40,64) bf16 [split]",
+                         norm_inputs((1, 320, 16, 40, 64), 320, bf), lambda *a: N.fused_group_norm(*a, 32, 1e-5, "silu")),
+        norm_determinism("group_norm", "VAE full-res (16,128,320,512) bf16 [cluster, part re-read]",
+                         norm_inputs((16, 128, 320, 512), 128, bf), lambda *a: N.fused_group_norm(*a, 32, 1e-6, "silu")),
+        norm_determinism("group_norm_stats", "temporal conv clip (1,320,16,2560) bf16, FiLM [cluster]",
+                         norm_inputs((1, 320, 16, 2560), 320, bf, film=True),
+                         lambda *a: N.group_norm_affine_cuda(*a[:3], 32, 1e-5, *a[3:])),
+        ln("UNet L1 transformer LN (10240,640) bf16", (10240, 640), 640, bf, 1e-2, why_norm_bf),
+        ln("init_attn transformer LN (40960,512) bf16", (40960, 512), 512, bf, 1e-2, why_norm_bf),
+        ln("UNet L2 transformer LN (2560,1280) bf16", (2560, 1280), 1280, bf, 1e-2, why_norm_bf),
+        ln("text tower LN (77,1024) bf16", (77, 1024), 1024, bf, 1e-2, why_norm_bf),
+        ln("ViCLIP-L LN (2049,1024) bf16", (2049, 1024), 1024, bf, 1e-2, why_norm_bf),
+        ln("ViT-H/14 LN (1285,1280) bf16", (1285, 1280), 1280, bf, 1e-2, why_norm_bf),
+        ln("C not whole vectors, element-wise path (300,100) bf16", (300, 100), 100, bf, 1e-2, why_norm_bf),
+    ]
+    return serving + train + fwd_path + b7_unet + norms
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -888,9 +1014,12 @@ def phase_kernels(records):
                      min(library.values(), default=None))  # the fastest library call
             bound = case["bound"](*inputs)
             line += "; " + _timing_line(*times[:2], library, bound)
+            graph = _graph_times(case, inputs, bound) if case.get("graph") else None
+            if graph is not None:
+                line += graph[1]
             for n, c in case.get("beside", {}).items():  # logged only
                 line += f"; {n} {cuda_time_ms(lambda c=c: c(*inputs), case['iters']):.4g} ms"
-            record(records, name, max(errs), *times, bound)
+            record(records, name, max(errs), *times, bound, graph_ms=graph and graph[0])
         log(line)
         if not ok:
             raise AssertionError(f"{name} disagrees with its plain version at {label}")
@@ -900,6 +1029,25 @@ def phase_kernels(records):
         del inputs, got, ref
         torch.cuda.empty_cache()
     torch.backends.cudnn.allow_tf32 = True
+
+
+def _graph_times(case, inputs, bound):
+    """(kernel graph ms, log text): the kernel and its library calls by
+    CUDA-graph replay over enough copies of the inputs that their bytes come
+    from device memory (apps/time_norms.py's `graph_ms`): the device time
+    that the norms' host-bound back-to-back calls hide."""
+    import functools
+
+    from t2v_turbo_tpu_torch.apps.time_norms import copies_for, copy_inputs, graph_ms
+
+    x = inputs[0]
+    sets = [inputs] + [copy_inputs(inputs) for _ in range(copies_for(2 * x.numel() * x.element_size()) - 1)]
+    ms = graph_ms([functools.partial(case["fn"], *s) for s in sets], case["iters"])
+    library = {n: graph_ms([case["library"](*s)[n] for s in sets], case["iters"]) for n in case["library"](*inputs)}
+    text = (f"; by graph replay over {len(sets)} input set(s): kernel {ms:.4g} ms ({bound[0] / ms:.0%} of the "
+            f"bound)" + "".join(f", {n} {t:.4g} ms" for n, t in library.items()))
+    del sets
+    return ms, text
 
 
 def _as_tuple(x):
@@ -967,6 +1115,7 @@ def phase_main_path(records):
     log(f"main path: kernel launches {launches}")
     check_flash_routes("main path", len(PROMPTS) * 4, "UNet pass")  # 4 UNet steps a video
     check_conv_routes("main path", len(PROMPTS) * 4)
+    check_norm_routes("main path", len(PROMPTS), "video")
     for name, n in launches.items():
         records[name]["launches"] = n
         if n <= 0:
@@ -1014,7 +1163,8 @@ def _profile_one_video(pipe):
     fwd_ms, _, fwd512_ms, _ = flash_device_ms(events)
     log(f"profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's kernels (B7) {b7_ms:.1f} ms; the flash "
-        f"forward's kernels (B1) {fwd_ms:.2f} ms, of which D = 512 {fwd512_ms:.2f} -> chiprun_out/profile.txt")
+        f"forward's kernels (B1) {fwd_ms:.2f} ms, of which D = 512 {fwd512_ms:.2f}; " + _norm_profile(events)
+        + " -> chiprun_out/profile.txt")
 
 
 def phase_reference():
@@ -1136,6 +1286,7 @@ def _train_full_width(records, remat):
     log(f"training: kernel launches over the 4 steps {launches}")
     check_flash_routes("training", 4, "step")
     check_conv_routes("training", 4 * 4)  # 4 steps of 4 UNet passes (student, teacher x2, target)
+    check_norm_routes("training", 4, "step")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the training path")
@@ -1178,8 +1329,7 @@ def _profile_train_step(trainer, data, name):
     log(f"training profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's forward kernels (B7) {b7_ms:.1f} ms; flash "
         f"forward (B1, B2) {fwd_ms:.2f} ms (D = 512: {fwd512_ms:.2f}), backward (B3) {bwd_ms:.1f} ms "
-        f"(D = 512: {bwd512_ms:.2f}) "
-        f"-> chiprun_out/{name}; top: "
+        f"(D = 512: {bwd512_ms:.2f}); " + _norm_profile(events) + f" -> chiprun_out/{name}; top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
 
 
@@ -1280,6 +1430,7 @@ def _train_rewards_full_width(records, remat):
     log(f"training with rewards: launches a step by head dim {per_step}; over the {steps} steps {launches}")
     check_flash_routes("training with rewards", steps, "step")
     check_conv_routes("training with rewards", 4 * steps)
+    check_norm_routes("training with rewards", steps, "step")
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the rewards-ON training path")
@@ -1478,7 +1629,7 @@ def main() -> int:
         {"name": n, "route": "cuda", "source": KERNELS[n][0], "replaces": KERNELS[n][1],
          "launches": r["launches"], "max_abs_err": r["max_abs_err"], "ms": r["ms"],
          "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-         "library_ms": r["library_ms"]}
+         "library_ms": r["library_ms"], "graph_ms": r["graph_ms"]}
         for n, r in records.items()
     ]}))
     log(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

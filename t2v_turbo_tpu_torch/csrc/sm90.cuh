@@ -109,6 +109,29 @@ __device__ __forceinline__ void cluster_sync() {
                    : "memory");
 }
 
+// cluster_sync in two halves: arrive once this CTA is done reading its peers'
+// shared memory, wait before it exits (so no peer's memory goes away while
+// it is still read).
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// ---- 1-D bulk copies (no tensor map) -----------------------------------------
+
+// `bytes` (a multiple of 16; both addresses 16-byte aligned) from global
+// memory into this CTA's shared memory; completion counts them on `bar`.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n" ::"r"(
+          smem_addr(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_addr(bar))
+      : "memory");
+}
+
 // ---- TMA -------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {

@@ -119,14 +119,15 @@ def lib() -> ctypes.CDLL:
     so.t2v_flash_attention_bwd_dq.restype = i32
     so.t2v_group_norm_scratch.argtypes = [i64, i32, i32, i32]
     so.t2v_group_norm_scratch.restype = i64
-    so.t2v_group_norm_fwd.argtypes = [vp, vp, vp, vp, vp, i32, i64, i32, i32, i32, f32, i32, vp]
+    gn_plan = [i32] * 7  # route, k, chunk, staged, rows, threads, pieces (ops/norms.py::gn_plan)
+    so.t2v_group_norm_fwd.argtypes = [vp, vp, vp, vp, vp, i32, i64, i32, i32, i32, f32, i32, *gn_plan, vp]
     so.t2v_group_norm_fwd.restype = i32
-    so.t2v_layer_norm_fwd.argtypes = [vp, vp, vp, vp, i32, i64, i32, f32, i32, vp]
-    so.t2v_layer_norm_fwd.restype = i32
-    so.t2v_group_norm_affine.argtypes = [
-        vp, vp, vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, i32, f32, vp,
-    ]
+    so.t2v_group_norm_affine.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, i32, f32, *gn_plan, vp]
     so.t2v_group_norm_affine.restype = i32
+    so.t2v_group_norm_max_clusters.argtypes = [i32] * 6
+    so.t2v_group_norm_max_clusters.restype = i32
+    so.t2v_layer_norm_fwd.argtypes = [vp, vp, vp, vp, i32, i64, i32, f32, i32, i32, i32, vp]
+    so.t2v_layer_norm_fwd.restype = i32
     so.t2v_gn_silu_conv_fwd.argtypes = [
         vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
     ]
@@ -139,7 +140,11 @@ def lib() -> ctypes.CDLL:
 
 
 def stream_ptr(device: torch.device) -> int:
-    return torch.cuda.current_stream(device).cuda_stream
+    """The current stream of `device` as a pointer, by PyTorch's raw getter
+    (CUDA builds only): a fraction of the cost of building a
+    torch.cuda.Stream, and the launchers ask once a launch."""
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    return torch._C._cuda_getCurrentRawStream(index)
 
 
 def check(err: int, what: str) -> None:

@@ -23,9 +23,10 @@ and the `out` head.
   output-channel tile BN, the slab size, and the split of the 64-channel
   input chunks that fills the card when the tiles alone would not.
 - `fused_gn_silu_conv_cuda`: the launcher: the statistics and a, b from
-  norms.cu's split reduction (`t2v_group_norm_affine`), the weight permuted
-  to (O, kh, kw, C), then the fused kernel of csrc/fused_conv.cu on the
-  plan. It raises on a CPU tensor or anything else the kernels do not take.
+  the GroupNorm kernel's statistics mode (`norms.group_norm_affine_cuda`:
+  one launch), the weight permuted to (O, kh, kw, C), then the fused kernel
+  of csrc/fused_conv.cu on the plan. It raises on a CPU tensor or anything
+  else the kernels do not take.
 - `fused_gn_silu_conv`: the entry point, with a `launches` counter and its
   split `by_route` and `by_shape` ((N, C, H, W, O, kh, kw)). CPU: the plain
   version. CUDA: the kernel, through `FusedGnSiluConv` when an input needs
@@ -49,7 +50,7 @@ import torch
 import torch.nn.functional as F
 
 from . import cuda_lib
-from .norms import group_norm_f32, group_stats
+from .norms import group_norm_affine_cuda, group_norm_f32, group_stats
 
 
 def _check_film(film_scale, film_shift):
@@ -193,7 +194,7 @@ def _f32_vector(t, shape, device, what):
 
 def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, num_groups=32,
                             eps=1e-5, film_scale=None, film_shift=None):
-    """Launch the statistics passes and the fused kernel; raises on anything
+    """Launch the statistics kernel and the fused kernel; raises on anything
     they do not take."""
     what = "fused_gn_silu_conv_cuda"
     if x.device.type != "cuda":
@@ -226,24 +227,14 @@ def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, n
     if film_scale is not None:
         film = [_f32_vector(t, (n, c), x.device, name)
                 for t, name in ((film_scale, "film_scale"), (film_shift, "film_shift"))]
-    lib = cuda_lib.lib()
-    stream = cuda_lib.stream_ptr(x.device)
-    a, b = (torch.empty((n, c), dtype=torch.float32, device=x.device) for _ in range(2))
-    scratch = torch.empty(lib.t2v_group_norm_scratch(n, c, num_groups, hh * ww), dtype=torch.float32,
-                          device=x.device)
-    code = cuda_lib.DTYPE_CODES[x.dtype]
-    err = lib.t2v_group_norm_affine(
-        x.data_ptr(), gs.data_ptr(), gb.data_ptr(), *(None if t is None else t.data_ptr() for t in film),
-        a.data_ptr(), b.data_ptr(), scratch.data_ptr(), code, n, c, num_groups, hh * ww, eps, stream,
-    )
-    cuda_lib.check(err, f"{what} (statistics)")
+    a, b = group_norm_affine_cuda(x, gs, gb, num_groups, eps, *film)
     y = torch.empty((n, o, hh, ww), dtype=x.dtype, device=x.device)
     w_ohwc = conv_kernel.permute(0, 2, 3, 1).contiguous()  # one tap's channels are one TMA row
     plan = conv_plan(n, c, hh, ww, o, kh, kw, x.dtype)
-    err = lib.t2v_gn_silu_conv_fwd(
+    err = cuda_lib.lib().t2v_gn_silu_conv_fwd(
         x.data_ptr(), a.data_ptr(), b.data_ptr(), w_ohwc.data_ptr(),
-        None if conv_bias is None else conv_bias.data_ptr(), y.data_ptr(), code, n, c, hh, ww, o, kh, kw,
-        plan.bn, plan.tw, plan.tr, plan.npos, plan.chunks_per_split, stream,
+        None if conv_bias is None else conv_bias.data_ptr(), y.data_ptr(), cuda_lib.DTYPE_CODES[x.dtype], n, c, hh,
+        ww, o, kh, kw, plan.bn, plan.tw, plan.tr, plan.npos, plan.chunks_per_split, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, what)
     fused_gn_silu_conv.launches += 1

@@ -1,4 +1,4 @@
-"""GroupNorm and LayerNorm (optionally + SiLU): plain PyTorch and the CUDA kernels.
+"""GroupNorm and LayerNorm (optionally + SiLU): plain PyTorch, the CUDA kernels and their launch plans.
 
 Semantics are the JAX package's (`t2v_turbo_tpu/ops/norms.py`, the reference
 GroupNorm32): f32 statistics, the mean first and then the centred variance,
@@ -7,15 +7,34 @@ input dtype.
 
 Layout: `group_norm` takes channels-first tensors (N, C, *spatial), the
 layout the port's models run in; statistics are per (sample, group) over
-(C/G, *spatial). The TemporalTransformer and TemporalConvBlock pass the whole
-clip (B, C, T, H, W), so their statistics span all frames; the per-frame
-call sites pass (B*T, C, H, W). `layer_norm` normalises the last axis.
+(C/G, *spatial), one contiguous row of L = (C/G) * S elements. The
+TemporalTransformer and TemporalConvBlock pass the whole clip (B, C, T, H,
+W), so their statistics span all frames; the per-frame call sites pass
+(B*T, C, H, W). `layer_norm` normalises the last axis.
 
 Dispatch: `group_norm` / `layer_norm` call the hand-written kernels
 (`csrc/norms.cu`) through `fused_group_norm` / `fused_layer_norm`. Those
 wrappers run the plain version only for a tensor on the CPU; a CUDA tensor
 goes to the kernel, or the wrapper raises. Each wrapper counts its kernel
-launches in its `launches` attribute.
+launches in `launches`, split by route in `by_route` and by shape in
+`by_shape`. `group_norm_affine_cuda` is the GroupNorm kernel's statistics
+mode for the fused GroupNorm+SiLU+conv (ops/fused_conv.py), with the same
+counters.
+
+Plans: `gn_plan` and `ln_plan` are pure functions of the shape and dtype
+(and whether the pointers are 16-byte aligned) that pick each kernel's
+route and launch shape; the wrappers pass the plan to the C entry points,
+which run it or refuse it. GroupNorm's routes: `cta` (a row, or several
+tiny rows, staged whole in one block's shared memory), `cluster` (a row
+split over a thread-block cluster of up to 16 blocks that exchange partial
+sums through distributed shared memory; the VAE's largest rows hold part of
+each chunk and re-read the rest from L2), `split` (rows too few to fill the
+card, the whole-clip norms: a launch of per-chunk partials, then one that
+combines them and re-reads x from L2) and `elementwise` (misaligned
+pointers or a spatial size that is not a multiple of the 16-byte vector).
+The statistics mode takes `cta` or `cluster`. LayerNorm's:
+`vector` (each row read once into registers as 16-byte vectors) and
+`elementwise`.
 
 Gradients: when an input needs one, a CUDA call goes through an
 `autograd.Function` whose forward is the kernel and whose backward
@@ -26,7 +45,10 @@ TPU has no backward kernel for the norms either.
 
 from __future__ import annotations
 
-from typing import Optional
+import collections
+import functools
+import math
+from typing import NamedTuple, Optional
 
 import torch
 import torch.nn.functional as F
@@ -96,6 +118,10 @@ def _check_cuda_input(x: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: the kernel needs a contiguous tensor")
 
 
+def _needs_grad(*tensors) -> bool:
+    return torch.is_grad_enabled() and any(t.requires_grad for t in tensors)
+
+
 def _plain_vjp(plain, ctx, dy):
     """Gradients of `plain(x, weight, bias, *ctx.cfg)` at the saved inputs."""
     needs = ctx.needs_input_grad[:3]
@@ -134,62 +160,333 @@ class _LayerNormFn(torch.autograd.Function):
         return _plain_vjp(layer_norm_plain, ctx, dy) + (None, None)
 
 
+# The H100's and the staged GroupNorm kernel's limits (csrc/norms.cu): SMs,
+# shared memory an SM has and a block may use, the kernel's static reserve
+# (plus the 1 KB the card reserves a block), threads an SM, barriers (rows x
+# pieces) and rows a block, blocks a cluster (above 8 non-portable).
+SMS, SM_THREADS = 132, 2048
+SMEM_SM, SMEM_BLOCK = 233472, 232448
+GN_STATIC_SMEM = 1024
+GN_MAX_THREADS, GN_MAX_BARS, GN_MAX_ROWS = 512, 32, 16
+GN_MAX_CLUSTER, GN_PORTABLE_CLUSTER = 16, 8
+# The plan's choices: the blocks an SM it aims at, the bytes the blocks on
+# the card may re-read from L2 (a block reads its re-read part three times
+# within its life), the smallest chunk a row is split into only to fill the
+# SMs, bytes a bulk copy.
+GN_BLOCKS_PER_SM = 4
+GN_L2_BUDGET = 20 * 2**20
+GN_STATS_L2 = 32 * 2**20  # the statistics mode holds nothing for a tensor up to this size
+GN_MIN_SPLIT = 8 * 1024
+GN_PIECE = 16 * 1024
+GN_ROUTES = {"cta": 0, "cluster": 1, "split": 2, "elementwise": 3}
+# The split route's blocks: threads, the 16-byte vectors a thread the kernel
+# takes (csrc/norms.cu); the largest tensor it takes (its second launch
+# re-reads x from L2).
+GN_SPLIT_THREADS, GN_SPLIT_VECS = 256, (2, 4)
+GN_SPLIT_L2 = 32 * 2**20
+GN_STAGED = ("cta", "cluster")
+
+
+class GnPlan(NamedTuple):
+    route: str       # "cta", "cluster", "split" or "elementwise"
+    k: int = 1       # blocks a row: the cluster's size (split: the row's chunks)
+    chunk: int = 0   # elements of a row a block takes; the last block of a row takes the rest
+    staged: int = 0  # of which the first `staged` are held in shared memory, the rest re-read
+    rows: int = 1    # rows a block (cta only)
+    threads: int = 0
+    pieces: int = 1  # bulk copies (one mbarrier each) the held part of a row arrives in
+    smem: int = 0    # shared memory a block, the static reserve included
+    grid: int = 0    # blocks
+
+    @property
+    def nonportable(self) -> bool:
+        """A cluster above the portable 8 blocks (the kernel allows it)."""
+        return self.k > GN_PORTABLE_CLUSTER
+
+
+def _vector(dtype) -> int:
+    """Elements of `dtype` in a 16-byte vector."""
+    if dtype not in cuda_lib.DTYPE_CODES:
+        raise TypeError(f"no norm kernel for dtype {dtype}")
+    return 16 // dtype.itemsize
+
+
+def _chunk(l, k, ve):
+    """Elements a block takes when k blocks share a row of l: ceil(l / k) in
+    whole vectors, or None unless every one of the k chunks is non-empty."""
+    chunk = -(-(-(-l // k)) // ve) * ve
+    return chunk if (k - 1) * chunk < l else None
+
+
+def _held_bytes(per_sm):
+    """The most bytes a block may hold for `per_sm` blocks to share an SM."""
+    return (SMEM_SM // per_sm - GN_STATIC_SMEM - 1024) // 16 * 16
+
+
+def staged_plan(rows_total, e, k, chunk, staged, rows=1):
+    """The `cta` (k = 1) or `cluster` plan holding `staged` of each block's
+    `chunk` elements (of e bytes), `rows` rows a block (k = 1 only).
+    Threads: a power of two from 128 to 512, about an eighth of the block's
+    held vectors, at most an SM's threads over the blocks an SM holds;
+    pieces: 16 KB a bulk copy when a block holds more than 48 KB."""
+    ve = 16 // e
+    eighth = max(1, rows * staged // ve // 8)
+    per_sm = min(32, SMEM_SM // (rows * staged * e + GN_STATIC_SMEM + 1024))
+    threads = max(128, 32 * rows, min(GN_MAX_THREADS, SM_THREADS // per_sm, 1 << (eighth.bit_length() - 1)))
+    pieces = max(1, min(GN_MAX_BARS // rows, -(-staged * e // GN_PIECE))) if staged * e > 48 * 1024 else 1
+    return GnPlan("cta" if k == 1 else "cluster", k, chunk, staged, rows, threads, pieces,
+                  rows * staged * e + GN_STATIC_SMEM, -(-rows_total // rows) * k)
+
+
+def split_plan(rows_total, l, e, vecs=GN_SPLIT_VECS[-1]):
+    """The `split` plan: chunks of GN_SPLIT_THREADS x `vecs` vectors."""
+    chunk = GN_SPLIT_THREADS * vecs * (16 // e)
+    k = -(-l // chunk)
+    return GnPlan("split", k, chunk, 0, 1, GN_SPLIT_THREADS, 1, 0, rows_total * k)
+
+
+@functools.lru_cache(maxsize=None)
+def gn_plan(n, c, g, s, dtype=torch.bfloat16, aligned=True, stats=False):
+    """Route and launch shape of the GroupNorm kernel on (n, c, s) in g groups
+    (`stats`: its statistics mode).
+
+    `aligned`: x and y start on 16-byte boundaries. The staged routes need
+    that and s a multiple of the 16-byte vector; otherwise `elementwise`.
+    A row of l = (c / g) * s elements is split into k = 1, 2, 4, 8 or 16
+    chunks of whole vectors (power-of-two clusters pack the card's GPCs). The
+    plan takes the smallest k whose chunk fits GN_BLOCKS_PER_SM blocks an
+    SM, held whole. Failing that (the VAE's largest rows), k = 16 and each
+    block holds the first `staged` elements of its chunk in shared memory
+    and re-reads the rest from L2: as much as the most blocks an SM
+    (GN_BLOCKS_PER_SM, then fewer, down to one block holding all its shared
+    memory) may hold while the re-read parts of the blocks on the card stay
+    within GN_L2_BUDGET. While the rows' blocks would not fill the SMs, k
+    doubles (chunks of at least GN_MIN_SPLIT). k = 1 is `cta`: tiny rows
+    then share a block (up to 8 KB of them, if twice the SMs' worth of
+    blocks remain). Threads and pieces: `staged_plan`. A cluster plan for
+    fewer rows than SMs (the whole-clip norms), on a tensor of at most
+    GN_SPLIT_L2 bytes, becomes `split_plan`: there the clusters all load at
+    once and each waits for its slowest block (PERF.md §6). Its chunks are
+    4 vectors a thread, or 2 where 4 would give under GN_BLOCKS_PER_SM
+    blocks an SM.
+
+    The statistics mode reads x twice (no y): for a tensor of at most
+    GN_STATS_L2 bytes it holds nothing and re-reads from L2, with k doubled
+    while the rows' blocks would not fill the SMs (chunks of at least
+    GN_MIN_SPLIT); larger tensors take the plan above.
+    """
+    ve = _vector(dtype)
+    e = 16 // ve
+    rows_total, l = n * g, (c // g) * s
+    if not aligned or s % ve:
+        return GnPlan("elementwise", grid=rows_total)
+    chunks = {k: chunk for k in (1, 2, 4, 8, 16) if (chunk := _chunk(l, k, ve)) is not None}
+    if stats and n * c * s * e <= GN_STATS_L2:
+        k = 1
+        while rows_total * k < SMS and 2 * k in chunks and chunks[2 * k] * e >= GN_MIN_SPLIT:
+            k *= 2
+        return GnPlan("cta" if k == 1 else "cluster", k, chunks[k], 0, 1, 256, 1, GN_STATIC_SMEM,
+                      rows_total * k)
+    whole = _held_bytes(GN_BLOCKS_PER_SM) // e
+    k = next((k for k in sorted(chunks) if chunks[k] <= whole), None)
+    if k is not None:
+        staged = chunks[k]
+    else:
+        k = max(chunks)
+        for per_sm in range(GN_BLOCKS_PER_SM, 0, -1):
+            staged = min(chunks[k], _held_bytes(per_sm) // e // ve * ve)
+            if SMS * per_sm * (chunks[k] - staged) * e <= GN_L2_BUDGET:
+                break
+    while rows_total * k < SMS and 2 * k in chunks and chunks[2 * k] * e >= GN_MIN_SPLIT:
+        k *= 2
+        staged = min(chunks[k], staged)
+    chunk, rows = chunks[k], 1
+    if k == 1 and staged == chunk:
+        while (2 * rows <= GN_MAX_ROWS and 2 * rows * l * e <= GN_MIN_SPLIT
+               and -(-rows_total // (2 * rows)) >= 2 * SMS):
+            rows *= 2
+        staged = chunk = l
+    if k > 1 and rows_total < SMS and n * c * s * e <= GN_SPLIT_L2:
+        plan = split_plan(rows_total, l, e)
+        return plan if plan.grid >= GN_BLOCKS_PER_SM * SMS else split_plan(rows_total, l, e, GN_SPLIT_VECS[0])
+    return staged_plan(rows_total, e, k, chunk, staged, rows)
+
+
+@functools.lru_cache(maxsize=None)
+def _clusters_fit(plan: GnPlan, dtype, stats: bool) -> int:
+    """Once a plan: how many of its clusters the card runs at once; raises
+    if it cannot run one (the launch would be refused)."""
+    n = cuda_lib.lib().t2v_group_norm_max_clusters(cuda_lib.DTYPE_CODES[dtype], int(stats), plan.k,
+                                                   plan.staged, plan.rows, plan.threads)
+    if n < 0:
+        cuda_lib.check(-n, "group norm cluster occupancy")
+    if n == 0:
+        raise RuntimeError(f"the card cannot run a cluster of {plan.k} blocks of {plan.threads} threads and "
+                           f"{plan.smem} bytes of shared memory ({plan})")
+    return n
+
+
+def _launch_args(plan: GnPlan, x, dtype, stats, n, c, g, s):
+    """(scratch, (route code, k, chunk, staged, rows, threads, pieces)) for the
+    C entry points; the split and element-wise routes' f32 scratch stays
+    alive on `x`'s stream until it is freed (the caching allocator orders
+    reuse)."""
+    if plan.route == "cluster":
+        _clusters_fit(plan, dtype, stats)
+    scratch = None
+    if plan.route in ("split", "elementwise"):
+        size = 2 * n * g * plan.k if plan.route == "split" else cuda_lib.lib().t2v_group_norm_scratch(n, c, g, s)
+        scratch = torch.empty(size, dtype=torch.float32, device=x.device)
+    return scratch, (GN_ROUTES[plan.route], plan.k, plan.chunk, plan.staged, plan.rows, plan.threads, plan.pieces)
+
+
+def _count(wrapper, route, shape):
+    wrapper.launches += 1
+    wrapper.by_route[route] += 1
+    wrapper.by_shape[shape] += 1
+
+
+def _counters(wrapper):
+    wrapper.launches = 0
+    wrapper.by_route = collections.Counter()
+    wrapper.by_shape = collections.Counter()
+
+
+def _group_shape(x, num_groups, what):
+    n, c = x.shape[:2]
+    if x.dim() < 3 or c % num_groups:
+        raise ValueError(f"{what}: bad shape {tuple(x.shape)} for {num_groups} groups")
+    s = math.prod(x.shape[2:])
+    if (c // num_groups) * s >= 2**31:
+        raise ValueError(f"{what}: a group of 2^31 elements or more")
+    return n, c, s
+
+
 def fused_group_norm(x, weight, bias, num_groups=32, eps=1e-5, act=None):
     """GroupNorm(+act) on a contiguous (N, C, *spatial) tensor.
 
-    CUDA: the three-launch split-reduction kernel of csrc/norms.cu (any
-    group size; no shape gate), through `_GroupNormFn` (no graph is kept
-    when nothing needs a gradient). CPU: `group_norm_plain`.
+    CUDA: the kernel of csrc/norms.cu on `gn_plan`'s route (any group size;
+    no shape gate), through `_GroupNormFn` when an input needs a gradient.
+    CPU: `group_norm_plain`.
     Replaces t2v_turbo_tpu/ops/fused_norms.py::fused_group_norm.
     """
     if x.device.type == "cpu":
         return group_norm_plain(x, weight, bias, num_groups, eps, act)
-    return _GroupNormFn.apply(x, weight, bias, num_groups, eps, act)
+    if _needs_grad(x, weight, bias):
+        return _GroupNormFn.apply(x, weight, bias, num_groups, eps, act)
+    return group_norm_cuda(x, weight, bias, num_groups, eps, act)
 
 
-fused_group_norm.launches = 0
+_counters(fused_group_norm)
 
 
-def group_norm_cuda(x, weight, bias, num_groups=32, eps=1e-5, act=None):
-    """Launch the GroupNorm kernels of csrc/norms.cu; raises on what they do not take."""
+def group_norm_cuda(x, weight, bias, num_groups=32, eps=1e-5, act=None, plan=None):
+    """Launch the GroupNorm kernel of csrc/norms.cu on `plan` (by default
+    `gn_plan`'s); raises on what it does not take."""
     if x.device.type != "cuda":
         raise RuntimeError(f"group_norm_cuda: no kernel for device {x.device}")
     _check_cuda_input(x, "group_norm_cuda")
-    n, c = x.shape[:2]
-    if x.dim() < 3 or c % num_groups:
-        raise ValueError(f"group_norm_cuda: bad shape {tuple(x.shape)} for {num_groups} groups")
-    s = x[0, 0].numel()
-    if (c // num_groups) * s >= 2**31:
-        raise ValueError("group_norm_cuda: a group of 2^31 elements or more")
+    n, c, s = _group_shape(x, num_groups, "group_norm_cuda")
     w, b = _affine(weight, c, x.device), _affine(bias, c, x.device)
-    lib = cuda_lib.lib()
-    scratch = torch.empty(
-        lib.t2v_group_norm_scratch(n, c, num_groups, s), dtype=torch.float32, device=x.device
-    )
+    plan = plan or gn_plan(n, c, num_groups, s, x.dtype, x.data_ptr() % 16 == 0)
+    scratch, plan_args = _launch_args(plan, x, x.dtype, False, n, c, num_groups, s)
     y = torch.empty_like(x)
-    err = lib.t2v_group_norm_fwd(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), scratch.data_ptr(),
-        cuda_lib.DTYPE_CODES[x.dtype], n, c, num_groups, s, eps, _act_code(act),
+    err = cuda_lib.lib().t2v_group_norm_fwd(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), None if scratch is None else scratch.data_ptr(),
+        cuda_lib.DTYPE_CODES[x.dtype], n, c, num_groups, s, eps, _act_code(act), *plan_args,
         cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "group_norm_cuda")
-    fused_group_norm.launches += 1
+    _count(fused_group_norm, plan.route, tuple(x.shape))
     return y
+
+
+def group_norm_affine_cuda(x, gn_scale, gn_bias, num_groups=32, eps=1e-5, film_scale=None, film_shift=None,
+                           plan=None):
+    """(a, b), each (N, C) f32, with film(group_norm(x)) = x*a + b: the
+    GroupNorm kernel's statistics mode, on `plan` (by default `gn_plan`'s), for the fused
+    GroupNorm+SiLU+conv. x: (N, C, *spatial) contiguous on the card;
+    gn_scale, gn_bias: (C,) f32 and the FiLM (N, C) f32 (or both None), on
+    x's device (ops/fused_conv.py checks them). Counts its launches as
+    `fused_group_norm` does. The plain version is
+    `ops.fused_conv.gn_affine_vectors`."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"group_norm_affine_cuda: no kernel for device {x.device}")
+    _check_cuda_input(x, "group_norm_affine_cuda")
+    n, c, s = _group_shape(x, num_groups, "group_norm_affine_cuda")
+    plan = plan or gn_plan(n, c, num_groups, s, x.dtype, x.data_ptr() % 16 == 0, stats=True)
+    scratch, plan_args = _launch_args(plan, x, x.dtype, True, n, c, num_groups, s)
+    a, b = (torch.empty((n, c), dtype=torch.float32, device=x.device) for _ in range(2))
+    film = [None if t is None else t.data_ptr() for t in (film_scale, film_shift)]
+    err = cuda_lib.lib().t2v_group_norm_affine(
+        x.data_ptr(), gn_scale.data_ptr(), gn_bias.data_ptr(), *film, a.data_ptr(), b.data_ptr(),
+        None if scratch is None else scratch.data_ptr(), cuda_lib.DTYPE_CODES[x.dtype], n, c, num_groups, s,
+        eps, *plan_args, cuda_lib.stream_ptr(x.device),
+    )
+    cuda_lib.check(err, "group_norm_affine_cuda")
+    _count(group_norm_affine_cuda, plan.route, tuple(x.shape))
+    return a, b
+
+
+_counters(group_norm_affine_cuda)
+
+# The LayerNorm kernel's limits (csrc/norms.cu): threads a block, 16-byte
+# vectors a lane holds.
+LN_THREADS, LN_MAX_VECS = 256, 10
+
+
+class LnPlan(NamedTuple):
+    route: str       # "vector" or "elementwise"
+    lanes: int = 0   # lanes a row (a power of two; 32 / lanes rows a warp)
+    vecs: int = 0    # 16-byte vectors a lane holds
+    rows_per_block: int = 0
+    grid: int = 0
+
+
+@functools.lru_cache(maxsize=None)
+def ln_plan(rows, c, dtype=torch.bfloat16, aligned=True):
+    """Route and launch shape of the LayerNorm kernel on (rows, c).
+
+    `aligned`: x, y, weight and bias start on 16-byte boundaries. The vector
+    route holds a row's v = c / (16-byte vector) vectors in `lanes` lanes:
+    the fewest lanes (a power of two) that divide v into at most 5 vectors a
+    lane, else at most LN_MAX_VECS; else 32 lanes with the last vectors
+    masked. While the rows' lanes would not fill the card's threads, the
+    lanes double (the last vectors masked): at (10240, 640) bf16, 32 lanes
+    of 3 vectors measured faster than 16 of 5 (PERF.md §6).
+    Misaligned, c not whole vectors, or too long a row -> `elementwise` (a
+    warp a row)."""
+    ve = _vector(dtype)
+    v = c // ve
+    if aligned and c % ve == 0:
+        for most in (5, LN_MAX_VECS):
+            lanes = next((n for n in (1, 2, 4, 8, 16, 32) if v % n == 0 and v // n <= most), None)
+            if lanes:
+                break
+        else:
+            lanes = 32 if -(-v // 32) <= LN_MAX_VECS else None
+        while lanes and lanes < 32 and rows * lanes < SMS * SM_THREADS:
+            lanes *= 2
+        if lanes:
+            per_block = LN_THREADS // 32 * (32 // lanes)
+            return LnPlan("vector", lanes, -(-v // lanes), per_block, -(-rows // per_block))
+    return LnPlan("elementwise", rows_per_block=8, grid=-(-rows // 8))
 
 
 def fused_layer_norm(x, weight, bias, eps=1e-5, act=None):
     """LayerNorm(+act) over the last axis of a contiguous tensor.
 
-    CUDA: the warp-per-row kernel of csrc/norms.cu, through `_LayerNormFn`
-    (no graph is kept when nothing needs a gradient). CPU: `layer_norm_plain`.
-    Replaces t2v_turbo_tpu/ops/fused_norms.py::fused_layer_norm.
+    CUDA: the kernel of csrc/norms.cu on `ln_plan`'s route, through
+    `_LayerNormFn` when an input needs a gradient. CPU: `layer_norm_plain`. Replaces t2v_turbo_tpu/ops/fused_norms.py::fused_layer_norm.
     """
     if x.device.type == "cpu":
         return layer_norm_plain(x, weight, bias, eps, act)
-    return _LayerNormFn.apply(x, weight, bias, eps, act)
+    if _needs_grad(x, weight, bias):
+        return _LayerNormFn.apply(x, weight, bias, eps, act)
+    return layer_norm_cuda(x, weight, bias, eps, act)
 
 
-fused_layer_norm.launches = 0
+_counters(fused_layer_norm)
 
 
 def layer_norm_cuda(x, weight, bias, eps=1e-5, act=None):
@@ -198,15 +495,17 @@ def layer_norm_cuda(x, weight, bias, eps=1e-5, act=None):
         raise RuntimeError(f"layer_norm_cuda: no kernel for device {x.device}")
     _check_cuda_input(x, "layer_norm_cuda")
     c = x.shape[-1]
+    rows = x.numel() // c
     w, b = _affine(weight, c, x.device), _affine(bias, c, x.device)
     y = torch.empty_like(x)
+    aligned = all(t.data_ptr() % 16 == 0 for t in (x, w, b))
+    plan = ln_plan(rows, c, x.dtype, aligned)
     err = cuda_lib.lib().t2v_layer_norm_fwd(
-        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(),
-        cuda_lib.DTYPE_CODES[x.dtype], x.numel() // c, c, eps, _act_code(act),
-        cuda_lib.stream_ptr(x.device),
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), cuda_lib.DTYPE_CODES[x.dtype], rows, c, eps,
+        _act_code(act), plan.lanes, plan.vecs, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, "layer_norm_cuda")
-    fused_layer_norm.launches += 1
+    _count(fused_layer_norm, plan.route, (rows, c))
     return y
 
 
