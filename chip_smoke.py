@@ -46,10 +46,20 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 (B5) at the UNet's, the text tower's and the reward towers'
                 widths in bf16, in f32 and element-wise; two launches of B4
                 (cta, split, cluster) and of its statistics mode with equal
-                bits. The norms' `ms` is back-to-back calls, as every
-                kernel's (host time included: their calls are host-bound);
-                their `graph_ms` the device time by CUDA-graph replay over
-                enough input copies that the bytes come from device memory.
+                bits. The short-sequence attention (B8) at every path
+                shape (the temporal attention at levels 0-2 and init_attn,
+                the middle block's temporal and spatial self-attention), at
+                T = 13, 48, 64, in f32 (recorded as small_seq_attention_f32),
+                each on its route (bulk for aligned views, element-wise for
+                misaligned ones, in both dtypes), two launches with equal
+                bits, and a launch captured in a CUDA graph against an eager
+                one. B6: B1 and B2 on the mma route on misaligned views at
+                (16,5,2560,2560,64) (flash_attention_mma and
+                flash_attention_fwd_lse_mma). The norms' and B8's `ms` is
+                back-to-back calls, as every kernel's (host time included:
+                their calls are host-bound); their `graph_ms` the device
+                time by CUDA-graph replay over enough input copies that the
+                bytes come from device memory.
   4. main path: full-width VC2 (UNet 320/640/1280, VAE ch 128, ViT-H text tower
                 with 23 of 24 blocks), seeded random weights, bf16, through
                 apps/generate.py's build_pipeline and the pipeline call:
@@ -61,11 +71,13 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 either took the wgmma route, and the norms' launches by
                 route and shape, failing unless every GroupNorm launch (and
                 its statistics mode's) took cta or cluster and every
-                LayerNorm launch the vector route. Then one more
+                LayerNorm launch the vector route; B8's launches by shape
+                must be 35 a UNet pass at time_small_seq.SHAPES and all on
+                the bulk route (phases 6 and 7 check its route). Then one more
                 video with each stage's forward timed (synchronised hooks),
                 and one under torch.profiler (device time by kernel, the
                 fused conv's, the flash forward's (the part at head dim 512
-                apart) and the norms' device time and the device's idle
+                apart), B8's and the norms' device time and the device's idle
                 share, into chiprun_out/profile.txt).
   5. reference: a small pipeline (f32, 256x256, so flash attention still runs)
                 on the card against the same weights on the CPU, where every
@@ -156,6 +168,14 @@ KERNELS = {
     "fused_gn_silu_conv": ("t2v_turbo_tpu_torch/csrc/fused_conv.cu", "t2v_turbo_tpu/ops/fused_conv.py:71"),
     "small_seq_attention": ("t2v_turbo_tpu_torch/csrc/small_seq_attention.cu",
                             "tests_tpu/bench_small_seq_attention.py:60"),
+    # B8 in f32 (the card-vs-CPU phases' route; its launches are phase 5's)
+    "small_seq_attention_f32": ("t2v_turbo_tpu_torch/csrc/small_seq_attention.cu",
+                                "tests_tpu/bench_small_seq_attention.py:60"),
+    # B6: B1 / B2 on misaligned (B, S, H, D) views, the mma route (no path
+    # launches it: phases 4, 6, 7 require wgmma; its launches are phase 4's, 0)
+    "flash_attention_mma": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu", "t2v_turbo_tpu/ops/attention.py:540"),
+    "flash_attention_fwd_lse_mma": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
+                                    "t2v_turbo_tpu/ops/attention.py:813"),
 }
 SERVING_KERNELS = ("flash_attention", "group_norm", "group_norm_stats", "layer_norm", "fused_gn_silu_conv",
                    "small_seq_attention")
@@ -223,6 +243,31 @@ def check_flash_routes(what, passes, per):
             f"{dict(sorted(w.by_head_dim.items()))} (every launch on wgmma) {'OK' if ok else 'FAIL'}" + shapes)
         if not ok:
             raise AssertionError(f"{what}: {w.__name__} took routes {dict(w.by_route)}, expected {want}")
+
+
+def check_small_seq(what, passes, per, shapes=True):
+    """Log B8's launches by route and, a `per` over `passes`, by (R, T, H)
+    shape; raise unless every launch took the bulk route (the paths' q, k, v
+    are views of the Linears' outputs, which bulk copies read) and, with
+    `shapes`, the launches a pass are time_small_seq.SHAPES' 35 (temporal
+    attention at levels 0-2, init_attn, the middle block's temporal and
+    spatial self-attention)."""
+    from t2v_turbo_tpu_torch.apps.time_small_seq import SHAPES
+    from t2v_turbo_tpu_torch.ops import attention as A
+
+    w = A.small_seq_attention
+    want = {shape: n * passes for shape, _, n in SHAPES}
+    ok = dict(w.by_route) == {"bulk": w.launches} and (not shapes or dict(w.by_shape) == want)
+    log(f"{what}: small_seq_attention launches {w.launches} by route {dict(w.by_route)} (all on bulk"
+        + (f", {sum(want.values()) // passes} a {per} at time_small_seq.SHAPES" if shapes else "") + ") "
+        f"{'OK' if ok else 'FAIL'}; a {per} by shape {dict((k, c / passes) for k, c in sorted(w.by_shape.items()))}")
+    if not ok:
+        raise AssertionError(f"{what}: small_seq_attention routes {dict(w.by_route)}, shapes {dict(w.by_shape)}")
+
+
+def small_seq_device_ms(events):
+    """B8's device ms in profiler events."""
+    return sum(e.self_device_time_total for e in events if "small_seq_kernel" in e.key) / 1e3
 
 
 def flash_device_ms(events):
@@ -494,13 +539,13 @@ def _kernel_cases():
                     bound=lambda q, k, v: attention_bound(q, k, "fwd"),
                     **({"exact": _attention_f64} if f64 else {}))
 
-    def flash_lse(label, make, atol, rtol, iters, why):
-        return dict(kernel="flash_attention_fwd_lse", label=label, make=make,
+    def flash_lse(label, make, atol, rtol, iters, why, route="wgmma", kernel="flash_attention_fwd_lse"):
+        return dict(kernel=kernel, label=label, make=make,
                     fn=lambda q, k, v: A.flash_attention_lse(q, k, v), plain=lambda q, k, v: A.attention_lse_plain(
                         q, k, v, q.shape[-1] ** -0.5), outputs=("o", "lse"),
                     tols=[_elementwise(atol, rtol), _elementwise(1e-3, 0.0)], iters=iters, library=_sdpa_fwd,
-                    why=f"o: {why}; lse: f32 sums of exp in another order", route=(A.flash_attention_lse, "wgmma"),
-                    shape=make.shape,
+                    why=f"o: {why}; lse: f32 sums of exp in another order", route=(A.flash_attention_lse, route),
+                    shape=getattr(make, "shape", None),
                     bound=lambda q, k, v: attention_bound(q, k, "fwd_lse"), exact=_attention_f64)
 
     def gn(label, shape, c, eps, iters, dtype=bf, offset=0):
@@ -591,10 +636,13 @@ def _kernel_cases():
                     bound=lambda x, gs, gb, w, *_: conv_bound(x, w, o),
                     **({"exact": _fused_conv_f64} if f64 and not f32_case else {}))
 
-    def small_seq(label, make, iters=20, dtype=bf):
+    def small_seq(label, make, shape, iters=20, dtype=bf, aligned=True):
         f32_case = dtype == torch.float32
-        return dict(kernel="small_seq_attention", label=label, make=make, fn=A.small_seq_attention,
-                    plain=A.attention, outputs=("o",),
+        plan = A.ss_plan(*shape, dtype, aligned)
+        return dict(kernel="small_seq_attention_f32" if f32_case else "small_seq_attention",
+                    label=f"{label} [{plan.route}, {plan.heads} head(s) an item, {plan.grid} blocks of "
+                          f"{plan.threads} threads, {plan.smem} bytes]", make=make, fn=A.small_seq_attention,
+                    plain=A.attention, outputs=("o",), route=(A.small_seq_attention, plan.route), graph=True,
                     tols=[_elementwise(1e-5, 1e-4) if f32_case else _elementwise(2e-3, 2e-2)],
                     why=("f32; only the summation order and expf differ" if f32_case else
                          "bf16 output; both normalise P in f32 and round it to bf16 before P.V; the "
@@ -625,14 +673,15 @@ def _kernel_cases():
         outputs=("y",), tols=[_elementwise(0.0, 0.0)],
         why="two launches: no atomics, a fixed summation order, so equal bits")]
     b8 = [
-        small_seq("UNet L0 temporal attn (2560,16,5,64) bf16", attn(2560, 16, 5, 64, bf)),
-        small_seq("init_attn temporal (2560,16,8,64) bf16", attn(2560, 16, 8, 64, bf)),
-        small_seq("UNet L1 temporal attn (640,16,10,64) bf16", attn(640, 16, 10, 64, bf)),
-        small_seq("UNet L2 temporal attn (160,16,20,64) bf16", attn(160, 16, 20, 64, bf)),
-        small_seq("ragged T = 13 (300,13,5,64) bf16", attn(300, 13, 5, 64, bf)),
-        small_seq("T = 48 (200,48,5,64) bf16", attn(200, 48, 5, 64, bf)),
-        small_seq("unaligned strided (300,16,5,64) bf16", _unaligned(300, 16, 16, 5, 64, 3)),
-        small_seq("f32 (2560,16,5,64)", attn(2560, 16, 5, 64, f32), iters=5, dtype=f32),
+        small_seq("UNet L0 temporal attn (2560,16,5,64) bf16", attn(2560, 16, 5, 64, bf), (2560, 16, 5)),
+        small_seq("init_attn temporal (2560,16,8,64) bf16", attn(2560, 16, 8, 64, bf), (2560, 16, 8)),
+        small_seq("UNet L1 temporal attn (640,16,10,64) bf16", attn(640, 16, 10, 64, bf), (640, 16, 10)),
+        small_seq("UNet L2 temporal attn (160,16,20,64) bf16", attn(160, 16, 20, 64, bf), (160, 16, 20)),
+        small_seq("ragged T = 13 (300,13,5,64) bf16", attn(300, 13, 5, 64, bf), (300, 13, 5)),
+        small_seq("T = 48 (200,48,5,64) bf16", attn(200, 48, 5, 64, bf), (200, 48, 5)),
+        small_seq("unaligned strided (300,16,5,64) bf16", _unaligned(300, 16, 16, 5, 64, 3), (300, 16, 5),
+                  aligned=False),
+        small_seq("f32 (2560,16,5,64)", attn(2560, 16, 5, 64, f32), (2560, 16, 5), iters=5, dtype=f32),
     ]
     serving = [
         flash("UNet L0 self-attn (16,5,2560,2560,64) bf16", attn(16, 2560, 5, 64, bf), 2e-3, 2e-2, 10, why_bf),
@@ -732,7 +781,35 @@ def _kernel_cases():
         ln("ViT-H/14 LN (1285,1280) bf16", (1285, 1280), 1280, bf, 1e-2, why_norm_bf),
         ln("C not whole vectors, element-wise path (300,100) bf16", (300, 100), 100, bf, 1e-2, why_norm_bf),
     ]
-    return serving + train + fwd_path + b7_unet + norms
+    # B8 at the middle block's shapes, T = 64, f32 on its element-wise
+    # route, two launches with equal bits, a launch inside a CUDA graph
+    # against the eager one; B6 (the mma route on misaligned views) at a
+    # size where its bound is not negligible: last, after the earlier PRs'
+    # cases
+    graphed = _graphed(A.small_seq_attention)
+    b8_more = [
+        small_seq("UNet mid block temporal attn (40,16,20,64) bf16", attn(40, 16, 20, 64, bf), (40, 16, 20)),
+        small_seq("UNet mid block self-attn at 5x8 (16,40,20,64) bf16", attn(16, 40, 20, 64, bf), (16, 40, 20)),
+        small_seq("T = 64 (100,64,2,64) bf16", attn(100, 64, 2, 64, bf), (100, 64, 2)),
+        small_seq("f32 unaligned strided (100,13,5,64)", _unaligned(100, 13, 13, 5, 64, 3, torch.float32),
+                  (100, 13, 5), iters=5, dtype=f32, aligned=False),
+        dict(kernel="small_seq_attention determinism", label="UNet L0 temporal attn (2560,16,5,64) bf16",
+             make=attn(2560, 16, 5, 64, bf), fn=A.small_seq_attention, plain=A.small_seq_attention,
+             outputs=("o",), tols=[_elementwise(0.0, 0.0)],
+             why="two launches: every sum in a fixed order, so equal bits"),
+        dict(kernel="small_seq_attention in a CUDA graph", label="UNet L1 temporal attn (640,16,10,64) bf16",
+             make=attn(640, 16, 10, 64, bf), fn=graphed, plain=A.small_seq_attention, outputs=("o",),
+             tols=[_elementwise(0.0, 0.0)],
+             why="a launch captured in a torch.cuda.CUDAGraph and replayed (output NaN-filled first) against "
+                 "an eager launch: equal bits"),
+    ]
+    b6 = [
+        flash("mma route, misaligned views (16,5,2560,2560,64) bf16", _unaligned(16, 2560, 2560, 5, 64, 3), 2e-3,
+              2e-2, 5, why_bf, route="mma", kernel="flash_attention_mma"),
+        flash_lse("mma route, misaligned views (16,5,2560,2560,64) bf16", _unaligned(16, 2560, 2560, 5, 64, 3),
+                  2e-3, 2e-2, 5, why_bf, route="mma", kernel="flash_attention_fwd_lse_mma"),
+    ]
+    return serving + train + fwd_path + b7_unet + norms + b8_more + b6
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -853,17 +930,38 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
     ] + (determinism if shape in ((16, 2560, 2560, 5, 64), (8, 2560, 2560, 1, 512)) else [])
 
 
-def _unaligned(b, sq, sk, h, d, n):
-    """n (B, S, H, D) bf16 tensors whose rows start one element past 16-byte
-    alignment (strided views), so the kernels take their element-wise path."""
+def _unaligned(b, sq, sk, h, d, n, dtype=None):
+    """n (B, S, H, D) tensors (bf16 unless `dtype`) whose rows start one
+    element past 16-byte alignment (strided views), so the kernels take
+    their element-wise path."""
     def make():
         import torch
 
         g = torch.Generator("cuda").manual_seed(sq)
-        bufs = [torch.randn((b, s, h * d + 1), generator=g, device="cuda").to(torch.bfloat16)
+        bufs = [torch.randn((b, s, h * d + 1), generator=g, device="cuda").to(dtype or torch.bfloat16)
                 for s in (sq, sk, sk, sq)[:n]]
         return [t[..., 1:].view(b, t.shape[1], h, d) for t in bufs]
     return make
+
+
+def _graphed(fn):
+    """fn(*inputs) captured in a CUDA graph (after one eager warm-up call),
+    its output filled with NaN, the graph replayed once: the replay's output."""
+    def run(*inputs):
+        import torch
+
+        fn(*inputs)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            out = fn(*inputs)
+        out.fill_(float("nan"))
+        graph.replay()
+        torch.cuda.synchronize()
+        out = out.clone()
+        del graph
+        return out
+    return run
 
 
 def _attention_f64(q, k, v):
@@ -1116,10 +1214,13 @@ def phase_main_path(records):
     check_flash_routes("main path", len(PROMPTS) * 4, "UNet pass")  # 4 UNet steps a video
     check_conv_routes("main path", len(PROMPTS) * 4)
     check_norm_routes("main path", len(PROMPTS), "video")
+    check_small_seq("main path", len(PROMPTS) * 4, "UNet pass")
     for name, n in launches.items():
         records[name]["launches"] = n
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
+    for name in ("flash_attention_mma", "flash_attention_fwd_lse_mma"):  # B6: no path launches the mma route
+        records[name]["launches"] = wrappers()[name[:-len("_mma")]].by_route["mma"]
     _stage_times(pipe)
     _profile_one_video(pipe)
 
@@ -1163,12 +1264,13 @@ def _profile_one_video(pipe):
     fwd_ms, _, fwd512_ms, _ = flash_device_ms(events)
     log(f"profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's kernels (B7) {b7_ms:.1f} ms; the flash "
-        f"forward's kernels (B1) {fwd_ms:.2f} ms, of which D = 512 {fwd512_ms:.2f}; " + _norm_profile(events)
-        + " -> chiprun_out/profile.txt")
+        f"forward's kernels (B1) {fwd_ms:.2f} ms, of which D = 512 {fwd512_ms:.2f}; the short-sequence "
+        f"attention (B8) {small_seq_device_ms(events):.3f} ms; " + _norm_profile(events) + " -> chiprun_out/profile.txt")
 
 
-def phase_reference():
-    """A small f32 pipeline on the card (kernels) against the CPU (plain versions)."""
+def phase_reference(records):
+    """A small f32 pipeline on the card (kernels) against the CPU (plain
+    versions); B8's f32 launches there are its f32 record's."""
     import copy
 
     import torch
@@ -1205,6 +1307,7 @@ def phase_reference():
     err = float((videos[0] - videos[1]).abs().max())
     scale = float(videos[0].abs().max())
     launches = {n: c for n, c in read_launches().items() if n in SERVING_KERNELS}
+    records["small_seq_attention_f32"]["launches"] = launches["small_seq_attention"]
     ok = err <= 1e-3 * max(1.0, scale) and all(n > 0 for n in launches.values())
     log(f"reference: 2-step f32 pipeline, 2x256x256, card vs CPU: max_abs_err {err:.3e} "
         f"(|ref| max {scale:.3f}; bound 1e-3*max(1,|ref|): f32, TF32 off, sums in another order), "
@@ -1287,6 +1390,7 @@ def _train_full_width(records, remat):
     check_flash_routes("training", 4, "step")
     check_conv_routes("training", 4 * 4)  # 4 steps of 4 UNet passes (student, teacher x2, target)
     check_norm_routes("training", 4, "step")
+    check_small_seq("training", 4, "step", shapes=False)
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the training path")
@@ -1329,7 +1433,8 @@ def _profile_train_step(trainer, data, name):
     log(f"training profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's forward kernels (B7) {b7_ms:.1f} ms; flash "
         f"forward (B1, B2) {fwd_ms:.2f} ms (D = 512: {fwd512_ms:.2f}), backward (B3) {bwd_ms:.1f} ms "
-        f"(D = 512: {bwd512_ms:.2f}); " + _norm_profile(events) + f" -> chiprun_out/{name}; top: "
+        f"(D = 512: {bwd512_ms:.2f}); B8 {small_seq_device_ms(events):.3f} ms; " + _norm_profile(events)
+        + f" -> chiprun_out/{name}; top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
 
 
@@ -1431,6 +1536,7 @@ def _train_rewards_full_width(records, remat):
     check_flash_routes("training with rewards", steps, "step")
     check_conv_routes("training with rewards", 4 * steps)
     check_norm_routes("training with rewards", steps, "step")
+    check_small_seq("training with rewards", steps, "step", shapes=False)
     for name, n in launches.items():
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the rewards-ON training path")
@@ -1605,7 +1711,7 @@ def main() -> int:
         ("build", phase_build),
         ("kernels", lambda: phase_kernels(records)),
         ("main path", lambda: phase_main_path(records)),
-        ("reference", phase_reference),
+        ("reference", lambda: phase_reference(records)),
         ("training", lambda: phase_training(records)),
         ("training with rewards", lambda: phase_training_rewards(records)),
         ("training reference", phase_training_reference),

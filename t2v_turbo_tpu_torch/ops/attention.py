@@ -27,9 +27,13 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   wgmma kernels of csrc/flash_attention_sm90.cu; other bf16, and a forward
   whose scale is not positive: the mma.sync kernels; f32: the scalar ones).
 - `small_seq_attention` (B8): the short-sequence kernel of
-  csrc/small_seq_attention.cu, one warp per (batch, head) at Sq = Sk <= 64,
-  head dim 64, forward only (the JAX package has no backward for it either);
-  its plain twin is `attention`.
+  csrc/small_seq_attention.cu at Sq = Sk <= 64, head dim 64, forward only
+  (the JAX package has no backward for it either); its plain twin is
+  `attention`. `ss_plan`, a pure function of the shape, dtype and whether
+  bulk copies can read the views, picks its route (`bulk`: a block a (row,
+  head group) item, which 1-D bulk copies stage in shared memory;
+  `elementwise`: the same math on views off 16 bytes) and the heads of an
+  item. It counts `launches`, `by_route` and `by_shape` ((B, S, H)).
 - `sdpa`: the dispatcher for unbiased, non-causal attention.
   Self-shaped calls (Sq == Sk <= 64, head dim 64) that need no gradient go
   to `small_seq_attention`: on the main path that is the temporal
@@ -52,6 +56,8 @@ from __future__ import annotations
 
 import collections
 import ctypes
+import functools
+from typing import NamedTuple
 
 import torch
 
@@ -389,11 +395,76 @@ def small_seq_attention(q, k, v, scale=None):
 
 
 small_seq_attention.launches = 0
+small_seq_attention.by_route = collections.Counter()
+small_seq_attention.by_shape = collections.Counter()
+
+# The short-sequence kernel's limits (csrc/small_seq_attention.cu): threads
+# a block (a warp a (head, 16-query tile) unit of its item), elements
+# padding each staged bf16 row.
+SS_MAX_THREADS = 128
+SS_PAD = {torch.bfloat16: 8, torch.float32: 0}
+SS_ROUTES = {"bulk": 0, "elementwise": 1}
+# The plan's choice: the most warps a block. Small blocks, many to an SM,
+# measured faster than larger items at every path shape (PERF.md §6).
+SS_WARPS = 2
+
+
+class SsPlan(NamedTuple):
+    route: str      # "bulk" or "elementwise"
+    heads: int      # heads an item (a group of a row's heads); a block an item
+    threads: int    # 32 a (head, 16-query tile) unit of the item
+    rows: int       # staged rows of a tensor: 16 * ceil(T / 16) in bf16, T in f32
+    pitch: int      # elements between staged rows
+    smem: int       # dynamic shared memory a block
+    grid: int       # blocks: (row, head group) items
+
+
+def ss_layout(r, t, h, dtype, route, heads):
+    """The launch the kernel makes of (route, heads) on (r, t, h, 64), as
+    its C entry derives it; raises on what it refuses."""
+    if dtype not in SS_PAD:
+        raise TypeError(f"no short-sequence kernel for dtype {dtype}")
+    if not 1 <= t <= SMALL_SEQ_MAX or route not in SS_ROUTES:
+        raise ValueError(f"ss_layout: T = {t} (at most {SMALL_SEQ_MAX}), route {route!r}")
+    kt = -(-t // 16)
+    if h % heads or 32 * heads * kt > SS_MAX_THREADS:
+        raise ValueError(f"ss_layout: {heads} heads an item of {h} at T = {t}: at most {SS_MAX_THREADS} threads")
+    rows = 16 * kt if dtype == torch.bfloat16 else t
+    pitch = heads * 64 + SS_PAD[dtype]
+    return SsPlan(route, heads, 32 * heads * kt, rows, pitch, 3 * rows * pitch * dtype.itemsize, r * (h // heads))
+
+
+@functools.lru_cache(maxsize=None)
+def ss_plan(r, t, h, dtype=torch.bfloat16, aligned=True):
+    """Route and launch of the short-sequence kernel on (r, t, h, 64).
+
+    `aligned`: q, k and v start on 16-byte boundaries with strides of whole
+    16-byte pieces, so bulk copies can read them: the `bulk` route;
+    otherwise `elementwise` (the item loaded element by element). An item
+    is a row's group of `heads` heads: the most heads (a divisor of h) whose
+    (head, 16-query tile) units fill at most SS_WARPS warps, else one head.
+    A block takes one item."""
+    kt = -(-t // 16)
+    heads = max(d for d in range(1, h + 1) if h % d == 0 and (d == 1 or d * kt <= SS_WARPS))
+    return ss_layout(r, t, h, dtype, "bulk" if aligned else "elementwise", heads)
+
+
+def ss_readable(*tensors):
+    """True if bulk copies can read these (B, S, H, D) tensors: 16-byte
+    aligned bases, (batch, seq, head) strides of whole 16-byte pieces."""
+    ve = 16 // tensors[0].element_size()
+    return all(t.data_ptr() % 16 == 0 and all(st % ve == 0 for st in t.stride()[:3]) for t in tensors)
 
 
 def small_seq_attention_cuda(q, k, v, scale=None):
-    """Launch the kernel of csrc/small_seq_attention.cu; raises on anything
-    it does not take."""
+    """Launch the kernel of csrc/small_seq_attention.cu on `ss_plan`'s plan;
+    raises on anything it does not take."""
+    return _ss_launch(q, k, v, scale, None)
+
+
+def _ss_launch(q, k, v, scale, plan):
+    """small_seq_attention_cuda on `plan` (an `ss_layout`; None: `ss_plan`'s),
+    which time_small_seq.py --variants times."""
     what = "small_seq_attention_cuda"
     _check_flash(what, q, k, v, (SMALL_SEQ_HEAD_DIM,))
     b, s, h, d = q.shape
@@ -401,12 +472,16 @@ def small_seq_attention_cuda(q, k, v, scale=None):
         raise ValueError(f"{what}: Sq = {s}, Sk = {k.shape[1]}; the kernel takes Sq == Sk <= {SMALL_SEQ_MAX}")
     scale = d**-0.5 if scale is None else scale
     o = torch.empty((b, s, h, d), dtype=q.dtype, device=q.device)
+    plan = plan or ss_plan(b, s, h, q.dtype, ss_readable(q, k, v))
     err = cuda_lib.lib().t2v_small_seq_attention(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), cuda_lib.DTYPE_CODES[q.dtype],
-        b, s, h, d, _strides(q, k, v, o), float(scale), cuda_lib.stream_ptr(q.device),
+        b, s, h, d, _strides(q, k, v, o), float(scale), SS_ROUTES[plan.route], plan.heads,
+        cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, what)
     small_seq_attention.launches += 1
+    small_seq_attention.by_route[plan.route] += 1
+    small_seq_attention.by_shape[(b, s, h)] += 1
     return o
 
 

@@ -132,7 +132,8 @@ def lib() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, i32, vp,
     ]
     so.t2v_gn_silu_conv_fwd.restype = i32
-    so.t2v_small_seq_attention.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, i32, pi64, f32, vp]
+    # ..., scale, route, heads an item (ops/attention.py::ss_plan), stream
+    so.t2v_small_seq_attention.argtypes = [vp, vp, vp, vp, i32, i64, i32, i32, i32, pi64, f32, i32, i32, vp]
     so.t2v_small_seq_attention.restype = i32
     so.t2v_error_string.argtypes = [i32]
     so.t2v_error_string.restype = ctypes.c_char_p

@@ -32,7 +32,8 @@ def _jax_small_seq():
     return mod.small_seq_attention
 
 
-@pytest.mark.parametrize("r,t,h,d", [(12, 16, 2, 64), (5, 13, 2, 64)], ids=["T16", "ragged_T13"])
+@pytest.mark.parametrize("r,t,h,d", [(12, 16, 2, 64), (5, 13, 2, 64), (6, 16, 5, 64), (4, 48, 2, 64), (3, 64, 1, 64)],
+                         ids=["T16", "ragged_T13", "path_heads5", "T48", "T64"])
 def test_matches_jax_small_seq_attention_interpret(r, t, h, d):
     rng = np.random.RandomState(r + t)
     q, k, v = (rng.randn(r, t, h, d).astype(np.float32) for _ in range(3))
