@@ -23,14 +23,17 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 shape of the paths (apps/time_flash.py's FWD_SHAPES), and at
                 head dim 512 at the VAE mid block's shapes and tile edges.
                 Each flash case also checks its route (wgmma for aligned
-                bf16 forwards and backwards at head dims 64 and 512, mma
-                for the unaligned views and a forward's negative scale,
-                f32), and at L0 and at the VAE mid block two launches of
+                bf16 forwards and backwards at head dims 64 and 512, staged
+                for a head-dim-64 forward on unaligned views or at a scale
+                <= 0, mma for the other unaligned views (the backward, the
+                head-dim-512 forward), f32), and at L0 and at the VAE mid block two launches of
                 each flash forward must give equal bits (of B3 at L0 and at
                 the video reward's VAE mid block); B3 at head dim 512 also
                 runs at its tiles' edges (ragged, 129, 65 and 40 keys);
                 first, the wgmma C entries must refuse an unaligned view
-                and f32 at both head dims, and the forward a scale <= 0 (no
+                and f32 at both head dims, and the forward a scale <= 0,
+                and the staged entry f32, head dim 512, a head dimension
+                that is not contiguous and a non-finite scale (no
                 fallback). The fused conv is also
                 checked and timed at every distinct shape of a UNet step
                 (15 spatial 3x3, 4 temporal (3,1)), each case on its route
@@ -53,9 +56,14 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 each on its route (bulk for aligned views, element-wise for
                 misaligned ones, in both dtypes), two launches with equal
                 bits, and a launch captured in a CUDA graph against an eager
-                one. B6: B1 and B2 on the mma route on misaligned views at
-                (16,5,2560,2560,64) (flash_attention_mma and
-                flash_attention_fwd_lse_mma). The norms' and B8's `ms` is
+                one. B6: B1 and B2 on the staged route on misaligned views
+                at (16,5,2560,2560,64) (flash_attention_staged and
+                flash_attention_fwd_lse_staged), with equal bits to the
+                wgmma route on contiguous copies at L0, at a ragged S and
+                with 77 keys; with one of q, k, v misaligned; at scales
+                -1/8 and 0 on aligned tensors; two launches with equal bits
+                and a launch captured in a CUDA graph against an eager one.
+                The norms' and B8's `ms` is
                 back-to-back calls, as every kernel's (host time included:
                 their calls are host-bound); their `graph_ms` the device
                 time by CUDA-graph replay over enough input copies that the
@@ -171,11 +179,12 @@ KERNELS = {
     # B8 in f32 (the card-vs-CPU phases' route; its launches are phase 5's)
     "small_seq_attention_f32": ("t2v_turbo_tpu_torch/csrc/small_seq_attention.cu",
                                 "tests_tpu/bench_small_seq_attention.py:60"),
-    # B6: B1 / B2 on misaligned (B, S, H, D) views, the mma route (no path
+    # B6: B1 / B2 on misaligned (B, S, H, D) views, the staged route (no path
     # launches it: phases 4, 6, 7 require wgmma; its launches are phase 4's, 0)
-    "flash_attention_mma": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu", "t2v_turbo_tpu/ops/attention.py:540"),
-    "flash_attention_fwd_lse_mma": ("t2v_turbo_tpu_torch/csrc/flash_attention.cu",
-                                    "t2v_turbo_tpu/ops/attention.py:813"),
+    "flash_attention_staged": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
+                               "t2v_turbo_tpu/ops/attention.py:540"),
+    "flash_attention_fwd_lse_staged": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
+                                       "t2v_turbo_tpu/ops/attention.py:813"),
 }
 SERVING_KERNELS = ("flash_attention", "group_norm", "group_norm_stats", "layer_norm", "fused_gn_silu_conv",
                    "small_seq_attention")
@@ -698,7 +707,7 @@ def _kernel_cases():
         flash("ragged S (2,1,1111,1111,512) bf16", attn(2, 1111, 1, 512, bf), 2e-3, 2e-2, 5, why_bf,
               kernel="flash_attention_d512"),
         flash("unaligned strided K/V (2,5,300,300,64) bf16", _unaligned(2, 300, 300, 5, 64, 3), 2e-3, 2e-2, 5,
-              why_bf, route="mma"),
+              why_bf, route="staged"),
         gn("UNet L0 GN+SiLU per frame (16,320,40,64) bf16", (16, 320, 40, 64), 320, 1e-5, 20),
         gn("whole-clip GN+SiLU (1,320,16,40,64) bf16", (1, 320, 16, 40, 64), 320, 1e-5, 20),
         gn("VAE full-res GN+SiLU (16,128,320,512) bf16", (16, 128, 320, 512), 128, 1e-6, 10),
@@ -709,7 +718,7 @@ def _kernel_cases():
     train = [case for args in TRAIN_ATTENTION_CASES for case in _train_attention_cases(*args)]
     # B1 and B2 at every bf16 head-dim-64 forward shape of the paths
     # (time_flash.FWD_SHAPES) that no wgmma case above holds, a negative
-    # scale (mma route: the wgmma forward takes positive scales only), and
+    # scale (staged route: the wgmma forward takes positive scales only), and
     # two launches of each at L0 with equal bits
     covered = {(c["kernel"], c.get("shape")) for c in serving + train if c.get("route", (0, ""))[1] == "wgmma"}
     fwd_path = []
@@ -724,8 +733,8 @@ def _kernel_cases():
         kernel="flash_attention_fwd_lse negative scale", label="ragged S (2,5,1111,1111,64) bf16, scale -1/8",
         make=attn(2, 1111, 5, 64, bf), fn=lambda q, k, v: A.flash_attention_lse(q, k, v, -0.125),
         plain=lambda q, k, v: A.attention_lse_plain(q, k, v, -0.125), outputs=("o", "lse"),
-        tols=[_elementwise(2e-3, 2e-2), _elementwise(1e-3, 0.0)], route=(A.flash_attention_lse, "mma"),
-        why=f"o: {why_bf}; lse: f32 sums of exp in another order; a scale <= 0 takes the mma route"))
+        tols=[_elementwise(2e-3, 2e-2), _elementwise(1e-3, 0.0)], route=(A.flash_attention_lse, "staged"),
+        why=f"o: {why_bf}; lse: f32 sums of exp in another order; a scale <= 0 takes the staged route"))
     both = lambda q, k, v: (A.flash_attention(q, k, v),) + A.flash_attention_lse(q, k, v)  # noqa: E731
     for label, make in (("UNet L0 self-attn (16,5,2560,2560,64) bf16", attn(16, 2560, 5, 64, bf)),
                         ("VAE mid attn (16,1,2560,2560,512) bf16", attn(16, 2560, 1, 512, bf))):
@@ -803,11 +812,68 @@ def _kernel_cases():
              why="a launch captured in a torch.cuda.CUDAGraph and replayed (output NaN-filled first) against "
                  "an eager launch: equal bits"),
     ]
+    # B6's forward on the staged route: the recorded rows at L0 on misaligned
+    # views; equal bits to the wgmma route on contiguous copies of the same
+    # values (at L0, a ragged S, 77 keys); one tensor misaligned at a time;
+    # scales -1/8 and 0 on aligned tensors; two launches; a CUDA graph
+    both = lambda q, k, v, scale=None: (A.flash_attention(q, k, v, scale),) + A.flash_attention_lse(  # noqa: E731
+        q, k, v, scale)
+
+    def on_tma(q, k, v):  # the same values, contiguous: the wgmma route
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        if A.flash_route(qc, kc, vc, fwd_scale=0.125) != "wgmma":
+            raise AssertionError("contiguous copies do not take the wgmma route")
+        return both(qc, kc, vc)
+
+    def staged_bits(label, make):
+        return dict(kernel="flash_attention staged vs wgmma", label=label, make=make, fn=both, plain=on_tma,
+                    outputs=("o (B1)", "o (B2)", "lse"), tols=3 * [_elementwise(0.0, 0.0)],
+                    route=(A.flash_attention, "staged"),
+                    why="scale 1/8: the same consumer warpgroup on the same tile bytes (TMA's 128-byte swizzle "
+                        "rebuilt by the staged producer), so equal bits")
+
+    def staged_scale(label, make, scale):
+        return dict(kernel="flash_attention staged scale", label=label, make=make,
+                    fn=lambda q, k, v: both(q, k, v, scale),
+                    plain=lambda q, k, v: (A.attention(q, k, v, scale=scale),) + A.attention_lse_plain(q, k, v, scale),
+                    outputs=("o (B1)", "o (B2)", "lse"),
+                    tols=2 * [_elementwise(2e-3, 2e-2)] + [_elementwise(1e-3, 0.0)], route=(A.flash_attention, "staged"),
+                    why=f"o: {why_bf}; lse: f32 sums of exp in another order; scale {scale:g}: Q stored "
+                        + ("negated" if scale < 0 else "as zeros") + " by the producer")
+
+    def one_unaligned(i):
+        def make():
+            g = torch.Generator("cuda").manual_seed(300 + i)
+            t = [torch.randn((2, 300, 5, 64), generator=g, device="cuda").to(bf) for _ in range(3)]
+            t[i] = _unaligned(2, 300, 300, 5, 64, 3)()[i]
+            return t
+        return make
+
     b6 = [
-        flash("mma route, misaligned views (16,5,2560,2560,64) bf16", _unaligned(16, 2560, 2560, 5, 64, 3), 2e-3,
-              2e-2, 5, why_bf, route="mma", kernel="flash_attention_mma"),
-        flash_lse("mma route, misaligned views (16,5,2560,2560,64) bf16", _unaligned(16, 2560, 2560, 5, 64, 3),
-                  2e-3, 2e-2, 5, why_bf, route="mma", kernel="flash_attention_fwd_lse_mma"),
+        flash("staged route, misaligned views (16,5,2560,2560,64) bf16", _unaligned(16, 2560, 2560, 5, 64, 3), 2e-3,
+              2e-2, 5, why_bf, route="staged", kernel="flash_attention_staged"),
+        flash_lse("staged route, misaligned views (16,5,2560,2560,64) bf16", _unaligned(16, 2560, 2560, 5, 64, 3),
+                  2e-3, 2e-2, 5, why_bf, route="staged", kernel="flash_attention_fwd_lse_staged"),
+        staged_bits("misaligned views (16,5,2560,2560,64) bf16", _unaligned(16, 2560, 2560, 5, 64, 3)),
+        staged_bits("ragged misaligned views (2,5,300,300,64) bf16", _unaligned(2, 300, 300, 5, 64, 3)),
+        staged_bits("misaligned views, 77 keys (2,5,300,77,64) bf16", _unaligned(2, 300, 77, 5, 64, 3)),
+    ] + [
+        flash(f"staged route, only {'qkv'[i]} misaligned (2,5,300,300,64) bf16", one_unaligned(i), 2e-3, 2e-2, 5,
+              why_bf, route="staged", kernel="flash_attention on staged")
+        for i in range(3)
+    ] + [
+        staged_scale(f"aligned ragged S (2,5,1111,1111,64) bf16, scale {scale:g}", attn(2, 1111, 5, 64, bf), scale)
+        for scale in (-0.125, 0.0)
+    ] + [
+        dict(kernel="flash_attention staged determinism", label="misaligned views (16,5,2560,2560,64) bf16",
+             make=_unaligned(16, 2560, 2560, 5, 64, 3), fn=both, plain=both, outputs=("o (B1)", "o (B2)", "lse"),
+             tols=3 * [_elementwise(0.0, 0.0)], route=(A.flash_attention, "staged"),
+             why="two launches of each: a fixed summation order, so equal bits"),
+        dict(kernel="flash_attention staged in a CUDA graph", label="misaligned views (16,10,640,640,64) bf16",
+             make=_unaligned(16, 640, 640, 10, 64, 3), fn=_graphed(A.flash_attention), plain=A.flash_attention,
+             outputs=("o",), tols=[_elementwise(0.0, 0.0)],
+             why="a launch captured in a torch.cuda.CUDAGraph and replayed (output NaN-filled first) against "
+                 "an eager launch: equal bits"),
     ]
     return serving + train + fwd_path + b7_unet + norms + b8_more + b6
 
@@ -893,8 +959,10 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
     # kernel rounds P and dS to bf16 (2^-9) before each product over up to
     # 2560 terms and rounds its output to bf16; the twin keeps them f32.
     why_twin = ("P and dS rounded to bf16 for their products" if bf16 else "f32 with TF32 off")
-    # wgmma at both head dims on aligned bf16
+    # wgmma at both head dims on aligned bf16; unaligned, the forward at head
+    # dim 64 takes the staged kernel, the backward (and D = 512) mma.sync
     route = "f32" if not bf16 else "mma" if kind == "unaligned" else "wgmma"
+    fwd_route = "staged" if route == "mma" and d == 64 else route
     if d == 512 and route != "wgmma":
         suffix += f" on {route}"
     both = lambda *a: A.flash_attention_bwd_dkv(*a, scale) + (A.flash_attention_bwd_dq(*a, scale),)
@@ -907,7 +975,7 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
              fn=lambda q, k, v: A.flash_attention_lse(q, k, v, scale),
              plain=lambda q, k, v: A.attention_lse_plain(q, k, v, scale), outputs=("o", "lse"),
              tols=[o_tol, _elementwise(1e-3, 0.0)], iters=iters, library=_sdpa_fwd,
-             route=(A.flash_attention_lse, route), shape=(b, h, sq, sk),
+             route=(A.flash_attention_lse, fwd_route), shape=(b, h, sq, sk),
              why=f"o: {why_o}; lse: f32 sums of exp in another order",
              bound=lambda q, k, v: attention_bound(q, k, "fwd_lse"),
              **({"exact": _attention_f64} if bf16 else {})),
@@ -1035,7 +1103,9 @@ def check_wgmma_refusals():
     """No fallback in the C entries: a forward on the wgmma route that its
     kernels cannot take (an unaligned view, a scale <= 0, f32), and a
     backward (dK/dV and dQ) given an unaligned view or f32, at both head
-    dims, return an error instead of running."""
+    dims, return an error instead of running; so does a forward on the
+    staged route given f32, head dim 512, a head dimension that is not
+    contiguous or a non-finite scale."""
     import ctypes
 
     import torch
@@ -1076,6 +1146,21 @@ def check_wgmma_refusals():
                 f"({'refused, OK' if all(errs) else 'ran, FAIL'})")
             if not all(errs):
                 raise AssertionError(f"the wgmma backward at D = {d} ran a request it cannot take ({what})")
+    g = torch.Generator("cuda").manual_seed(1)
+    q, k, v = (torch.randn((2, 130, 1, 64), generator=g, device="cuda").bfloat16() for _ in range(3))
+    wide = [torch.randn((2, 130, 1, d), generator=g, device="cuda").bfloat16() for d in (512, 128, 512, 512)]
+    requests = {"f32": (q.float(), k.float(), v.float(), 0.125), "head dim 512": (wide[0], wide[2], wide[3], 0.125),
+                "a head-dim stride of 2": (wide[1][..., ::2], k, v, 0.125), "scale inf": (q, k, v, float("inf"))}
+    for what, (qq, kk, vv, scale) in requests.items():
+        o = torch.empty(qq.shape, dtype=qq.dtype, device="cuda")
+        _, strides = A._layout((qq, kk, vv, o), 3, scale)  # with the head-dim strides the staged entry checks
+        err = cuda_lib.lib().t2v_flash_attention_fwd(
+            qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), o.data_ptr(), cuda_lib.DTYPE_CODES[qq.dtype], 2, 1, 130,
+            130, qq.shape[-1], strides, ctypes.c_float(scale), A.ROUTES["staged"], cuda_lib.stream_ptr(qq.device))
+        torch.cuda.synchronize()
+        log(f"kernels: the staged forward given {what}: error {err} ({'refused, OK' if err else 'ran, FAIL'})")
+        if not err:
+            raise AssertionError(f"the staged forward ran a request it cannot take ({what})")
 
 
 def phase_kernels(records):
@@ -1219,8 +1304,8 @@ def phase_main_path(records):
         records[name]["launches"] = n
         if n <= 0:
             raise AssertionError(f"{name} was not launched on the main path")
-    for name in ("flash_attention_mma", "flash_attention_fwd_lse_mma"):  # B6: no path launches the mma route
-        records[name]["launches"] = wrappers()[name[:-len("_mma")]].by_route["mma"]
+    for name in ("flash_attention_staged", "flash_attention_fwd_lse_staged"):  # B6: no path launches it
+        records[name]["launches"] = wrappers()[name[:-len("_staged")]].by_route["staged"]
     _stage_times(pipe)
     _profile_one_video(pipe)
 

@@ -2,7 +2,7 @@
 head-dim-512 backward (B3) on the card, shape by shape.
 
 Usage (from a checkout, on a CUDA card):
-  python3 t2v_turbo_tpu_torch/apps/time_flash.py [--root DIR] [--label NAME] [--only fwd|bwd]
+  python3 t2v_turbo_tpu_torch/apps/time_flash.py [--root DIR] [--label NAME] [--only fwd|bwd] [--misaligned]
 
 Times `flash_attention_cuda` (B1) and `flash_attention_lse` (B2), each on
 bf16 (B, S, H, D) tensors, at every distinct head-dim-64 forward shape of
@@ -21,6 +21,19 @@ call decides it), and "graph", the same calls captured in one CUDA graph
 and replayed (the device's time); each the best of five runs, since the
 host's time per call varies by tens of microseconds from run to run.
 Then the route B1 (or B3) took.
+
+--misaligned times B6 instead, the same functions on (B, S, H, D) views that
+TMA cannot read (each row one element past a 16-byte boundary, an odd row
+stride: a (B, S, H * D + 1) buffer less its first element): at every shape
+of FWD_SHAPES, B1 and B2 on those views (this tree's route: `staged`; an
+older tree's `mma`), then on contiguous copies of the same values (the
+wgmma route fed by TMA), cuDNN's SDPA on contiguous (B, H, S, D) copies,
+and cuDNN together with the three copies a caller holding such views would
+make; each line with its bound (operations over 989 TFLOP/s bf16, bytes
+over 3.35 TB/s: q, k, v read and o written once). Then B6's backward
+(dK/dV, dQ; the mma route) at (16,5,2560,2560,64) on such views against
+cuDNN's whole backward on copies, and B6's forward at head dim 512 (the mma
+route) at (16,1,2560,2560,512) against memory-efficient SDPA on copies.
 """
 
 from __future__ import annotations
@@ -108,6 +121,7 @@ def main(argv=None) -> int:
                     help="checkout to import t2v_turbo_tpu_torch from")
     ap.add_argument("--label", default="", help="prefix of every printed line")
     ap.add_argument("--only", choices=("fwd", "bwd"), help="time the forwards or the backward alone")
+    ap.add_argument("--misaligned", action="store_true", help="time B6: the kernels on views TMA cannot read")
     args = ap.parse_args(argv)
     sys.path.insert(0, os.path.abspath(args.root))
     import torch
@@ -119,6 +133,8 @@ def main(argv=None) -> int:
         return 1
     print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          capture_output=True, text=True, check=True).stdout.strip())
+    if args.misaligned:
+        return _misaligned(A, args.label, args.only)
     shapes = [(shape, name, 64) for shape, name, *_ in FWD_SHAPES] + [(shape, name, 512) for shape, name, _ in D512_SHAPES]
     for (b, h, sq, sk), name, d in shapes if args.only != "bwd" else []:
         g = torch.Generator("cuda").manual_seed(sq + sk)
@@ -139,16 +155,100 @@ def main(argv=None) -> int:
     return 0
 
 
-def _time_bwd(A, label, name, shape):
-    """One line: B3's dK/dV and dQ (call and graph ms, on the lse and delta
-    of the plain forward) and memory-efficient SDPA's whole backward."""
+def _bound_ms(shape, products):
+    """Least ms on an H100 for `products` products of 2 B H Sq Sk D
+    operations (bf16, 989 TFLOP/s) or for reading q, k, v once and writing o
+    once (3.35 TB/s), whichever is larger."""
+    b, h, sq, sk, d = shape
+    ops = products * 2 * b * h * sq * sk * d
+    nbytes = 2 * b * h * d * (2 * sq + 2 * sk)
+    return 1e3 * max(ops / 989e12, nbytes / 3.35e12)
+
+
+def _views(shape, g, n=3):
+    """q, k, v (and dO with n = 4): (B, S, H, D) bf16 views one element into
+    (B, S, H * D + 1) buffers: rows off 16 bytes, an odd row stride."""
+    import torch
+
+    b, h, sq, sk, d = shape
+    bufs = [torch.randn((b, s, h * d + 1), generator=g, device="cuda").bfloat16() for s in (sq, sk, sk, sq)[:n]]
+    return [t[..., 1:].view(b, t.shape[1], h, d) for t in bufs]
+
+
+def _misaligned(A, label, only):
+    """B6's lines (the module's docstring, --misaligned)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
 
+    def cudnn(fn):
+        def run():
+            with sdpa_kernel([SDPBackend.CUDNN_ATTENTION]):
+                return fn()
+        return run
+
+    for (b, h, sq, sk), name, *_ in FWD_SHAPES if only != "bwd" else []:
+        shape = (b, h, sq, sk, 64)
+        q, k, v = _views(shape, torch.Generator("cuda").manual_seed(sq + sk))
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        iters = 10 if sq * sk >= 2**22 else 30
+        before = A.flash_attention.by_route.copy()
+        t1 = _time_ms(lambda: A.flash_attention_cuda(q, k, v), iters)
+        t2 = _time_ms(lambda: A.flash_attention_lse(q, k, v), iters)
+        routes = sorted(A.flash_attention.by_route - before)
+        before = A.flash_attention.by_route.copy()
+        c1 = _time_ms(lambda: A.flash_attention_cuda(qc, kc, vc), iters)
+        c2 = _time_ms(lambda: A.flash_attention_lse(qc, kc, vc), iters)
+        c_routes = sorted(A.flash_attention.by_route - before)
+        try:
+            lib = _time_ms(cudnn(lambda: F.scaled_dot_product_attention(qh, kh, vh)), iters)
+            lib_copies = _time_ms(cudnn(lambda: F.scaled_dot_product_attention(
+                *(t.transpose(1, 2).contiguous() for t in (q, k, v)))), iters)
+            lib_text = (f"cuDNN on copies call {lib[0]:.4f} graph {lib[1]:.4f} ms, with the copies call "
+                        f"{lib_copies[0]:.4f} graph {lib_copies[1]:.4f} ms")
+        except RuntimeError as e:  # cuDNN does not take every shape
+            lib_text = f"cuDNN not measured ({str(e).splitlines()[0][:80]})"
+        print(f"{label}B6 {name} misaligned ({b},{h},{sq},{sk},64): B1 call {t1[0]:.4f} graph {t1[1]:.4f} ms, "
+              f"B2 call {t2[0]:.4f} graph {t2[1]:.4f} ms, route {routes}; contiguous copies: B1 call {c1[0]:.4f} "
+              f"graph {c1[1]:.4f} ms, B2 call {c2[0]:.4f} graph {c2[1]:.4f} ms, route {c_routes}; {lib_text}; "
+              f"bound {_bound_ms(shape, 2):.4f} ms", flush=True)
+        del q, k, v, qc, kc, vc, qh, kh, vh
+        torch.cuda.empty_cache()
+    if only != "fwd":
+        _time_bwd(A, label, "B6 L0 self misaligned", (16, 5, 2560, 2560, 64), misaligned=True,
+                  backend=SDPBackend.CUDNN_ATTENTION)
+    if only != "bwd":
+        shape = (16, 1, 2560, 2560, 512)
+        q, k, v = _views(shape, torch.Generator("cuda").manual_seed(512))
+        before = A.flash_attention.by_route.copy()
+        t1 = _time_ms(lambda: A.flash_attention_cuda(q, k, v), 5)
+        routes = sorted(A.flash_attention.by_route - before)
+        qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
+        with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+            lib = _time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 5)
+        print(f"{label}B6 VAE mid misaligned (16,1,2560,2560,512): B1 call {t1[0]:.4f} graph {t1[1]:.4f} ms, "
+              f"route {routes}; mem-eff SDPA on copies call {lib[0]:.4f} graph {lib[1]:.4f} ms; "
+              f"bound {_bound_ms(shape, 2):.4f} ms", flush=True)
+    return 0
+
+
+def _time_bwd(A, label, name, shape, misaligned=False, backend=None):
+    """One line: B3's dK/dV and dQ (call and graph ms, on the lse and delta
+    of the plain forward; on views TMA cannot read if `misaligned`) and an
+    SDPA backend's whole backward on contiguous copies (memory-efficient
+    unless `backend`)."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    backend = backend or SDPBackend.EFFICIENT_ATTENTION
     b, h, sq, sk, d = shape
     g = torch.Generator("cuda").manual_seed(sq + sk)
-    q, k, v, do = (torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16() for s in (sq, sk, sk, sq))
+    if misaligned:
+        q, k, v, do = _views(shape, g, 4)
+    else:
+        q, k, v, do = (torch.randn((b, s, h, d), generator=g, device="cuda").bfloat16() for s in (sq, sk, sk, sq))
     scale = d**-0.5
     o, lse = A.attention_lse_plain(q, k, v, scale)
     delta = A.attention_bwd_delta(do, o)
@@ -158,7 +258,7 @@ def _time_bwd(A, label, name, shape):
     routes = sorted(A.flash_attention_bwd_dkv.by_route - before)
     qq, kk, vv = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     dout = do.transpose(1, 2).contiguous()
-    with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
+    with sdpa_kernel([backend]):
         out = F.scaled_dot_product_attention(qq, kk, vv)
         grad = lambda: torch.autograd.grad(out, (qq, kk, vv), dout, retain_graph=True)  # noqa: E731
         for _ in range(2):
@@ -166,7 +266,8 @@ def _time_bwd(A, label, name, shape):
         sdpa = _best_ms(lambda: [grad() for _ in range(5)], 5)
     print(f"{label}{name} backward ({b},{h},{sq},{sk},{d}): B3 dK/dV call {dkv[0]:.4f} graph {dkv[1]:.4f} ms, "
           f"dQ call {dq[0]:.4f} graph {dq[1]:.4f} ms, sum of graphs {dkv[1] + dq[1]:.4f} ms; "
-          f"mem-eff SDPA whole backward call {sdpa:.4f} ms; B3 route {routes}", flush=True)
+          f"{backend.name} SDPA whole backward call {sdpa:.4f} ms; B3 route {routes}; "
+          f"bound dK/dV {_bound_ms(shape, 4):.4f} dQ {_bound_ms(shape, 3):.4f} ms", flush=True)
     del q, k, v, do, o, lse, delta, qq, kk, vv, dout, out
     torch.cuda.empty_cache()
 

@@ -25,9 +25,12 @@
 // - wgmma (bf16 at D = 64 or 512, tensors TMA can read, scale > 0: every
 //   call of the UNet, ViCLIP and the VAE's mid block): flash_attention_sm90.cu,
 //   wgmma products fed by TMA.
-// - mma (bf16 views that TMA cannot read, or a scale <= 0, at either head
-//   dim): tensor cores through mma.sync.m16n8k16 in FlashAttention-2's
-//   register layout (flash_mma.cuh), below.
+// - staged (bf16 at D = 64 on views TMA cannot read, or at a scale <= 0):
+//   flash_attention_sm90.cu, the same wgmma consumers fed by a producer
+//   warpgroup that realigns each row in registers.
+// - mma (bf16 at D = 512 on views that TMA cannot read, or at a scale <= 0):
+//   tensor cores through mma.sync.m16n8k16 in FlashAttention-2's register
+//   layout (flash_mma.cuh), below.
 // - f32: scalar f32 FMAs out of shared memory, exact enough to hold against
 //   the plain f32 math. Each thread owns a small register tile of the logits
 //   and of the output, so every shared-memory load feeds several FMAs;
@@ -57,6 +60,9 @@ namespace t2v {
 int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
                    int Sq, int Sk, int D, const long long* strides, const long long* lse_strides,
                    float scale, void* stream);
+int flash_fwd_staged_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                          int Sq, int Sk, int D, const long long* strides, const long long* lse_strides,
+                          float scale, void* stream);
 
 constexpr int kFlashThreads = 256;
 
@@ -245,14 +251,12 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
 // rounded to bf16, are reused in registers as the A operand of P.V, whose B
 // fragments come from V through ldmatrix.trans. Each lane keeps a partial
 // row sum, reduced once at the end. No pipelining: loads and math alternate.
-// - D = 64 (views TMA cannot read, or a scale <= 0): 4 warps, each owning
-//   16 queries (64 per block) and its Q fragments for the whole K loop.
-// - D = 512 (the same views and scales): a warp's 16 x 512 f32 accumulators
-//   would not fit its registers, so 8 warps take 32 queries: two groups of
-//   16 rows, and within each, 4 warps own a 128-wide slice of the head dim.
-//   Each warp computes partial logits over its slice; the 4 partials are
-//   summed through shared memory in a fixed order, so the 4 warps of a row
-//   group hold the same logits and softmax.
+// Head dim 512 only (D = 64 takes the staged route): a warp's 16 x 512 f32
+// accumulators would not fit its registers, so 8 warps take 32 queries: two
+// groups of 16 rows, and within each, 4 warps own a 128-wide slice of the
+// head dim. Each warp computes partial logits over its slice; the 4
+// partials are summed through shared memory in a fixed order, so the 4 warps
+// of a row group hold the same logits and softmax.
 // ---------------------------------------------------------------------------
 
 // Online-softmax update of one logits tile held in mma C-fragments: scale,
@@ -303,11 +307,8 @@ __device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&acc)[DT]
   }
 }
 
-// Tile shapes of the two mma kernels and their dynamic shared memory.
+// Tile shape of the mma kernel (head dim 512) and its dynamic shared memory.
 template <int D> struct MmaTiling;
-template <> struct MmaTiling<64> {
-  static constexpr int WARPS = 4, ROW_GROUPS = 4, D_SLICES = 1, BK = 64;
-};
 template <> struct MmaTiling<512> {
   static constexpr int WARPS = 8, ROW_GROUPS = 2, D_SLICES = 4, BK = 32;
 };
@@ -315,10 +316,9 @@ template <> struct MmaTiling<512> {
 template <int D> struct MmaSmem {
   using Tl = MmaTiling<D>;
   static constexpr int LD = D + 8;                // K and V rows
-  static constexpr int LDS = Tl::BK + 4;          // partial-logit rows (D_SLICES > 1)
+  static constexpr int LDS = Tl::BK + 4;          // partial-logit rows
   static constexpr size_t kv_bytes = sizeof(__nv_bfloat16) * 2 * Tl::BK * LD;
-  static constexpr size_t bytes =
-      kv_bytes + (Tl::D_SLICES > 1 ? sizeof(float) * Tl::WARPS * 16 * LDS : 0);
+  static constexpr size_t bytes = kv_bytes + sizeof(float) * Tl::WARPS * 16 * LDS;
 };
 
 template <int D>
@@ -365,27 +365,25 @@ flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* _
     __syncthreads();
     float s[NT][4];
     qk_tile<NT, KC, LD>(s, qa, sK, d0, g, t);
-    if constexpr (Tl::D_SLICES > 1) {
-      // sum the slices' partial logits in a fixed order
-      auto at = [&](int sl, int e, int nt) {
-        return sS + ((sl * Tl::ROW_GROUPS + group) * 16 + g + (e >> 1) * 8) * LDS + nt * 8 +
-               2 * t + (e & 1);
-      };
+    // sum the slices' partial logits in a fixed order
+    auto at = [&](int sl, int e, int nt) {
+      return sS + ((sl * Tl::ROW_GROUPS + group) * 16 + g + (e >> 1) * 8) * LDS + nt * 8 +
+             2 * t + (e & 1);
+    };
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) *at(slice, e, nt) = s[nt][e];
-      __syncthreads();
+      for (int e = 0; e < 4; ++e) *at(slice, e, nt) = s[nt][e];
+    __syncthreads();
 #pragma unroll
-      for (int nt = 0; nt < NT; ++nt)
+    for (int nt = 0; nt < NT; ++nt)
 #pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float tot = 0.0f;
+      for (int e = 0; e < 4; ++e) {
+        float tot = 0.0f;
 #pragma unroll
-          for (int sl = 0; sl < Tl::D_SLICES; ++sl) tot += *at(sl, e, nt);
-          s[nt][e] = tot;
-        }
-    }
+        for (int sl = 0; sl < Tl::D_SLICES; ++sl) tot += *at(sl, e, nt);
+        s[nt][e] = tot;
+      }
     softmax_tile<NT, DT>(s, acc, k0, t, Sk, scale, m0, m1, l0, l1);
     pv_tile<NT, DT, LD>(acc, s, sV, d0, lane);
   }
@@ -426,9 +424,8 @@ static cudaError_t launch_flash_mma(const void* q, const void* k, const void* v,
   const auto* kp = static_cast<const __nv_bfloat16*>(k);
   const auto* vp = static_cast<const __nv_bfloat16*>(v);
   auto* op = static_cast<__nv_bfloat16*>(o);
-  // bf16 comes here only for views TMA cannot read (or a scale <= 0), so K
-  // and V are staged element by element
-  if (D == 64) return launch_mma<64>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
+  // bf16 comes here only at D = 512, for views TMA cannot read (or a scale
+  // <= 0), so K and V are staged element by element
   if (D == 512) return launch_mma<512>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
   return cudaErrorInvalidValue;
 }
@@ -469,9 +466,10 @@ static cudaError_t launch_flash_scalar(const void* q, const void* k, const void*
 static int flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int dtype,
                      int B, int H, int Sq, int Sk, int D, const long long* strides,
                      const long long* lse_strides, float scale, int route, void* stream) {
-  if (route == kRouteWgmma) {
+  if (route == kRouteWgmma || route == kRouteStaged) {
     if (dtype != kBF16) return (int)cudaErrorInvalidValue;
-    return flash_fwd_sm90(q, k, v, o, lse, B, H, Sq, Sk, D, strides, lse_strides, scale, stream);
+    return (route == kRouteWgmma ? flash_fwd_sm90 : flash_fwd_staged_sm90)(q, k, v, o, lse, B, H, Sq, Sk, D,
+                                                                         strides, lse_strides, scale, stream);
   }
   if (route != kRouteMma) return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -488,9 +486,12 @@ extern "C" {
 
 // q: (B, Sq, H, D), k/v: (B, Sk, H, D), o: (B, Sq, H, D), all addressed by
 // element strides st = [q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh,
-// o_sb, o_ss, o_sh] with a contiguous last dimension. D must be 64 or 512.
-// route: kRouteWgmma (bf16, scale > 0, 16-byte aligned q, k, v with strides
-// of multiples of 8 elements; refused otherwise) or kRouteMma.
+// o_sb, o_ss, o_sh] with a contiguous last dimension, then (read by the
+// staged route alone) the head-dim strides of q, k, v and o. D must be 64 or
+// 512. route: kRouteWgmma (bf16, scale > 0, 16-byte aligned q, k, v with
+// strides of multiples of 8 elements; refused otherwise), kRouteStaged (bf16,
+// D = 64, any finite scale; refused otherwise) or kRouteMma (f32; bf16 at
+// D = 512).
 int t2v_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                             int dtype, int B, int H, int Sq, int Sk, int D,
                             const long long* strides, float scale, int route, void* stream) {

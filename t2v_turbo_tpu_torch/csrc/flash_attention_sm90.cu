@@ -1,7 +1,10 @@
 // Flash attention in bf16 for Hopper (sm_90a): the forward and the backward
 // at head dims 64 and 512, on wgmma products fed by TMA. The `wgmma` route of
-// flash_attention.cu's and flash_attention_bwd.cu's entry points; misaligned
-// views and f32 take those files' kernels.
+// flash_attention.cu's and flash_attention_bwd.cu's entry points. Its `staged`
+// route: the head-dim-64 forward on views TMA cannot read, and at scales <= 0,
+// the same consumers fed by a producer warpgroup that realigns each row in
+// registers (below). Other misaligned views (the backward, the forward at
+// D = 512) and f32 take those files' kernels.
 //
 // Replaces the Pallas TPU kernels of t2v_turbo_tpu/ops/attention.py at head
 // dim 64, and through their (batch, seq, head) strides the BSHD family's
@@ -83,7 +86,8 @@
 //   rescales its accumulator by exp2((m_old - m_new) * scale * log2(e)) and
 //   writes lse back in natural-log units, as the backward reads it. The
 //   forward's running max is over the raw logits, so it takes scale > 0
-//   only; the backward takes any scale.
+//   only (the staged route maps any other scale onto a positive one); the
+//   backward takes any scale.
 // Deterministic: no atomics; every output row is written once, by the one
 // thread that accumulated it over the streamed tiles in a fixed order.
 #include "flash_mma.cuh"  // rows_aligned16, quad_sum
@@ -112,9 +116,9 @@ struct Ring {
   __device__ unsigned char* tile(int s, int i) const { return tiles + (2 * s + i) * kTileBytes; }
 
   // One thread, before mbar_fence_init and the block barrier.
-  __device__ void init(int consumers) const {
+  __device__ void init(int consumers, int producers = 32) const {
     for (int s = 0; s < STAGES; ++s) {
-      mbar_init(&full[s], 32);
+      mbar_init(&full[s], producers);
       mbar_init(&empty[s], consumers);
     }
   }
@@ -190,9 +194,10 @@ using FwdLayout = Layout<1, kFwdStages, 0>;
 // Sk); m <- the new running max of the raw logits; l <- l * alpha + the
 // thread's partial row sums; alpha = exp2((m_old - m_new) * sl2), the
 // output's rescale (0 on the first tile, where m_old = -inf). The max of the
-// raw logits is that of the scaled ones only for sl2 > 0: the wrappers send
-// other scales to the mma route, and flash_fwd_sm90 refuses them. (Taking
-// the max after the scale cost 10% at level 0, PERF.md.)
+// raw logits is that of the scaled ones only for sl2 > 0: flash_fwd_sm90
+// refuses other scales, and the staged route turns them into a positive one
+// by the sign of the Q it stores. (Taking the max after the scale cost 10%
+// at level 0, PERF.md.)
 __device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m)[2], float (&l)[2],
                                                float (&alpha)[2], int valid, int t, float sl2) {
   if (valid < 64) {  // keys past Sk: -inf, not the reference's mask value, whose
@@ -229,43 +234,15 @@ __device__ __forceinline__ void online_softmax(float (&sc)[32], float (&m)[2], f
   l[1] = l[1] * alpha[1] + rs[1];
 }
 
-__global__ void __launch_bounds__(kThreads, 3)
-flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
-                      const __grid_constant__ CUtensorMap mv, const Sm90FwdArgs a) {
-  using L = FwdLayout;
-  extern __shared__ unsigned char smem_raw[];
-  unsigned char* smem = L::base(smem_raw);
-  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::bars);
-  const auto ring = L::ring_of(smem);
-
-  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
-  const int q0 = blockIdx.x * 64;
-  const int n_tiles = (a.Sk + 63) / 64;
-
-  if (threadIdx.x == 0) {
-    mbar_init(own_full, 1);
-    ring.init(128);
-    mbar_fence_init();
-  }
-  __syncthreads();
-
-  if (threadIdx.x >= 128) {  // the producer warp
-    if (threadIdx.x % 32 == 0) {
-      tma_prefetch(&mq);
-      tma_prefetch(&mk);
-      tma_prefetch(&mv);
-      mbar_arrive_expect_tx(own_full, kTileBytes);
-      tma_load_4d(smem + L::own, &mq, own_full, 0, h, q0, b);
-    }
-    ring.produce(&mk, &mv, h, b, n_tiles, [](int, int, int) {});
-    return;
-  }
-
-  // the consumer warpgroup: query rows q0 + [0, 64)
+// The consumer warpgroup of the D = 64 forward, on either route: query rows
+// q0 + [0, 64) of (batch b, head h), its Q tile at `qt` (complete when
+// own_full's phase 0 does), the K/V pairs through `ring`.
+__device__ __forceinline__ void fwd_consume(const unsigned char* qt, uint64_t* own_full,
+                                            const Ring<kFwdStages>& ring, const Sm90FwdArgs& a, int b,
+                                            int h, int q0, int n_tiles) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
   const int g = lane / 4, t = lane % 4;
   const int row = q0 + 16 * warp + g;  // this thread's rows: row, row + 8
-  const unsigned char* qt = smem + L::own;
   const float sl2 = a.scale * kLog2e;
 
   float acc[32], sc[32], alpha[2];
@@ -325,6 +302,273 @@ flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_const
           __floats2bfloat162_rn(acc[4 * i + 2 * e] * inv, acc[4 * i + 2 * e + 1] * inv);
     if (a.lse != nullptr && t == 0) a.lse[b * a.l_sb + h * a.l_sh + r] = m[e] * a.scale + logf(l[e]);
   }
+}
+
+__global__ void __launch_bounds__(kThreads, 3)
+flash_fwd_sm90_kernel(const __grid_constant__ CUtensorMap mq, const __grid_constant__ CUtensorMap mk,
+                      const __grid_constant__ CUtensorMap mv, const Sm90FwdArgs a) {
+  using L = FwdLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = L::base(smem_raw);
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  const auto ring = L::ring_of(smem);
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * 64;
+  const int n_tiles = (a.Sk + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 1);
+    ring.init(128);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {  // the producer warp
+    if (threadIdx.x % 32 == 0) {
+      tma_prefetch(&mq);
+      tma_prefetch(&mk);
+      tma_prefetch(&mv);
+      mbar_arrive_expect_tx(own_full, kTileBytes);
+      tma_load_4d(smem + L::own, &mq, own_full, 0, h, q0, b);
+    }
+    ring.produce(&mk, &mv, h, b, n_tiles, [](int, int, int) {});
+    return;
+  }
+  fwd_consume(smem + L::own, own_full, ring, a, b, h, q0, n_tiles);
+}
+
+// ---- forward at head dim 64 on views TMA cannot read ("staged") -------------
+//
+// B1/B2 (and B6, their (batch, seq, head) stride form) on bf16 views whose
+// rows TMA cannot read (a base or a stride off 16 bytes, as a slice of a
+// wider buffer one element in), and at any scale. The consumer warpgroup is
+// fwd_consume above, unchanged; only the way the tiles reach shared memory
+// differs. A producer warpgroup lays each 64 x 64 tile out exactly as TMA's
+// 128-byte swizzle does, so at a positive scale the result has the TMA
+// route's bits.
+// - A (row, head) slice is 64 bf16, 128 bytes, starting at an even byte
+//   offset o = address % 16. Its bytes lie in the 16-byte aligned span that
+//   encloses it: 8 aligned chunks when o = 0, else 9. The extra bytes share
+//   aligned granules with valid ones, so no page or allocation edge is
+//   crossed (ops/attention.py::staged_row; tests/test_torch_staged_plan.py).
+// - A tile's 64 rows are 16 groups of 4 rows r0 + 8 k + 32 h (k = 0..3): 8
+//   rows are 16 s bytes apart for any element stride s, so a group's rows
+//   share o and r % 8. One warp instruction takes a group, 8 lanes a row:
+//   lane (k, c) loads aligned chunk c with ld.global.nc.v4, takes chunk c + 1
+//   from the next lane by a shuffle (lane 7 loads the 9th chunk itself),
+//   keeps bytes [o, o + 16) of the 32 (two rounds of word selects, then a
+//   funnel shift by 8 (o % 4) bits; no branch) and stores them with one
+//   st.shared.v4 at chunk c ^ (r % 8) of tile row r: the layout TMA's
+//   CU_TENSOR_MAP_SWIZZLE_128B writes and the wgmma descriptors read. Rows
+//   past S load nothing and are stored as zeros, as TMA's out-of-bounds
+//   fill.
+// - Producer rate. At the UNet's level 0 a block takes 16 KB a stage; one
+//   producer warp (160 threads, 3 blocks an SM) or two (192 threads) could
+//   not keep up, nor could copies through shared memory (16-byte cp.async
+//   or one 1-D bulk copy a row, each realigned from a staging area) (PERF.md
+//   §6). So the producer is a warpgroup: warp w takes the groups (r0, h) in
+//   {w, w + 4} x {0, 1} of every tile, each lane's rows and store offsets
+//   fixed for the kernel; tile n + 1's 8 loads a lane are in flight while
+//   tile n (Q, then K_0, V_0, K_1, ...) is realigned and stored; with one
+//   key tile (Sk <= 64: the temporal attention's 16 frames) Q's, K's and V's
+//   loads all go out first. 256 threads: 2 blocks an SM, no spills.
+// - Proxy fence: wgmma reads shared memory through the async proxy, and the
+//   producer's st.shared are generic-proxy writes. Each lane executes
+//   fence.proxy.async after its stores and before it arrives on the
+//   stage's full barrier (a plain 128-arrival barrier: no transaction
+//   bytes); without it the consumers may multiply stale bytes.
+// - Trap: the predicated load of the 9th chunk must not take the main
+//   chunk's register as its initial value, or it waits for that load to
+//   land and the two loads of every row run one after the other.
+// - Any finite scale. The consumer's running max is over the raw logits,
+//   which orders the scaled ones only for a positive scale. For scale < 0
+//   the producer stores -Q (a sign flip of each bf16, exact) and the kernel
+//   runs at -scale: (-q).k (-scale) = q.k scale bit for bit, and the max of
+//   the logits of -Q is the min of those of Q. For scale == 0 it stores
+//   zeros for Q and runs at scale 1: every logit is 0, P = 1 for every key
+//   inside Sk, lse = log(Sk), as softmax(0) gives.
+constexpr int kStagedProducerWarps = 4;  // a warpgroup
+constexpr int kStagedThreads = 128 + 32 * kStagedProducerWarps;
+constexpr int kStagedBlocksPerSM = 2;  // 256 threads x 128 registers: the register file
+
+// One (B, S, H, 64) bf16 source of the staged producer, in bytes.
+struct StagedSrc {
+  const unsigned char* p;
+  long long sb, ss, sh;
+  int S;
+};
+
+struct Sm90StagedArgs {
+  StagedSrc src[3];  // q, k, v
+  int qmode;         // Q as stored: kQAsIs, kQNegated (scale < 0), kQZero (scale == 0)
+};
+enum StagedQ : int { kQAsIs = 0, kQNegated = 1, kQZero = 2 };
+
+// Bytes [o, o + 16) of the 32 bytes lo, hi (o even, < 16): words o / 4 ..
+// o / 4 + 4 by two rounds of selects, then a funnel shift by 8 (o % 4) bits.
+__device__ __forceinline__ uint4 realign16(const uint4& lo, const uint4& hi, uint32_t o) {
+  const bool w2 = o & 8, w1 = o & 4;
+  const uint32_t x0 = w2 ? lo.z : lo.x, x1 = w2 ? lo.w : lo.y, x2 = w2 ? hi.x : lo.z, x3 = w2 ? hi.y : lo.w,
+                 x4 = w2 ? hi.z : hi.x, x5 = w2 ? hi.w : hi.y;
+  const uint32_t y0 = w1 ? x1 : x0, y1 = w1 ? x2 : x1, y2 = w1 ? x3 : x2, y3 = w1 ? x4 : x3, y4 = w1 ? x5 : x4;
+  const uint32_t sh = (o & 3) * 8;  // 0 or 16 bits
+  return make_uint4(__funnelshift_r(y0, y1, sh), __funnelshift_r(y1, y2, sh), __funnelshift_r(y2, y3, sh),
+                    __funnelshift_r(y3, y4, sh));
+}
+
+__device__ __forceinline__ uint4 ldg_nc128(const unsigned char* p) {
+  uint4 v;
+  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
+               : "l"(p));
+  return v;
+}
+
+// ldg_nc128 where `pred`, else v unchanged (no branch).
+__device__ __forceinline__ void ldg_nc128_if(uint4& v, const unsigned char* p, bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %5, 0;\n"
+      "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n}\n"
+      : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w)
+      : "l"(p), "r"((int)pred));
+}
+
+// The producer warpgroup of the staged forward (threads 128..255). Tile n:
+// 0 = Q's rows q0 + [0, 64) into the own tile; 2 j + 1 = K_j, 2 j + 2 = V_j
+// into ring stage j % kFwdStages. Tile n + 1's loads are in flight while
+// tile n is realigned and stored.
+__device__ __forceinline__ void staged_produce(unsigned char* smem, uint64_t* own_full, const Ring<kFwdStages>& ring,
+                                               const Sm90StagedArgs& sa, int b, int h, int q0, int n_tiles) {
+  const int warp = threadIdx.x / 32 - 4, lane = threadIdx.x % 32, k = lane / 8, c = lane % 8;
+  const unsigned char* qb = sa.src[0].p + b * sa.src[0].sb + h * sa.src[0].sh;
+  const unsigned char* kb = sa.src[1].p + b * sa.src[1].sb + h * sa.src[1].sh;
+  const unsigned char* vb = sa.src[2].p + b * sa.src[2].sb + h * sa.src[2].sh;
+  const long long qs = sa.src[0].ss, ks = sa.src[1].ss, vs = sa.src[2].ss;
+  const int Sq = sa.src[0].S, Sk = sa.src[1].S, qmode = sa.qmode;
+  int trow[4];      // this lane's tile row in each of its warp's 4 groups
+  uint32_t sto[4];  // and where its output chunk goes in the tile
+#pragma unroll
+  for (int u = 0; u < 4; ++u) {
+    const int r0 = warp + 4 * (u & 1);
+    trow[u] = r0 + 8 * k + 32 * (u >> 1);
+    sto[u] = trow[u] * 128 + 16 * (c ^ r0);  // (r % 8) == r0: the 128-byte swizzle
+  }
+  // tile n's rows: its first row's address in its tensor's (batch, head),
+  // the row stride, the rows inside S
+  const auto tile_of = [&](int n, const unsigned char*& base, long long& st, int& rows) {
+    const int j = (n - 1) >> 1;
+    base = n == 0 ? qb + q0 * qs : (n & 1) ? kb + 64 * j * ks : vb + 64 * j * vs;
+    st = n == 0 ? qs : (n & 1) ? ks : vs;
+    rows = n == 0 ? Sq - q0 : Sk - 64 * j;
+  };
+  struct Batch {  // one tile's 4 groups as this lane loaded them
+    uint4 lo[4], ex[4];
+  };
+  const int n_last = 2 * n_tiles;
+  // Rows past S load nothing (zeros). Both loads start from zeros, not from
+  // each other: a load whose register holds another load's result waits
+  // for it, and the two loads of a row would run one after the other.
+  const auto load = [&](int n, Batch& bt) {
+    if (n > n_last) return;
+    const unsigned char* base;
+    long long st;
+    int rows;
+    tile_of(n, base, st, rows);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const unsigned char* rp = base + trow[u] * st;
+      const uint32_t o = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(rp)) & 15;
+      rp -= o;
+      bt.lo[u] = bt.ex[u] = make_uint4(0u, 0u, 0u, 0u);
+      ldg_nc128_if(bt.lo[u], rp + 16 * c, trow[u] < rows);
+      ldg_nc128_if(bt.ex[u], rp + 128, trow[u] < rows && c == 7 && o);  // inside the row's last granule
+    }
+  };
+  const auto store = [&](int n, Batch& bt) {
+    const unsigned char* base;
+    long long st;
+    int rows;
+    tile_of(n, base, st, rows);
+    uint4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const uint32_t o = static_cast<uint32_t>(reinterpret_cast<uintptr_t>(base + trow[u] * st)) & 15;
+      uint4 hi;  // chunk c + 1: the next lane's, lane 7's 9th
+      hi.x = __shfl_down_sync(0xffffffffu, bt.lo[u].x, 1, 8);
+      hi.y = __shfl_down_sync(0xffffffffu, bt.lo[u].y, 1, 8);
+      hi.z = __shfl_down_sync(0xffffffffu, bt.lo[u].z, 1, 8);
+      hi.w = __shfl_down_sync(0xffffffffu, bt.lo[u].w, 1, 8);
+      if (c == 7) hi = bt.ex[u];
+      v[u] = realign16(bt.lo[u], hi, o);
+      // Q negated (scale < 0) or zeros (scale == 0); rows past S are zeros
+      const uint32_t m = n == 0 && qmode == kQZero ? 0u : ~0u;
+      const uint32_t x = n == 0 && qmode == kQNegated && trow[u] < rows ? 0x80008000u : 0u;
+      v[u] = make_uint4((v[u].x & m) ^ x, (v[u].y & m) ^ x, (v[u].z & m) ^ x, (v[u].w & m) ^ x);
+    }
+    const int j = (n - 1) >> 1;
+    unsigned char* tile = smem + FwdLayout::own;
+    if (n > 0) {
+      if (n & 1) mbar_wait(&ring.empty[j % kFwdStages], ((j / kFwdStages) & 1) ^ 1);  // K_j: a free stage
+      tile = ring.tile(j % kFwdStages, (n & 1) ? 0 : 1);
+    }
+    const uint32_t t = smem_addr(tile);
+#pragma unroll
+    for (int u = 0; u < 4; ++u) sts128(t + sto[u], v[u]);
+    if (n == 0 || !(n & 1)) {  // Q, or V_j: the tiles are complete
+      fence_proxy_async();    // the stores above, before wgmma reads them (async proxy)
+      mbar_arrive(n == 0 ? own_full : &ring.full[j % kFwdStages]);
+    }
+  };
+
+  // two batches, loaded and stored in turns (no register copies, which
+  // would wait for the loads); with one key tile, Q's, K's and V's loads
+  // all go out first (one load latency a block, not two)
+  Batch ba, bb;
+  if (n_last == 2) {
+    Batch bc;
+    load(0, ba);
+    load(1, bb);
+    load(2, bc);
+    store(0, ba);
+    store(1, bb);
+    store(2, bc);
+    return;
+  }
+  load(0, ba);
+  for (int n = 0; n <= n_last; n += 2) {
+    load(n + 1, bb);
+    store(n, ba);
+    if (n + 1 > n_last) break;
+    load(n + 2, ba);
+    store(n + 1, bb);
+  }
+}
+
+__global__ void __launch_bounds__(kStagedThreads, kStagedBlocksPerSM)
+flash_fwd_staged_sm90_kernel(const Sm90FwdArgs a, const Sm90StagedArgs sa) {
+  using L = FwdLayout;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = L::base(smem_raw);
+  uint64_t* own_full = reinterpret_cast<uint64_t*>(smem + L::bars);
+  const auto ring = L::ring_of(smem);
+
+  const int bh = blockIdx.y, b = bh / a.H, h = bh % a.H;
+  const int q0 = blockIdx.x * 64;
+  const int n_tiles = (a.Sk + 63) / 64;
+
+  if (threadIdx.x == 0) {
+    mbar_init(own_full, 32 * kStagedProducerWarps);  // every producer lane arrives
+    ring.init(128, 32 * kStagedProducerWarps);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= 128) {
+    staged_produce(smem, own_full, ring, sa, b, h, q0, n_tiles);
+    return;
+  }
+  fwd_consume(smem + L::own, own_full, ring, a, b, h, q0, n_tiles);
 }
 
 // ---- forward at head dim 512 -----------------------------------------------
@@ -1005,6 +1249,42 @@ int flash_fwd_sm90(const void* q, const void* k, const void* v, void* o, float* 
   if (D == 512)
     return (int)launch<flash_fwd_d512_sm90_kernel>(D512Layout::alloc, grid, kD512Threads, st, m[0], m[1], m[2], a);
   return (int)launch<flash_fwd_sm90_kernel>(FwdLayout::alloc, grid, kThreads, st, m[0], m[1], m[2], a);
+}
+
+// The staged route of flash_attention.cu's entry points: bf16 at D = 64 on
+// any views whose head dimension is contiguous, at any finite scale; `strides`
+// as there, followed by the head-dim strides of q, k, v and o. Refuses
+// another head dim, a head dimension that is not contiguous, an o whose bf16
+// pairs are not 4-byte aligned (o is written in pairs), and a non-finite
+// scale; flash_fwd refuses f32.
+int flash_fwd_staged_sm90(const void* q, const void* k, const void* v, void* o, float* lse, int B, int H,
+                          int Sq, int Sk, int D, const long long* strides, const long long* lse_strides,
+                          float scale, void* stream) {
+  if (D != 64 || !isfinite(scale)) return (int)cudaErrorInvalidValue;
+  for (int i = 0; i < 4; ++i)
+    if (strides[12 + i] != 1) return (int)cudaErrorInvalidValue;
+  if (reinterpret_cast<uintptr_t>(o) % 4 != 0 || strides[9] % 2 || strides[10] % 2 || strides[11] % 2)
+    return (int)cudaErrorInvalidValue;
+  Sm90FwdArgs a;
+  a.o = static_cast<__nv_bfloat16*>(o);
+  a.lse = lse;
+  for (int i = 0; i < 3; ++i) a.os[i] = strides[9 + i];
+  a.l_sb = lse_strides[0];
+  a.l_sh = lse_strides[1];
+  a.H = H;
+  a.Sq = Sq;
+  a.Sk = Sk;
+  a.scale = scale > 0.0f ? scale : scale < 0.0f ? -scale : 1.0f;  // the consumers' scale (> 0)
+  Sm90StagedArgs sa;
+  sa.qmode = scale > 0.0f ? kQAsIs : scale < 0.0f ? kQNegated : kQZero;
+  const void* ptrs[3] = {q, k, v};
+  for (int i = 0; i < 3; ++i) {
+    const long long* st = strides + 3 * i;
+    sa.src[i] = {static_cast<const unsigned char*>(ptrs[i]), 2 * st[0], 2 * st[1], 2 * st[2], i == 0 ? Sq : Sk};
+  }
+  const dim3 grid((Sq + 63) / 64, B * H);
+  return (int)launch<flash_fwd_staged_sm90_kernel>(FwdLayout::alloc, grid, kStagedThreads,
+                                                   static_cast<cudaStream_t>(stream), a, sa);
 }
 
 // The wgmma route of flash_attention_bwd.cu's entry points (bf16, D = 64 or

@@ -132,6 +132,14 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
       : "memory");
 }
 
+// ---- shared-memory stores ---------------------------------------------------
+
+// 16 bytes at a shared address (16-byte aligned), as one st.shared.v4.
+__device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
 // ---- TMA -------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {
@@ -196,7 +204,8 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo = 16)
 }
 
 // Orders this thread's generic-proxy accesses to shared memory before later
-// async-proxy ones (a TMA load that overwrites what the threads wrote).
+// async-proxy ones (a TMA load that overwrites what the threads wrote, or
+// wgmma reading a tile the threads stored).
 __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }

@@ -24,8 +24,11 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   (`by_head_dim`) and by route (`by_route`), and the two forwards by shape
   (`by_shape`, (B, H, Sq, Sk, D)). All four pick their route with
   `flash_route` (bf16 on tensors TMA can read, at head dims 64 and 512: the
-  wgmma kernels of csrc/flash_attention_sm90.cu; other bf16, and a forward
-  whose scale is not positive: the mma.sync kernels; f32: the scalar ones).
+  wgmma kernels of csrc/flash_attention_sm90.cu; a bf16 forward at head dim
+  64 on other views, or whose scale is not positive: the same file's
+  `staged` kernel, whose producer realigns each row in registers
+  (`staged_row` describes one row's load); other bf16: the mma.sync
+  kernels; f32: the scalar ones).
 - `small_seq_attention` (B8): the short-sequence kernel of
   csrc/small_seq_attention.cu at Sq = Sk <= 64, head dim 64, forward only
   (the JAX package has no backward for it either); its plain twin is
@@ -67,7 +70,13 @@ DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 FLASH_HEAD_DIMS = (64, 512)
 FLASH_BWD_HEAD_DIMS = (64, 512)
 # the kernels' routes, as csrc/flash_mma.cuh's Route codes
-ROUTES = {"mma": 0, "f32": 0, "wgmma": 1}
+ROUTES = {"mma": 0, "f32": 0, "wgmma": 1, "staged": 2}
+# The staged forward's producer (csrc/flash_attention_sm90.cu): a warpgroup
+# of STAGED_PRODUCER_WARPS warps reads each (row, head) slice of 64 bf16
+# (STAGED_ROW_BYTES) as the 16-byte aligned chunks that enclose it and
+# stores each output chunk where TMA's 128-byte swizzle puts it in a 64-row
+# tile (`staged_row`); `staged_lane_rows` is its map of lanes to rows.
+STAGED_ROW_BYTES, STAGED_PRODUCER_WARPS = 128, 4
 SMALL_SEQ_HEAD_DIM, SMALL_SEQ_MAX = 64, 64
 
 
@@ -261,28 +270,64 @@ _counters(flash_attention_lse, shapes=True)
 
 def _layout(tensors, n_read, fwd_scale=None):
     """(route, strides) of a flash launch on (B, S, H, D) tensors: the C entry
-    points' (batch, seq, head) element strides of each tensor, and the route.
+    points' (batch, seq, head) element strides of each tensor, then each
+    tensor's head-dim stride (which the staged route checks), and the route.
     "wgmma" for bf16 at head dim 64 or 512 when TMA can read the first
     n_read tensors (16-byte aligned bases, strides of multiples of 16 bytes;
     the kernels write their outputs, which the wrappers allocate, without
     TMA): a backward (no fwd_scale) at any scale, a forward (fwd_scale
     given) at a positive one (the wgmma forwards' running max is over the
-    unscaled logits); "f32" for f32; else "mma". One stride() call a tensor: this runs before
+    unscaled logits); "staged" for any other bf16 forward at head dim 64;
+    "f32" for f32; else "mma". One stride() call a tensor: this runs before
     every launch, and at the path's small shapes the host's time per call is
     the call's time."""
     strides = [t.stride() for t in tensors]
     q = tensors[0]
-    wgmma_shape = q.shape[-1] in (64, 512) and (fwd_scale is None or fwd_scale > 0)
+    d = q.shape[-1]
     if q.dtype == torch.float32:
         route = "f32"
-    elif q.dtype == torch.bfloat16 and wgmma_shape and all(
+    elif q.dtype == torch.bfloat16 and d in (64, 512) and (fwd_scale is None or fwd_scale > 0) and all(
             t.data_ptr() % 16 == 0 and sb % 8 == 0 and ss % 8 == 0 and sh % 8 == 0  # bf16: 8 elements a 16 bytes
             for t, (sb, ss, sh, _) in zip(tensors[:n_read], strides)):
         route = "wgmma"
+    elif q.dtype == torch.bfloat16 and d == 64 and fwd_scale is not None:
+        route = "staged"
     else:
         route = "mma"
-    vals = [x for st in strides for x in st[:3]]
+    vals = [x for st in strides for x in st[:3]] + [st[3] for st in strides]
     return route, (ctypes.c_longlong * len(vals))(*vals)
+
+
+class StagedRow(NamedTuple):
+    start: int   # byte address of the first 16-byte aligned chunk read
+    chunks: int  # aligned 16-byte chunks read: 8 when the slice is aligned, else 9
+    shift: int   # bytes the slice starts past `start`: even, 0..14
+    dest: tuple  # byte offset in the 64-row tile of output chunk c = 0..7
+
+
+def staged_row(addr, tile_row):
+    """The staged producer's load of one (row, head) slice of 64 bf16 at
+    byte address `addr` (even) that lands on row `tile_row` of a 64 x 64
+    tile: the aligned chunks it reads, the shift it realigns them by (bytes
+    [shift, shift + 128) of the chunks are the slice), and where each of the
+    8 output chunks goes (chunk c of row r at r * 128 + 16 * (c ^ (r % 8)))."""
+    if addr % 2 or not 0 <= tile_row < 64:
+        raise ValueError(f"staged_row: address {addr}, tile row {tile_row}")
+    shift = addr % 16
+    dest = tuple(tile_row * STAGED_ROW_BYTES + 16 * (c ^ (tile_row % 8)) for c in range(8))
+    return StagedRow(addr - shift, 8 if shift == 0 else 9, shift, dest)
+
+
+def staged_lane_rows(warp, lane):
+    """The staged producer's lane map: the 4 (tile row, output chunk) pairs
+    that lane `lane` of producer warp `warp` loads, realigns and stores in
+    every tile. A warp instruction takes a group of 4 rows r0 + 8 k + 32 h
+    (lane = 8 k + c: row k, chunk c); warp w's groups are (r0, h) in
+    {w, w + 4} x {0, 1}."""
+    if not (0 <= warp < STAGED_PRODUCER_WARPS and 0 <= lane < 32):
+        raise ValueError(f"staged_lane_rows: warp {warp}, lane {lane}")
+    k, c = divmod(lane, 8)
+    return tuple((warp + 4 * (u % 2) + 8 * k + 32 * (u // 2), c) for u in range(4))
 
 
 def flash_route(q, k, v, *more, fwd_scale=None):

@@ -3,10 +3,12 @@ the backward (q, k, v, dO) and the forward (q, k, v, o).
 
 bf16 goes to the wgmma kernels when TMA can read every tensor (16-byte
 aligned bases, (batch, seq, head) strides of multiples of 16 bytes) at head
-dims 64 and 512, a forward only at a positive scale; other bf16 to the
-mma.sync kernels, f32 to the scalar ones. CPU tensors have real addresses,
-so the predicate is tested on them; on the CPU the wrappers run their plain
-twins and count no route.
+dims 64 and 512, a forward only at a positive scale; any other bf16 forward
+at head dim 64 to the staged kernel (the same consumers, fed by a producer
+that realigns rows in registers); other bf16 to the mma.sync kernels, f32
+to the scalar ones. CPU tensors have real addresses, so the predicate is
+tested on them; on the CPU the wrappers run their plain twins and count no
+route.
 """
 
 import pytest
@@ -100,7 +102,7 @@ def _fwd_case(kind):
 
 @pytest.mark.parametrize("kind, route", [
     ("contiguous", "wgmma"), ("fused_qkv", "wgmma"), ("cross_77", "wgmma"),
-    ("off_by_one_q", "mma"), ("off_by_one_k", "mma"), ("off_by_one_v", "mma"),
+    ("off_by_one_q", "staged"), ("off_by_one_k", "staged"), ("off_by_one_v", "staged"),
     ("d512", "wgmma"), ("f32", "f32"),
     ("d512_contiguous", "wgmma"), ("d512_off_by_one_q", "mma"), ("d512_off_by_one_k", "mma"),
     ("d512_off_by_one_v", "mma"), ("d512_f32", "f32"),
@@ -110,10 +112,11 @@ def test_forward_route(kind, route):
     assert A.flash_route(q, k, v, fwd_scale=q.shape[-1] ** -0.5) == route  # the wrappers' default scale
 
 
-@pytest.mark.parametrize("scale, route", [(0.125, "wgmma"), (2.0, "wgmma"), (-0.125, "mma"), (0.0, "mma")])
+@pytest.mark.parametrize("scale, route", [(0.125, "wgmma"), (2.0, "wgmma"), (-0.125, "staged"), (0.0, "staged")])
 def test_forward_route_by_scale(scale, route):
     """The wgmma forward's running max is over the unscaled logits, so it
-    takes positive scales only; the backward's route ignores the scale."""
+    takes positive scales only; the staged kernel takes the others at head
+    dim 64; the backward's route ignores the scale."""
     q, k, v = _fwd_case("contiguous")
     assert A.flash_route(q, k, v, fwd_scale=scale) == route
     assert A.flash_route(q, k, v, _bshd(seed=3)) == "wgmma"
@@ -144,6 +147,53 @@ def test_aligned_backward_d512_takes_mma(kind):
     assert A._layout((q, k, v, do, do, k, v), 4)[0] == "wgmma"
     bad = torch.randn((2, 40, 513)).to(torch.bfloat16)[..., 1:].view(2, 40, 1, 512)
     assert A._layout((q, k, v, bad, q, k, v), 4)[0] == "mma"
+
+
+@pytest.mark.parametrize("kind", ["off_by_one_q", "off_by_one_k", "off_by_one_v"])
+def test_misaligned_view_at_negative_scale_takes_staged(kind):
+    """A view TMA cannot read at a negative scale: the staged forward; its
+    backward stays on mma.sync."""
+    q, k, v = _fwd_case(kind)
+    assert A.flash_route(q, k, v, fwd_scale=-0.125) == "staged"
+    assert A.flash_route(q, k, v, _bshd(seed=3)) == "mma"
+
+
+@pytest.mark.parametrize("which", ["seq", "head", "batch"])
+def test_aligned_bases_odd_strides_take_staged(which):
+    """Bases on 16-byte boundaries but an odd (batch, seq or head) element
+    stride: TMA cannot read the rows, so the forward goes to the staged
+    kernel (at head dim 512 to mma.sync), whatever the scale's sign."""
+    b, s, h = 2, 40, 3
+    size = {"seq": (b, s, h * 64 + 1), "head": (b, s, h, 65), "batch": (b * s * h * 64 + 1,)}[which]
+    buf = torch.randn(size).to(torch.bfloat16)
+    if which == "seq":
+        q = buf.as_strided((b, s, h, 64), (s * (h * 64 + 1), h * 64 + 1, 64, 1))
+    elif which == "head":
+        q = buf[..., :64]
+    else:
+        q = buf.as_strided((b, s, h, 64), (s * h * 64 + 1, h * 64, 64, 1))
+    assert q.data_ptr() % 16 == 0 and q.stride()[:3] != _bshd().stride()[:3]
+    assert any(st % 2 for st in q.stride()[:3])
+    k, v = _bshd(seed=1), _bshd(seed=2)
+    for scale in (0.125, -0.125, 0.0):
+        assert A.flash_route(q, k, v, fwd_scale=scale) == "staged"
+        assert A.flash_route(k, q, v, fwd_scale=scale) == "staged"
+        assert A.flash_route(k, v, q, fwd_scale=scale) == "staged"
+    q512 = torch.randn((1, 16, 513)).to(torch.bfloat16).as_strided((1, 16, 1, 512), (16 * 513, 513, 512, 1))
+    assert q512.data_ptr() % 16 == 0
+    k512, v512 = (_bshd(b=1, s=16, h=1, d=512, seed=i) for i in (1, 2))
+    assert A.flash_route(q512, k512, v512, fwd_scale=512 ** -0.5) == "mma"
+
+
+def test_staged_strides_carry_head_dim_strides():
+    """The strides the C entries get: each tensor's (batch, seq, head)
+    strides, then each tensor's head-dim stride, which the staged kernel's
+    entry checks (1: contiguous)."""
+    q, k, v = _fwd_case("off_by_one_q")
+    o = torch.empty(q.shape, dtype=q.dtype)
+    route, strides = A._layout((q, k, v, o), 3, 0.125)
+    assert route == "staged"
+    assert list(strides) == [x for t in (q, k, v, o) for x in t.stride()[:3]] + [1, 1, 1, 1]
 
 
 @pytest.mark.parametrize("fwd", ["flash_attention", "flash_attention_lse"])
