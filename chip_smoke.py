@@ -25,15 +25,17 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 Each flash case also checks its route (wgmma for aligned
                 bf16 forwards and backwards at head dims 64 and 512, staged
                 for a head-dim-64 forward on unaligned views or at a scale
-                <= 0, mma for the other unaligned views (the backward, the
-                head-dim-512 forward), f32), and at L0 and at the VAE mid block two launches of
+                <= 0, packed for the other unaligned views (the backward, the
+                head-dim-512 forward, also at a scale <= 0), f32), and at L0 and at the VAE mid block two launches of
                 each flash forward must give equal bits (of B3 at L0 and at
                 the video reward's VAE mid block); B3 at head dim 512 also
                 runs at its tiles' edges (ragged, 129, 65 and 40 keys);
                 first, the wgmma C entries must refuse an unaligned view
                 and f32 at both head dims, and the forward a scale <= 0,
                 and the staged entry f32, head dim 512, a head dimension
-                that is not contiguous and a non-finite scale (no
+                that is not contiguous and a non-finite scale, the pack
+                kernel f32 and a head dimension that is not contiguous,
+                and the flash entries bf16 on the f32 route code (no
                 fallback). The fused conv is also
                 checked and timed at every distinct shape of a UNet step
                 (15 spatial 3x3, 4 temporal (3,1)), each case on its route
@@ -63,6 +65,21 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 with 77 keys; with one of q, k, v misaligned; at scales
                 -1/8 and 0 on aligned tensors; two launches with equal bits
                 and a launch captured in a CUDA graph against an eager one.
+                B6 on the packed route (the pack kernel's copies, then the
+                wgmma kernels): B3's dK/dV and dQ on misaligned views at
+                (16,5,2560,2560,64) and B1 at (16,1,2560,2560,512)
+                (flash_attention_bwd_dkv_packed, _bwd_dq_packed,
+                flash_attention_d512_packed), the pack alone on one L0
+                tensor (pack_bshd, against contiguous() and its library
+                time); equal bits to the wgmma route on contiguous copies
+                of the backward at L0, (2,5,300,300,64), 77 keys, tile
+                edges, (8,1,2560,2560,512) and (2,1,1111,1111,512) and of
+                the D = 512 forward at (16,1,2560,2560,512) and
+                (2,1,1111,1111,512); one of q, k, v, dO misaligned at a
+                time; the D = 512 forward at scales -1/8 and 0; the pack
+                against contiguous() at all 8 offsets in its three modes
+                (as is, negated, zeros); two launches with equal bits and
+                a packed backward captured in a CUDA graph.
                 The norms' and B8's `ms` is
                 back-to-back calls, as every kernel's (host time included:
                 their calls are host-bound); their `graph_ms` the device
@@ -185,7 +202,23 @@ KERNELS = {
                                "t2v_turbo_tpu/ops/attention.py:540"),
     "flash_attention_fwd_lse_staged": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                        "t2v_turbo_tpu/ops/attention.py:813"),
+    # B6 on the packed route: the backward at head dims 64 and 512 and the
+    # forward at head dim 512 on misaligned views, the wgmma kernels on the
+    # copies the pack kernel makes (no path launches them either), and the
+    # pack kernel, which feeds all three
+    "flash_attention_bwd_dkv_packed": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
+                                       "t2v_turbo_tpu/ops/attention.py:590"),
+    "flash_attention_bwd_dq_packed": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
+                                      "t2v_turbo_tpu/ops/attention.py:644"),
+    "flash_attention_d512_packed": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
+                                    "t2v_turbo_tpu/ops/attention.py:540"),
+    "pack_bshd": ("t2v_turbo_tpu_torch/csrc/pack_bshd.cu", "t2v_turbo_tpu/ops/attention.py:590"),
 }
+# (record, wrapper name): the packed records count their wrapper's launches
+# on the packed route
+PACKED_RECORDS = (("flash_attention_bwd_dkv_packed", "flash_attention_bwd_dkv"),
+                  ("flash_attention_bwd_dq_packed", "flash_attention_bwd_dq"),
+                  ("flash_attention_d512_packed", "flash_attention"))
 SERVING_KERNELS = ("flash_attention", "group_norm", "group_norm_stats", "layer_norm", "fused_gn_silu_conv",
                    "small_seq_attention")
 TRAIN_KERNELS = SERVING_KERNELS + ("flash_attention_fwd_lse", "flash_attention_bwd_dkv",
@@ -210,7 +243,8 @@ def wrappers():
             "flash_attention_bwd_dq": A.flash_attention_bwd_dq,
             "group_norm": N.fused_group_norm, "group_norm_stats": N.group_norm_affine_cuda,
             "layer_norm": N.fused_layer_norm,
-            "fused_gn_silu_conv": FC.fused_gn_silu_conv, "small_seq_attention": A.small_seq_attention}
+            "fused_gn_silu_conv": FC.fused_gn_silu_conv, "small_seq_attention": A.small_seq_attention,
+            "pack_bshd": A.pack_bshd}
 
 
 def reset_launches():
@@ -240,7 +274,8 @@ def check_flash_routes(what, passes, per):
     dim, and the forwards' launches by (B, H, Sq, Sk, D) shape over `passes`
     (UNet passes or training steps: `per` names them); raise unless every
     launch, forward and backward at head dims 64 and 512, went through wgmma
-    (the path's bf16 tensors are TMA-aligned)."""
+    (the path's bf16 tensors are TMA-aligned: no staged or packed launch,
+    and no pack)."""
     from t2v_turbo_tpu_torch.ops import attention as A
 
     for w in (A.flash_attention, A.flash_attention_lse, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq):
@@ -252,6 +287,10 @@ def check_flash_routes(what, passes, per):
             f"{dict(sorted(w.by_head_dim.items()))} (every launch on wgmma) {'OK' if ok else 'FAIL'}" + shapes)
         if not ok:
             raise AssertionError(f"{what}: {w.__name__} took routes {dict(w.by_route)}, expected {want}")
+    log(f"{what}: pack_bshd launches {A.pack_bshd.launches} (none: no flash launch took staged or packed) "
+        f"{'OK' if A.pack_bshd.launches == 0 else 'FAIL'}")
+    if A.pack_bshd.launches:
+        raise AssertionError(f"{what}: the pack kernel ran {A.pack_bshd.launches} times")
 
 
 def check_small_seq(what, passes, per, shapes=True):
@@ -283,7 +322,7 @@ def flash_device_ms(events):
     """(forward, backward, the forward at head dim 512, the backward at head
     dim 512) device ms of the flash kernels in profiler events (at D = 512
     the wgmma kernels `flash_fwd_d512_...` and `flash_bwd_d512_...`, or the
-    mma templates' `<512, ...>` instances)."""
+    f32 templates' `<512, ...>` instances)."""
     def ms(kind, d512=False):
         return sum(e.self_device_time_total for e in events if kind in e.key
                    and (not d512 or "d512" in e.key or "<512" in e.key)) / 1e3
@@ -745,7 +784,7 @@ def _kernel_cases():
                 "logits added in one order), so equal bits"))
     # B1 at head dim 512 on the edges of its 64-row tiles (S one row past two
     # tiles; Sk one row past one; Sq != Sk with Sk < 64), and an unaligned
-    # view, which the wgmma forward cannot read (mma route)
+    # view, which the wgmma forward cannot read (packed route)
     fwd_path += [
         flash("tile edges (2,1,129,129,512) bf16", attn(2, 129, 1, 512, bf), 2e-3, 2e-2, 3, why_bf,
               kernel="flash_attention_d512"),
@@ -755,7 +794,7 @@ def _kernel_cases():
               kernel="flash_attention_d512"),
         # checked, not recorded: the record of flash_attention_d512 is the wgmma kernel's
         flash("unaligned strided q/k/v (2,1,300,300,512) bf16", _unaligned(2, 300, 300, 1, 512, 3), 2e-3, 2e-2, 3,
-              why_bf, route="mma", kernel="flash_attention_d512 on mma"),
+              why_bf, route="packed", kernel="flash_attention_d512 on packed"),
     ]
     # B4, its statistics mode and B5 at the paths' other shapes, on every
     # route, and their determinism: last, after the earlier PRs' cases
@@ -821,7 +860,7 @@ def _kernel_cases():
 
     def on_tma(q, k, v):  # the same values, contiguous: the wgmma route
         qc, kc, vc = (t.contiguous() for t in (q, k, v))
-        if A.flash_route(qc, kc, vc, fwd_scale=0.125) != "wgmma":
+        if A.flash_route(qc, kc, vc, fwd_scale=q.shape[-1] ** -0.5) != "wgmma":
             raise AssertionError("contiguous copies do not take the wgmma route")
         return both(qc, kc, vc)
 
@@ -841,11 +880,11 @@ def _kernel_cases():
                     why=f"o: {why_bf}; lse: f32 sums of exp in another order; scale {scale:g}: Q stored "
                         + ("negated" if scale < 0 else "as zeros") + " by the producer")
 
-    def one_unaligned(i):
+    def one_misaligned(b, s, h, d, i, n):  # n (b, s, h, d) tensors, the i-th misaligned
         def make():
-            g = torch.Generator("cuda").manual_seed(300 + i)
-            t = [torch.randn((2, 300, 5, 64), generator=g, device="cuda").to(bf) for _ in range(3)]
-            t[i] = _unaligned(2, 300, 300, 5, 64, 3)()[i]
+            g = torch.Generator("cuda").manual_seed(300 + d + i)
+            t = [torch.randn((b, s, h, d), generator=g, device="cuda").to(bf) for _ in range(n)]
+            t[i] = _unaligned(b, s, s, h, d, n)()[i]
             return t
         return make
 
@@ -858,8 +897,8 @@ def _kernel_cases():
         staged_bits("ragged misaligned views (2,5,300,300,64) bf16", _unaligned(2, 300, 300, 5, 64, 3)),
         staged_bits("misaligned views, 77 keys (2,5,300,77,64) bf16", _unaligned(2, 300, 77, 5, 64, 3)),
     ] + [
-        flash(f"staged route, only {'qkv'[i]} misaligned (2,5,300,300,64) bf16", one_unaligned(i), 2e-3, 2e-2, 5,
-              why_bf, route="staged", kernel="flash_attention on staged")
+        flash(f"staged route, only {'qkv'[i]} misaligned (2,5,300,300,64) bf16", one_misaligned(2, 300, 5, 64, i, 3),
+              2e-3, 2e-2, 5, why_bf, route="staged", kernel="flash_attention on staged")
         for i in range(3)
     ] + [
         staged_scale(f"aligned ragged S (2,5,1111,1111,64) bf16, scale {scale:g}", attn(2, 1111, 5, 64, bf), scale)
@@ -875,7 +914,123 @@ def _kernel_cases():
              why="a launch captured in a torch.cuda.CUDAGraph and replayed (output NaN-filled first) against "
                  "an eager launch: equal bits"),
     ]
-    return serving + train + fwd_path + b7_unet + norms + b8_more + b6
+    # B6 on the packed route (the backward at D = 64 and 512, the forward at
+    # D = 512, on misaligned views): the recorded rows at L0 and at the VAE
+    # mid block, and the pack alone on one L0 tensor; equal bits to the wgmma
+    # route on contiguous copies of the same values; one of q, k, v, dO
+    # misaligned at a time; the D = 512 forward at scales -1/8 and 0; the
+    # pack against contiguous() at all 8 offsets in all three modes; two
+    # launches; a packed backward in a CUDA graph
+    exact = _elementwise(0.0, 0.0)
+    why_copy = ("the wgmma kernels on the pack kernel's copies, which hold the contiguous copies' bytes: "
+                "equal bits")
+
+    def bwd_all(q, k, v, do, lse, delta):
+        return A.flash_attention_bwd_dkv(q, k, v, do, lse, delta) + (A.flash_attention_bwd_dq(q, k, v, do, lse, delta),)
+
+    def bwd_on_tma(q, k, v, do, lse, delta):  # the same values, contiguous: the wgmma route
+        c = [t.contiguous() for t in (q, k, v, do)]
+        if A.flash_route(*c) != "wgmma":
+            raise AssertionError("contiguous copies do not take the wgmma route")
+        return bwd_all(*c, lse, delta)
+
+    def row_stats(make):  # q, k, v, dO and the plain forward's lse and delta
+        def run():
+            q, k, v, do = make()
+            o, lse = A.attention_lse_plain(q, k, v, q.shape[-1] ** -0.5)
+            return [q, k, v, do, lse, A.attention_bwd_delta(do, o)]
+        return run
+
+    def bwd_bits(label, make):
+        return dict(kernel="flash_attention_bwd packed vs wgmma", label=label, make=row_stats(make), fn=bwd_all,
+                    plain=bwd_on_tma, outputs=("dk", "dv", "dq"), tols=3 * [exact],
+                    route=(A.flash_attention_bwd_dkv, "packed"), why=why_copy)
+
+    def fwd_bits(label, make):
+        return dict(kernel="flash_attention_d512 packed vs wgmma", label=label, make=make, fn=both, plain=on_tma,
+                    outputs=("o (B1)", "o (B2)", "lse"), tols=3 * [exact], route=(A.flash_attention, "packed"),
+                    why=why_copy)
+
+    def packed_scale(label, make, scale):
+        atol = 2e-2 if scale else 2e-3
+        return dict(kernel="flash_attention_d512 packed scale", label=label, make=make,
+                    fn=lambda q, k, v: both(q, k, v, scale),
+                    plain=lambda q, k, v: (A.attention(q, k, v, scale=scale),) + A.attention_lse_plain(q, k, v, scale),
+                    outputs=("o (B1)", "o (B2)", "lse"),
+                    tols=2 * [_elementwise(atol, 2e-2)] + [_elementwise(1e-3, 0.0)],
+                    route=(A.flash_attention, "packed"),
+                    why=f"scale {scale:g}: Q packed " + ("negated, run at 1/8" if scale else "as zeros, run at 1")
+                        + "; "
+                        + ("o: at D = 512 a scale of 1/8 makes the logits' std 2.8, probabilities near 1, which the "
+                           "two paths round to bf16 at different points: up to 2^-8*max|v| (as few keys)" if scale
+                           else f"o: {why_bf}") + "; lse: f32 sums of exp in another order")
+
+    def pack_view(d, off):  # a (2, 37, 3, d) bf16 view `off` elements into its buffer, odd row stride
+        def make():
+            g = torch.Generator("cuda").manual_seed(d + off)
+            buf = torch.randn(2 * 37 * (3 * d + 1) + 8, generator=g, device="cuda").to(bf)
+            return [buf.as_strided((2, 37, 3, d), (37 * (3 * d + 1), 3 * d + 1, d, 1), off)]
+        return make
+
+    modes = tuple(A.PACK_MODES)
+    l0_bwd = row_stats(_unaligned(16, 2560, 2560, 5, 64, 4))
+    why_twin = "P and dS rounded to bf16 for their products"
+    packed = [
+        dict(kernel="flash_attention_bwd_dkv_packed", label="packed route, misaligned views (16,5,2560,2560,64) bf16",
+             make=l0_bwd, fn=lambda *a: A.flash_attention_bwd_dkv(*a),
+             plain=lambda *a: A.attention_bwd_dkv_plain(*a, 0.125), outputs=("dk", "dv"),
+             tols=2 * [_of_max(2e-2)], why=why_twin, iters=5, library=_sdpa_bwd,
+             route=(A.flash_attention_bwd_dkv, "packed"), bound=lambda q, k, *_: attention_bound(q, k, "bwd_dkv")),
+        dict(kernel="flash_attention_bwd_dq_packed", label="packed route, misaligned views (16,5,2560,2560,64) bf16",
+             make=l0_bwd, fn=lambda *a: A.flash_attention_bwd_dq(*a),
+             plain=lambda *a: A.attention_bwd_dq_plain(*a, 0.125), outputs=("dq",),
+             tols=[_of_max(2e-2)], why=why_twin, iters=5, library=_sdpa_bwd,
+             route=(A.flash_attention_bwd_dq, "packed"), bound=lambda q, k, *_: attention_bound(q, k, "bwd_dq")),
+        flash("packed route, misaligned views (16,1,2560,2560,512) bf16", _unaligned(16, 2560, 2560, 1, 512, 3), 2e-3,
+              2e-2, 5, why_bf, route="packed", kernel="flash_attention_d512_packed"),
+        dict(kernel="pack_bshd", label="one L0 tensor, a misaligned view (16,2560,5,64) bf16",
+             make=_unaligned(16, 2560, 2560, 5, 64, 1), fn=A.pack_bshd, plain=A.pack_bshd_plain, outputs=("copy",),
+             tols=[exact], why="a copy: equal bits", iters=50, library=lambda x: {"contiguous()": x.contiguous},
+             bound=lambda x: bound_ms(0, 4 * x.numel(), x.dtype)),
+        bwd_bits("misaligned views (16,5,2560,2560,64) bf16", _unaligned(16, 2560, 2560, 5, 64, 4)),
+        bwd_bits("ragged misaligned views (2,5,300,300,64) bf16", _unaligned(2, 300, 300, 5, 64, 4)),
+        bwd_bits("misaligned views, 77 keys (2,5,300,77,64) bf16", _unaligned(2, 300, 77, 5, 64, 4)),
+        bwd_bits("misaligned views, tile edges (2,5,191,65,64) bf16", _unaligned(2, 191, 65, 5, 64, 4)),
+        bwd_bits("misaligned views (8,1,2560,2560,512) bf16", _unaligned(8, 2560, 2560, 1, 512, 4)),
+        bwd_bits("ragged misaligned views (2,1,1111,1111,512) bf16", _unaligned(2, 1111, 1111, 1, 512, 4)),
+        fwd_bits("misaligned views (16,1,2560,2560,512) bf16", _unaligned(16, 2560, 2560, 1, 512, 3)),
+        fwd_bits("ragged misaligned views (2,1,1111,1111,512) bf16", _unaligned(2, 1111, 1111, 1, 512, 3)),
+    ] + [
+        bwd_bits(f"only {('q', 'k', 'v', 'dO')[i]} misaligned (2,5,300,300,64) bf16",
+                 one_misaligned(2, 300, 5, 64, i, 4))
+        for i in range(4)
+    ] + [
+        fwd_bits(f"only {'qkv'[i]} misaligned (2,1,300,300,512) bf16", one_misaligned(2, 300, 1, 512, i, 3))
+        for i in range(3)
+    ] + [
+        packed_scale(f"aligned ragged S (2,1,1111,1111,512) bf16, scale {scale:g}", attn(2, 1111, 1, 512, bf), scale)
+        for scale in (-0.125, 0.0)
+    ] + [
+        dict(kernel="pack_bshd vs contiguous()", label=f"(2,37,3,{d}) bf16 view {2 * off} bytes past 16-byte "
+             f"alignment, odd row stride, modes {modes}", make=pack_view(d, off),
+             fn=lambda x: tuple(A.pack_bshd(x, m) for m in modes),
+             plain=lambda x: tuple(A.pack_bshd_plain(x, m) for m in modes), outputs=modes, tols=3 * [exact],
+             why="a copy (negated: each sign bit flipped; zeros): equal bits")
+        for d in (64, 512) for off in range(8)
+    ] + [
+        dict(kernel="flash_attention_bwd packed determinism", label="misaligned views (16,5,2560,2560,64) bf16",
+             make=l0_bwd, fn=bwd_all, plain=bwd_all, outputs=("dk", "dv", "dq"), tols=3 * [exact],
+             route=(A.flash_attention_bwd_dkv, "packed"), why="two launches of each: equal bits"),
+        dict(kernel="flash_attention_d512 packed determinism", label="misaligned views (16,1,2560,2560,512) bf16",
+             make=_unaligned(16, 2560, 2560, 1, 512, 3), fn=both, plain=both, outputs=("o (B1)", "o (B2)", "lse"),
+             tols=3 * [exact], route=(A.flash_attention, "packed"), why="two launches of each: equal bits"),
+        dict(kernel="flash_attention_bwd packed in a CUDA graph", label="misaligned views (16,10,640,640,64) bf16",
+             make=row_stats(_unaligned(16, 640, 640, 10, 64, 4)), fn=_graphed(bwd_all), plain=bwd_all,
+             outputs=("dk", "dv", "dq"), tols=3 * [exact],
+             why="the packs and both kernels captured in a torch.cuda.CUDAGraph and replayed (outputs NaN-filled "
+                 "first) against eager launches: equal bits"),
+    ]
+    return serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -886,7 +1041,7 @@ def _kernel_cases():
 # (the record keeps the first's times), then the D = 512 kernels' tile edges
 # (ragged S; S one row past two 64-row tiles; Sk one row past two 32-row
 # tiles; Sk < 64 and Sq != Sk); the unaligned and f32 rows at D = 512 are
-# checked under their own names (`... on mma`, `... on f32`), so that the
+# checked under their own names (`... on packed`, `... on f32`), so that the
 # `_d512` records hold the wgmma kernels alone. The last field: the
 # backward kernels are held to their twins by B1's element-wise bound, not
 # the 2e-2*max(1,|ref|) of the rows before them.
@@ -960,9 +1115,10 @@ def _train_attention_cases(label, shape, kind, iters, elementwise):
     # 2560 terms and rounds its output to bf16; the twin keeps them f32.
     why_twin = ("P and dS rounded to bf16 for their products" if bf16 else "f32 with TF32 off")
     # wgmma at both head dims on aligned bf16; unaligned, the forward at head
-    # dim 64 takes the staged kernel, the backward (and D = 512) mma.sync
-    route = "f32" if not bf16 else "mma" if kind == "unaligned" else "wgmma"
-    fwd_route = "staged" if route == "mma" and d == 64 else route
+    # dim 64 takes the staged kernel, the backward (and D = 512) the packed
+    # route (the wgmma kernels on packed copies)
+    route = "f32" if not bf16 else "packed" if kind == "unaligned" else "wgmma"
+    fwd_route = "staged" if route == "packed" and d == 64 else route
     if d == 512 and route != "wgmma":
         suffix += f" on {route}"
     both = lambda *a: A.flash_attention_bwd_dkv(*a, scale) + (A.flash_attention_bwd_dq(*a, scale),)
@@ -1014,7 +1170,8 @@ def _unaligned(b, sq, sk, h, d, n, dtype=None):
 
 def _graphed(fn):
     """fn(*inputs) captured in a CUDA graph (after one eager warm-up call),
-    its output filled with NaN, the graph replayed once: the replay's output."""
+    its output (or each of a tuple's) filled with NaN, the graph replayed
+    once: the replay's output."""
     def run(*inputs):
         import torch
 
@@ -1023,12 +1180,14 @@ def _graphed(fn):
         graph = torch.cuda.CUDAGraph()
         with torch.cuda.graph(graph):
             out = fn(*inputs)
-        out.fill_(float("nan"))
+        outs = _as_tuple(out)
+        for t in outs:
+            t.fill_(float("nan"))
         graph.replay()
         torch.cuda.synchronize()
-        out = out.clone()
+        outs = tuple(t.clone() for t in outs)
         del graph
-        return out
+        return outs if isinstance(out, tuple) else outs[0]
     return run
 
 
@@ -1105,7 +1264,10 @@ def check_wgmma_refusals():
     backward (dK/dV and dQ) given an unaligned view or f32, at both head
     dims, return an error instead of running; so does a forward on the
     staged route given f32, head dim 512, a head dimension that is not
-    contiguous or a non-finite scale."""
+    contiguous or a non-finite scale; the pack kernel given f32 or a head
+    dimension that is not contiguous; and the forward and both backward
+    entries given bf16 on the f32 route code (the mma.sync kernels that
+    took bf16 there are deleted)."""
     import ctypes
 
     import torch
@@ -1161,6 +1323,40 @@ def check_wgmma_refusals():
         log(f"kernels: the staged forward given {what}: error {err} ({'refused, OK' if err else 'ran, FAIL'})")
         if not err:
             raise AssertionError(f"the staged forward ran a request it cannot take ({what})")
+    # the pack kernel refuses f32 and a head dimension that is not contiguous
+    for what, xx in {"f32": q.float(), "a head-dim stride of 2": wide[1][..., ::2]}.items():
+        out = torch.empty(xx.shape, dtype=torch.bfloat16, device="cuda")
+        err = cuda_lib.lib().t2v_pack_bshd(
+            xx.data_ptr(), out.data_ptr(), cuda_lib.DTYPE_CODES[xx.dtype], *xx.shape,
+            (ctypes.c_longlong * 4)(*xx.stride()), A.PACK_MODES["as_is"], cuda_lib.stream_ptr(xx.device))
+        torch.cuda.synchronize()
+        log(f"kernels: the pack kernel given {what}: error {err} ({'refused, OK' if err else 'ran, FAIL'})")
+        if not err:
+            raise AssertionError(f"the pack kernel ran a request it cannot take ({what})")
+    # bf16 on the f32 route code, which the deleted mma.sync kernels shared
+    for d in (64, 512):
+        qq, kk, vv, dd = (torch.randn((2, 130, 1, d), generator=g, device="cuda").bfloat16() for _ in range(4))
+        o = torch.empty_like(qq)
+        lse, delta = (torch.zeros((2, 1, 130), device="cuda") for _ in range(2))
+        code = cuda_lib.DTYPE_CODES[torch.bfloat16]
+        stream = cuda_lib.stream_ptr(qq.device)
+        errs = (
+            cuda_lib.lib().t2v_flash_attention_fwd(
+                qq.data_ptr(), kk.data_ptr(), vv.data_ptr(), o.data_ptr(), code, 2, 1, 130, 130, d,
+                A._strides(qq, kk, vv, o), ctypes.c_float(0.125), A.ROUTES["f32"], stream),
+            cuda_lib.lib().t2v_flash_attention_bwd_dkv(
+                *(t.data_ptr() for t in (qq, kk, vv, dd, lse, delta)), o.data_ptr(), o.data_ptr(), code, 2, 1, 130,
+                130, d, A._strides(qq, kk, vv, dd, o, o, o), A._row_stats_strides(lse), ctypes.c_float(0.125),
+                A.ROUTES["f32"], stream),
+            cuda_lib.lib().t2v_flash_attention_bwd_dq(
+                *(t.data_ptr() for t in (qq, kk, vv, dd, lse, delta)), o.data_ptr(), code, 2, 1, 130, 130, d,
+                A._strides(qq, kk, vv, dd, o, o, o), A._row_stats_strides(lse), ctypes.c_float(0.125),
+                A.ROUTES["f32"], stream))
+        torch.cuda.synchronize()
+        log(f"kernels: bf16 at D = {d} on the f32 route code (forward, dK/dV, dQ): errors {errs} "
+            f"({'refused, OK' if all(errs) else 'ran, FAIL'})")
+        if not all(errs):
+            raise AssertionError(f"a flash entry ran bf16 at D = {d} on the f32 route code")
 
 
 def phase_kernels(records):
@@ -1306,6 +1502,9 @@ def phase_main_path(records):
             raise AssertionError(f"{name} was not launched on the main path")
     for name in ("flash_attention_staged", "flash_attention_fwd_lse_staged"):  # B6: no path launches it
         records[name]["launches"] = wrappers()[name[:-len("_staged")]].by_route["staged"]
+    for name, wrapper in PACKED_RECORDS:  # B6's packed route: no path launches it either
+        records[name]["launches"] = wrappers()[wrapper].by_route["packed"]
+    records["pack_bshd"]["launches"] = wrappers()["pack_bshd"].launches
     _stage_times(pipe)
     _profile_one_video(pipe)
 

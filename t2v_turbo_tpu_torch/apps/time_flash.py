@@ -25,15 +25,23 @@ Then the route B1 (or B3) took.
 --misaligned times B6 instead, the same functions on (B, S, H, D) views that
 TMA cannot read (each row one element past a 16-byte boundary, an odd row
 stride: a (B, S, H * D + 1) buffer less its first element): at every shape
-of FWD_SHAPES, B1 and B2 on those views (this tree's route: `staged`; an
-older tree's `mma`), then on contiguous copies of the same values (the
-wgmma route fed by TMA), cuDNN's SDPA on contiguous (B, H, S, D) copies,
-and cuDNN together with the three copies a caller holding such views would
-make; each line with its bound (operations over 989 TFLOP/s bf16, bytes
-over 3.35 TB/s: q, k, v read and o written once). Then B6's backward
-(dK/dV, dQ; the mma route) at (16,5,2560,2560,64) on such views against
-cuDNN's whole backward on copies, and B6's forward at head dim 512 (the mma
-route) at (16,1,2560,2560,512) against memory-efficient SDPA on copies.
+of FWD_SHAPES, B1 and B2 on those views (the `staged` route), then on
+contiguous copies of the same values (the wgmma route fed by TMA), cuDNN's
+SDPA on contiguous (B, H, S, D) copies, and cuDNN together with the three
+copies a caller holding such views would make; each line with its bound
+(operations over 989 TFLOP/s bf16, bytes over 3.35 TB/s: q, k, v read and o
+written once). Then B6's backward (dK/dV, dQ; this tree's route: `packed`,
+an older tree's `mma`) at (16,5,2560,2560,64) and (8,1,2560,2560,512) on
+such views, beside B3 on contiguous copies (the wgmma route), an SDPA
+backend's whole backward on copies (cuDNN at head dim 64, memory-efficient
+at 512) and the same with the four copies (q, k, v, dO) a caller would
+make; B6's forward at head dim 512 at (16,1,2560,2560,512) (`packed`, or
+`mma`) beside B1 on copies and memory-efficient SDPA on copies, with and
+without the copies; the pack kernel alone on one (16,2560,5,64) view
+(`pack_bshd`) beside torch's copy (`contiguous()`), with its bytes bound;
+and, measured only (no route takes it), the pack of q, k, v and the wgmma
+forward at (16,5,2560,2560,64) beside the `staged` forward on the same
+views. The pack lines need this tree (an older one has no pack kernel).
 """
 
 from __future__ import annotations
@@ -218,26 +226,52 @@ def _misaligned(A, label, only):
     if only != "fwd":
         _time_bwd(A, label, "B6 L0 self misaligned", (16, 5, 2560, 2560, 64), misaligned=True,
                   backend=SDPBackend.CUDNN_ATTENTION)
+        _time_bwd(A, label, "B6 VAE mid, video reward, misaligned", (8, 1, 2560, 2560, 512), misaligned=True)
     if only != "bwd":
         shape = (16, 1, 2560, 2560, 512)
         q, k, v = _views(shape, torch.Generator("cuda").manual_seed(512))
+        qc, kc, vc = (t.contiguous() for t in (q, k, v))
         before = A.flash_attention.by_route.copy()
         t1 = _time_ms(lambda: A.flash_attention_cuda(q, k, v), 5)
         routes = sorted(A.flash_attention.by_route - before)
+        c1 = _time_ms(lambda: A.flash_attention_cuda(qc, kc, vc), 5)
         qh, kh, vh = (t.transpose(1, 2).contiguous() for t in (q, k, v))
         with sdpa_kernel([SDPBackend.EFFICIENT_ATTENTION]):
             lib = _time_ms(lambda: F.scaled_dot_product_attention(qh, kh, vh), 5)
+            lib_copies = _time_ms(lambda: F.scaled_dot_product_attention(
+                *(t.transpose(1, 2).contiguous() for t in (q, k, v))), 5)
         print(f"{label}B6 VAE mid misaligned (16,1,2560,2560,512): B1 call {t1[0]:.4f} graph {t1[1]:.4f} ms, "
-              f"route {routes}; mem-eff SDPA on copies call {lib[0]:.4f} graph {lib[1]:.4f} ms; "
-              f"bound {_bound_ms(shape, 2):.4f} ms", flush=True)
+              f"route {routes}; contiguous copies: B1 call {c1[0]:.4f} graph {c1[1]:.4f} ms; mem-eff SDPA on "
+              f"copies call {lib[0]:.4f} graph {lib[1]:.4f} ms, with the copies call {lib_copies[0]:.4f} graph "
+              f"{lib_copies[1]:.4f} ms; bound {_bound_ms(shape, 2):.4f} ms", flush=True)
+        del q, k, v, qc, kc, vc, qh, kh, vh
+        torch.cuda.empty_cache()
+    if hasattr(A, "pack_bshd") and only != "bwd":
+        shape = (16, 5, 2560, 2560, 64)
+        q, k, v = _views(shape, torch.Generator("cuda").manual_seed(64))
+        pack = _time_ms(lambda: A.pack_bshd(q), 50)
+        copy = _time_ms(lambda: q.contiguous(), 50)
+        bound = 1e3 * 4 * q.numel() / 3.35e12  # read once, written once
+        print(f"{label}B6 pack alone, one misaligned L0 view (16,2560,5,64): pack_bshd call {pack[0]:.4f} graph "
+              f"{pack[1]:.4f} ms ({bound / pack[1]:.0%} of the bound); torch contiguous() call {copy[0]:.4f} "
+              f"graph {copy[1]:.4f} ms; bound {bound:.4f} ms (bytes)", flush=True)
+        staged = _time_ms(lambda: A.flash_attention_cuda(q, k, v), 10)
+        packed = _time_ms(lambda: A.flash_attention_cuda(*(A.pack_bshd(t) for t in (q, k, v))), 10)
+        print(f"{label}B6 L0 self misaligned (16,5,2560,2560,64), measured only: pack of q, k, v + the wgmma "
+              f"forward call {packed[0]:.4f} graph {packed[1]:.4f} ms; staged call {staged[0]:.4f} graph "
+              f"{staged[1]:.4f} ms; bound {_bound_ms(shape, 2):.4f} ms", flush=True)
+        del q, k, v
+        torch.cuda.empty_cache()
     return 0
 
 
 def _time_bwd(A, label, name, shape, misaligned=False, backend=None):
     """One line: B3's dK/dV and dQ (call and graph ms, on the lse and delta
-    of the plain forward; on views TMA cannot read if `misaligned`) and an
-    SDPA backend's whole backward on contiguous copies (memory-efficient
-    unless `backend`)."""
+    of the plain forward) and an SDPA backend's whole backward on contiguous
+    copies (memory-efficient unless `backend`). If `misaligned`, on views
+    TMA cannot read, and beside them B3 on contiguous copies of the same
+    values and the SDPA backward with the four copies a caller would make
+    (q, k, v and dO; the backward of a kept forward on copies)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -256,6 +290,14 @@ def _time_bwd(A, label, name, shape, misaligned=False, backend=None):
     dkv = _time_ms(lambda: A.flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale), 10)
     dq = _time_ms(lambda: A.flash_attention_bwd_dq(q, k, v, do, lse, delta, scale), 10)
     routes = sorted(A.flash_attention_bwd_dkv.by_route - before)
+    copies = ""
+    if misaligned:
+        qc, kc, vc, gc = (t.contiguous() for t in (q, k, v, do))
+        cdkv = _time_ms(lambda: A.flash_attention_bwd_dkv(qc, kc, vc, gc, lse, delta, scale), 10)
+        cdq = _time_ms(lambda: A.flash_attention_bwd_dq(qc, kc, vc, gc, lse, delta, scale), 10)
+        copies = (f"; contiguous copies: B3 dK/dV call {cdkv[0]:.4f} graph {cdkv[1]:.4f} ms, dQ call {cdq[0]:.4f} "
+                  f"graph {cdq[1]:.4f} ms, sum of graphs {cdkv[1] + cdq[1]:.4f} ms")
+        del qc, kc, vc, gc
     qq, kk, vv = (t.transpose(1, 2).contiguous().requires_grad_() for t in (q, k, v))
     dout = do.transpose(1, 2).contiguous()
     with sdpa_kernel([backend]):
@@ -264,10 +306,17 @@ def _time_bwd(A, label, name, shape, misaligned=False, backend=None):
         for _ in range(2):
             grad()
         sdpa = _best_ms(lambda: [grad() for _ in range(5)], 5)
+        lib = f"{backend.name} SDPA whole backward on copies call {sdpa:.4f} ms"
+        if misaligned:
+            def with_copies():
+                c = [t.transpose(1, 2).contiguous() for t in (q, k, v, do)]
+                return torch.autograd.grad(out, (qq, kk, vv), c[3], retain_graph=True)
+            for _ in range(2):
+                with_copies()
+            lib += f", with the four copies call {_best_ms(lambda: [with_copies() for _ in range(5)], 5):.4f} ms"
     print(f"{label}{name} backward ({b},{h},{sq},{sk},{d}): B3 dK/dV call {dkv[0]:.4f} graph {dkv[1]:.4f} ms, "
-          f"dQ call {dq[0]:.4f} graph {dq[1]:.4f} ms, sum of graphs {dkv[1] + dq[1]:.4f} ms; "
-          f"{backend.name} SDPA whole backward call {sdpa:.4f} ms; B3 route {routes}; "
-          f"bound dK/dV {_bound_ms(shape, 4):.4f} dQ {_bound_ms(shape, 3):.4f} ms", flush=True)
+          f"dQ call {dq[0]:.4f} graph {dq[1]:.4f} ms, sum of graphs {dkv[1] + dq[1]:.4f} ms; B3 route {routes}"
+          f"{copies}; {lib}; bound dK/dV {_bound_ms(shape, 4):.4f} dQ {_bound_ms(shape, 3):.4f} ms", flush=True)
     del q, k, v, do, o, lse, delta, qq, kk, vv, dout, out
     torch.cuda.empty_cache()
 

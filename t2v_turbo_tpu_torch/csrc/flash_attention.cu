@@ -19,40 +19,37 @@
 // What bounds it on the H100: the plain version writes and reads the f32
 // logits, 2.1 GB per level-0 call; this kernel reads q, k, v once per query
 // tile and writes o (and 4 bytes of lse a row) once, so device-memory traffic
-// stops mattering and the arithmetic decides. Three routes do that
-// arithmetic; the wrapper picks one (ops/attention.py::flash_route) and
-// passes it in:
+// stops mattering and the arithmetic decides. The wrapper picks a route
+// (ops/attention.py::flash_route) and passes the kernels' route code in:
 // - wgmma (bf16 at D = 64 or 512, tensors TMA can read, scale > 0: every
 //   call of the UNet, ViCLIP and the VAE's mid block): flash_attention_sm90.cu,
 //   wgmma products fed by TMA.
 // - staged (bf16 at D = 64 on views TMA cannot read, or at a scale <= 0):
 //   flash_attention_sm90.cu, the same wgmma consumers fed by a producer
 //   warpgroup that realigns each row in registers.
-// - mma (bf16 at D = 512 on views that TMA cannot read, or at a scale <= 0):
-//   tensor cores through mma.sync.m16n8k16 in FlashAttention-2's register
-//   layout (flash_mma.cuh), below.
-// - f32: scalar f32 FMAs out of shared memory, exact enough to hold against
-//   the plain f32 math. Each thread owns a small register tile of the logits
-//   and of the output, so every shared-memory load feeds several FMAs;
-//   shared-memory bandwidth is the limit it hits.
-//
-// Common to the mma and f32 routes (the TPU kernel's sequential K grid axis
-// becomes a loop in the block):
-// - one block per (batch*head, tile of queries);
-// - per tile of keys: stage K and V in shared memory, compute the logits,
-//   update the running max m, sum l and the f32 output accumulator
-//   (registers), as the TPU kernel's (m, l, acc) scratch;
-// - the probabilities are rounded to the input dtype before the P.V product
-//   (bf16 on the tensor-core path), as the reference casts them to v's dtype;
-// - keys past Sk get the reference's mask value, queries past Sq are computed
-//   on zeros and not stored, so any S works without padding copies;
-// - q, k, v and o are addressed through (batch, seq, head) strides with a
-//   contiguous head dimension, so the (B, S, H, D) output of the q/k/v
-//   Linears needs no transpose; lse is (B, H, Sq) f32 with (batch, head)
-//   strides and a contiguous sequence.
-// Scalar tilings (256 threads): D = 64 (BQ = BK = 64, 66 KB of shared memory)
-// and D = 512 (BQ = BK = 32, 197 KB, one block per SM); both need dynamic
-// shared memory above 48 KB, so cudaFuncSetAttribute.
+// - packed (bf16 at D = 512 on views TMA cannot read, or at a scale <= 0):
+//   no code of its own here: the wrapper packs those views into contiguous
+//   copies (pack_bshd.cu; Q negated or zeroed for a scale < 0 or 0) and
+//   passes the wgmma code.
+// - f32 (below): scalar f32 FMAs out of shared memory, exact enough to hold
+//   against the plain f32 math. Each thread owns a small register tile of
+//   the logits and of the output, so every shared-memory load feeds several
+//   FMAs; shared-memory bandwidth is the limit it hits. The TPU kernel's
+//   sequential K grid axis becomes a loop in the block:
+//   - one block per (batch*head, tile of queries);
+//   - per tile of keys: stage K and V in shared memory, compute the logits,
+//     update the running max m, sum l and the f32 output accumulator
+//     (registers), as the TPU kernel's (m, l, acc) scratch;
+//   - keys past Sk get the reference's mask value, queries past Sq are
+//     computed on zeros and not stored, so any S works without padding
+//     copies;
+//   - q, k, v and o are addressed through (batch, seq, head) strides with a
+//     contiguous head dimension, so the (B, S, H, D) output of the q/k/v
+//     Linears needs no transpose; lse is (B, H, Sq) f32 with (batch, head)
+//     strides and a contiguous sequence.
+//   Tilings (256 threads): D = 64 (BQ = BK = 64, 66 KB of shared memory)
+//   and D = 512 (BQ = BK = 32, 197 KB, one block per SM); both need dynamic
+//   shared memory above 48 KB, so cudaFuncSetAttribute.
 #include "flash_mma.cuh"
 
 namespace t2v {
@@ -239,197 +236,6 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     lse[b * l_sb + h * l_sh + q0 + tid] = sM[tid] + logf(sL[tid]);
 }
 
-// ---------------------------------------------------------------------------
-// The mma route: bf16 on mma.sync.m16n8k16 (bf16 in, f32 accumulate), in
-// FlashAttention-2's register layout (flash_mma.cuh). Per tile of keys, K
-// and V are staged in shared memory row-major ([key][d], rows padded by 8
-// elements so fragment loads and ldmatrix rows fall in distinct banks),
-// element by element, since the views this route takes need not be aligned
-// (an aligned one comes only with a scale <= 0). The logits accumulate
-// in registers (K fragments by 32-bit loads), the softmax runs on them (each
-// query row is spread over the 4 lanes of a quad), and the probabilities,
-// rounded to bf16, are reused in registers as the A operand of P.V, whose B
-// fragments come from V through ldmatrix.trans. Each lane keeps a partial
-// row sum, reduced once at the end. No pipelining: loads and math alternate.
-// Head dim 512 only (D = 64 takes the staged route): a warp's 16 x 512 f32
-// accumulators would not fit its registers, so 8 warps take 32 queries: two
-// groups of 16 rows, and within each, 4 warps own a 128-wide slice of the
-// head dim. Each warp computes partial logits over its slice; the 4
-// partials are summed through shared memory in a fixed order, so the 4 warps
-// of a row group hold the same logits and softmax.
-// ---------------------------------------------------------------------------
-
-// Online-softmax update of one logits tile held in mma C-fragments: scale,
-// mask keys >= Sk, new running max per row (rows g and g+8 of the warp),
-// probabilities in place, partial row sums, and the output rescale.
-template <int NT, int DT>
-__device__ __forceinline__ void softmax_tile(float (&s)[NT][4], float (&acc)[DT][4], int k0, int t,
-                                             int Sk, float scale, float& m0, float& m1, float& l0,
-                                             float& l1) {
-  float mx0 = -INFINITY, mx1 = -INFINITY;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int col = k0 + nt * 8 + 2 * t + (e & 1);
-      const float val = col < Sk ? s[nt][e] * scale : kMaskValue;
-      s[nt][e] = val;
-      if (e < 2) mx0 = fmaxf(mx0, val); else mx1 = fmaxf(mx1, val);
-    }
-  }
-#pragma unroll
-  for (int off = 1; off <= 2; off <<= 1) {
-    mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, off));
-    mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, off));
-  }
-  const float mn0 = fmaxf(m0, mx0), mn1 = fmaxf(m1, mx1);
-  const float a0 = expf(m0 - mn0), a1 = expf(m1 - mn1);
-  m0 = mn0;
-  m1 = mn1;
-  float rs0 = 0.0f, rs1 = 0.0f;
-#pragma unroll
-  for (int nt = 0; nt < NT; ++nt) {
-    s[nt][0] = expf(s[nt][0] - mn0);
-    s[nt][1] = expf(s[nt][1] - mn0);
-    s[nt][2] = expf(s[nt][2] - mn1);
-    s[nt][3] = expf(s[nt][3] - mn1);
-    rs0 += s[nt][0] + s[nt][1];
-    rs1 += s[nt][2] + s[nt][3];
-  }
-  l0 = l0 * a0 + rs0;
-  l1 = l1 * a1 + rs1;
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) {
-    acc[dt][0] *= a0;
-    acc[dt][1] *= a0;
-    acc[dt][2] *= a1;
-    acc[dt][3] *= a1;
-  }
-}
-
-// Tile shape of the mma kernel (head dim 512) and its dynamic shared memory.
-template <int D> struct MmaTiling;
-template <> struct MmaTiling<512> {
-  static constexpr int WARPS = 8, ROW_GROUPS = 2, D_SLICES = 4, BK = 32;
-};
-
-template <int D> struct MmaSmem {
-  using Tl = MmaTiling<D>;
-  static constexpr int LD = D + 8;                // K and V rows
-  static constexpr int LDS = Tl::BK + 4;          // partial-logit rows
-  static constexpr size_t kv_bytes = sizeof(__nv_bfloat16) * 2 * Tl::BK * LD;
-  static constexpr size_t bytes = kv_bytes + sizeof(float) * Tl::WARPS * 16 * LDS;
-};
-
-template <int D>
-__global__ void __launch_bounds__(32 * MmaTiling<D>::WARPS)
-flash_fwd_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ k,
-                     const __nv_bfloat16* __restrict__ v, __nv_bfloat16* __restrict__ o,
-                     float* __restrict__ lse, int H, int Sq, int Sk, long long q_sb,
-                     long long q_ss, long long q_sh, long long k_sb, long long k_ss,
-                     long long k_sh, long long v_sb, long long v_ss, long long v_sh,
-                     long long o_sb, long long o_ss, long long o_sh, long long l_sb,
-                     long long l_sh, float scale) {
-  using Tl = MmaTiling<D>;
-  using Sm = MmaSmem<D>;
-  constexpr int NTHREADS = 32 * Tl::WARPS, BK = Tl::BK, LD = Sm::LD, LDS = Sm::LDS;
-  constexpr int DW = D / Tl::D_SLICES;  // head-dim slice of one warp
-  constexpr int NT = BK / 8, KC = DW / 16, DT = DW / 8;
-  static_assert(Tl::ROW_GROUPS * Tl::D_SLICES == Tl::WARPS, "warps tile rows x head dim");
-  static_assert(Sm::kv_bytes % 16 == 0, "smem carve alignment");
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  __nv_bfloat16* sK = reinterpret_cast<__nv_bfloat16*>(smem_raw);  // [BK][LD]
-  __nv_bfloat16* sV = sK + BK * LD;                                  // [BK][LD]
-  float* sS = reinterpret_cast<float*>(smem_raw + Sm::kv_bytes);     // [slice][group][16][LDS]
-
-  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
-  const int g = lane >> 2, t = lane & 3;  // quad row and lane-in-quad of the mma layout
-  const int group = warp / Tl::D_SLICES, slice = warp % Tl::D_SLICES;
-  const int bh = blockIdx.y, b = bh / H, h = bh % H;
-  const __nv_bfloat16* qb = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* kb = k + b * k_sb + h * k_sh;
-  const __nv_bfloat16* vb = v + b * v_sb + h * v_sh;
-  const int r0 = (blockIdx.x * Tl::ROW_GROUPS + group) * 16 + g;  // rows r0 and r0 + 8
-  const int d0 = slice * DW;
-
-  uint32_t qa[KC][4];
-  load_a_frags<KC>(qa, qb, r0, Sq, q_ss, d0, t);
-  float acc[DT][4];
-#pragma unroll
-  for (int dt = 0; dt < DT; ++dt) acc[dt][0] = acc[dt][1] = acc[dt][2] = acc[dt][3] = 0.0f;
-  float m0 = -INFINITY, m1 = -INFINITY, l0 = 0.0f, l1 = 0.0f;
-
-  for (int k0 = 0; k0 < Sk; k0 += BK) {
-    __syncthreads();  // the previous tile's reads are done
-    stage_pair<D, BK, LD, NTHREADS>(sK, sV, kb, vb, k_ss, v_ss, k0, Sk);
-    __syncthreads();
-    float s[NT][4];
-    qk_tile<NT, KC, LD>(s, qa, sK, d0, g, t);
-    // sum the slices' partial logits in a fixed order
-    auto at = [&](int sl, int e, int nt) {
-      return sS + ((sl * Tl::ROW_GROUPS + group) * 16 + g + (e >> 1) * 8) * LDS + nt * 8 +
-             2 * t + (e & 1);
-    };
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) *at(slice, e, nt) = s[nt][e];
-    __syncthreads();
-#pragma unroll
-    for (int nt = 0; nt < NT; ++nt)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float tot = 0.0f;
-#pragma unroll
-        for (int sl = 0; sl < Tl::D_SLICES; ++sl) tot += *at(sl, e, nt);
-        s[nt][e] = tot;
-      }
-    softmax_tile<NT, DT>(s, acc, k0, t, Sk, scale, m0, m1, l0, l1);
-    pv_tile<NT, DT, LD>(acc, s, sV, d0, lane);
-  }
-  l0 = quad_sum(l0);
-  l1 = quad_sum(l1);
-  store_acc<DT>(acc, 1.0f / l0, 1.0f / l1, o + b * o_sb + h * o_sh, o_ss, r0, Sq, d0, t);
-  if (lse != nullptr && slice == 0 && t == 0) {
-    float* lrow = lse + b * l_sb + h * l_sh;
-    if (r0 < Sq) lrow[r0] = m0 + logf(l0);
-    if (r0 + 8 < Sq) lrow[r0 + 8] = m1 + logf(l1);
-  }
-}
-
-template <int D>
-static cudaError_t launch_mma(const __nv_bfloat16* q, const __nv_bfloat16* k,
-                              const __nv_bfloat16* v, __nv_bfloat16* o, float* lse, int B, int H,
-                              int Sq, int Sk, const long long* st, const long long* lst,
-                              float scale, cudaStream_t stream) {
-  using Tl = MmaTiling<D>;
-  const size_t smem = MmaSmem<D>::bytes;
-  auto kern = flash_fwd_mma_kernel<D>;
-  cudaError_t err =
-      cudaFuncSetAttribute(kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return err;
-  const int bq = 16 * Tl::ROW_GROUPS;
-  const dim3 grid((Sq + bq - 1) / bq, B * H);
-  kern<<<grid, 32 * Tl::WARPS, smem, stream>>>(q, k, v, o, lse, H, Sq, Sk, st[0], st[1], st[2],
-                                               st[3], st[4], st[5], st[6], st[7], st[8], st[9],
-                                               st[10], st[11], lst[0], lst[1], scale);
-  return cudaGetLastError();
-}
-
-static cudaError_t launch_flash_mma(const void* q, const void* k, const void* v, void* o,
-                                    float* lse, int B, int H, int Sq, int Sk, int D,
-                                    const long long* st, const long long* lst, float scale,
-                                    cudaStream_t stream) {
-  const auto* qp = static_cast<const __nv_bfloat16*>(q);
-  const auto* kp = static_cast<const __nv_bfloat16*>(k);
-  const auto* vp = static_cast<const __nv_bfloat16*>(v);
-  auto* op = static_cast<__nv_bfloat16*>(o);
-  // bf16 comes here only at D = 512, for views TMA cannot read (or a scale
-  // <= 0), so K and V are staged element by element
-  if (D == 512) return launch_mma<512>(qp, kp, vp, op, lse, B, H, Sq, Sk, st, lst, scale, stream);
-  return cudaErrorInvalidValue;
-}
-
 template <int D, int BQ, int BK, int SR, int SC, int OR, int OC>
 static cudaError_t launch_flash_f32(const float* q, const float* k, const float* v, float* o,
                                     float* lse, int B, int H, int Sq, int Sk, const long long* st,
@@ -471,13 +277,10 @@ static int flash_fwd(const void* q, const void* k, const void* v, void* o, float
     return (route == kRouteWgmma ? flash_fwd_sm90 : flash_fwd_staged_sm90)(q, k, v, o, lse, B, H, Sq, Sk, D,
                                                                          strides, lse_strides, scale, stream);
   }
-  if (route != kRouteMma) return (int)cudaErrorInvalidValue;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  if (dtype == kF32)
-    return launch_flash_scalar(q, k, v, o, lse, B, H, Sq, Sk, D, strides, lse_strides, scale, st);
-  if (dtype == kBF16)
-    return launch_flash_mma(q, k, v, o, lse, B, H, Sq, Sk, D, strides, lse_strides, scale, st);
-  return (int)cudaErrorInvalidValue;
+  // the f32 code takes f32 alone: bf16 has no kernel of its own there
+  if (route != kRouteF32 || dtype != kF32) return (int)cudaErrorInvalidValue;
+  return launch_flash_scalar(q, k, v, o, lse, B, H, Sq, Sk, D, strides, lse_strides, scale,
+                             static_cast<cudaStream_t>(stream));
 }
 
 }  // namespace t2v
@@ -490,8 +293,8 @@ extern "C" {
 // staged route alone) the head-dim strides of q, k, v and o. D must be 64 or
 // 512. route: kRouteWgmma (bf16, scale > 0, 16-byte aligned q, k, v with
 // strides of multiples of 8 elements; refused otherwise), kRouteStaged (bf16,
-// D = 64, any finite scale; refused otherwise) or kRouteMma (f32; bf16 at
-// D = 512).
+// D = 64, any finite scale; refused otherwise) or kRouteF32 (f32; bf16 is
+// refused).
 int t2v_flash_attention_fwd(const void* q, const void* k, const void* v, void* o,
                             int dtype, int B, int H, int Sq, int Sk, int D,
                             const long long* strides, float scale, int route, void* stream) {

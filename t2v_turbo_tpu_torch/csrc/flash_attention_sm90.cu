@@ -3,8 +3,11 @@
 // flash_attention.cu's and flash_attention_bwd.cu's entry points. Its `staged`
 // route: the head-dim-64 forward on views TMA cannot read, and at scales <= 0,
 // the same consumers fed by a producer warpgroup that realigns each row in
-// registers (below). Other misaligned views (the backward, the forward at
-// D = 512) and f32 take those files' kernels.
+// registers (below). The other bf16 views TMA cannot read (the backward at
+// both head dims, the forward at D = 512, also at scales <= 0) take the
+// `packed` route: the wrapper packs them into contiguous copies
+// (pack_bshd.cu) and launches these kernels unchanged. f32 takes those
+// files' scalar kernels.
 //
 // Replaces the Pallas TPU kernels of t2v_turbo_tpu/ops/attention.py at head
 // dim 64, and through their (batch, seq, head) strides the BSHD family's
@@ -404,35 +407,6 @@ struct Sm90StagedArgs {
   int qmode;         // Q as stored: kQAsIs, kQNegated (scale < 0), kQZero (scale == 0)
 };
 enum StagedQ : int { kQAsIs = 0, kQNegated = 1, kQZero = 2 };
-
-// Bytes [o, o + 16) of the 32 bytes lo, hi (o even, < 16): words o / 4 ..
-// o / 4 + 4 by two rounds of selects, then a funnel shift by 8 (o % 4) bits.
-__device__ __forceinline__ uint4 realign16(const uint4& lo, const uint4& hi, uint32_t o) {
-  const bool w2 = o & 8, w1 = o & 4;
-  const uint32_t x0 = w2 ? lo.z : lo.x, x1 = w2 ? lo.w : lo.y, x2 = w2 ? hi.x : lo.z, x3 = w2 ? hi.y : lo.w,
-                 x4 = w2 ? hi.z : hi.x, x5 = w2 ? hi.w : hi.y;
-  const uint32_t y0 = w1 ? x1 : x0, y1 = w1 ? x2 : x1, y2 = w1 ? x3 : x2, y3 = w1 ? x4 : x3, y4 = w1 ? x5 : x4;
-  const uint32_t sh = (o & 3) * 8;  // 0 or 16 bits
-  return make_uint4(__funnelshift_r(y0, y1, sh), __funnelshift_r(y1, y2, sh), __funnelshift_r(y2, y3, sh),
-                    __funnelshift_r(y3, y4, sh));
-}
-
-__device__ __forceinline__ uint4 ldg_nc128(const unsigned char* p) {
-  uint4 v;
-  asm volatile("ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n"
-               : "=r"(v.x), "=r"(v.y), "=r"(v.z), "=r"(v.w)
-               : "l"(p));
-  return v;
-}
-
-// ldg_nc128 where `pred`, else v unchanged (no branch).
-__device__ __forceinline__ void ldg_nc128_if(uint4& v, const unsigned char* p, bool pred) {
-  asm volatile(
-      "{\n.reg .pred q;\nsetp.ne.b32 q, %5, 0;\n"
-      "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n}\n"
-      : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w)
-      : "l"(p), "r"((int)pred));
-}
 
 // The producer warpgroup of the staged forward (threads 128..255). Tile n:
 // 0 = Q's rows q0 + [0, 64) into the own tile; 2 j + 1 = K_j, 2 j + 2 = V_j

@@ -140,6 +140,35 @@ __device__ __forceinline__ void sts128(uint32_t addr, uint4 v) {
                : "memory");
 }
 
+// ---- realigning 16-byte loads ---------------------------------------------
+//
+// A bf16 row that starts at an even byte offset o = address % 16 is read as
+// the 16-byte aligned chunks that enclose it (ld.global.nc.v4), and each
+// output chunk is bytes [o, o + 16) of two neighbouring aligned chunks. The
+// staged flash producer (flash_attention_sm90.cu) and the pack kernel
+// (pack_bshd.cu) realign this way.
+
+// Bytes [o, o + 16) of the 32 bytes lo, hi (o even, < 16): words o / 4 ..
+// o / 4 + 4 by two rounds of selects, then a funnel shift by 8 (o % 4) bits.
+__device__ __forceinline__ uint4 realign16(const uint4& lo, const uint4& hi, uint32_t o) {
+  const bool w2 = o & 8, w1 = o & 4;
+  const uint32_t x0 = w2 ? lo.z : lo.x, x1 = w2 ? lo.w : lo.y, x2 = w2 ? hi.x : lo.z, x3 = w2 ? hi.y : lo.w,
+                 x4 = w2 ? hi.z : hi.x, x5 = w2 ? hi.w : hi.y;
+  const uint32_t y0 = w1 ? x1 : x0, y1 = w1 ? x2 : x1, y2 = w1 ? x3 : x2, y3 = w1 ? x4 : x3, y4 = w1 ? x5 : x4;
+  const uint32_t sh = (o & 3) * 8;  // 0 or 16 bits
+  return make_uint4(__funnelshift_r(y0, y1, sh), __funnelshift_r(y1, y2, sh), __funnelshift_r(y2, y3, sh),
+                    __funnelshift_r(y3, y4, sh));
+}
+
+// 16 bytes by ld.global.nc.v4 where `pred`, else v unchanged (no branch).
+__device__ __forceinline__ void ldg_nc128_if(uint4& v, const unsigned char* p, bool pred) {
+  asm volatile(
+      "{\n.reg .pred q;\nsetp.ne.b32 q, %5, 0;\n"
+      "@q ld.global.nc.v4.u32 {%0, %1, %2, %3}, [%4];\n}\n"
+      : "+r"(v.x), "+r"(v.y), "+r"(v.z), "+r"(v.w)
+      : "l"(p), "r"((int)pred));
+}
+
 // ---- TMA -------------------------------------------------------------------
 
 __device__ __forceinline__ void tma_prefetch(const CUtensorMap* map) {

@@ -27,8 +27,11 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   wgmma kernels of csrc/flash_attention_sm90.cu; a bf16 forward at head dim
   64 on other views, or whose scale is not positive: the same file's
   `staged` kernel, whose producer realigns each row in registers
-  (`staged_row` describes one row's load); other bf16: the mma.sync
-  kernels; f32: the scalar ones).
+  (`staged_row` describes one row's load); other bf16 (the backward on
+  views TMA cannot read, the forward at head dim 512 on them or at a scale
+  <= 0): `packed`, the wgmma kernels on contiguous copies that the pack
+  kernel of csrc/pack_bshd.cu makes (`pack_bshd`, counted on its own;
+  `pack_slice` describes one slice's loads); f32: the scalar kernels).
 - `small_seq_attention` (B8): the short-sequence kernel of
   csrc/small_seq_attention.cu at Sq = Sk <= 64, head dim 64, forward only
   (the JAX package has no backward for it either); its plain twin is
@@ -69,14 +72,19 @@ from . import cuda_lib
 DEFAULT_MASK_VALUE = -0.7 * float(torch.finfo(torch.float32).max)
 FLASH_HEAD_DIMS = (64, 512)
 FLASH_BWD_HEAD_DIMS = (64, 512)
-# the kernels' routes, as csrc/flash_mma.cuh's Route codes
-ROUTES = {"mma": 0, "f32": 0, "wgmma": 1, "staged": 2}
+# the kernels' route codes, as csrc/flash_mma.cuh's Route enum (the packed
+# route launches the wgmma code on its packed copies)
+ROUTES = {"f32": 0, "wgmma": 1, "staged": 2}
 # The staged forward's producer (csrc/flash_attention_sm90.cu): a warpgroup
 # of STAGED_PRODUCER_WARPS warps reads each (row, head) slice of 64 bf16
 # (STAGED_ROW_BYTES) as the 16-byte aligned chunks that enclose it and
 # stores each output chunk where TMA's 128-byte swizzle puts it in a 64-row
 # tile (`staged_row`); `staged_lane_rows` is its map of lanes to rows.
 STAGED_ROW_BYTES, STAGED_PRODUCER_WARPS = 128, 4
+# The pack kernel (csrc/pack_bshd.cu): 128-byte units, PACK_UNITS a thread,
+# blocks of PACK_THREADS; its modes store a slice as is, negated or as zeros.
+PACK_UNIT_BYTES, PACK_UNITS, PACK_THREADS = 128, 4, 256
+PACK_MODES = {"as_is": 0, "negated": 1, "zero": 2}
 SMALL_SEQ_HEAD_DIM, SMALL_SEQ_MAX = 64, 64
 
 
@@ -230,11 +238,11 @@ def flash_attention_cuda(q, k, v, scale=None):
     b, sq, h, d = q.shape
     scale = d**-0.5 if scale is None else scale
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
-    route, strides = _layout((q, k, v, o), 3, scale)
+    route, (q, k, v, _), strides, code, run_scale = _prepare((q, k, v, o), 3, scale)
     err = cuda_lib.lib().t2v_flash_attention_fwd(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
         cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, strides,
-        float(scale), ROUTES[route], cuda_lib.stream_ptr(q.device),
+        float(run_scale), code, cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_cuda")
     _count(flash_attention, route, (b, h, sq, k.shape[1], d))
@@ -254,11 +262,11 @@ def flash_attention_lse(q, k, v, scale=None):
     b, sq, h, d = q.shape
     o = torch.empty((b, sq, h, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, h, sq), dtype=torch.float32, device=q.device)
-    route, strides = _layout((q, k, v, o), 3, scale)
+    route, (q, k, v, _), strides, code, run_scale = _prepare((q, k, v, o), 3, scale)
     err = cuda_lib.lib().t2v_flash_attention_fwd_lse(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), lse.data_ptr(),
         cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d, strides,
-        _row_stats_strides(lse), float(scale), ROUTES[route], cuda_lib.stream_ptr(q.device),
+        _row_stats_strides(lse), float(run_scale), code, cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_lse")
     _count(flash_attention_lse, route, (b, h, sq, k.shape[1], d))
@@ -268,34 +276,64 @@ def flash_attention_lse(q, k, v, scale=None):
 _counters(flash_attention_lse, shapes=True)
 
 
+def _tma_readable(t, strides):
+    """True if TMA can read (B, S, H, D) bf16 tensor t at (batch, seq, head,
+    head-dim) strides `strides`: a 16-byte aligned base, (batch, seq, head)
+    strides of multiples of 16 bytes (8 bf16 elements)."""
+    sb, ss, sh, _ = strides
+    return t.data_ptr() % 16 == 0 and sb % 8 == 0 and ss % 8 == 0 and sh % 8 == 0
+
+
 def _layout(tensors, n_read, fwd_scale=None):
     """(route, strides) of a flash launch on (B, S, H, D) tensors: the C entry
     points' (batch, seq, head) element strides of each tensor, then each
     tensor's head-dim stride (which the staged route checks), and the route.
     "wgmma" for bf16 at head dim 64 or 512 when TMA can read the first
-    n_read tensors (16-byte aligned bases, strides of multiples of 16 bytes;
-    the kernels write their outputs, which the wrappers allocate, without
-    TMA): a backward (no fwd_scale) at any scale, a forward (fwd_scale
-    given) at a positive one (the wgmma forwards' running max is over the
-    unscaled logits); "staged" for any other bf16 forward at head dim 64;
-    "f32" for f32; else "mma". One stride() call a tensor: this runs before
-    every launch, and at the path's small shapes the host's time per call is
-    the call's time."""
+    n_read tensors (the kernels write their outputs, which the wrappers
+    allocate, without TMA): a backward (no fwd_scale) at any scale, a
+    forward (fwd_scale given) at a positive one (the wgmma forwards' running
+    max is over the unscaled logits); "staged" for any other bf16 forward at
+    head dim 64; "packed" for any other bf16 (`_prepare`); "f32" for f32.
+    One stride() call a tensor: this runs before every launch, and at the
+    path's small shapes the host's time per call is the call's time."""
     strides = [t.stride() for t in tensors]
     q = tensors[0]
-    d = q.shape[-1]
     if q.dtype == torch.float32:
         route = "f32"
-    elif q.dtype == torch.bfloat16 and d in (64, 512) and (fwd_scale is None or fwd_scale > 0) and all(
-            t.data_ptr() % 16 == 0 and sb % 8 == 0 and ss % 8 == 0 and sh % 8 == 0  # bf16: 8 elements a 16 bytes
-            for t, (sb, ss, sh, _) in zip(tensors[:n_read], strides)):
+    elif (fwd_scale is None or fwd_scale > 0) and all(
+            _tma_readable(t, st) for t, st in zip(tensors[:n_read], strides)):
         route = "wgmma"
-    elif q.dtype == torch.bfloat16 and d == 64 and fwd_scale is not None:
+    elif q.shape[-1] == 64 and fwd_scale is not None:
         route = "staged"
     else:
-        route = "mma"
+        route = "packed"
     vals = [x for st in strides for x in st[:3]] + [st[3] for st in strides]
     return route, (ctypes.c_longlong * len(vals))(*vals)
+
+
+def _prepare(tensors, n_read, fwd_scale=None):
+    """(route, the tensors to launch on, their strides, the kernels' route
+    code, the scale the kernels run at) of a flash launch on `tensors` by
+    `_layout`'s rule. On the packed route the pack kernel copies each of the
+    first n_read tensors that TMA cannot read into a contiguous tensor, and
+    the wgmma kernels run on the copies, which they can read. A forward at a
+    scale <= 0 always packs q: negated at a scale < 0, run at -scale (the
+    same logits, and a max over the raw ones that is the scaled ones'), or
+    as zeros at a scale of 0, run at scale 1 (every logit 0)."""
+    route, strides = _layout(tensors, n_read, fwd_scale)
+    if route != "packed":
+        return route, tensors, strides, ROUTES[route], fwd_scale
+    out = list(tensors)
+    for i, t in enumerate(tensors[:n_read]):
+        if i == 0 and fwd_scale is not None and fwd_scale <= 0:
+            out[0] = pack_bshd_cuda(t, "negated" if fwd_scale < 0 else "zero")
+        elif not _tma_readable(t, t.stride()):
+            out[i] = pack_bshd_cuda(t)
+    run_scale = fwd_scale if fwd_scale is None or fwd_scale > 0 else -fwd_scale if fwd_scale < 0 else 1.0
+    launch, strides = _layout(out, n_read, run_scale)
+    if launch != "wgmma":
+        raise RuntimeError(f"flash: packed copies take route {launch!r}, not wgmma")
+    return route, tuple(out), strides, ROUTES["wgmma"], run_scale
 
 
 class StagedRow(NamedTuple):
@@ -337,6 +375,103 @@ def flash_route(q, k, v, *more, fwd_scale=None):
     return _layout(tensors, len(tensors), fwd_scale)[0]
 
 
+# ---------------------------------------------------------------------------
+# the pack kernel (the packed route's copies)
+# ---------------------------------------------------------------------------
+
+
+def pack_bshd_plain(x, mode="as_is"):
+    """The pack kernel's plain twin: x as a contiguous (B, S, H, D) tensor,
+    negated (mode "negated") or zeros (mode "zero")."""
+    if mode == "zero":
+        return torch.zeros(x.shape, dtype=x.dtype, device=x.device)
+    return (-x if mode == "negated" else x).contiguous()
+
+
+def pack_bshd(x, mode="as_is"):
+    """`pack_bshd_plain` for a CPU tensor, the pack kernel for a CUDA one."""
+    if x.device.type == "cpu":
+        return pack_bshd_plain(x, mode)
+    return pack_bshd_cuda(x, mode)
+
+
+pack_bshd.launches = 0
+
+
+def pack_bshd_cuda(x, mode="as_is"):
+    """Launch the pack kernel of csrc/pack_bshd.cu on a bf16 (B, S, H, D)
+    view (D = 64 or 512, a contiguous head dimension, any (batch, seq, head)
+    strides): a new contiguous tensor holding x, -x or zeros (`PACK_MODES`);
+    raises on anything the kernel does not take. Counted on `pack_bshd`."""
+    what = "pack_bshd_cuda"
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {x.device}")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"{what}: dtype {x.dtype} not supported")
+    if x.dim() != 4 or x.shape[-1] not in FLASH_HEAD_DIMS or x.stride(-1) != 1 or mode not in PACK_MODES:
+        raise ValueError(f"{what}: shape {tuple(x.shape)}, strides {x.stride()}, mode {mode!r}")
+    b, s, h, d = x.shape
+    out = torch.empty((b, s, h, d), dtype=x.dtype, device=x.device)
+    err = cuda_lib.lib().t2v_pack_bshd(
+        x.data_ptr(), out.data_ptr(), cuda_lib.DTYPE_CODES[x.dtype], b, s, h, d,
+        (ctypes.c_longlong * 4)(*x.stride()), PACK_MODES[mode], cuda_lib.stream_ptr(x.device),
+    )
+    cuda_lib.check(err, what)
+    pack_bshd.launches += 1
+    return out
+
+
+class PackPiece(NamedTuple):
+    start: int   # byte address of the first 16-byte aligned chunk read
+    chunks: int  # aligned 16-byte chunks read: 8 when the unit is aligned, else 9
+    shift: int   # bytes the unit starts past `start`: even, 0..14
+    dest: int    # byte offset of the unit in the slice's contiguous copy
+
+
+def pack_slice(addr, d):
+    """The pack kernel's loads of one (b, s, h) slice of d bf16 (d = 64 or
+    512) at byte address `addr` (even): its d / 64 units of 128 bytes, each
+    read as the aligned chunks that enclose it (bytes [shift, shift + 128)
+    of the chunks are the unit) and stored whole at `dest` in the slice's
+    place in the contiguous copy."""
+    if addr % 2 or d not in FLASH_HEAD_DIMS:
+        raise ValueError(f"pack_slice: address {addr}, head dim {d}")
+    shift = addr % 16
+    return tuple(PackPiece(addr + PACK_UNIT_BYTES * p - shift, 8 if shift == 0 else 9, shift,
+                           PACK_UNIT_BYTES * p) for p in range(d // 64))
+
+
+def pack_fast_div(d):
+    """(m, l) of the kernel's division n / d = (umulhi(n, m) + n) >> l, exact
+    for 0 <= n < 2^31 (`FastDiv`)."""
+    l = max(d - 1, 0).bit_length()
+    return ((1 << 32) * ((1 << l) - d)) // d + 1, l
+
+
+def pack_unit(i, s, h, d):
+    """(b, s, h, unit of the slice) of the pack kernel's unit i of a
+    (B, S, H, d) view, by its two divisions: by H * d / 64, then by S."""
+    def div(n, by):
+        m, l = pack_fast_div(by)
+        return (((n * m) >> 32) + n) >> l
+    per_row = h * (d // 64)
+    row = div(i, per_row)
+    j = i - row * per_row
+    b = div(row, s)
+    return b, row - b * s, j // (d // 64), j % (d // 64)
+
+
+def pack_lane_units(lane):
+    """The pack kernel's lane map: the (unit, 16-byte chunk) that lane
+    `lane` of a warp loads, realigns and stores in each of its PACK_UNITS
+    instructions, the unit counted from the warp's first (a warp takes
+    4 PACK_UNITS consecutive units)."""
+    if not 0 <= lane < 32:
+        raise ValueError(f"pack_lane_units: lane {lane}")
+    k, c = divmod(lane, 8)
+    return tuple((4 * u + k, c) for u in range(PACK_UNITS))
+
+
 def _bwd_args(what, q, k, v, do, lse, delta):
     _check_flash(what, q, k, v, FLASH_BWD_HEAD_DIMS, do)
     b, sq, h, _ = q.shape
@@ -360,11 +495,11 @@ def flash_attention_bwd_dkv(q, k, v, do, lse, delta, scale=None):
     lst = _bwd_args("flash_attention_bwd_dkv", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     dk, dv = (torch.empty(k.shape, dtype=k.dtype, device=k.device) for _ in range(2))
-    route, strides = _layout((q, k, v, do, q, dk, dv), 4)
+    route, (q, k, v, do, *_), strides, code, _ = _prepare((q, k, v, do, q, dk, dv), 4)
     err = cuda_lib.lib().t2v_flash_attention_bwd_dkv(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dk.data_ptr(), dv.data_ptr(), cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
-        strides, lst, float(scale), ROUTES[route],
+        strides, lst, float(scale), code,
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_bwd_dkv")
@@ -387,11 +522,11 @@ def flash_attention_bwd_dq(q, k, v, do, lse, delta, scale=None):
     lst = _bwd_args("flash_attention_bwd_dq", q, k, v, do, lse, delta)
     b, sq, h, d = q.shape
     dq = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    route, strides = _layout((q, k, v, do, dq, k, v), 4)
+    route, (q, k, v, do, *_), strides, code, _ = _prepare((q, k, v, do, dq, k, v), 4)
     err = cuda_lib.lib().t2v_flash_attention_bwd_dq(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse.data_ptr(), delta.data_ptr(),
         dq.data_ptr(), cuda_lib.DTYPE_CODES[q.dtype], b, h, sq, k.shape[1], d,
-        strides, lst, float(scale), ROUTES[route],
+        strides, lst, float(scale), code,
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, "flash_attention_bwd_dq")

@@ -117,6 +117,9 @@ def lib() -> ctypes.CDLL:
         vp, vp, vp, vp, vp, vp, vp, i32, i32, i32, i32, i32, i32, pi64, pi64, f32, i32, vp,
     ]
     so.t2v_flash_attention_bwd_dq.restype = i32
+    # x, out, dtype, B, S, H, D, strides (sb, ss, sh, sd), mode, stream
+    so.t2v_pack_bshd.argtypes = [vp, vp, i32, i32, i32, i32, i32, pi64, i32, vp]
+    so.t2v_pack_bshd.restype = i32
     so.t2v_group_norm_scratch.argtypes = [i64, i32, i32, i32]
     so.t2v_group_norm_scratch.restype = i64
     gn_plan = [i32] * 7  # route, k, chunk, staged, rows, threads, pieces (ops/norms.py::gn_plan)

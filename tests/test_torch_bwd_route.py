@@ -5,10 +5,11 @@ bf16 goes to the wgmma kernels when TMA can read every tensor (16-byte
 aligned bases, (batch, seq, head) strides of multiples of 16 bytes) at head
 dims 64 and 512, a forward only at a positive scale; any other bf16 forward
 at head dim 64 to the staged kernel (the same consumers, fed by a producer
-that realigns rows in registers); other bf16 to the mma.sync kernels, f32
-to the scalar ones. CPU tensors have real addresses, so the predicate is
-tested on them; on the CPU the wrappers run their plain twins and count no
-route.
+that realigns rows in registers); other bf16 to the packed route (the wgmma
+kernels on contiguous copies made by the pack kernel), f32 to the scalar
+kernels. No rule returns the deleted mma.sync route. CPU tensors have real
+addresses, so the predicate is tested on them; on the CPU the wrappers run
+their plain twins and count no route.
 """
 
 import pytest
@@ -37,22 +38,22 @@ def test_aligned_fused_qkv_view_takes_wgmma():
     assert A.flash_route(q, k, v, _bshd()) == "wgmma"
 
 
-def test_views_one_element_off_take_mma():
+def test_views_one_element_off_take_packed():
     """Rows that start one element past 16-byte alignment (as chip_smoke's
     unaligned cases): base and sequence stride both break TMA's rule."""
     bufs = [torch.randn((2, 40, 3 * 64 + 1)).to(torch.bfloat16) for _ in range(4)]
     views = [t[..., 1:].view(2, 40, 3, 64) for t in bufs]
     assert all(t.data_ptr() % 16 != 0 for t in views)
-    assert A.flash_route(*views) == "mma"
+    assert A.flash_route(*views) == "packed"
     aligned = [_bshd(seed=i) for i in range(4)]
     for i in range(4):  # one misaligned tensor is enough
-        assert A.flash_route(*(views[j] if j == i else aligned[j] for j in range(4))) == "mma"
+        assert A.flash_route(*(views[j] if j == i else aligned[j] for j in range(4))) == "packed"
 
 
-@pytest.mark.parametrize("kind, route", [("aligned", "wgmma"), ("off_by_one", "mma")])
-def test_head_dim_512_takes_mma(kind, route):
+@pytest.mark.parametrize("kind, route", [("aligned", "wgmma"), ("off_by_one", "packed")])
+def test_head_dim_512_takes_packed(kind, route):
     """The backward at head dim 512 (q, k, v, dO): wgmma when TMA can read
-    every tensor, mma.sync for a view one element off."""
+    every tensor, packed for a view one element off."""
     q, k, v, do = (_bshd(b=1, s=16, h=1, d=512, seed=i) for i in range(4))
     if kind == "off_by_one":
         q = torch.randn((1, 16, 513)).to(torch.bfloat16)[..., 1:].view(1, 16, 1, 512)
@@ -104,8 +105,8 @@ def _fwd_case(kind):
     ("contiguous", "wgmma"), ("fused_qkv", "wgmma"), ("cross_77", "wgmma"),
     ("off_by_one_q", "staged"), ("off_by_one_k", "staged"), ("off_by_one_v", "staged"),
     ("d512", "wgmma"), ("f32", "f32"),
-    ("d512_contiguous", "wgmma"), ("d512_off_by_one_q", "mma"), ("d512_off_by_one_k", "mma"),
-    ("d512_off_by_one_v", "mma"), ("d512_f32", "f32"),
+    ("d512_contiguous", "wgmma"), ("d512_off_by_one_q", "packed"), ("d512_off_by_one_k", "packed"),
+    ("d512_off_by_one_v", "packed"), ("d512_f32", "f32"),
 ])
 def test_forward_route(kind, route):
     q, k, v = _fwd_case(kind)
@@ -122,7 +123,7 @@ def test_forward_route_by_scale(scale, route):
     assert A.flash_route(q, k, v, _bshd(seed=3)) == "wgmma"
 
 
-@pytest.mark.parametrize("scale, route", [(0.125, "wgmma"), (2.0, "wgmma"), (-0.125, "mma"), (0.0, "mma")])
+@pytest.mark.parametrize("scale, route", [(0.125, "wgmma"), (2.0, "wgmma"), (-0.125, "packed"), (0.0, "packed")])
 def test_forward_route_by_scale_d512(scale, route):
     """The same rule at head dim 512; the backward's route ignores the scale
     there too."""
@@ -132,11 +133,11 @@ def test_forward_route_by_scale_d512(scale, route):
 
 
 @pytest.mark.parametrize("kind", ["contiguous", "fused_qkv"])
-def test_aligned_backward_d512_takes_mma(kind):
+def test_aligned_backward_d512_takes_packed(kind):
     """A TMA-readable backward at head dim 512, as the flash_attention_bwd_dkv
     and _dq wrappers lay it out (q, k, v, dO read; their outputs after),
     takes the wgmma kernels; the same layout with dO one element off takes
-    the mma.sync kernels."""
+    the packed route."""
     if kind == "fused_qkv":
         q, k, v = torch.randn((2, 40, 3, 1, 512)).to(torch.bfloat16).unbind(2)
     else:
@@ -146,23 +147,23 @@ def test_aligned_backward_d512_takes_mma(kind):
     assert A._layout((q, k, v, do, q, k, v), 4)[0] == "wgmma"
     assert A._layout((q, k, v, do, do, k, v), 4)[0] == "wgmma"
     bad = torch.randn((2, 40, 513)).to(torch.bfloat16)[..., 1:].view(2, 40, 1, 512)
-    assert A._layout((q, k, v, bad, q, k, v), 4)[0] == "mma"
+    assert A._layout((q, k, v, bad, q, k, v), 4)[0] == "packed"
 
 
 @pytest.mark.parametrize("kind", ["off_by_one_q", "off_by_one_k", "off_by_one_v"])
 def test_misaligned_view_at_negative_scale_takes_staged(kind):
     """A view TMA cannot read at a negative scale: the staged forward; its
-    backward stays on mma.sync."""
+    backward takes the packed route."""
     q, k, v = _fwd_case(kind)
     assert A.flash_route(q, k, v, fwd_scale=-0.125) == "staged"
-    assert A.flash_route(q, k, v, _bshd(seed=3)) == "mma"
+    assert A.flash_route(q, k, v, _bshd(seed=3)) == "packed"
 
 
 @pytest.mark.parametrize("which", ["seq", "head", "batch"])
 def test_aligned_bases_odd_strides_take_staged(which):
     """Bases on 16-byte boundaries but an odd (batch, seq or head) element
     stride: TMA cannot read the rows, so the forward goes to the staged
-    kernel (at head dim 512 to mma.sync), whatever the scale's sign."""
+    kernel (at head dim 512 to the packed route), whatever the scale's sign."""
     b, s, h = 2, 40, 3
     size = {"seq": (b, s, h * 64 + 1), "head": (b, s, h, 65), "batch": (b * s * h * 64 + 1,)}[which]
     buf = torch.randn(size).to(torch.bfloat16)
@@ -182,7 +183,7 @@ def test_aligned_bases_odd_strides_take_staged(which):
     q512 = torch.randn((1, 16, 513)).to(torch.bfloat16).as_strided((1, 16, 1, 512), (16 * 513, 513, 512, 1))
     assert q512.data_ptr() % 16 == 0
     k512, v512 = (_bshd(b=1, s=16, h=1, d=512, seed=i) for i in (1, 2))
-    assert A.flash_route(q512, k512, v512, fwd_scale=512 ** -0.5) == "mma"
+    assert A.flash_route(q512, k512, v512, fwd_scale=512 ** -0.5) == "packed"
 
 
 def test_staged_strides_carry_head_dim_strides():
@@ -222,3 +223,20 @@ def test_forward_kernel_raises_off_the_card():
     q, k, v = _fwd_case("contiguous")
     with pytest.raises(RuntimeError, match="no kernel for device"):
         A.flash_attention_cuda(q, k, v)
+
+
+def test_no_rule_returns_mma():
+    """The mma.sync flash kernels are gone: over every layout and scale the
+    tests above use, forward and backward, at both head dims and in both
+    dtypes, the route is one of wgmma, staged, packed and f32, and the C
+    route codes have no mma."""
+    routes = set()
+    kinds = ["contiguous", "fused_qkv", "cross_77", "off_by_one_q", "off_by_one_k", "off_by_one_v", "d512", "f32"]
+    for kind in kinds + ["d512_" + k for k in kinds if k not in ("fused_qkv", "cross_77", "d512")]:
+        q, k, v = _fwd_case(kind)
+        do = torch.randn(q.shape).to(q.dtype)
+        for scale in (0.125, -0.125, 0.0):
+            routes.add(A.flash_route(q, k, v, fwd_scale=scale))
+        routes.add(A.flash_route(q, k, v, do))
+    assert routes == {"wgmma", "staged", "packed", "f32"}
+    assert "mma" not in A.ROUTES

@@ -184,7 +184,7 @@ def test_kernel_constants_are_mirrored():
     assert const["kStagedBlocksPerSM"] == 2
     routes = open(os.path.join(cuda_lib.CSRC_DIR, "flash_mma.cuh")).read()
     codes = dict(re.findall(r"kRoute(\w+) = (\d)", routes))
-    assert {k.lower(): int(v) for k, v in codes.items()} == {r: c for r, c in A.ROUTES.items() if r != "f32"}
+    assert {k.lower(): int(v) for k, v in codes.items()} == A.ROUTES
     threads = 128 + 32 * A.STAGED_PRODUCER_WARPS
     assert 2 * threads * 128 <= 65536
     alloc = (1 + 3 * 2) * 64 * 128 + 8 * 7 + 1024  # the Q tile, three stages of K and V, barriers
