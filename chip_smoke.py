@@ -98,7 +98,7 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 its statistics mode's) took cta or cluster and every
                 LayerNorm launch the vector route; B8's launches by shape
                 must be 35 a UNet pass at time_small_seq.SHAPES and all on
-                the bulk route (phases 6 and 7 check its route). Then one more
+                the bulk route (phases 6, 7 and 8 check its route). Then one more
                 video with each stage's forward timed (synchronised hooks),
                 and one under torch.profiler (device time by kernel, the
                 fused conv's, the flash forward's (the part at head dim 512
@@ -134,7 +134,29 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 conv on wgmma), one profiled step (the flash backward's
                 device ms with D = 512 apart;
                 chiprun_out/profile_train_rewards.txt).
-  8. training reference: one small f32 LCD step (heads of 64, so the flash
+  8. training on real data: apps/train_v1.py's real-data path at full width
+                with seeded weights. The H100 host has no libav, so the phase
+                starts at decoded frames: seeded uint8 clips of 16x360x640
+                through the port's resize_crop (random crop, seeded) and
+                normalize_video (apps/time_prefetch.py's decoded_clips),
+                handed to build_trainer as its raw batches; its
+                make_data_iter builds the text tower beside the trainer's
+                VAE, and encode_batches has the VC2 VAE (bf16) encode 16
+                frames at 320x512 in one call and the ViT-H tower embed the
+                caption. The first batch: latents (1,16,40,64,4) and ctx
+                (1,77,1024), finite; B1 at head dim 512 once an encode, on
+                wgmma; every encoder GroupNorm on cta/cluster/split at a
+                shape phase 3's table holds (it has a B4 case for each).
+                Encode and text ms a batch. Then the full-width VAE's f32
+                encode of 2 frames (TF32 off) on the card against the CPU,
+                within 3e-4*max(1,|ref|). Then the trainer takes 4 steps
+                through trainer.run, whose prefetcher encodes the next
+                batches on its own thread: finite losses, every LoRA factor
+                moved, frozen weights bitwise unchanged, every kernel of
+                the path launched on its route, B1 at head dim 512 once an
+                encode; s/step beside phase 6's, data_wait_frac and peak
+                memory.
+  9. training reference: one small f32 LCD step (heads of 64, so the flash
                 kernels run) through the trainer's gradient path
                 (LCDTrainer.loss_and_grads: the step's cached LoRA merge) on
                 the card, with remat off and on, and with both rewards (the
@@ -197,7 +219,7 @@ KERNELS = {
     "small_seq_attention_f32": ("t2v_turbo_tpu_torch/csrc/small_seq_attention.cu",
                                 "tests_tpu/bench_small_seq_attention.py:60"),
     # B6: B1 / B2 on misaligned (B, S, H, D) views, the staged route (no path
-    # launches it: phases 4, 6, 7 require wgmma; its launches are phase 4's, 0)
+    # launches it: phases 4, 6, 7, 8 require wgmma; its launches are phase 4's, 0)
     "flash_attention_staged": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                "t2v_turbo_tpu/ops/attention.py:540"),
     "flash_attention_fwd_lse_staged": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
@@ -607,6 +629,7 @@ def _kernel_cases():
                     plain=lambda x, w, b: N.group_norm_plain(x, w, b, 32, eps, "silu"), outputs=("y",),
                     tols=[_elementwise(1e-5, 1e-5) if f32_case else _elementwise(1e-2, 1e-2)], iters=iters,
                     why=why_norm_f32 if f32_case else why_norm_bf, route=(N.fused_group_norm, plan.route), graph=True,
+                    shape=tuple(shape), dtype=dtype,
                     library=lambda x, w, b: {"F.group_norm+F.silu": lambda: F.silu(
                         F.group_norm(x, 32, w.to(x.dtype), b.to(x.dtype), eps))},
                     bound=lambda x, w, b: norm_bound(x, c, 10))
@@ -1030,7 +1053,12 @@ def _kernel_cases():
              why="the packs and both kernels captured in a torch.cuda.CUDAGraph and replayed (outputs NaN-filled "
                  "first) against eager launches: equal bits"),
     ]
-    return serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed
+    # B4 at the VAE encoder's shapes that no case above holds (the training
+    # on real data phase encodes 16 frames at 320x512): last, after the
+    # earlier PRs' cases
+    encoder_gn = [gn(f"VAE encoder GN+SiLU {shape} bf16", shape, shape[1], 1e-6, 5)
+                  for shape in ((16, 128, 160, 256), (16, 256, 160, 256), (16, 256, 80, 128), (16, 512, 80, 128))]
+    return serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -1610,8 +1638,9 @@ def _moved(before, after, what):
         raise AssertionError(f"{len(still)} LoRA {what} factors did not move (first: {still[0]})")
 
 
-def phase_training(records):
-    """Full-width v1 LoRA LCD training through apps/train_v1.py's builder."""
+def phase_training(records, step_times):
+    """Full-width v1 LoRA LCD training through apps/train_v1.py's builder;
+    its s/step (steps 2-4) into step_times["synthetic step_once"]."""
     import gc
 
     import torch
@@ -1620,7 +1649,8 @@ def phase_training(records):
         gc.collect()
         torch.cuda.empty_cache()
         try:
-            return _train_full_width(records, remat)
+            step_times["synthetic step_once"] = _train_full_width(records, remat)
+            return
         except torch.cuda.OutOfMemoryError:
             if remat:
                 raise
@@ -1691,6 +1721,7 @@ def _train_full_width(records, remat):
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     del frozen, now, factors0
     _profile_train_step(trainer, data, "profile_train.txt")
+    return step_s[1:]
 
 
 def _profile_train_step(trainer, data, name):
@@ -1720,6 +1751,229 @@ def _profile_train_step(trainer, data, name):
         f"(D = 512: {bwd512_ms:.2f}); B8 {small_seq_device_ms(events):.3f} ms; " + _norm_profile(events)
         + f" -> chiprun_out/{name}; top: "
         + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
+
+
+# The H100 host this script targets has no libav (no libavcodec / libavformat / libswscale
+# in `ldconfig -p`, none of their headers, no ffmpeg), so the native decoder
+# cannot be built there and the training on real data phase starts at
+# decoded frames: apps/time_prefetch.py's `decoded_clips` (seeded uint8
+# clips at WebVid's 360x640 through the port's resize, random crop and
+# `normalize_video`), handed to build_trainer as its raw batches in place
+# of --data-shards.
+ENCODER_D512 = (16, 1, 2560, 2560, 512)  # the VAE encoder's mid-block attention, 16 frames at 320x512
+
+
+def held_gn_shapes():
+    """The bf16 shapes at which phase 3's B4 cases hold the kernel to its
+    plain version."""
+    import torch
+
+    return {c["shape"] for c in _kernel_cases() if c["kernel"] == "group_norm" and c.get("dtype") == torch.bfloat16}
+
+
+def phase_training_real_data(step_times):
+    """Full-width v1 LoRA LCD training on decoded video through
+    apps/train_v1.py's build_trainer: the VC2 VAE and text tower (seeded,
+    frozen, bf16) encode each batch in the trainer's prefetcher while the
+    step runs. Logs phase 6's s/step (`step_times`) beside its own."""
+    import gc
+    import shutil
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+    out_dir = os.path.join(HERE, "build", "chip_smoke_train_real")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    try:
+        _train_real_data(out_dir, step_times.get("synthetic step_once", []))
+    finally:
+        shutil.rmtree(out_dir, ignore_errors=True)
+
+
+def _encode_batch_checks(data, size_hw, frames):
+    """The first batch of the trainer's iterator (make_data_iter's
+    full-width branch): shapes, finite values, and the encoder's kernels:
+    B1 at head dim 512 once an encode on wgmma, every GroupNorm on a staged
+    route at a shape phase 3 holds."""
+    import torch
+
+    from t2v_turbo_tpu_torch.ops import attention as A
+    from t2v_turbo_tpu_torch.ops import norms as N
+
+    reset_launches()
+    batch = next(data)
+    torch.cuda.synchronize()
+    d512 = dict(A.flash_attention.by_shape)
+    gn_shapes = dict(N.fused_group_norm.by_shape)
+    check_flash_routes("real data encode", 1, "encode")
+    check_norm_routes("real data encode", 1, "encode")
+    ok = (tuple(batch["latents"].shape) == (1, frames, size_hw[0] // 8, size_hw[1] // 8, 4)
+          and tuple(batch["ctx"].shape) == (1, 77, 1024) and tuple(batch["uncond_ctx"].shape) == (1, 77, 1024)
+          and all(bool(torch.isfinite(batch[k]).all()) for k in ("latents", "ctx", "uncond_ctx"))
+          and batch["latents"].dtype == torch.float32 and not batch["latents"].is_inference())
+    log(f"real data: the trainer's first batch: latents {tuple(batch['latents'].shape)} (|max| "
+        f"{float(batch['latents'].abs().max()):.3f}), ctx {tuple(batch['ctx'].shape)}, uncond_ctx "
+        f"{tuple(batch['uncond_ctx'].shape)}, all finite f32, not inference tensors {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the encoded batch has the wrong shape, dtype or non-finite values")
+    want = {ENCODER_D512: 1}
+    if d512 != want:
+        raise AssertionError(f"the encode's flash forward launches by shape {d512}, expected {want}")
+    unheld = sorted(set(gn_shapes) - held_gn_shapes())
+    log(f"real data encode: B1 at head dim 512 launched once {ENCODER_D512} on wgmma OK; the encoder's "
+        f"GroupNorm shapes {sorted(gn_shapes)}, each held to its plain version in phase 3 "
+        f"{'OK' if not unheld else 'FAIL: not held ' + str(unheld)}")
+    if unheld:
+        raise AssertionError(f"encoder GroupNorm shapes no phase-3 case holds: {unheld}")
+
+
+def _encode_times(args, size_hw, frames):
+    """The VAE encode's and the text tower's ms a batch (CUDA events), each
+    built as apps/train_v1.py builds it."""
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import train_v1
+    from t2v_turbo_tpu_torch.apps.time_prefetch import decoded_clips
+    from t2v_turbo_tpu_torch.models.vae import encode_video
+
+    device, dtype = torch.device("cuda:0"), torch.bfloat16
+    vae = train_v1.build_vae(args, device, dtype)
+    embed = train_v1.text_embedder(train_v1.build_text_tower(args, device, dtype))
+    raw = next(decoded_clips(frames, size_hw))
+    video = torch.as_tensor(raw["video"]).cuda()
+    with torch.no_grad():
+        enc_ms = cuda_time_ms(lambda: encode_video(vae, video, scale_factor=0.18215), 3)
+        text_ms = cuda_time_ms(lambda: embed(raw["txt"]), 3)
+    log(f"real data: a batch of 1 x {frames} x {size_hw[0]}x{size_hw[1]}: VAE encode {enc_ms:.1f} ms, text tower "
+        f"{text_ms:.1f} ms (CUDA events over 3 back-to-back calls after 2 warm-ups)")
+    return enc_ms, text_ms
+
+
+def _vae_card_vs_cpu(args, size_hw, frames):
+    """2 frames at 320x512 through the full-width VAE's encode in f32 (TF32
+    off) on the card and on the CPU, the same seeded weights."""
+    import copy
+
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import train_v1
+    from t2v_turbo_tpu_torch.apps.time_prefetch import decoded_clips
+
+    raw = next(decoded_clips(frames, size_hw))
+    x = torch.from_numpy(raw["video"][0, :2].copy())
+    cpu = train_v1.build_vae(args, torch.device("cpu"), torch.float32)
+    gpu = copy.deepcopy(cpu).cuda()
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            ref = cpu.encode(x)
+            got = [t.cpu() for t in gpu.encode(x.cuda())]
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+    ok = True
+    for name, g, r in zip(("mean", "logvar"), got, ref):
+        err, scale = float((g - r).abs().max()), float(r.abs().max())
+        good = err <= 3e-4 * max(1.0, scale) and bool(torch.isfinite(g).all())
+        ok = ok and good
+        log(f"real data: full-width VAE encode of 2 frames at {size_hw[0]}x{size_hw[1]}, f32, card vs CPU: {name} "
+            f"max_abs_err {err:.3e} (|ref| max {scale:.3f}; bound 3e-4*max(1,|ref|), PARITY's VAE tolerance: "
+            f"sums in another order, TF32 off) {'OK' if good else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the card's VAE encode disagrees with the CPU's")
+    del cpu, gpu
+
+
+def _train_real_data(out_dir, phase6):
+    import json
+    import math
+
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch import lora as L
+    from t2v_turbo_tpu_torch.apps import train_v1
+    from t2v_turbo_tpu_torch.apps.time_prefetch import SOURCE_HW, decoded_clips
+    from t2v_turbo_tpu_torch.ops import attention as A
+
+    argv = ["--random-weights", "--device", "cuda:0", "--seed", "0", "--output-dir", out_dir, "--max-steps", "4",
+            "--checkpointing-steps", "1000000"]
+    args = train_v1.parse_args(argv)
+    size_hw, frames = (args.height, args.width), args.n_frames
+    counter = {"batches": 0}
+    t0 = time.perf_counter()
+    trainer, data, ucfg = train_v1.build_trainer(args, raw_videos=decoded_clips(frames, size_hw, counter))
+    torch.cuda.synchronize()
+    log(f"real data: trainer, VC2 VAE and ViT-H text tower built in {time.perf_counter() - t0:.1f} s by "
+        f"build_trainer ({' '.join(argv)}; seeded, frozen, bf16), its raw batches source clips "
+        f"{frames}x{SOURCE_HW[0]}x{SOURCE_HW[1]} uint8, resized on the short side and randomly cropped to "
+        f"{size_hw[0]}x{size_hw[1]} (the H100 host has no libav: decoded frames are made with numpy)")
+    _encode_batch_checks(data, size_hw, frames)
+    enc_ms, text_ms = _encode_times(args, size_hw, frames)
+    _vae_card_vs_cpu(args, size_hw, frames)
+
+    frozen = {f"student.{k}": v.clone() for k, v in L.base_state_dict(trainer.student).items()}
+    frozen.update({f"teacher.{k}": v.clone() for k, v in trainer.teacher.state_dict().items()})
+    factors0 = {n: {k: t.detach().clone() for k, t in f.items()} for n, f in trainer.factors.items()}
+    counter["batches"] = 0
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    last = trainer.run(data)  # the prefetcher's worker is stopped and joined on the way out
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    rows = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    for row in rows:
+        log(f"real data: step {row['step']}: {row['time_per_step_s']:.3f} s, loss {row['loss']:.6f}, grad_norm "
+            f"{row['grad_norm']:.6f}, data_wait_frac {row['data_wait_frac']:.4f}")
+    ok = len(rows) == 4 and last["step"] == 4 and all(
+        math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"]) and r["grad_norm"] > 0 for r in rows)
+    if not ok:
+        raise AssertionError(f"real-data training: {rows}")
+    for kind in ("up", "down"):
+        _moved({n: f[kind] for n, f in factors0.items()}, {n: f[kind].detach() for n, f in trainer.factors.items()},
+               kind)
+    log(f"real data: after 4 steps every LoRA up and down factor moved ({len(factors0)} modules)")
+    now = {f"student.{k}": v for k, v in L.base_state_dict(trainer.student).items()}
+    now.update({f"teacher.{k}": v for k, v in trainer.teacher.state_dict().items()})
+    changed = [k for k in frozen if not torch.equal(frozen[k], now[k])]
+    if changed:
+        raise AssertionError(f"{len(changed)} frozen weights changed (first: {changed[0]})")
+    log(f"real data: {len(frozen)} frozen tensors (student base and teacher) bitwise unchanged")
+    encodes = counter["batches"]
+    launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS}
+    log(f"real data: kernel launches over the 4 steps and {encodes} encodes {launches}")
+    check_flash_routes("real data", 4, "step")
+    check_conv_routes("real data", 4 * 4)
+    check_norm_routes("real data", 4, "step")
+    check_small_seq("real data", 4, "step", shapes=False)
+    if A.flash_attention.by_shape[ENCODER_D512] != encodes or encodes < 4:
+        raise AssertionError(f"B1 at {ENCODER_D512} launched {A.flash_attention.by_shape[ENCODER_D512]} times "
+                             f"for {encodes} encodes")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"not launched on the real-data training path: {missing}")
+    log(f"real data: B1 at head dim 512 launched once an encode ({encodes} encodes: 4 steps and the "
+        f"prefetcher's read-ahead) OK; every kernel of the training path launched")
+    # the same trainer through trainer.run on synthetic batches (steps 5-8,
+    # after the final checkpoint of step 4): what the data path adds
+    shape = train_v1.DataShape(1, frames, (size_hw[0] // 8, size_hw[1] // 8), 77, ucfg.context_dim)
+    trainer.run(train_v1.synthetic_data(shape, args.fps), max_steps=8)
+    rows = [json.loads(line) for line in open(os.path.join(out_dir, "metrics.jsonl"))]
+    steady = [r["time_per_step_s"] for r in rows[1:4]]
+    steady_synthetic = [r["time_per_step_s"] for r in rows[5:8]]
+    waits = " ".join(f"{r['data_wait_frac']:.4f}" for r in rows[1:4])
+
+    def steps(xs):
+        return f"{' '.join(f'{x:.3f}' for x in xs)} (mean {np.mean(xs) if xs else float('nan'):.3f})"
+
+    log(f"real data: s/step (steps 2-4, trainer.run through the prefetcher) {steps(steady)}; the same trainer's "
+        f"trainer.run on synthetic batches (steps 6-8) {steps(steady_synthetic)}; phase 6's synthetic step_once "
+        f"s/step {steps(phase6)}; data_wait_frac steps 2-4 {waits}; real-data run wall {wall:.2f} s for 4 steps "
+        f"and {encodes} encodes; encode {enc_ms:.1f} ms + text {text_ms:.1f} ms a "
+        f"batch; max_memory_allocated over the real-data steps {peak:.2f} GiB")
 
 
 def phase_training_rewards(records):
@@ -1990,14 +2244,16 @@ def main() -> int:
     os.makedirs(OUT_DIR, exist_ok=True)
     open(os.path.join(OUT_DIR, "chip_smoke.log"), "w").close()
     records = {}
+    step_times = {}  # phase 6's s/step, logged beside phase 8's
     phases = [
         ("device", phase_device),
         ("build", phase_build),
         ("kernels", lambda: phase_kernels(records)),
         ("main path", lambda: phase_main_path(records)),
         ("reference", lambda: phase_reference(records)),
-        ("training", lambda: phase_training(records)),
+        ("training", lambda: phase_training(records, step_times)),
         ("training with rewards", lambda: phase_training_rewards(records)),
+        ("training on real data", lambda: phase_training_real_data(step_times)),
         ("training reference", phase_training_reference),
     ]
     failed = []

@@ -3,6 +3,18 @@
 Usage (smoke mode: seeded random weights, synthetic latents and prompts):
   python -m t2v_turbo_tpu_torch.apps.train_v1 --random-weights --synthetic-data \\
       --max-steps 3 --output-dir runs/v1_torch
+On real video (webdataset tar shards of mp4 + txt, or a CSV of mp4 paths
+and captions; the reference's WebVid recipe: 16 frames at 8 fps, the short
+side resized, then a random 320x512 crop):
+  ... --checkpoint VideoCrafter2_model.ckpt --data-shards 'shards/*.tar' \\
+      [--prefix-weights 'shards/a=0.7,shards/b=0.3']   (or --data-csv index.csv)
+The clips are decoded by the native libav library (data/videoio.py, built
+at first use), then on the device the VAE encodes them (the posterior's
+mean times 0.18215) and the OpenCLIP ViT-H text tower embeds the captions
+and, once, the empty prompt; both frozen, bf16 on a CUDA device. The
+trainer's prefetcher runs this for the next batches while a step runs.
+With --tiny-model the VAE is the tiny one and the contexts are seeded per
+caption (crc32), as the JAX CLI's.
 With reward feedback (the reference v1 recipe: 5 random frames scored by
 the ViT-H/14 image reward, 8 strided frames by the ViCLIP-L video reward,
 both VAE-decoded from the student's prediction with gradient):
@@ -23,9 +35,8 @@ The reward towers and the reward VAE (the checkpoint's, or seeded random
 weights) are frozen, bf16 on the card; the text features come from the
 towers' pooled text branches, once per batch.
 
-Not yet ported: the real-data path (webdataset / CSV video with VAE and
-text encode), the BLIP and InternVideo2 rewards, HF-layout CLIP
-checkpoints, multi-host and FSDP.
+Not yet ported: the BLIP and InternVideo2 rewards, HF-layout CLIP
+checkpoints, EMA, periodic validation videos, multi-host and FSDP.
 """
 
 from __future__ import annotations
@@ -33,8 +44,10 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import functools
+import glob
 import os
 import sys
+import zlib
 
 import numpy as np
 import torch
@@ -48,6 +61,11 @@ def parse_args(argv=None):
     p.add_argument("--tiny-model", action="store_true", help="small UNet (tests / smoke)")
     p.add_argument("--synthetic-data", action="store_true",
                    help="random latents and prompt embeddings")
+    p.add_argument("--data-shards", default=None, help="glob of webdataset tars (mp4 + txt)")
+    p.add_argument("--prefix-weights", default=None,
+                   help="mixture-of-prefixes shard resampling, e.g. 'path/a=0.7,path/b=0.3' "
+                        "(the reference's custom_wds.py PrefixResampler)")
+    p.add_argument("--data-csv", default=None, help="CSV of mp4 paths and captions (columns path, text)")
     p.add_argument("--output-dir", default="runs/v1")
     p.add_argument("--max-steps", type=int, default=10000)
     p.add_argument("--batch-size", type=int, default=1)
@@ -111,8 +129,10 @@ class DataShape:
     ctx_dim: int
 
 
-def build_trainer(args):
-    """(trainer, data iterator, UNet config) from the parsed flags."""
+def build_trainer(args, raw_videos=None):
+    """(trainer, data iterator, UNet config) from the parsed flags.
+    `raw_videos`: decoded batches {video (B,T,H,W,3) in [-1, 1], txt} to
+    encode in place of --data-shards / --data-csv (`raw_video_batches`)."""
     from ..config import vc2_spec
     from ..diffusion import DDIMSolver, DiffusionSchedule
     from ..io.convert import load_checkpoint, split_vc2_checkpoint
@@ -123,8 +143,6 @@ def build_trainer(args):
 
     if args.lora_rank <= 0:
         raise SystemExit("error: --lora-rank must be positive (full fine-tuning is v2's)")
-    if not args.synthetic_data:
-        raise SystemExit("error: only --synthetic-data is ported so far")
     device = torch.device(args.device)
     if args.tiny_model:
         ucfg = UNetConfig(**TINY_UNET_KW)
@@ -133,14 +151,17 @@ def build_trainer(args):
         ucfg = vc2_spec().unet
         shape = DataShape(args.batch_size, args.n_frames, (args.height // 8, args.width // 8),
                           77, ucfg.context_dim)
+    if raw_videos is None and not args.synthetic_data:
+        # the decoder loads here, before the models are built: without it this raises
+        raw_videos = raw_video_batches(args, shape.frames, shape.batch)
     wdim = ucfg.time_cond_proj_dim
     with torch.device(device):
         student = UNetModel(ucfg, use_remat=args.use_remat)
         teacher = UNetModel(dataclasses.replace(ucfg, time_cond_proj_dim=None))
 
-    vae_sd = None
+    vae_sd = clip_sd = None
     if args.checkpoint:
-        unet_sd, vae_sd, _ = split_vc2_checkpoint(load_checkpoint(args.checkpoint))
+        unet_sd, vae_sd, clip_sd = split_vc2_checkpoint(load_checkpoint(args.checkpoint))
         teacher.load_state_dict(unet_sd, strict=True)
         # the student: the teacher's weights plus a zero w-embedding projection
         student.load_state_dict(
@@ -156,7 +177,10 @@ def build_trainer(args):
     for m in (student, teacher):
         cast_compute_dtype_(m, dtype).requires_grad_(False)
 
-    reward_fn, video_reward_fn, image_rm, video_rm = build_reward_stack(args, device, dtype, vae_sd)
+    rewards = args.reward_fn != "none" or args.video_rm_fn != "none"
+    # one frozen VAE encodes the data and decodes for the rewards
+    vae = build_vae(args, device, dtype, vae_sd) if rewards or raw_videos is not None else None
+    reward_fn, video_reward_fn, image_rm, video_rm = build_reward_stack(args, device, dtype, vae)
     sched = DiffusionSchedule.create()
     trainer = LCDTrainer(
         student=student,
@@ -180,33 +204,57 @@ def build_trainer(args):
         reward_fn=reward_fn,
         video_reward_fn=video_reward_fn,
     )
-    data = synthetic_data(shape, args.fps)
+    data = make_data_iter(args, shape, raw_videos, vae, clip_sd)
     if image_rm is not None or video_rm is not None:
         data = add_reward_fields(data, args, shape.frames, shape.batch, image_rm, video_rm)
     return trainer, data, ucfg
 
 
-def build_reward_stack(args, device, dtype, vae_sd=None):
-    """(reward_fn, video_reward_fn, image reward model, video reward model)
-    from the reward flags; Nones when both are "none". The reward VAE loads
-    `vae_sd` (the --checkpoint's), else takes seeded random weights (the JAX
-    CLI's tiny VAE with --tiny-model); the towers load --reward-ckpt /
-    --video-rm-ckpt, else seeded random weights. All are frozen, in `dtype`
-    but their norms."""
-    from ..io.convert import load_checkpoint
-    from ..models import AutoencoderKL, CLIPTextConfig, VAEConfig, cast_compute_dtype_, seeded_init_
-    from ..rewards.reward_fn import build_image_reward_model, build_video_reward_model
-    from ..rewards.vit import VideoViTConfig, ViTConfig
-    from ..training.reward_adapters import make_reward_fns
+def build_vae(args, device, dtype, vae_sd=None):
+    """The frozen VAE (eval, `dtype` but its norms): `vae_sd` (the
+    --checkpoint's) loaded, else seeded random weights; the JAX CLI's tiny
+    VAE with --tiny-model."""
+    from ..models import AutoencoderKL, VAEConfig, cast_compute_dtype_, seeded_init_
 
-    if args.reward_fn == "none" and args.video_rm_fn == "none":
-        return None, None, None, None
     with torch.device(device):
         vae = AutoencoderKL(VAEConfig(**TINY_VAE_KW) if args.tiny_model else VAEConfig())
     if vae_sd is not None:
         vae.load_state_dict(vae_sd, strict=True)
     else:
         seeded_init_(vae, args.seed + 2_000_000)
+    return cast_compute_dtype_(vae, dtype).requires_grad_(False).eval()
+
+
+def build_text_tower(args, device, dtype, clip_sd=None):
+    """The frozen OpenCLIP ViT-H text tower of VC2: `clip_sd` (the
+    --checkpoint's) loaded, else seeded random weights."""
+    from ..config import vc2_spec
+    from ..io.convert import load_clip_text
+    from ..models import CLIPTextModel, cast_compute_dtype_, seeded_init_
+
+    with torch.device(device):
+        text = CLIPTextModel(vc2_spec().text)
+    if clip_sd is not None:
+        load_clip_text(text, clip_sd)
+    else:
+        seeded_init_(text, args.seed + 5_000_000)
+    return cast_compute_dtype_(text, dtype).requires_grad_(False).eval()
+
+
+def build_reward_stack(args, device, dtype, vae):
+    """(reward_fn, video_reward_fn, image reward model, video reward model)
+    from the reward flags; Nones when both are "none". The reward VAE is
+    `vae` (`build_vae`'s); the towers load --reward-ckpt /
+    --video-rm-ckpt, else seeded random weights. All are frozen, in `dtype`
+    but their norms."""
+    from ..io.convert import load_checkpoint
+    from ..models import CLIPTextConfig, cast_compute_dtype_
+    from ..rewards.reward_fn import build_image_reward_model, build_video_reward_model
+    from ..rewards.vit import VideoViTConfig, ViTConfig
+    from ..training.reward_adapters import make_reward_fns
+
+    if args.reward_fn == "none" and args.video_rm_fn == "none":
+        return None, None, None, None
     tiny_text = CLIPTextConfig(**TINY_REWARD_TEXT_KW)
     image_rm = video_rm = None
     if args.reward_fn != "none":
@@ -218,7 +266,7 @@ def build_reward_stack(args, device, dtype, vae_sd=None):
         kw = dict(vit_cfg=VideoViTConfig(**TINY_VIT_KW, num_frames=8), text_cfg=tiny_text) \
             if args.tiny_model else {}
         video_rm = build_video_reward_model(sd, seed=args.seed + 4_000_000, device=device, **kw)
-    for m in (vae, image_rm, video_rm):
+    for m in (image_rm, video_rm):
         if m is not None:
             cast_compute_dtype_(m, dtype).requires_grad_(False).eval()
     rf, vrf = make_reward_fns(vae, image_rm, video_rm,
@@ -264,6 +312,90 @@ def synthetic_data(shape: DataShape, fps: float):
             "fps": np.full((b,), float(fps), np.float32),
             "_texts": ["synthetic sample"] * b,
         }
+
+
+def make_data_iter(args, shape: DataShape, raw_videos=None, vae=None, clip_sd=None):
+    """The trainer's batches {latents, ctx, uncond_ctx, fps, _texts}: random
+    ones with --synthetic-data, else `raw_videos` (`raw_video_batches`)
+    encoded by `vae` (`build_vae`) on its device, with the captions'
+    context from the text tower (`clip_sd` or seeded weights; the empty
+    prompt's once), or with --tiny-model from `hashed_context` and zeros
+    (the JAX CLI's `make_data_iter`)."""
+    from ..config import vc2_spec
+    from ..models.layers import compute_dtype
+
+    if raw_videos is None:
+        return synthetic_data(shape, args.fps)
+    scale_factor = vc2_spec().scale_factor  # the tiny VAE's latents too, as the JAX CLI's
+    if args.tiny_model:
+        embed = functools.partial(hashed_context, ctx_len=shape.ctx_len, ctx_dim=shape.ctx_dim)
+        uncond = torch.zeros(1, shape.ctx_len, shape.ctx_dim)
+    else:
+        embed = text_embedder(build_text_tower(args, next(vae.parameters()).device, compute_dtype(vae), clip_sd))
+        with torch.no_grad():
+            uncond = embed([""])  # once; repeated over each batch
+    return encode_batches(raw_videos, vae, embed, uncond, args.fps, scale_factor)
+
+
+def raw_video_batches(args, frames: int, b: int):
+    """Decoded video batches {video (B,T,H,W,3) f32 in [-1, 1], txt} from
+    --data-shards (WebVideoDataset, with --prefix-weights as its mixture)
+    or --data-csv (MP4Dataset): the JAX CLI's `_make_raw_video_iter`. The
+    dataset loads the native decoder here, and raises if it cannot."""
+    from ..data.datasets import MP4Dataset, read_csv_index
+    from ..data.webdata import WebVideoDataset
+
+    size_hw = (args.height, args.width)
+    if args.data_shards:
+        prefix_weights = None
+        if args.prefix_weights:
+            prefix_weights = {k: float(v) for k, v in (kv.split("=") for kv in args.prefix_weights.split(","))}
+        return iter(WebVideoDataset(sorted(glob.glob(args.data_shards)), batch_size=b, n_frames=frames,
+                                    size_hw=size_hw, prefix_weights=prefix_weights))
+    if args.data_csv:
+        ds = MP4Dataset(read_csv_index(args.data_csv), n_frames=frames, size_hw=size_hw)
+        return ({"video": d["video"], "txt": d["text"]} for d in ds.batches(b))
+    raise SystemExit("error: provide --data-shards, --data-csv or --synthetic-data")
+
+
+def hashed_context(texts, ctx_len: int, ctx_dim: int):
+    """--tiny-model's text context: a numpy N(0, 1) draw per caption seeded
+    by its crc32 (never `hash()`, which is salted per process: a resumed run
+    must see the same context for the same caption), as the JAX CLI's."""
+    out = np.zeros((len(texts), ctx_len, ctx_dim), np.float32)
+    for i, s in enumerate(texts):
+        out[i] = np.random.RandomState(zlib.crc32(s.encode("utf-8"))).randn(ctx_len, ctx_dim)
+    return torch.from_numpy(out)
+
+
+def text_embedder(text):
+    """captions -> the text tower's (B, 77, 1024) context, tokenised by the
+    CLIP BPE tokenizer, on the tower's device."""
+    from ..utils.tokenizer import CLIPTokenizer
+
+    tok = CLIPTokenizer()
+    device = next(text.parameters()).device
+    return lambda texts: text(torch.from_numpy(tok(list(texts))).to(device))
+
+
+def encode_batches(raw_iter, vae, embed, uncond_ctx, fps: float, scale_factor: float):
+    """Raw batches {video (B,T,H,W,3) in [-1, 1], txt} -> the trainer's
+    {latents (B,T,h,w,4) = encode(video)[0] * scale_factor over the B*T
+    frames, ctx = embed(txt), uncond_ctx = `uncond_ctx` (1, L, D) repeated,
+    fps, _texts}, in f32 on the VAE's device. Runs under no_grad (not
+    inference_mode: the LCD step saves these tensors for its backward)."""
+    from ..models.vae import encode_video
+
+    device = next(vae.parameters()).device
+    for batch in raw_iter:
+        texts = list(batch["txt"])
+        with torch.no_grad():
+            video = torch.as_tensor(batch["video"]).to(device)
+            latents = encode_video(vae, video, scale_factor=scale_factor).float()
+            ctx = embed(texts).float().to(device)
+        b = latents.shape[0]
+        yield {"latents": latents, "ctx": ctx, "uncond_ctx": uncond_ctx.float().to(device).repeat(b, 1, 1),
+               "fps": torch.full((b,), float(fps), device=device), "_texts": texts}
 
 
 def export_lora(trainer, ucfg, output_dir: str):

@@ -15,6 +15,7 @@ frames fold into N.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -177,3 +178,47 @@ class AutoencoderKL(nn.Module):
         """(N, h, w, z) latents (already divided by the scale factor) -> (N, H, W, 3)."""
         h = z.permute(0, 3, 1, 2).to(compute_dtype(self)).contiguous()
         return self.decoder(self.post_quant_conv(h)).permute(0, 2, 3, 1).contiguous()
+
+
+def posterior_kl(mean, logvar, other_mean=None, other_logvar=None):
+    """KL of the diagonal-Gaussian posterior, summed over all non-batch axes
+    (reference lvdm/distributions.py:44-61): against N(0, I) when `other_*`
+    are None, else against that diagonal Gaussian."""
+    dims = tuple(range(1, mean.dim()))
+    if other_mean is None:
+        return 0.5 * torch.sum(mean.square() + logvar.exp() - 1.0 - logvar, dim=dims)
+    return 0.5 * torch.sum((mean - other_mean).square() * torch.exp(-other_logvar)
+                           + torch.exp(logvar - other_logvar) - 1.0 - logvar + other_logvar, dim=dims)
+
+
+def posterior_nll(mean, logvar, sample, dims=None):
+    """Negative log-likelihood of `sample` under the diagonal-Gaussian
+    posterior, summed over `dims` (default: all non-batch axes; reference
+    lvdm/distributions.py:63-70)."""
+    if dims is None:
+        dims = tuple(range(1, mean.dim()))
+    log2pi = math.log(2.0 * math.pi)
+    return 0.5 * torch.sum(log2pi + logvar + (sample - mean).square() * torch.exp(-logvar), dim=dims)
+
+
+def encode_video(vae: AutoencoderKL, video: torch.Tensor, generator: Optional[torch.Generator] = None,
+                 scale_factor: float = 0.18215, frame_chunk: Optional[int] = None) -> torch.Tensor:
+    """(B, T, H, W, 3) in [-1, 1] -> scaled latents (B, T, H/8, W/8, z), the
+    frames encoded one by one (folded into the batch), `frame_chunk` frames a
+    call when given. The posterior's mean, or with `generator` a sample
+    mean + exp(logvar / 2) * N(0, 1) drawn from it on its device (the
+    reference samples; the mean is the deterministic choice)."""
+    b, t = video.shape[:2]
+    frames = video.reshape(b * t, *video.shape[2:])
+    n = b * t
+    if frame_chunk and frame_chunk < n:
+        parts = [vae.encode(frames[i : i + frame_chunk]) for i in range(0, n, frame_chunk)]
+        mean, logvar = (torch.cat(p) for p in zip(*parts))
+    else:
+        mean, logvar = vae.encode(frames)
+    z = mean
+    if generator is not None:
+        noise = torch.randn(mean.shape, generator=generator, device=generator.device, dtype=torch.float32)
+        z = mean + torch.exp(0.5 * logvar) * noise.to(mean)
+    z = scale_factor * z
+    return z.reshape(b, t, *z.shape[1:])

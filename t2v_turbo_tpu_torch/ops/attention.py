@@ -212,11 +212,12 @@ def flash_attention(q, k, v, scale=None):
 def _count(wrapper, route, shape):
     """One launch of a flash kernel wrapper: its total, by head dim, by route
     and, for the forwards, by (B, H, Sq, Sk, D)."""
-    wrapper.launches += 1
-    wrapper.by_head_dim[shape[-1]] += 1
-    wrapper.by_route[route] += 1
-    if hasattr(wrapper, "by_shape"):
-        wrapper.by_shape[shape] += 1
+    with cuda_lib.COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.by_head_dim[shape[-1]] += 1
+        wrapper.by_route[route] += 1
+        if hasattr(wrapper, "by_shape"):
+            wrapper.by_shape[shape] += 1
 
 
 def _counters(wrapper, shapes=False):
@@ -417,7 +418,8 @@ def pack_bshd_cuda(x, mode="as_is"):
         (ctypes.c_longlong * 4)(*x.stride()), PACK_MODES[mode], cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, what)
-    pack_bshd.launches += 1
+    with cuda_lib.COUNT_LOCK:
+        pack_bshd.launches += 1
     return out
 
 
@@ -659,9 +661,10 @@ def _ss_launch(q, k, v, scale, plan):
         cuda_lib.stream_ptr(q.device),
     )
     cuda_lib.check(err, what)
-    small_seq_attention.launches += 1
-    small_seq_attention.by_route[plan.route] += 1
-    small_seq_attention.by_shape[(b, s, h)] += 1
+    with cuda_lib.COUNT_LOCK:
+        small_seq_attention.launches += 1
+        small_seq_attention.by_route[plan.route] += 1
+        small_seq_attention.by_shape[(b, s, h)] += 1
     return o
 
 

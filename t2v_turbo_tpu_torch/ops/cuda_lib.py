@@ -20,6 +20,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 
 import torch
 
@@ -31,6 +32,9 @@ NVCC_FLAGS = (
     "-std=c++17", "-O3", "-lineinfo", "-Xcompiler", "-fPIC",
 )
 DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
+# Held while a wrapper adds a launch to its counters: the trainer's data
+# thread (the VAE encode) and the step's thread launch kernels at once.
+COUNT_LOCK = threading.Lock()
 
 
 def _sources():

@@ -237,9 +237,10 @@ def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, n
         ww, o, kh, kw, plan.bn, plan.tw, plan.tr, plan.npos, plan.chunks_per_split, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, what)
-    fused_gn_silu_conv.launches += 1
-    fused_gn_silu_conv.by_route[plan.route] += 1
-    fused_gn_silu_conv.by_shape[(n, c, hh, ww, o, kh, kw)] += 1
+    with cuda_lib.COUNT_LOCK:
+        fused_gn_silu_conv.launches += 1
+        fused_gn_silu_conv.by_route[plan.route] += 1
+        fused_gn_silu_conv.by_shape[(n, c, hh, ww, o, kh, kw)] += 1
     return y
 
 

@@ -341,9 +341,10 @@ def _launch_args(plan: GnPlan, x, dtype, stats, n, c, g, s):
 
 
 def _count(wrapper, route, shape):
-    wrapper.launches += 1
-    wrapper.by_route[route] += 1
-    wrapper.by_shape[shape] += 1
+    with cuda_lib.COUNT_LOCK:
+        wrapper.launches += 1
+        wrapper.by_route[route] += 1
+        wrapper.by_shape[shape] += 1
 
 
 def _counters(wrapper):

@@ -16,6 +16,9 @@ parallelism, the split step, EMA and multi-host).
   the newest `keep_checkpoints` kept, resumed from the newest on `run`.
   The resume step is folded into the draws' generator seed, so a resumed
   run does not replay the first steps' draws.
+- Input: `run` pulls batches through `data.datasets.DevicePrefetcher`, so
+  the data iterator's work (decode, encode) and the copy to the device
+  overlap the step, as the JAX trainer's `run` does.
 - Metrics: one JSON row per logged step in output_dir/metrics.jsonl with
   time_per_step_s, the losses (with reward feedback, reward_loss and
   video_rm_loss too), grad_norm and data_wait_frac (the share of
@@ -36,6 +39,7 @@ from typing import Callable, Dict, Iterator, List, Optional
 import torch
 from torch.nn.utils import parametrize
 
+from ..data.datasets import DevicePrefetcher
 from ..lora import LoRAConfig, apply_lora, base_state_dict, init_lora, lora_factors, merge_lora
 from .lcd import LCDConfig, lcd_loss, sample_draws
 from .optim import flat_buffer
@@ -134,13 +138,21 @@ class LCDTrainer:
         metrics["grad_norm"] = gnorm
         return metrics
 
-    def step_once(self, host_batch: Dict) -> Dict[str, torch.Tensor]:
-        """Move a host batch to the device, draw from the trainer's
-        generator and take one micro-step."""
-        batch = {k: torch.as_tensor(v).to(self.device, non_blocking=True)
-                 for k, v in host_batch.items() if not k.startswith("_")}
+    def to_device(self, host_batch: Dict) -> Dict[str, torch.Tensor]:
+        """The batch's tensors on the trainer's device (keys starting with
+        "_", such as the captions, are host-only and left out)."""
+        return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
+                for k, v in host_batch.items() if not k.startswith("_")}
+
+    def step_device(self, batch: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """Draw from the trainer's generator and take one micro-step on a
+        device batch."""
         draws = sample_draws(self.lcd_cfg, batch["latents"].shape, self.generator)
         return self.train_step(batch, draws)
+
+    def step_once(self, host_batch: Dict) -> Dict[str, torch.Tensor]:
+        """Move a host batch to the device and take one micro-step."""
+        return self.step_device(self.to_device(host_batch))
 
     # ------------------------------------------------------------------
     def _checkpoints(self):
@@ -187,7 +199,11 @@ class LCDTrainer:
     # ------------------------------------------------------------------
     def run(self, data_iter: Iterator[dict], max_steps: Optional[int] = None) -> dict:
         """Resume, then take micro-steps to `max_steps`, logging and
-        checkpointing; a final checkpoint is written on the way out."""
+        checkpointing; a final checkpoint is written on the way out. The
+        batches come through a `DevicePrefetcher` (as the JAX trainer's):
+        a worker thread pulls the next two from `data_iter` and moves them
+        to the device while the step runs; an exception there is raised
+        here."""
         cfg = self.cfg
         start = self.resume_if_available()
         max_steps = max_steps or cfg.max_steps
@@ -195,17 +211,18 @@ class LCDTrainer:
         last_metrics, last_step = {}, start
         t_window, steps_in_window, wait_in_window = time.perf_counter(), 0, 0.0
         hb_path = os.path.join(cfg.output_dir, "heartbeat.json")
-        with Heartbeat(hb_path) as hb, GracefulShutdown() as stop:
+        with DevicePrefetcher(data_iter, put=self.to_device, depth=2) as prefetch, \
+                Heartbeat(hb_path) as hb, GracefulShutdown() as stop:
             for step in range(start, max_steps):
                 if stop.requested:
                     break
                 t_wait = time.perf_counter()
                 try:
-                    host_batch = next(data_iter)
+                    batch = next(prefetch)
                 except StopIteration:
                     break
                 wait_in_window += time.perf_counter() - t_wait
-                metrics = self.step_once(host_batch)
+                metrics = self.step_device(batch)
                 last_step = step + 1
                 steps_in_window += 1
                 hb.update(last_step)

@@ -204,19 +204,21 @@ class TestKernelEntryPoints:
 
 
 def test_port_imports_no_jax():
-    """Every port module, the apps and the training modules included, imports
-    with jax, flax and the JAX package blocked."""
+    """Every port module, the apps, the training modules and the data layer
+    included, imports with jax, flax, the JAX package and PIL blocked (the
+    port resizes video without PIL)."""
     code = textwrap.dedent(
         """
         import importlib, pkgutil, sys
-        for blocked in ("jax", "flax", "t2v_turbo_tpu"):
+        for blocked in ("jax", "flax", "t2v_turbo_tpu", "PIL"):
             sys.modules[blocked] = None
         import t2v_turbo_tpu_torch
         names = [m.name for m in pkgutil.walk_packages(t2v_turbo_tpu_torch.__path__, "t2v_turbo_tpu_torch.")]
         for name in names:
             importlib.import_module(name)
         for needed in ("apps.generate", "apps.train_v1", "io.video", "lora", "training.trainer",
-                       "rewards.reward_fn", "rewards.vit", "training.reward_adapters", "ops.fused_conv"):
+                       "rewards.reward_fn", "rewards.vit", "training.reward_adapters", "ops.fused_conv",
+                       "data.transforms", "data.videoio", "data.webdata", "data.datasets"):
             assert "t2v_turbo_tpu_torch." + needed in names, names
         print(len(names))
         """
