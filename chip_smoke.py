@@ -80,6 +80,11 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 against contiguous() at all 8 offsets in its three modes
                 (as is, negated, zeros); two launches with equal bits and
                 a packed backward captured in a CUDA graph.
+                The reward towers of phase 7b: B2 and B3 at BLIP's ViT-L
+                self-attention (5,16,197,197,64) and its BERT's
+                cross-attention (5,12,35,197,64), B5 at BLIP's (985,1024)
+                and (175,768, eps 1e-12) and InternVideo2's (2049,1408),
+                (1,1408) and BERT-large (40,1024, eps 1e-12) rows.
                 The norms' and B8's `ms` is
                 back-to-back calls, as every kernel's (host time included:
                 their calls are host-bound); their `graph_ms` the device
@@ -134,6 +139,26 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 conv on wgmma), one profiled step (the flash backward's
                 device ms with D = 512 apart;
                 chiprun_out/profile_train_rewards.txt).
+  7b. training with BLIP and InternVideo2: the same training with
+                --reward-fn img_reward --video-rm-fn vi_clip2: ImageReward
+                (BLIP ViT-L/16 at 224, BERT-base cross-attending to it, the
+                published head; 5 random frames, all on the gradient path)
+                and InternVideo2 (1408 wide, 40 blocks, heads of 88 on the
+                plain attention, 8 strided frames at 224 = 2049 tokens;
+                BERT-large text features once a batch), seeded; BLIP's token
+                ids must reach the batch as int32; the reward terms' own
+                gradient non-zero in every LoRA up factor; 1 warm-up and 3
+                timed steps with finite reward losses, peak memory, the
+                towers' B2/B3 and B5 launches a step by shape, every flash
+                launch on wgmma (retried with --use-remat on running out of
+                memory, which also recomputes InternVideo2's blocks); one
+                profiled step (chiprun_out/profile_train_blip_iv2.txt); one
+                render of training/validation.py's logger (the first
+                prompt, 4 steps, .npy) equal to the bit to a direct pipeline
+                call with the same weights and seed, the student's flags
+                kept; then each tower at published width and 2 blocks, f32,
+                card against CPU: score within 1e-4*max(1,|ref|), the
+                gradient with respect to the frames within 1e-3 x its max.
   8. training on real data: apps/train_v1.py's real-data path at full width
                 with seeded weights. The H100 host has no libav, so the phase
                 starts at decoded frames: seeded uint8 clips of 16x360x640
@@ -293,7 +318,7 @@ def launches_by_head_dim():
 
 def check_flash_routes(what, passes, per):
     """Log the four flash kernels' launches by route beside those by head
-    dim, and the forwards' launches by (B, H, Sq, Sk, D) shape over `passes`
+    dim, and their launches by (B, H, Sq, Sk, D) shape over `passes`
     (UNet passes or training steps: `per` names them); raise unless every
     launch, forward and backward at head dims 64 and 512, went through wgmma
     (the path's bf16 tensors are TMA-aligned: no staged or packed launch,
@@ -301,10 +326,9 @@ def check_flash_routes(what, passes, per):
     from t2v_turbo_tpu_torch.ops import attention as A
 
     for w in (A.flash_attention, A.flash_attention_lse, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq):
-        fwd = hasattr(w, "by_shape")
         want = {"wgmma": w.launches} if w.launches else {}
         ok = dict(w.by_route) == want
-        shapes = f"; a {per} by shape {dict((k, c / passes) for k, c in sorted(w.by_shape.items()))}" if fwd else ""
+        shapes = f"; a {per} by shape {dict((k, c / passes) for k, c in sorted(w.by_shape.items()))}"
         log(f"{what}: {w.__name__} launches by route {dict(w.by_route)}, by head dim "
             f"{dict(sorted(w.by_head_dim.items()))} (every launch on wgmma) {'OK' if ok else 'FAIL'}" + shapes)
         if not ok:
@@ -646,16 +670,16 @@ def _kernel_cases():
                     bound=lambda x, *_: bound_ms(3 * x.numel(), x.numel() * x.element_size() + 8 * x.shape[0] * c
                                                  + 8 * c, "float32"))
 
-    def ln(label, shape, c, dtype, atol, why):
+    def ln(label, shape, c, dtype, atol, why, eps=1e-5):
         plan = N.ln_plan(shape[0], c, dtype)
         label += f" [{plan.route}" + (f", {plan.lanes} lanes x {plan.vecs} vectors]" if plan.lanes else "]")
         return dict(kernel="layer_norm", label=label, make=norm_inputs(shape, c, dtype),
-                    fn=lambda x, w, b: N.fused_layer_norm(x, w, b, 1e-5),
-                    plain=lambda x, w, b: N.layer_norm_plain(x, w, b, 1e-5),
+                    fn=lambda x, w, b: N.fused_layer_norm(x, w, b, eps),
+                    plain=lambda x, w, b: N.layer_norm_plain(x, w, b, eps),
                     outputs=("y",), tols=[_elementwise(atol, atol)], iters=20, why=why, graph=True,
                     route=(N.fused_layer_norm, plan.route),
                     library=lambda x, w, b: {"F.layer_norm": lambda: F.layer_norm(
-                        x, (c,), w.to(x.dtype), b.to(x.dtype), 1e-5)},
+                        x, (c,), w.to(x.dtype), b.to(x.dtype), eps)},
                     bound=lambda x, w, b: norm_bound(x, c, 8))
 
     def norm_determinism(kernel, label, make, fn):
@@ -1058,7 +1082,17 @@ def _kernel_cases():
     # earlier PRs' cases
     encoder_gn = [gn(f"VAE encoder GN+SiLU {shape} bf16", shape, shape[1], 1e-6, 5)
                   for shape in ((16, 128, 160, 256), (16, 256, 160, 256), (16, 256, 80, 128), (16, 512, 80, 128))]
-    return serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn
+    # The BLIP and InternVideo2 reward towers' attentions (B2, B3) and
+    # LayerNorms (B5) at the rewards-ON v1 path's shapes (5 image-reward
+    # frames, one 8-frame clip): last, after the earlier PRs' cases
+    towers = [case for args in TOWER_ATTENTION_CASES for case in _train_attention_cases(*args)] + [
+        ln("BLIP ViT-L LN, 5 frames (985,1024) bf16", (985, 1024), 1024, bf, 1e-2, why_norm_bf),
+        ln("BLIP BERT LN eps 1e-12, 5 x 35 tokens (175,768) bf16", (175, 768), 768, bf, 1e-2, why_norm_bf, 1e-12),
+        ln("InternVideo2 pooling LN k/v (2049,1408) bf16", (2049, 1408), 1408, bf, 1e-2, why_norm_bf),
+        ln("InternVideo2 pooling LN q (1,1408) bf16", (1, 1408), 1408, bf, 1e-2, why_norm_bf),
+        ln("InternVideo2 BERT-large LN eps 1e-12 (40,1024) bf16", (40, 1024), 1024, bf, 1e-2, why_norm_bf, 1e-12),
+    ]
+    return serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn + towers
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -1095,6 +1129,15 @@ TRAIN_ATTENTION_CASES = [
     ("short keys (2,1,100,40,512) bf16", (2, 100, 40, 1, 512), "bfloat16", 3, True),
     ("ragged unaligned strided (2,1,1111,1111,512) bf16", (2, 1111, 1111, 1, 512), "unaligned", 3, True),
     ("VAE mid attn (2,1,1111,1111,512) f32, TF32 off", (2, 1111, 1111, 1, 512), "float32", 2, True),
+]
+
+
+# The BLIP reward's attentions with a gradient (B, Sq, Sk, H, D): the ViT-L's
+# self-attention over 197 tokens of 5 frames, BERT's cross-attention from 35
+# tokens to them (its masked self-attention takes the plain path)
+TOWER_ATTENTION_CASES = [
+    ("BLIP ViT-L self-attn (5,16,197,197,64) bf16", (5, 197, 197, 16, 64), "bfloat16", 20, False),
+    ("BLIP BERT cross-attn (5,12,35,197,64) bf16", (5, 35, 197, 12, 64), "bfloat16", 20, False),
 ]
 
 
@@ -1994,7 +2037,7 @@ def phase_training_rewards(records):
             log("training with rewards: out of memory without --use-remat; running with it")
 
 
-def _reward_gradient_check(trainer, host_batch):
+def _reward_gradient_check(trainer, host_batch, what="training with rewards"):
     """The reward terms' own gradient (autograd of reward_loss +
     video_rm_loss alone) at the step's cached LoRA merge, with fresh draws:
     finite everywhere and non-zero in every LoRA up factor (the ups start
@@ -2021,7 +2064,7 @@ def _reward_gradient_check(trainer, host_batch):
     norm = math.sqrt(sum(float(g.double().square().sum()) for g in ups))
     ok = finite and nonzero == len(ups)
     r, vr = (float(terms[k].detach()) for k in ("reward_loss", "video_rm_loss"))
-    log(f"training with rewards: the reward terms' own gradient at the first step (reward_loss "
+    log(f"{what}: the reward terms' own gradient at the first step (reward_loss "
         f"{r:.6f}, video_rm_loss {vr:.6f}): finite {finite}, "
         f"non-zero in {nonzero} of {len(ups)} LoRA up factors, their norm {norm:.4e} {'OK' if ok else 'FAIL'}")
     if not ok:
@@ -2086,6 +2129,191 @@ def _train_rewards_full_width(records, remat):
         f"{' '.join(f'{s:.3f}' for s in step_s[1:])} (mean {np.mean(step_s[1:]):.3f}); "
         f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     _profile_train_step(trainer, data, "profile_train_rewards.txt")
+
+
+def phase_training_blip_iv2():
+    """Full-width v1 LoRA LCD training with the BLIP (img_reward) and
+    InternVideo2 (vi_clip2) rewards through apps/train_v1.py's
+    build_trainer, a validation render against a direct pipeline call, then
+    each tower's f32 card-vs-CPU check at published width."""
+    import gc
+
+    import torch
+
+    for remat in (False, True):
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            _train_blip_iv2_full_width(remat)
+            break
+        except torch.cuda.OutOfMemoryError:
+            if remat:
+                raise
+            log(f"{BLIP_IV2}: out of memory without --use-remat; running with it (the UNet's blocks and "
+                f"InternVideo2's recomputed in the backward)")
+    gc.collect()
+    torch.cuda.empty_cache()
+    _towers_card_vs_cpu()
+
+
+BLIP_IV2 = "training with BLIP and InternVideo2"
+# the new towers' B2 / B3 (B, H, Sq, Sk, D) and B5 (rows, C) shapes on this path
+TOWER_FLASH_SHAPES = ((5, 16, 197, 197, 64), (5, 12, 35, 197, 64))
+TOWER_LN_SHAPES = ((985, 1024), (175, 768), (2049, 1408), (1, 1408), (40, 1024))
+
+
+def _train_blip_iv2_full_width(remat):
+    import math
+
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import train_v1
+    from t2v_turbo_tpu_torch.ops import attention as A
+    from t2v_turbo_tpu_torch.ops import norms as N
+
+    steps, t_phase = 4, time.perf_counter()
+    argv = ["--random-weights", "--synthetic-data", "--device", "cuda:0", "--seed", "0",
+            "--reward-fn", "img_reward", "--video-rm-fn", "vi_clip2",
+            "--output-dir", os.path.join(OUT_DIR, "train_v1_blip_iv2"), "--max-steps", str(steps),
+            "--checkpointing-steps", "1000000"] + (["--use-remat"] if remat else [])
+    args = train_v1.parse_args(argv)
+    trainer, data, _ = train_v1.build_trainer(args, validation=True)  # the render shares its VAE and text tower
+    first = next(data)
+    torch.cuda.synchronize()
+    cells = trainer.reward_fn.__closure__ + trainer.video_reward_fn.__closure__
+    rf_models = {id(c.cell_contents): c.cell_contents for c in cells if isinstance(c.cell_contents, torch.nn.Module)}
+    n_frozen = {type(m).__name__: sum(p.numel() for p in m.parameters()) for m in rf_models.values()}
+    fields = {k: v for k, v in first.items() if k.startswith(("reward", "video"))}
+    log(f"{BLIP_IV2}: built in {time.perf_counter() - t_phase:.1f} s ({' '.join(argv)}); mode "
+        f"{'--use-remat' if remat else 'no remat'}; frozen reward models {n_frozen}; batch fields "
+        + ", ".join(f"{k} {tuple(np.shape(v))} {np.asarray(v).dtype}" for k, v in fields.items()))
+    if np.asarray(first["reward_text_feats"]).dtype != np.int32:
+        raise AssertionError("BLIP's text field is not int32 token ids")
+    _reward_gradient_check(trainer, first, BLIP_IV2)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.step_once(first if i == 0 else next(data))
+        vals = {k: float(metrics[k]) for k in ("loss", "distill_loss", "reward_loss", "video_rm_loss", "grad_norm")}
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        log(f"{BLIP_IV2}: step {i + 1}{' (warm-up)' if i == 0 else ''}: {step_s[-1]:.3f} s, "
+            + ", ".join(f"{k} {v:.6f}" for k, v in vals.items())
+            + f", max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not all(math.isfinite(v) for v in vals.values()) or not vals["grad_norm"] > 0:
+            raise AssertionError(f"{BLIP_IV2}: step {i + 1}: {vals}")
+    launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS + D512_KERNELS}
+    flash = {w.__name__: {shape: w.by_shape[shape] / steps for shape in TOWER_FLASH_SHAPES}
+             for w in (A.flash_attention_lse, A.flash_attention_bwd_dkv, A.flash_attention_bwd_dq)}
+    norms = {shape: N.fused_layer_norm.by_shape[shape] / steps for shape in TOWER_LN_SHAPES}
+    log(f"{BLIP_IV2}: over the {steps} steps {launches}; the towers' shapes a step: B2/B3 {flash}; B5 {norms}")
+    check_flash_routes(BLIP_IV2, steps, "step")
+    check_conv_routes(BLIP_IV2, 4 * steps)
+    check_norm_routes(BLIP_IV2, steps, "step")
+    check_small_seq(BLIP_IV2, steps, "step", shapes=False)
+    unlaunched = [n for n, c in launches.items() if c <= 0] + [
+        f"{w} at {shape}" for w, by in flash.items() for shape, c in by.items() if c < 1] + [
+        f"layer_norm at {shape}" for shape, c in norms.items() if c <= 0]
+    if unlaunched:
+        raise AssertionError(f"{BLIP_IV2}: not launched on the path: {unlaunched}")
+    log(f"{BLIP_IV2}: s/step (steps 2-{steps}, {'--use-remat' if remat else 'no remat'}) "
+        f"{' '.join(f'{s:.3f}' for s in step_s[1:])} (mean {np.mean(step_s[1:]):.3f}); "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profile_train_step(trainer, data, "profile_train_blip_iv2.txt")
+    _validation_render(args, trainer)
+    log(f"{BLIP_IV2}: the phase's training part took {time.perf_counter() - t_phase:.1f} s")
+
+
+def _validation_render(args, trainer):
+    """One render of the validation logger (first prompt, 4 steps, .npy) at
+    the trainer's step: it must equal, bit for bit, a direct pipeline call
+    with the student's weights and the prompt's seed, and leave the
+    student's train and grad flags as they were."""
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import train_v1
+    from t2v_turbo_tpu_torch.pipelines.vc2 import video_to_uint8
+    from t2v_turbo_tpu_torch.training.validation import DEFAULT_VALIDATION_PROMPTS
+
+    fn = train_v1.build_validation_fn(args, trainer, max_prompts=1, step_counts=(4,), suffix=".npy")
+    flags = [(m, m.training) for m in trainer.student.modules()]
+    grads = [(p, p.requires_grad) for p in trainer.student.parameters()]
+    t0 = time.perf_counter()
+    fn(trainer.step, trainer.student)
+    torch.cuda.synchronize()
+    render_s = time.perf_counter() - t0
+    kept = all(m.training == t for m, t in flags) and all(p.requires_grad == r for p, r in grads)
+    path = os.path.join(args.output_dir, "validation", f"step{trainer.step:07d}_s4_p0.npy")
+    saved = np.load(path)
+    os.remove(path)  # 7.5 MB of frames: the output directory keeps logs and profiles
+    with torch.no_grad():
+        direct = fn.pipe(prompt=DEFAULT_VALIDATION_PROMPTS[0], height=args.height, width=args.width,
+                         frames=args.n_frames, num_inference_steps=4, generator=torch.Generator().manual_seed(0))
+    direct = video_to_uint8(direct)[0]
+    equal = saved.shape == direct.shape and bool(np.array_equal(saved, direct))
+    ok = equal and kept
+    log(f"{BLIP_IV2}: validation render ({DEFAULT_VALIDATION_PROMPTS[0]!r}, 4 steps, {saved.shape} uint8 .npy) in "
+        f"{render_s:.2f} s; equal bits to a direct pipeline call with seed 0: {equal}; the student's train and "
+        f"grad flags kept: {kept} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the validation render differs from a direct pipeline call, or moved the student's flags")
+
+
+def _towers_card_vs_cpu():
+    """Each new tower at published width and 2 blocks, in f32 (TF32 off):
+    the training facade's score and its gradient with respect to the frames
+    in [0, 1], on the card (kernels) against the CPU (plain versions), on
+    the same seeded weights, frames and text field."""
+    import copy
+    import dataclasses
+
+    import torch
+
+    from t2v_turbo_tpu_torch.rewards import blip, internvideo2
+    from t2v_turbo_tpu_torch.rewards import reward_fn as R
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(41)
+    image_rm = R.BlipTrainReward(blip.build_image_reward_blip(
+        vit_cfg=blip.BlipViTConfig(layers=2), bert_cfg=blip.BertConfig(layers=2), seed=42))
+    video_rm = R.InternVideo2TrainReward(internvideo2.build_internvideo2_reward(
+        vision_cfg=internvideo2.IV2VisionConfig(depth=2),
+        text_cfg=dataclasses.replace(internvideo2.BERT_LARGE, layers=2), seed=43))
+    cases = [
+        ("BLIP (ViT-L/16 at 224, BERT 768 with cross-attention, the published head; 2 blocks each), 2 frames "
+         "320x512", image_rm, torch.rand((2, 320, 512, 3), generator=g), image_rm.encode_texts(PROMPTS[:2]),
+         ("flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq", "layer_norm")),
+        ("InternVideo2 (1408 wide, 16 heads of 88, 2 blocks; pooling), 8 frames 320x512 -> 2049 tokens", video_rm,
+         torch.rand((1, 8, 320, 512, 3), generator=g), video_rm.encode_texts(PROMPTS[:1]), ("layer_norm",)),
+    ]
+    for label, model, frames, field, needed in cases:
+        out = {}
+        for device in ("cpu", "cuda:0"):
+            m = (model if device == "cpu" else copy.deepcopy(model).to(device)).requires_grad_(False).eval()
+            reset_launches()
+            x = frames.to(device).requires_grad_()
+            s = m.score(x, field.to(device))
+            (gx,) = torch.autograd.grad(s.sum(), x)
+            out[device] = (s.detach().cpu(), gx.cpu(), {n: c for n, c in read_launches().items() if c})
+            del m
+        (s0, g0, _), (s1, g1, launches) = out["cpu"], out["cuda:0"]
+        serr, gerr, gmax = float((s1 - s0).abs().max()), float((g1 - g0).abs().max()), float(g0.abs().max())
+        finite = bool(torch.isfinite(s1).all() and torch.isfinite(g1).all())
+        ran = all(launches.get(n, 0) > 0 for n in needed)
+        ok = finite and ran and gmax > 0 and serr <= 1e-4 * max(1.0, float(s0.abs().max())) and gerr <= 1e-3 * gmax
+        log(f"{BLIP_IV2}: card vs CPU, f32, {label}: scores {[round(float(v), 6) for v in s1]} vs "
+            f"{[round(float(v), 6) for v in s0]}, max|diff| {serr:.3e} (<= 1e-4*max(1,|ref|)); frame gradient "
+            f"max|diff| {gerr:.3e} of max|ref| {gmax:.3e} (<= 1e-3 x it); card launches {launches} "
+            f"{'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{label}: the card disagrees with the CPU")
+    torch.backends.cudnn.allow_tf32 = True
 
 
 def _w_embedding_drift(w) -> float:
@@ -2253,6 +2481,7 @@ def main() -> int:
         ("reference", lambda: phase_reference(records)),
         ("training", lambda: phase_training(records, step_times)),
         ("training with rewards", lambda: phase_training_rewards(records)),
+        (BLIP_IV2, phase_training_blip_iv2),
         ("training on real data", lambda: phase_training_real_data(step_times)),
         ("training reference", phase_training_reference),
     ]

@@ -16,10 +16,22 @@ trainer's prefetcher runs this for the next batches while a step runs.
 With --tiny-model the VAE is the tiny one and the contexts are seeded per
 caption (crc32), as the JAX CLI's.
 With reward feedback (the reference v1 recipe: 5 random frames scored by
-the ViT-H/14 image reward, 8 strided frames by the ViCLIP-L video reward,
-both VAE-decoded from the student's prediction with gradient):
+the image reward, 8 strided frames by the video reward, both VAE-decoded
+from the student's prediction with gradient):
   ... --reward-fn hpsv2 --video-rm-fn vi_clip [--reward-ckpt open_clip.pt]
       [--video-rm-ckpt viclip.pt]
+  ... --reward-fn img_reward --video-rm-fn vi_clip2 [--bert-vocab vocab.txt]
+      [--reward-ckpt ImageReward.pt] [--video-rm-ckpt InternVideo2-stage2.pt]
+`hpsv2` / `clip` / `pick` are the ViT-H/14 image reward (an open_clip or,
+for PickScore, an HF CLIPModel checkpoint), `img_reward` ImageReward (BLIP
+ViT-L/16 and a cross-attending BERT, all on the gradient path), `vi_clip`
+ViCLIP-L and `vi_clip2` InternVideo2 (the reference's default video
+reward). The BERT towers tokenise with --bert-vocab (BLIP at 35 tokens,
+InternVideo2 at 40), else, with seeded weights only, with a stand-in hash
+of each word. `build_validation_fn` gives `LCDTrainer.run` its periodic
+validation videos: the student renders the reference's 10 prompts at 8
+and 16 steps into <output-dir>/validation/ with an index.jsonl, through
+the VAE and text tower of `build_trainer(..., validation=True)`.
 
 With a VideoCrafter2 checkpoint, the teacher is its UNet and the student
 the same weights plus a zero `time_cond_proj` (the w-embedding input).
@@ -35,8 +47,7 @@ The reward towers and the reward VAE (the checkpoint's, or seeded random
 weights) are frozen, bf16 on the card; the text features come from the
 towers' pooled text branches, once per batch.
 
-Not yet ported: the BLIP and InternVideo2 rewards, HF-layout CLIP
-checkpoints, EMA, periodic validation videos, multi-host and FSDP.
+Not yet ported: EMA, multi-host and FSDP.
 """
 
 from __future__ import annotations
@@ -88,17 +99,21 @@ def parse_args(argv=None):
                    help="average grads over K micro-batches per update")
     p.add_argument("--seed", type=int, default=453645634)
     p.add_argument("--use-remat", action="store_true",
-                   help="recompute each block's activations in the backward")
+                   help="recompute each block's activations in the backward (the UNet's, and "
+                        "InternVideo2's with --video-rm-fn vi_clip2)")
     p.add_argument("--device", default="cuda:0")
     # reward feedback (the reference's --reward_fn_name / --video_rm_name ...)
-    p.add_argument("--reward-fn", default="none", choices=["none", "clip", "hpsv2", "pick"])
-    p.add_argument("--reward-ckpt", default=None, help="open_clip CLIP state dict (image reward)")
+    p.add_argument("--reward-fn", default="none", choices=["none", "clip", "hpsv2", "pick", "img_reward"])
+    p.add_argument("--reward-ckpt", default=None,
+                   help="image reward state dict: open_clip or HF CLIPModel, or ImageReward's for img_reward")
+    p.add_argument("--bert-vocab", default=None, help="BERT vocab.txt for the img_reward / vi_clip2 text towers")
     p.add_argument("--reward-scale", type=float, default=1.0)
     p.add_argument("--reward-frames", type=int, default=5, help="random frames scored per sample")
     p.add_argument("--reward-fraction", type=float, default=0.75,
                    help="share of each batch carrying the image-reward loss")
-    p.add_argument("--video-rm-fn", default="none", choices=["none", "vi_clip"])
-    p.add_argument("--video-rm-ckpt", default=None, help="ViCLIP state dict (video reward)")
+    p.add_argument("--video-rm-fn", default="none", choices=["none", "vi_clip", "vi_clip2"])
+    p.add_argument("--video-rm-ckpt", default=None,
+                   help="video reward state dict: ViCLIP's, or InternVideo2-Stage2's for vi_clip2")
     p.add_argument("--video-reward-scale", type=float, default=1.0)
     p.add_argument("--video-rm-frames", type=int, default=8)
     p.add_argument("--video-rm-fraction", type=float, default=0.25)
@@ -118,6 +133,13 @@ TINY_VAE_KW = dict(ch=32, ch_mult=(1, 2), num_res_blocks=1)
 TINY_VIT_KW = dict(image_size=28, patch_size=14, width=32, layers=2, heads=4, output_dim=16)
 TINY_REWARD_TEXT_KW = dict(vocab_size=49408, width=32, heads=4, layers=2, context_length=77,
                            penultimate=False)
+TINY_BERT_KW = dict(vocab_size=30524, hidden=32, layers=2, heads=4, intermediate=64, encoder_width=32)
+TINY_BLIP_VIT_KW = dict(image_size=28, patch_size=14, width=32, layers=2, heads=4)
+TINY_IV2_KW = dict(img_size=28, patch_size=14, width=32, depth=2, heads=4, mlp_hidden=64, num_frames=4,
+                   clip_embed_dim=16, attn_pool_heads=4)
+# the tiny UNet's text context comes from a small tower: CLIP's vocabulary,
+# the UNet's context width (validation renders at --tiny-model)
+TINY_PROMPT_TEXT_KW = dict(vocab_size=49408, width=16, heads=2, layers=2, context_length=77)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,10 +151,13 @@ class DataShape:
     ctx_dim: int
 
 
-def build_trainer(args, raw_videos=None):
+def build_trainer(args, raw_videos=None, validation=False):
     """(trainer, data iterator, UNet config) from the parsed flags.
     `raw_videos`: decoded batches {video (B,T,H,W,3) in [-1, 1], txt} to
-    encode in place of --data-shards / --data-csv (`raw_video_batches`)."""
+    encode in place of --data-shards / --data-csv (`raw_video_batches`).
+    The trainer carries the frozen `vae` and `text_tower` it built (None
+    where nothing needs one); `validation` builds both for
+    `build_validation_fn`, from the same weights."""
     from ..config import vc2_spec
     from ..diffusion import DDIMSolver, DiffusionSchedule
     from ..io.convert import load_checkpoint, split_vc2_checkpoint
@@ -179,7 +204,10 @@ def build_trainer(args, raw_videos=None):
 
     rewards = args.reward_fn != "none" or args.video_rm_fn != "none"
     # one frozen VAE encodes the data and decodes for the rewards
-    vae = build_vae(args, device, dtype, vae_sd) if rewards or raw_videos is not None else None
+    vae = build_vae(args, device, dtype, vae_sd) if rewards or raw_videos is not None or validation else None
+    text = None
+    if validation or (raw_videos is not None and not args.tiny_model):
+        text = build_text_tower(args, device, dtype, clip_sd)
     reward_fn, video_reward_fn, image_rm, video_rm = build_reward_stack(args, device, dtype, vae)
     sched = DiffusionSchedule.create()
     trainer = LCDTrainer(
@@ -204,7 +232,8 @@ def build_trainer(args, raw_videos=None):
         reward_fn=reward_fn,
         video_reward_fn=video_reward_fn,
     )
-    data = make_data_iter(args, shape, raw_videos, vae, clip_sd)
+    trainer.vae, trainer.text_tower = vae, text
+    data = make_data_iter(args, shape, raw_videos, vae, text)
     if image_rm is not None or video_rm is not None:
         data = add_reward_fields(data, args, shape.frames, shape.batch, image_rm, video_rm)
     return trainer, data, ucfg
@@ -227,13 +256,15 @@ def build_vae(args, device, dtype, vae_sd=None):
 
 def build_text_tower(args, device, dtype, clip_sd=None):
     """The frozen OpenCLIP ViT-H text tower of VC2: `clip_sd` (the
-    --checkpoint's) loaded, else seeded random weights."""
+    --checkpoint's) loaded, else seeded random weights; with --tiny-model a
+    small seeded tower at the tiny UNet's context width (for validation
+    renders: the tiny data path takes `hashed_context`)."""
     from ..config import vc2_spec
     from ..io.convert import load_clip_text
-    from ..models import CLIPTextModel, cast_compute_dtype_, seeded_init_
+    from ..models import CLIPTextConfig, CLIPTextModel, cast_compute_dtype_, seeded_init_
 
     with torch.device(device):
-        text = CLIPTextModel(vc2_spec().text)
+        text = CLIPTextModel(CLIPTextConfig(**TINY_PROMPT_TEXT_KW) if args.tiny_model else vc2_spec().text)
     if clip_sd is not None:
         load_clip_text(text, clip_sd)
     else:
@@ -247,31 +278,77 @@ def build_reward_stack(args, device, dtype, vae):
     `vae` (`build_vae`'s); the towers load --reward-ckpt /
     --video-rm-ckpt, else seeded random weights. All are frozen, in `dtype`
     but their norms."""
-    from ..io.convert import load_checkpoint
-    from ..models import CLIPTextConfig, cast_compute_dtype_
-    from ..rewards.reward_fn import build_image_reward_model, build_video_reward_model
-    from ..rewards.vit import VideoViTConfig, ViTConfig
+    from ..models import cast_compute_dtype_
     from ..training.reward_adapters import make_reward_fns
 
     if args.reward_fn == "none" and args.video_rm_fn == "none":
         return None, None, None, None
-    tiny_text = CLIPTextConfig(**TINY_REWARD_TEXT_KW)
-    image_rm = video_rm = None
-    if args.reward_fn != "none":
-        sd = load_checkpoint(args.reward_ckpt) if args.reward_ckpt else None
-        kw = dict(vit_cfg=ViTConfig(**TINY_VIT_KW), text_cfg=tiny_text) if args.tiny_model else {}
-        image_rm = build_image_reward_model(sd, seed=args.seed + 3_000_000, device=device, **kw)
-    if args.video_rm_fn != "none":
-        sd = load_checkpoint(args.video_rm_ckpt) if args.video_rm_ckpt else None
-        kw = dict(vit_cfg=VideoViTConfig(**TINY_VIT_KW, num_frames=8), text_cfg=tiny_text) \
-            if args.tiny_model else {}
-        video_rm = build_video_reward_model(sd, seed=args.seed + 4_000_000, device=device, **kw)
+    image_rm = build_image_reward(args, device) if args.reward_fn != "none" else None
+    video_rm = build_video_reward(args, device) if args.video_rm_fn != "none" else None
     for m in (image_rm, video_rm):
         if m is not None:
             cast_compute_dtype_(m, dtype).requires_grad_(False).eval()
     rf, vrf = make_reward_fns(vae, image_rm, video_rm,
                               decode_chunk=args.vae_decode_batch_size or None)
     return rf, vrf, image_rm, video_rm
+
+
+def _bert_tokenizer(args, max_length: int, ckpt):
+    """--bert-vocab's wordpiece tokenizer, or None: the rewards' hash
+    stand-in, sound only with seeded weights, so a tower loading `ckpt`
+    without --bert-vocab is refused."""
+    from ..utils.bert_tokenizer import BertWordPieceTokenizer
+
+    if ckpt and not args.bert_vocab:
+        raise SystemExit(f"error: {ckpt} holds a BERT text tower; pass its --bert-vocab (vocab.txt)")
+    return BertWordPieceTokenizer(args.bert_vocab, max_length=max_length) if args.bert_vocab else None
+
+
+def build_image_reward(args, device):
+    """--reward-fn's model (f32, seeded unless --reward-ckpt): the ViT-H/14
+    CLIP reward, or for img_reward ImageReward behind `BlipTrainReward`."""
+    from ..io.convert import load_checkpoint
+    from ..models import CLIPTextConfig
+    from ..rewards import reward_fn as R
+    from ..rewards.vit import ViTConfig
+
+    tokenizer = _bert_tokenizer(args, 35, args.reward_ckpt) if args.reward_fn == "img_reward" else None
+    sd = load_checkpoint(args.reward_ckpt) if args.reward_ckpt else None
+    seed = args.seed + 3_000_000
+    if args.reward_fn == "img_reward":
+        from ..rewards.blip import BertConfig, BlipViTConfig, build_image_reward_blip
+
+        kw = dict(vit_cfg=BlipViTConfig(**TINY_BLIP_VIT_KW), bert_cfg=BertConfig(**TINY_BERT_KW),
+                  head_dims=(8, 1)) if args.tiny_model else {}
+        return R.BlipTrainReward(build_image_reward_blip(sd, seed=seed, device=device, **kw), tokenizer=tokenizer)
+    kw = dict(vit_cfg=ViTConfig(**TINY_VIT_KW), text_cfg=CLIPTextConfig(**TINY_REWARD_TEXT_KW)) \
+        if args.tiny_model else {}
+    return R.build_image_reward_model(sd, seed=seed, device=device, **kw)
+
+
+def build_video_reward(args, device):
+    """--video-rm-fn's model (f32, seeded unless --video-rm-ckpt): ViCLIP-L,
+    or for vi_clip2 InternVideo2 behind `InternVideo2TrainReward`, its
+    blocks recomputed in the backward with --use-remat."""
+    from ..io.convert import load_checkpoint
+    from ..models import CLIPTextConfig
+    from ..rewards import reward_fn as R
+    from ..rewards.vit import VideoViTConfig
+
+    tokenizer = _bert_tokenizer(args, 40, args.video_rm_ckpt) if args.video_rm_fn == "vi_clip2" else None
+    sd = load_checkpoint(args.video_rm_ckpt) if args.video_rm_ckpt else None
+    seed = args.seed + 4_000_000
+    if args.video_rm_fn == "vi_clip2":
+        from ..rewards.blip import BertConfig
+        from ..rewards.internvideo2 import IV2VisionConfig, build_internvideo2_reward
+
+        kw = dict(vision_cfg=IV2VisionConfig(**TINY_IV2_KW), embed_dim=16,
+                  text_cfg=BertConfig(**{**TINY_BERT_KW, "cross_attention": False})) if args.tiny_model else {}
+        rm = build_internvideo2_reward(sd, seed=seed, device=device, remat=args.use_remat, **kw)
+        return R.InternVideo2TrainReward(rm, tokenizer=tokenizer, image_size=rm.vision_encoder.cfg.img_size)
+    kw = dict(vit_cfg=VideoViTConfig(**TINY_VIT_KW, num_frames=8), text_cfg=CLIPTextConfig(**TINY_REWARD_TEXT_KW)) \
+        if args.tiny_model else {}
+    return R.build_video_reward_model(sd, seed=seed, device=device, **kw)
 
 
 def add_reward_fields(base_iter, args, frames: int, b: int, image_rm, video_rm):
@@ -314,13 +391,13 @@ def synthetic_data(shape: DataShape, fps: float):
         }
 
 
-def make_data_iter(args, shape: DataShape, raw_videos=None, vae=None, clip_sd=None):
+def make_data_iter(args, shape: DataShape, raw_videos=None, vae=None, text=None):
     """The trainer's batches {latents, ctx, uncond_ctx, fps, _texts}: random
     ones with --synthetic-data, else `raw_videos` (`raw_video_batches`)
     encoded by `vae` (`build_vae`) on its device, with the captions'
-    context from the text tower (`clip_sd` or seeded weights; the empty
-    prompt's once), or with --tiny-model from `hashed_context` and zeros
-    (the JAX CLI's `make_data_iter`)."""
+    context from the text tower (`text`, else a seeded `build_text_tower`;
+    the empty prompt's once), or with --tiny-model from `hashed_context`
+    and zeros (the JAX CLI's `make_data_iter`)."""
     from ..config import vc2_spec
     from ..models.layers import compute_dtype
 
@@ -331,7 +408,9 @@ def make_data_iter(args, shape: DataShape, raw_videos=None, vae=None, clip_sd=No
         embed = functools.partial(hashed_context, ctx_len=shape.ctx_len, ctx_dim=shape.ctx_dim)
         uncond = torch.zeros(1, shape.ctx_len, shape.ctx_dim)
     else:
-        embed = text_embedder(build_text_tower(args, next(vae.parameters()).device, compute_dtype(vae), clip_sd))
+        if text is None:
+            text = build_text_tower(args, next(vae.parameters()).device, compute_dtype(vae))
+        embed = text_embedder(text)
         with torch.no_grad():
             uncond = embed([""])  # once; repeated over each batch
     return encode_batches(raw_videos, vae, embed, uncond, args.fps, scale_factor)
@@ -396,6 +475,33 @@ def encode_batches(raw_iter, vae, embed, uncond_ctx, fps: float, scale_factor: f
         b = latents.shape[0]
         yield {"latents": latents, "ctx": ctx, "uncond_ctx": uncond_ctx.float().to(device).repeat(b, 1, 1),
                "fps": torch.full((b,), float(fps), device=device), "_texts": texts}
+
+
+def build_validation_fn(args, trainer, max_prompts=None, step_counts=(8, 16), suffix=".mp4"):
+    """`trainer.run`'s validation_fn: the student renders the validation
+    prompts (training/validation.py) through a T2VTurboVC2Pipeline at the
+    training clip's frames and size, with the trainer's own frozen VAE and
+    text tower (`build_trainer(..., validation=True)`), into `suffix` files
+    (.mp4 needs ffmpeg; .npy holds the uint8 frames)."""
+    from ..config import vc2_spec
+    from ..models.layers import compute_dtype
+    from ..pipelines.vc2 import T2VTurboVC2Pipeline
+    from ..training.validation import make_validation_logger
+    from ..utils.tokenizer import CLIPTokenizer
+
+    vae, text = trainer.vae, trainer.text_tower
+    if vae is None or text is None:
+        raise ValueError("validation renders need the trainer of build_trainer(..., validation=True)")
+    spec, device, dtype = vc2_spec(), trainer.device, compute_dtype(vae)
+    if args.tiny_model:
+        frames, (height, width), vae_scale = 4, (16, 16), 2
+    else:
+        frames, height, width, vae_scale = args.n_frames, args.height, args.width, 8
+    pipe = T2VTurboVC2Pipeline(unet=trainer.student, vae=vae, text_model=text, tokenizer=CLIPTokenizer(),
+                               schedule=spec.make_schedule(), device=device, scale_factor=spec.scale_factor,
+                               vae_scale=vae_scale, w_embedding_dim=trainer.lcd_cfg.w_embedding_dim, dtype=dtype)
+    return make_validation_logger(pipe, args.output_dir, step_counts=step_counts, frames=frames, height=height,
+                                  width=width, max_prompts=max_prompts, suffix=suffix)
 
 
 def export_lora(trainer, ucfg, output_dir: str):

@@ -211,24 +211,22 @@ def flash_attention(q, k, v, scale=None):
 
 def _count(wrapper, route, shape):
     """One launch of a flash kernel wrapper: its total, by head dim, by route
-    and, for the forwards, by (B, H, Sq, Sk, D)."""
+    and by (B, H, Sq, Sk, D)."""
     with cuda_lib.COUNT_LOCK:
         wrapper.launches += 1
         wrapper.by_head_dim[shape[-1]] += 1
         wrapper.by_route[route] += 1
-        if hasattr(wrapper, "by_shape"):
-            wrapper.by_shape[shape] += 1
+        wrapper.by_shape[shape] += 1
 
 
-def _counters(wrapper, shapes=False):
+def _counters(wrapper):
     wrapper.launches = 0
     wrapper.by_head_dim = collections.Counter()
     wrapper.by_route = collections.Counter()
-    if shapes:
-        wrapper.by_shape = collections.Counter()
+    wrapper.by_shape = collections.Counter()
 
 
-_counters(flash_attention, shapes=True)
+_counters(flash_attention)
 
 
 def flash_attention_cuda(q, k, v, scale=None):
@@ -274,7 +272,7 @@ def flash_attention_lse(q, k, v, scale=None):
     return o, lse
 
 
-_counters(flash_attention_lse, shapes=True)
+_counters(flash_attention_lse)
 
 
 def _tma_readable(t, strides):

@@ -12,12 +12,20 @@ Names follow the reference factory (reward_fn.py:342-358):
                          the checkpoints differ)
   weighted_hpsv2_clip    w0 * hpsv2 + w1 * clip
   vi_clip                ViCLIP-L video-text score
-`img_reward` (BLIP) and `vi_clip2` (InternVideo2) are not ported yet.
+  img_reward             ImageReward (BLIP, rewards/blip.py)
+  vi_clip2               InternVideo2-Stage2 (rewards/internvideo2.py)
+For the trainer, `BlipTrainReward` and `InternVideo2TrainReward` give the
+last two the interface the LCD adapters call: `encode_texts` makes the
+per-batch field (BERT token ids for BLIP, whose text branch reads the
+image states; normalised features for InternVideo2) and
+`score(images in [0, 1], field)` resizes and normalises, then scores.
 
 Checkpoints: `ImageRewardModel.load_open_clip` takes an open_clip CLIP state
-dict (`visual.*`, the text tower's keys, `logit_scale`);
+dict (`visual.*`, the text tower's keys, `logit_scale`), `load_hf_clip` an
+HF transformers `CLIPModel` one (`text_model.*`, `vision_model.*`,
+`text_projection`, `visual_projection`, `logit_scale`: PickScore's layout);
 `VideoRewardModel.load_viclip` a ViCLIP one (`vision_encoder.*`,
-`text_encoder.*`). Both load strictly.
+`text_encoder.*`). All load strictly.
 """
 
 from __future__ import annotations
@@ -25,6 +33,7 @@ from __future__ import annotations
 import math
 from typing import Callable, Sequence, Tuple
 
+import numpy as np
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
@@ -107,6 +116,10 @@ class ImageRewardModel(_RewardModel):
     def forward(self, images, texts):
         return self.score(images, self.encode_texts(texts))
 
+    def load_hf_clip(self, sd) -> None:
+        """Strictly load an HF `CLIPModel` state dict (`hf_clip_to_open_clip`)."""
+        self.load_open_clip(hf_clip_to_open_clip(sd))
+
     def load_open_clip(self, sd) -> None:
         """Strictly load an open_clip CLIP state dict: `visual.*` into the
         vision tower, `logit_scale`, and every other key into the text tower."""
@@ -145,14 +158,58 @@ class VideoRewardModel(_RewardModel):
         self.load_state_dict({k: v for k, v in sd.items() if k != "temp"}, strict=True)
 
 
+def hf_clip_to_open_clip(sd) -> dict:
+    """An HF transformers `CLIPModel` state dict (PickScore's layout) -> the
+    open_clip keys `load_open_clip` takes: the key table of the JAX
+    package's `import_hf_clip_params` (t2v_turbo_tpu/io/torch_import.py:610),
+    each layer's q, k and v packed into `in_proj` and the projections
+    transposed from Linear weights to open_clip's matrices. The
+    `position_ids` buffers HF keeps beside the position tables are dropped;
+    any other key left unused raises."""
+    rest = {k: v for k, v in sd.items() if not k.endswith("embeddings.position_ids")}
+    take = rest.pop
+    out = {
+        "token_embedding.weight": take("text_model.embeddings.token_embedding.weight"),
+        "positional_embedding": take("text_model.embeddings.position_embedding.weight"),
+        "text_projection": torch.as_tensor(take("text_projection.weight")).T.contiguous(),
+        "visual.conv1.weight": take("vision_model.embeddings.patch_embedding.weight"),
+        "visual.class_embedding": take("vision_model.embeddings.class_embedding"),
+        "visual.positional_embedding": take("vision_model.embeddings.position_embedding.weight"),
+        "visual.proj": torch.as_tensor(take("visual_projection.weight")).T.contiguous(),
+        "logit_scale": take("logit_scale"),
+    }
+    names = [("text_model.final_layer_norm", "ln_final"), ("vision_model.pre_layrnorm", "visual.ln_pre"),
+             ("vision_model.post_layernorm", "visual.ln_post")]
+    for tower, dst in (("text_model", "transformer"), ("vision_model", "visual.transformer")):
+        i = 0
+        while f"{tower}.encoder.layers.{i}.layer_norm1.weight" in rest:
+            src, blk = f"{tower}.encoder.layers.{i}", f"{dst}.resblocks.{i}"
+            for n in ("weight", "bias"):
+                out[f"{blk}.attn.in_proj_{n}"] = torch.cat(
+                    [torch.as_tensor(take(f"{src}.self_attn.{p}_proj.{n}")) for p in "qkv"])
+            names += [(f"{src}.{hf}", f"{blk}.{oc}") for hf, oc in (
+                ("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"), ("self_attn.out_proj", "attn.out_proj"),
+                ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj"))]
+            i += 1
+    for hf, oc in names:
+        for n in ("weight", "bias"):
+            out[f"{oc}.{n}"] = take(f"{hf}.{n}")
+    if rest:
+        raise RuntimeError(f"keys outside the HF CLIPModel layout: {sorted(rest)[:5]}")
+    return out
+
+
 def build_image_reward_model(state_dict=None, tokenizer=None, vit_cfg: ViTConfig = VIT_H_14,
                              text_cfg: CLIPTextConfig = OPEN_CLIP_H14_TEXT, seed: int = 0,
                              device=None) -> ImageRewardModel:
-    """An open_clip state dict, or seeded random weights when it is None."""
+    """An open_clip or HF `CLIPModel` state dict (told apart by its
+    `text_model.*` keys), or seeded random weights when it is None."""
     with torch.device(device or "cpu"):
         model = ImageRewardModel(vit_cfg, text_cfg, tokenizer)
     if state_dict is None:
         seeded_init_(model, seed)
+    elif any(k.startswith("text_model.") for k in state_dict):
+        model.load_hf_clip(state_dict)
     else:
         model.load_open_clip(state_dict)
     return model
@@ -172,6 +229,80 @@ def build_video_reward_model(state_dict=None, tokenizer=None,
     return model
 
 
+class _HashTokenizer:
+    """Deterministic stand-in for a BERT vocabulary (smoke runs and tests
+    without a vocab.txt): a stable per-word hash id, [CLS] 101 ... [SEP]
+    102, zero padding; -> (ids, mask) int32, as the JAX package's. Not for
+    real training: pass a `BertWordPieceTokenizer` (utils/bert_tokenizer.py)."""
+
+    def __init__(self, max_length: int = 35, vocab_size: int = 30522):
+        self.max_length, self.vocab_size = max_length, vocab_size
+
+    def __call__(self, texts):
+        import hashlib
+
+        out = np.zeros((len(texts), self.max_length), np.int32)
+        for i, t in enumerate(texts):
+            words = str(t).lower().split()[: self.max_length - 2]
+            ids = [101] + [
+                int(hashlib.md5(w.encode()).hexdigest()[:6], 16) % (self.vocab_size - 999) + 999
+                for w in words
+            ] + [102]
+            out[i, : len(ids)] = ids
+        return out, (out != 0).astype(np.int32)
+
+
+class BlipTrainReward(nn.Module):
+    """The trainer's facade over rewards.blip.ImageRewardModel (reference
+    reward_fn.py:128-174): the per-batch field is BERT token ids at the
+    BLIP tokenizer's max length 35, which ride through the
+    `reward_text_feats` batch slot as integers; `score` resizes to the
+    ViT's size (bicubic, CLIP normalisation), masks the padding (id 0) and
+    returns -relu(-r + 2)."""
+
+    def __init__(self, rm, tokenizer=None):
+        super().__init__()
+        self.rm = rm
+        self.tokenizer = tokenizer or _HashTokenizer(max_length=35)
+
+    def encode_texts(self, texts: Sequence[str]) -> torch.Tensor:
+        """(B, max_length) int32 token ids, on the host."""
+        ids = self.tokenizer(list(texts))
+        return torch.as_tensor(ids[0] if isinstance(ids, tuple) else ids, dtype=torch.int32)
+
+    def score(self, images: torch.Tensor, token_ids: torch.Tensor) -> torch.Tensor:
+        """images (B, H, W, 3) in [0, 1]; token_ids (B, S) -> (B,) f32."""
+        px = preprocess_images(images, self.rm.vit_cfg.image_size, CLIP_MEAN, CLIP_STD)
+        if token_ids.is_floating_point():
+            raise TypeError("BLIP's text field is token ids; got a floating-point tensor")
+        r = self.rm.score(px, token_ids, token_ids != 0)
+        return -F.relu(-r + 2.0)  # reference reward_fn.py:172
+
+
+class InternVideo2TrainReward(nn.Module):
+    """The trainer's facade over rewards.internvideo2.InternVideo2RewardModel
+    (reference reward_fn.py:234-281; the v1 trainer's default video reward,
+    train_t2v_turbo_v1_lora.py:518-520): text features computed once,
+    without a graph (hashed ids at max length 40 when the model has no
+    tokenizer); `score` resizes the short side to `image_size` (bicubic,
+    ViCLIP normalisation) on the gradient path."""
+
+    def __init__(self, rm, tokenizer=None, image_size: int = 224):
+        super().__init__()
+        self.rm, self.image_size = rm, image_size
+        if tokenizer is not None:
+            self.rm.tokenizer = tokenizer
+
+    def encode_texts(self, texts: Sequence[str]) -> torch.Tensor:
+        if self.rm.tokenizer is None:
+            return self.rm.encode_texts_tokens(*_HashTokenizer(max_length=40)(list(texts)))
+        return self.rm.encode_texts(list(texts))
+
+    def score(self, videos: torch.Tensor, text_feats: torch.Tensor) -> torch.Tensor:
+        """videos (B, T, H, W, 3) in [0, 1]; text_feats (B, D) -> (B,) f32."""
+        return self.rm.score(preprocess_images(videos, self.image_size, VICLIP_MEAN, VICLIP_STD), text_feats)
+
+
 def get_reward_fn(name: str, state_dict=None, **kw) -> Callable:
     """The reference factory's names (reward_fn.py:342-358)."""
     if name in ("clip", "hpsv2", "pick"):
@@ -187,7 +318,12 @@ def get_reward_fn(name: str, state_dict=None, **kw) -> Callable:
         return score
     if name == "vi_clip":
         return build_video_reward_model(state_dict, **kw)
-    if name in ("img_reward", "vi_clip2"):
-        raise NotImplementedError(
-            f"reward {name!r} (the BLIP / InternVideo2 towers) is not ported yet: ROADMAP A10")
+    if name == "img_reward":
+        from .blip import build_image_reward_blip
+
+        return build_image_reward_blip(state_dict, **kw)
+    if name == "vi_clip2":
+        from .internvideo2 import build_internvideo2_reward
+
+        return build_internvideo2_reward(state_dict, **kw)
     raise ValueError(f"unknown reward fn {name!r}")

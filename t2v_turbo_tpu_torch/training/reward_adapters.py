@@ -7,7 +7,8 @@ UNet (train_t2v_turbo_v1_lora.py:1043-1098). `make_reward_fns` builds the
 two `reward_fn(model_pred, batch) -> (B,) rewards` callables `lcd_loss`
 takes:
 - image: the `reward_frame_idx` frames of each sample, decoded and scored
-  against `reward_text_feats` (the reference's random frames, :1049);
+  against `reward_text_feats` (the reference's random frames, :1049):
+  text features, or BLIP's token ids (integers, repeated as they are);
 - video: the `video_frame_idx` strided frames, decoded and scored as one
   clip against `video_text_feats` (:1066-1098).
 The frame indices and text features are batch fields made on the host
@@ -100,5 +101,7 @@ def sample_frame_indices(rng: np.random.RandomState, batch_size: int, total_fram
 
 
 def precompute_text_feats(reward_model, texts) -> torch.Tensor:
-    """Normalised text features for a batch, without a graph."""
+    """The batch's text field, without a graph: normalised features, or
+    for BLIP (`BlipTrainReward`) int32 token ids, which stay integers
+    through the batch and `repeat_interleave` into its text branch."""
     return reward_model.encode_texts(list(texts))

@@ -23,7 +23,8 @@ parallelism, the split step, EMA and multi-host).
   time_per_step_s, the losses (with reward feedback, reward_loss and
   video_rm_loss too), grad_norm and data_wait_frac (the share of
   the window the host waited for the next batch); a heartbeat file and
-  SIGTERM/SIGINT handling (training/watchdog.py) as in the JAX trainer.
+  SIGTERM/SIGINT handling (training/watchdog.py) as in the JAX trainer;
+  periodic validation videos through `run`'s validation_fn.
 """
 
 from __future__ import annotations
@@ -197,13 +198,17 @@ class LCDTrainer:
         return row
 
     # ------------------------------------------------------------------
-    def run(self, data_iter: Iterator[dict], max_steps: Optional[int] = None) -> dict:
+    def run(self, data_iter: Iterator[dict], max_steps: Optional[int] = None,
+            validation_fn: Optional[Callable] = None, validation_every: int = 500) -> dict:
         """Resume, then take micro-steps to `max_steps`, logging and
         checkpointing; a final checkpoint is written on the way out. The
         batches come through a `DevicePrefetcher` (as the JAX trainer's):
         a worker thread pulls the next two from `data_iter` and moves them
         to the device while the step runs; an exception there is raised
-        here."""
+        here. validation_fn(step, student) runs every `validation_every`
+        steps, after the step's checkpoint (training/validation.py: the
+        reference's periodic validation videos); it must leave the
+        trainer's generator alone, so the draws do not depend on it."""
         cfg = self.cfg
         start = self.resume_if_available()
         max_steps = max_steps or cfg.max_steps
@@ -235,6 +240,8 @@ class LCDTrainer:
                     t_window, steps_in_window, wait_in_window = now, 0, 0.0
                 if last_step % cfg.checkpoint_every == 0:
                     self.save(last_step)
+                if validation_fn is not None and last_step % validation_every == 0:
+                    validation_fn(last_step, self.student)
         if last_step % cfg.checkpoint_every != 0:
             self.save(last_step)
         return last_metrics

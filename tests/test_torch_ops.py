@@ -218,7 +218,8 @@ def test_port_imports_no_jax():
             importlib.import_module(name)
         for needed in ("apps.generate", "apps.train_v1", "io.video", "lora", "training.trainer",
                        "rewards.reward_fn", "rewards.vit", "training.reward_adapters", "ops.fused_conv",
-                       "data.transforms", "data.videoio", "data.webdata", "data.datasets"):
+                       "data.transforms", "data.videoio", "data.webdata", "data.datasets", "rewards.blip",
+                       "rewards.internvideo2", "utils.bert_tokenizer", "training.validation", "apps.soak_v1"):
             assert "t2v_turbo_tpu_torch." + needed in names, names
         print(len(names))
         """

@@ -154,8 +154,76 @@ def test_get_reward_fn_names():
     weighted = R.get_reward_fn("weighted_hpsv2_clip", **kw)
     images = torch.rand(2, 28, 28, 3)
     assert weighted(images, TEXTS[:2]).shape == (2,)
-    for name in ("img_reward", "vi_clip2"):
-        with pytest.raises(NotImplementedError, match="A10"):
-            R.get_reward_fn(name)
+    from t2v_turbo_tpu_torch.rewards import blip, internvideo2
+
+    ir = R.get_reward_fn("img_reward", vit_cfg=blip.BlipViTConfig(image_size=32, patch_size=16, width=32, layers=1,
+                                                                  heads=4),
+                         bert_cfg=blip.BertConfig(vocab_size=60, hidden=24, layers=1, heads=4, intermediate=48,
+                                                  max_position=16), head_dims=(8, 1))
+    assert isinstance(ir, blip.ImageRewardModel)
+    v2 = R.get_reward_fn("vi_clip2", vision_cfg=internvideo2.IV2VisionConfig(
+        img_size=28, patch_size=14, width=32, depth=1, heads=4, mlp_hidden=48, num_frames=2, clip_embed_dim=16,
+        attn_pool_heads=4), text_cfg=blip.BertConfig(vocab_size=60, hidden=24, layers=1, heads=4, intermediate=48,
+                                                     max_position=16, cross_attention=False), embed_dim=8)
+    assert isinstance(v2, internvideo2.InternVideo2RewardModel)
     with pytest.raises(ValueError):
         R.get_reward_fn("nope")
+
+
+def _hf_layout(sd):
+    """The open_clip-keyed state dict in HF transformers' CLIPModel layout
+    (PickScore's): q, k, v unpacked, the projections as Linear weights,
+    and the `position_ids` buffers HF keeps."""
+    out = {"logit_scale": sd["logit_scale"], "text_projection.weight": sd["text_projection"].T,
+           "visual_projection.weight": sd["visual.proj"].T,
+           "text_model.embeddings.token_embedding.weight": sd["token_embedding.weight"],
+           "text_model.embeddings.position_embedding.weight": sd["positional_embedding"],
+           "text_model.embeddings.position_ids": np.arange(8)[None],
+           "vision_model.embeddings.patch_embedding.weight": sd["visual.conv1.weight"],
+           "vision_model.embeddings.class_embedding": sd["visual.class_embedding"],
+           "vision_model.embeddings.position_embedding.weight": sd["visual.positional_embedding"]}
+    for oc, hf in (("ln_final", "text_model.final_layer_norm"), ("visual.ln_pre", "vision_model.pre_layrnorm"),
+                   ("visual.ln_post", "vision_model.post_layernorm")):
+        for n in ("weight", "bias"):
+            out[f"{hf}.{n}"] = sd[f"{oc}.{n}"]
+    for oc, hf in (("transformer", "text_model"), ("visual.transformer", "vision_model")):
+        for i in range(TEXT_KW["layers"]):
+            src, dst = f"{oc}.resblocks.{i}", f"{hf}.encoder.layers.{i}"
+            for n in ("weight", "bias"):
+                for p, part in zip("qkv", np.split(sd[f"{src}.attn.in_proj_{n}"], 3)):
+                    out[f"{dst}.self_attn.{p}_proj.{n}"] = part
+                for o, h in (("ln_1", "layer_norm1"), ("ln_2", "layer_norm2"), ("attn.out_proj", "self_attn.out_proj"),
+                             ("mlp.c_fc", "mlp.fc1"), ("mlp.c_proj", "mlp.fc2")):
+                    out[f"{dst}.{h}.{n}"] = sd[f"{src}.{o}.{n}"]
+    return out
+
+
+def test_hf_clip_checkpoint_loads_strictly_and_matches_jax(image_models):
+    """PickScore's HF CLIPModel layout: `load_hf_clip` gives the weights the
+    open_clip load gives, scores as the JAX package's model built by
+    `import_hf_clip_params` from the same dict, and refuses a missing or an
+    extra key."""
+    from t2v_turbo_tpu.io import torch_import as ti
+    from t2v_turbo_tpu.models.clip_text import CLIPTextConfig as JCLIPTextConfig
+    from t2v_turbo_tpu.rewards import vit as jvit
+
+    port, sd, _ = image_models
+    hf = _hf_layout(sd)
+    loaded = R.build_image_reward_model(to_torch(hf), vit_cfg=ViTConfig(**VIT_KW), text_cfg=CLIPTextConfig(**TEXT_KW),
+                                        tokenizer=FakeTok())
+    for k, v in port.state_dict().items():
+        torch.testing.assert_close(loaded.state_dict()[k], v, rtol=0, atol=0, msg=k)
+    jax_rm = jrf.build_image_reward_model(
+        weights=ti.import_hf_clip_params({k: np.asarray(v) for k, v in hf.items()}), tokenizer=FakeTok(),
+        vit_cfg=jvit.ViTConfig(**VIT_KW), text_cfg=JCLIPTextConfig(**TEXT_KW))
+    pixels = np.random.RandomState(5).rand(2, 40, 64, 3).astype(np.float32)
+    feats = loaded.encode_texts(TEXTS[:2])
+    np.testing.assert_allclose(feats.numpy(), np.asarray(jax_rm.encode_texts(TEXTS[:2])), atol=ATOL)
+    np.testing.assert_allclose(loaded.score(torch.from_numpy(pixels), feats).detach().numpy(),
+                               np.asarray(jax_rm.score(jnp.asarray(pixels), jnp.asarray(feats.numpy()))), atol=ATOL)
+    with pytest.raises(RuntimeError, match="outside"):
+        loaded.load_hf_clip(to_torch({**hf, "vision_model.extra.weight": np.zeros(1, np.float32)}))
+    missing = dict(hf)
+    missing.pop("vision_model.post_layernorm.bias")
+    with pytest.raises(KeyError):
+        loaded.load_hf_clip(to_torch(missing))

@@ -105,9 +105,10 @@ def seeded_numpy_state_dict(module, seed):
 
 def _is_norm(module, key):
     from t2v_turbo_tpu_torch.models.layers import GroupNorm, LayerNorm
+    from t2v_turbo_tpu_torch.rewards.internvideo2 import RMSNorm
 
     sub = module.get_submodule(key.rsplit(".", 1)[0])
-    return isinstance(sub, (GroupNorm, LayerNorm))
+    return isinstance(sub, (GroupNorm, LayerNorm, RMSNorm))
 
 
 def to_torch(sd):
