@@ -85,6 +85,11 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 cross-attention (5,12,35,197,64), B5 at BLIP's (985,1024)
                 and (175,768, eps 1e-12) and InternVideo2's (2049,1408),
                 (1,1408) and BERT-large (40,1024, eps 1e-12) rows.
+                Full-model (v2) gradients: B7 (x, the GroupNorm affine,
+                the conv weight and bias, the FiLM), B4 and B5 (x and both
+                affines) through their autograd functions against the plain
+                twins' autograd at one UNet L0 shape each, at the forward's
+                bf16 bound.
                 The norms' and B8's `ms` is
                 back-to-back calls, as every kernel's (host time included:
                 their calls are host-bound); their `graph_ms` the device
@@ -188,6 +193,42 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 --tiny-model reward stack, decoding in checkpointed chunks),
                 against the same weights, LoRA factors (non-zero ups) and
                 draws on the CPU: loss, reward losses and every LoRA gradient.
+ 10. v2 generation: apps/generate.py's pipeline with a motion-conditioned
+                v2 UNet (motion_cond_proj, combine_proj; seeded), 16 steps
+                from an origin grid of 200, motion_gs 0.05 at the timesteps
+                >= 700 (percentage 0.3), 3 prompts at 16x320x512: finite
+                videos, s/video, peak memory, every flash and B7 launch on
+                wgmma, B8 bulk at its 35 launches a UNet pass, no plain
+                attention; the first prompt again at motion_gs 0 must differ;
+                one more video profiled (chiprun_out/profile_v2_video.txt).
+ 11. v2 preprocess: apps/preprocess.py's job (build_job) at full width with a
+                seeded teacher on synthetic latents: 4 samples (the last
+                under torch.profiler: chiprun_out/profile_v2_preprocess.txt) with the
+                motion prior and 1 without; the teacher's calls a sample
+                counted (index + 4 with the prior: index + 1 inversion
+                steps, the reference capture, the capture with gradient, the
+                unconditional output; 2 without), scores finite and non-zero
+                (zero without), the nine capture attentions plain (18 calls a
+                sample), every flash launch on wgmma; the pickles read by
+                MP4LatentDataset; s/sample and peak memory. Then a small f32
+                UNet's motion_prior_score (41 inversion steps) on the card
+                against the CPU.
+ 12. v2 training: apps/train_v2.py's build_trainer on those pickles at the
+                recipe's point: batch 3 (else the largest batch that fits, said
+                so), --use-remat, the motion embedding, the EMA target
+                (decay 0.95), adamw8bit, the temporal group at 1e-5, HPSv2
+                (0.2) and ViCLIP (0.5) rewards decoding 16 frames a chunk; 4
+                steps: finite losses; after step 1 every UNet gradient
+                (norm affines included) finite, those exactly zero counted;
+                the EMA after each step equal to 0.95 EMA + 0.05 master (f32
+                rounding, on a sample of elements); launches a step by
+                kernel, every flash and B7 launch on wgmma; s/step, peak
+                memory, one profiled step (chiprun_out/profile_train_v2.txt);
+                unet.pt and target_unet.pt exported and loaded strictly into
+                fresh UNets. Work files under build/chip_smoke_v2, removed.
+`python3 chip_smoke.py --phases "v2 generation,v2 preprocess"` runs only the
+named phases (after device and build), for development; with no argument
+every phase runs.
 The last lines of standard output are the card's name and power limit, the
 kernels' JSON record and {"ok": true, "device": {...}}; the whole log is also
 written to chiprun_out/chip_smoke.log.
@@ -1092,7 +1133,49 @@ def _kernel_cases():
         ln("InternVideo2 pooling LN q (1,1408) bf16", (1, 1408), 1408, bf, 1e-2, why_norm_bf),
         ln("InternVideo2 BERT-large LN eps 1e-12 (40,1024) bf16", (40, 1024), 1024, bf, 1e-2, why_norm_bf, 1e-12),
     ]
-    return serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn + towers
+    # Full-model training (v2) differentiates every weight: B7's conv weight,
+    # bias, GroupNorm affine and FiLM, B4's and B5's affines, beside x, each
+    # through its autograd function (kernel forward; B7's backward recomputes
+    # the activation and runs cuDNN's conv gradients, the norms' is the plain
+    # math) against the plain twin's autograd, at one UNet shape each and at
+    # the forward's bf16 bound; last, after the earlier PRs' cases
+    def full_grads(kernel, label, make, fn, plain, outputs, tol, route=None):
+        def grads(f):
+            def run(*inputs):
+                *xs, dy = inputs
+                leaves = [t.detach().requires_grad_() for t in xs if t is not None]
+                it = iter(leaves)
+                return torch.autograd.grad(f(*[next(it) if t is not None else None for t in xs]), leaves, dy)
+            return run
+        return dict(kernel=kernel, label=label, make=make, fn=grads(fn), plain=grads(plain), outputs=outputs,
+                    tols=len(outputs) * [tol], route=route,
+                    why="bf16 gradients (the forward's bound); the backward repeats the plain math on the saved "
+                        "inputs, the forward's rounding differs")
+
+    def with_dy(make, shape):
+        def run():
+            g = torch.Generator("cuda").manual_seed(77)
+            return make() + [torch.randn(shape, generator=g, device="cuda").to(bf)]
+        return run
+
+    l0 = (16, 320, 40, 64)
+    full_model = [
+        full_grads("fused_gn_silu_conv full-model gradients", f"UNet L0 320->320 3x3 {l0} bf16, FiLM on",
+                   with_dy(conv_inputs(*l0, 320, 3, 3, bf, True), l0),
+                   lambda *a: FC.fused_gn_silu_conv(*a[:5], 32, 1e-5, *a[5:]),
+                   lambda *a: FC.fused_gn_silu_conv_plain(*a[:5], 32, 1e-5, *a[5:]),
+                   ("dx", "d gn_scale", "d gn_bias", "d weight", "d bias", "d film_scale", "d film_shift"),
+                   _elementwise(2e-2, 2e-2), route=(FC.fused_gn_silu_conv, "wgmma")),
+        full_grads("group_norm full-model gradients", f"UNet L0 GN+SiLU {l0} bf16",
+                   with_dy(norm_inputs(l0, 320, bf), l0), lambda x, w, b: N.group_norm(x, w, b, 32, 1e-5, "silu"),
+                   lambda x, w, b: N.group_norm_plain(x, w, b, 32, 1e-5, "silu"), ("dx", "d weight", "d bias"),
+                   _elementwise(1e-2, 1e-2)),
+        full_grads("layer_norm full-model gradients", "UNet L0 transformer LN (40960,320) bf16",
+                   with_dy(norm_inputs((40960, 320), 320, bf), (40960, 320)),
+                   lambda x, w, b: N.layer_norm(x, w, b, 1e-5), lambda x, w, b: N.layer_norm_plain(x, w, b, 1e-5),
+                   ("dx", "d weight", "d bias"), _elementwise(1e-2, 1e-2)),
+    ]
+    return serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn + towers + full_model
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -1439,7 +1522,7 @@ def phase_kernels(records):
     for case in _kernel_cases():
         name, label = case["kernel"], case["label"]
         inputs = case["make"]()
-        counter, route = case.get("route", (None, None))  # a backward kernel's expected route
+        counter, route = case.get("route") or (None, None)  # a backward kernel's expected route
         before = counter.by_route.copy() if counter else None
         got = _as_tuple(case["fn"](*inputs))
         torch.cuda.synchronize()
@@ -1596,31 +1679,41 @@ def _stage_times(pipe):
         f"{1e3 * sum(text_s):.1f}; VAE decode ms {1e3 * sum(dec_s):.1f}")
 
 
-def _profile_one_video(pipe):
-    """torch.profiler over one more video: device time by kernel and the
-    device's idle share of the wall time, into chiprun_out/profile.txt."""
+def _profiled(fn, name):
+    """(fn's result, wall ms, device-kernel ms, CUDA events) of one call
+    under torch.profiler; the op table into chiprun_out/<name>."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
-    gen = torch.Generator(device="cuda").manual_seed(2000)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        pipe(prompt=PROMPTS[0], generator=gen)
+        out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
     events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
     table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=90)
     os.makedirs(OUT_DIR, exist_ok=True)
-    with open(os.path.join(OUT_DIR, "profile.txt"), "w") as f:
+    with open(os.path.join(OUT_DIR, name), "w") as f:
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
+    return out, wall_ms, busy_ms, events
+
+
+def _profile_one_video(pipe, name="profile.txt", what="profile", **call_kw):
+    """torch.profiler over one more video (the pipeline call's defaults, or
+    `call_kw`): device time by kernel and the device's idle share of the
+    wall time, into chiprun_out/<name>."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(2000)
+    _, wall_ms, busy_ms, events = _profiled(lambda: pipe(prompt=PROMPTS[0], generator=gen, **call_kw), name)
     b7_ms = sum(e.self_device_time_total for e in events if "gn_silu_conv" in e.key) / 1e3
     fwd_ms, _, fwd512_ms, _ = flash_device_ms(events)
-    log(f"profile: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
+    log(f"{what}: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
         f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; the fused conv's kernels (B7) {b7_ms:.1f} ms; the flash "
         f"forward's kernels (B1) {fwd_ms:.2f} ms, of which D = 512 {fwd512_ms:.2f}; the short-sequence "
-        f"attention (B8) {small_seq_device_ms(events):.3f} ms; " + _norm_profile(events) + " -> chiprun_out/profile.txt")
+        f"attention (B8) {small_seq_device_ms(events):.3f} ms; " + _norm_profile(events) + f" -> chiprun_out/{name}")
 
 
 def phase_reference(records):
@@ -2459,7 +2552,374 @@ def phase_training_reference():
     torch.backends.cudnn.allow_tf32 = True
 
 
-def main() -> int:
+# T2V-Turbo-v2 (phases 10-12): generation with the motion embedding, the
+# offline preprocess (its pickles feed the training phase) and full-model
+# training. The pickles and exported UNets are large, so they go to a work
+# directory beside the script (build/, untracked), removed at the end.
+V2_DIR = os.path.join(HERE, "build", "chip_smoke_v2")
+V2_GEN = "v2 generation"
+V2_PRE = "v2 preprocess"
+V2_TRAIN = "v2 training"
+
+
+class PlainAttentionCount:
+    """Counts the plain `attention` calls (those the kernels do not take:
+    the probability captures, head dims the flash kernels lack) while
+    active, by (head dim, with probabilities)."""
+
+    def __enter__(self):
+        import collections
+
+        from t2v_turbo_tpu_torch.models import layers
+        from t2v_turbo_tpu_torch.ops import attention as A
+
+        self.counts = collections.Counter()
+        self._patched = [(A, A.attention), (layers, layers.attention)]
+        plain = A.attention
+
+        def counted(q, k, v, *args, **kw):
+            self.counts[(q.shape[-1], bool(kw.get("return_probs")))] += 1
+            return plain(q, k, v, *args, **kw)
+
+        for module, _ in self._patched:
+            module.attention = counted
+        return self
+
+    def __exit__(self, *exc):
+        for module, fn in self._patched:
+            module.attention = fn
+
+    def text(self, passes=1, per="call"):
+        return ", ".join(f"head dim {d}{' with probabilities' if p else ''}: {n / passes:g} a {per}"
+                         for (d, p), n in sorted(self.counts.items())) or "none"
+
+
+def phase_v2_generation():
+    """apps/generate.py's pipeline with a motion-conditioned v2 UNet at the
+    v2 operating point: 16 steps from an origin grid of 200, motion_gs 0.05
+    in the top 30% of the timesteps; 3 prompts at 16x320x512."""
+    import torch
+
+    from t2v_turbo_tpu_torch.apps.generate import build_pipeline, parse_args
+    from t2v_turbo_tpu_torch.pipelines.vc2 import motion_guidance_scale
+
+    steps, origin, gs, pct = 16, 200, 0.05, 0.3
+    t0 = time.perf_counter()
+    args = parse_args(["--prompt", PROMPTS[0], "--random-weights", "--seed", "0", "--device", "cuda:0",
+                       "--use-motion-cond", "--motion-gs", str(gs), "--percentage", str(pct), "--steps", str(steps),
+                       "--lcm-origin-steps", str(origin)])
+    pipe = build_pipeline(args)
+    ts = [int(t) for t in pipe.scheduler.timesteps(steps, origin)]
+    guided = [t for t in ts if motion_guidance_scale(t, gs, pct) > 0]
+    log(f"{V2_GEN}: pipeline built in {time.perf_counter() - t0:.1f} s, UNet "
+        f"{sum(p.numel() for p in pipe.unet.parameters())} parameters (motion_cond_proj and combine_proj "
+        f"included); timesteps {ts}; motion_gs {gs} at {guided} (t >= 1000 * (1 - {pct})), 0 after")
+    kw = dict(height=320, width=512, frames=16, num_inference_steps=steps, lcm_origin_steps=origin,
+              use_motion_cond=True, percentage=pct)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    video_s, videos = [], []
+    with PlainAttentionCount() as plain:
+        for i, prompt in enumerate(PROMPTS):
+            gen = torch.Generator(device="cuda").manual_seed(3000 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            video = pipe(prompt=prompt, generator=gen, motion_gs=gs, **kw)
+            torch.cuda.synchronize()
+            video_s.append(time.perf_counter() - t0)
+            v = video.float()
+            finite = bool(torch.isfinite(v).all())
+            log(f"{V2_GEN}: video {i}: shape {tuple(video.shape)}, finite {finite}, min {float(v.min()):.4f} "
+                f"max {float(v.max()):.4f} std {float(v.std()):.4f}, {video_s[-1]:.3f} s")
+            if tuple(video.shape) != (1, 16, 320, 512, 3) or not finite or not float(v.max() - v.min()) > 0:
+                raise AssertionError(f"{V2_GEN}: video {i} is malformed")
+            videos.append(video)
+    peak = torch.cuda.max_memory_allocated()
+    launches = {n: c for n, c in read_launches().items() if n in SERVING_KERNELS or n == D512_SERVING}
+    log(f"{V2_GEN}: s/video (videos 2-3) {' '.join(f'{s:.3f}' for s in video_s[1:])}; max_memory_allocated "
+        f"{peak / 2**30:.2f} GiB; kernel launches {launches}; plain attention calls {plain.text()}")
+    passes = len(PROMPTS) * steps
+    check_flash_routes(V2_GEN, passes, "UNet pass")
+    check_conv_routes(V2_GEN, passes)
+    check_norm_routes(V2_GEN, len(PROMPTS), "video")
+    check_small_seq(V2_GEN, passes, "UNet pass")
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing or plain.counts:
+        raise AssertionError(f"{V2_GEN}: kernels not launched {missing}; plain attention calls {dict(plain.counts)}")
+    gen = torch.Generator(device="cuda").manual_seed(3000)
+    unguided = pipe(prompt=PROMPTS[0], generator=gen, motion_gs=0.0, **kw)
+    diff = float((unguided.float() - videos[0].float()).abs().max())
+    log(f"{V2_GEN}: the first prompt again with motion_gs 0 (same seed): max|diff| from motion_gs {gs} "
+        f"{diff:.4f} {'OK' if diff > 0 else 'FAIL'}")
+    if not diff > 0:
+        raise AssertionError(f"{V2_GEN}: the motion embedding does not change the video")
+    _profile_one_video(pipe, "profile_v2_video.txt", f"{V2_GEN} profile", motion_gs=gs, **kw)
+
+
+def phase_v2_preprocess():
+    """apps/preprocess.py's job at full width with a seeded teacher and
+    synthetic latents: 4 samples with the motion prior (the last profiled)
+    and 1 without, counting the teacher's calls; the pickles through
+    MP4LatentDataset; then a small f32 motion_prior_score on the card against
+    the CPU."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import preprocess
+    from t2v_turbo_tpu_torch.data.datasets import MP4LatentDataset
+
+    shutil.rmtree(V2_DIR, ignore_errors=True)
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    paths, times = [], []
+    with PlainAttentionCount() as plain:
+        for motion, n, seed in ((True, 4, 0), (False, 1, 1)):
+            argv = ["--random-weights", "--synthetic-data", "--device", "cuda:0", "--num-samples", str(n),
+                    "--seed", str(seed), "--output-dir", os.path.join(V2_DIR, "latents", "motion" if motion else "plain")]
+            argv += [] if motion else ["--no-motion-prior"]
+            t0 = time.perf_counter()
+            job = preprocess.build_job(preprocess.parse_args(argv))
+            calls = []
+            hook = job.teacher.register_forward_pre_hook(lambda *_: calls.append(1))
+            log(f"{V2_PRE}: job built in {time.perf_counter() - t0:.1f} s ({' '.join(argv)})")
+            samples = job.samples()
+            for k in range(n):
+                if motion and k == n - 1:  # the last sample with the prior under the profiler
+                    (path, sample, seconds), wall_ms, busy_ms, events = _profiled(lambda: next(samples),
+                                                                                  "profile_v2_preprocess.txt")
+                    fwd_ms, bwd_ms, _, _ = flash_device_ms(events)
+                    top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
+                    log(f"{V2_PRE} profile: one sample (index {int(sample['index'])}): wall {wall_ms:.1f} ms, "
+                        f"device kernels {busy_ms:.1f} ms, idle share {max(0.0, 1 - busy_ms / wall_ms):.3f}; B7 "
+                        f"{sum(e.self_device_time_total for e in events if 'gn_silu_conv' in e.key) / 1e3:.1f} ms; "
+                        f"flash forward {fwd_ms:.2f} ms, backward {bwd_ms:.2f} ms; B8 "
+                        f"{small_seq_device_ms(events):.3f} ms; " + _norm_profile(events)
+                        + " -> chiprun_out/profile_v2_preprocess.txt; top: "
+                        + "; ".join(f"{e.key[:60]} {e.self_device_time_total / 1e3:.1f} ms" for e in top))
+                    seconds = None  # not in s/sample: the profiler's own cost
+                else:
+                    path, sample, seconds = next(samples)
+                index = int(sample["index"])
+                want = index + 4 if motion else 2
+                score = sample["score"]
+                finite = all(np.isfinite(sample[k]).all() for k in ("z_t", "cond_teacher_out", "uncond_teacher_out",
+                                                                    "score"))
+                nonzero = bool(np.abs(score).max() > 0) if motion else not np.abs(score).any()
+                ok = len(calls) == want and finite and nonzero and sample["use_motion_guide"] == motion
+                log(f"{V2_PRE}: {os.path.basename(path)}: index {index}, teacher calls {len(calls)} (want "
+                    f"{'index + 4' if motion else '2'} = {want}), z_t {sample['z_t'].shape}, score max|.| "
+                    f"{float(np.abs(score).max()):.3e}, finite {finite}, "
+                    f"{'profiled' if seconds is None else f'{seconds:.2f} s'} {'OK' if ok else 'FAIL'}")
+                if not ok:
+                    raise AssertionError(f"{V2_PRE}: sample {path} is wrong")
+                paths.append(path)
+                if seconds is not None:
+                    times.append((seconds, index if motion else None))
+                calls.clear()
+            hook.remove()
+            del job
+    launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS}
+    log(f"{V2_PRE}: s/sample {' '.join(f'{s:.2f} (index {i})' if i is not None else f'{s:.2f} (no prior)' for s, i in times)}; "
+        f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; kernel launches {launches}; "
+        f"plain attention calls {plain.text(len(paths) - 1, 'sample with the prior')}")
+    check_flash_routes(V2_PRE, len(paths), "sample")
+    check_conv_routes(V2_PRE, 1)
+    check_norm_routes(V2_PRE, len(paths), "sample")
+    check_small_seq(V2_PRE, 1, "run", shapes=False)
+    want_plain = {(64, True): 2 * 9 * (len(paths) - 1)}  # two captures of 9 layers a sample with the prior
+    missing = [n for n, c in launches.items() if c <= 0]
+    if dict(plain.counts) != want_plain or missing:
+        raise AssertionError(f"{V2_PRE}: plain attention calls {dict(plain.counts)}, expected {want_plain}; "
+                             f"kernels not launched {missing}")
+    ds = MP4LatentDataset(sorted(paths))
+    batch = next(ds.batches(len(paths), shuffle=False, loop=False))
+    log(f"{V2_PRE}: MP4LatentDataset reads the {len(ds)} pickles: index {batch['index'].tolist()}, z_t "
+        f"{batch['z_t'].shape}, use_motion_guide {batch['use_motion_guide'].tolist()}")
+    _motion_score_card_vs_cpu()
+    return os.path.join(V2_DIR, "latents", "*", "*.pkl")
+
+
+def _motion_score_card_vs_cpu():
+    """motion_prior_score of a small f32 UNet (heads of 64, 4 frames) on the
+    card (kernels: B2/B3 at the spatial attentions, the plain captures) against the
+    CPU (plain versions) on the same weights and latents."""
+    import copy
+
+    import torch
+
+    from t2v_turbo_tpu_torch.diffusion import DDIMSolver, DiffusionSchedule, add_noise
+    from t2v_turbo_tpu_torch.models import UNetConfig, UNetModel, seeded_init_
+    from t2v_turbo_tpu_torch.training.motion import motion_prior_score, reverse_ddim_loop
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = UNetConfig(model_channels=64, num_res_blocks=1, attention_resolutions=(1, 2), channel_mult=(1, 2),
+                     context_dim=64)
+    cpu = seeded_init_(UNetModel(cfg), 31).requires_grad_(False)
+    g = torch.Generator().manual_seed(32)
+    lat, ctx = 0.5 * torch.randn((1, 4, 16, 16, 4), generator=g), torch.randn((1, 77, 64), generator=g)
+    noise = torch.randn(lat.shape, generator=g)
+    sched = DiffusionSchedule.create()
+    solver = DDIMSolver.create(sched.alphas_cumprod.numpy())
+    out = {}
+    reset_launches()
+    for device, model in (("cpu", cpu), ("cuda:0", copy.deepcopy(cpu).to(device="cuda:0"))):
+        s = solver.to(device)
+        x, c = lat.to(device), ctx.to(device)
+        ts = s.ddim_timesteps[40:41]
+        example = reverse_ddim_loop(model, x, c, s, 41, return_intermediates=False)
+        z_t = add_noise(sched.to(device), x, noise.to(device), ts)
+        score, cond, loss = motion_prior_score(model, z_t, ts, example, c, c, return_loss=True)
+        out[device] = (score.cpu(), cond.cpu(), float(loss))
+    (s0, c0, l0), (s1, c1, l1) = out["cpu"], out["cuda:0"]
+    serr, smax = float((s1 - s0).abs().max()), float(s0.abs().max())
+    cerr = float((c1 - c0).abs().max())
+    launches = {n: c for n, c in read_launches().items() if c}
+    ok = (smax > 0 and serr <= 1e-3 * smax and cerr <= 1e-4 * max(1.0, float(c0.abs().max()))
+          and abs(l1 - l0) <= 1e-4 * max(1.0, abs(l0)) and launches.get("flash_attention_bwd_dq", 0) > 0)
+    log(f"{V2_PRE}: card vs CPU, f32 (TF32 off), UNet 64/128 with heads of 64, 4x16x16 latents, 41 inversion "
+        f"steps: rank loss {l1:.6e} vs {l0:.6e}; score max|diff| {serr:.3e} of max|ref| {smax:.3e} (<= 1e-3 x it: "
+        f"a gradient through 41 inverted steps' capture and the top-1 mask); conditional output max|diff| "
+        f"{cerr:.3e} (<= 1e-4*max(1,|ref|)); card launches {launches} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{V2_PRE}: the card's motion score disagrees with the CPU's")
+    torch.backends.cudnn.allow_tf32 = True
+
+
+def phase_v2_training(latent_glob):
+    """apps/train_v2.py's trainer at the recipe's point on phase 11's
+    pickles: batch 3 (or the largest that fits, said so), --use-remat, the
+    motion embedding, the EMA target (decay 0.95), adamw8bit with the
+    temporal group at 1e-5, HPSv2 (0.2) and ViCLIP (0.5) rewards; 4 steps,
+    one profiled step, the export."""
+    import gc
+
+    import torch
+
+    for batch in (3, 2, 1):
+        gc.collect()
+        torch.cuda.empty_cache()
+        try:
+            _train_v2(latent_glob, batch)
+            return
+        except torch.cuda.OutOfMemoryError:
+            if batch == 1:
+                raise
+            log(f"{V2_TRAIN}: out of memory at batch {batch} (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                f"GiB of {torch.cuda.get_device_properties(0).total_memory / 2**30:.2f}); running batch {batch - 1}")
+
+
+def _train_v2(latent_glob, batch):
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import train_v2
+    from t2v_turbo_tpu_torch.models import UNetModel
+
+    out_dir = os.path.join(V2_DIR, "train")
+    shutil.rmtree(out_dir, ignore_errors=True)
+    argv = ["--random-weights", "--latent-glob", latent_glob, "--device", "cuda:0", "--seed", "0",
+            "--output-dir", out_dir, "--batch-size", str(batch), "--use-remat", "--use-motion-cond",
+            "--use-target-unet", "--ema-decay", "0.95", "--optimizer", "adamw8bit", "--learning-rate", "1e-5",
+            "--temporal-lr", "1e-5", "--reward-fn", "hpsv2", "--reward-scale", "0.2", "--video-rm-fn", "vi_clip",
+            "--video-reward-scale", "0.5", "--vae-decode-batch-size", "16", "--max-steps", "4",
+            "--checkpointing-steps", "1000000"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, data, ucfg = train_v2.build_trainer(train_v2.parse_args(argv))
+    torch.cuda.synchronize()
+    sizes = {lb: sum(p.numel() for p in opt.params) for lb, opt in trainer.optimizers.items()}
+    log(f"{V2_TRAIN}: built in {time.perf_counter() - t0:.1f} s ({' '.join(argv)}); student "
+        f"{sum(p.numel() for p in trainer.params)} parameters in {len(trainer.params)} tensors, f32 master "
+        f"{trainer.master.numel()} elements, working copy {trainer.working.dtype} {trainer.working.numel()}; "
+        f"optimizer groups (elements with padding) {sizes}, moments {trainer.optimizers['base'].moments}; EMA target "
+        f"network {type(trainer.target).__name__}; memory after build {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    every = 1009  # the EMA check's sample of the flat buffers
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    with PlainAttentionCount() as plain:
+        for i in range(4):
+            ema0 = trainer.ema[::every].clone()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics = trainer.step_once(next(data))
+            loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+            torch.cuda.synchronize()
+            step_s.append(time.perf_counter() - t0)
+            want = ema0.mul(0.95).add_(trainer.master[::every], alpha=1.0 - 0.95)
+            got = trainer.ema[::every]
+            ema_err = float(((got - want).abs() / (want.abs() * torch.finfo(torch.float32).eps).clamp_min(1e-30)).max())
+            log(f"{V2_TRAIN}: step {i + 1}{' (warm-up)' if i == 0 else ''}: {step_s[-1]:.3f} s, "
+                + ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items())
+                + f"; EMA vs 0.95*EMA + 0.05*master on {got.numel()} sampled elements: max |diff| "
+                f"{ema_err:.2f} f32 eps relative (<= 1); max_memory_allocated "
+                f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+            if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0 and ema_err <= 1.0):
+                raise AssertionError(f"{V2_TRAIN} step {i + 1}: loss {loss}, grad_norm {gnorm}, EMA error {ema_err}")
+            if i == 0:
+                _v2_gradient_check(trainer)
+    launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS or n in D512_KERNELS}
+    log(f"{V2_TRAIN}: kernel launches a step {dict((n, c / 4) for n, c in launches.items())}; plain attention "
+        f"calls {plain.text(4, 'step')} (the reward towers' heads of 80; the UNet's none)")
+    check_flash_routes(V2_TRAIN, 4, "step")
+    check_conv_routes(V2_TRAIN, 4 * 3)  # a step: the student's forward, its recompute (remat), the target
+    check_norm_routes(V2_TRAIN, 4, "step")
+    check_small_seq(V2_TRAIN, 4, "step", shapes=False)
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing or any(d == 64 for d, _ in plain.counts):
+        raise AssertionError(f"{V2_TRAIN}: kernels not launched {missing}; plain calls {dict(plain.counts)}")
+    log(f"{V2_TRAIN}: batch {batch}{'' if batch == 3 else ' (the recipe is 3: it did not fit)'}; s/step (steps "
+        f"2-4) {' '.join(f'{s:.3f}' for s in step_s[1:])} (mean {np.mean(step_s[1:]):.3f}); max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    _profile_train_step(trainer, data, "profile_train_v2.txt")
+    t0 = time.perf_counter()
+    paths = train_v2.export_unets(trainer, out_dir)
+    sizes = [os.path.getsize(p) for p in paths]
+    log(f"{V2_TRAIN}: exported {[os.path.relpath(p, HERE) for p in paths]} ({[f'{s / 2**30:.2f} GiB' for s in sizes]}) "
+        f"in {time.perf_counter() - t0:.1f} s")
+    for path, flat in zip(paths, (trainer.master, trainer.ema)):
+        with torch.device("meta"):
+            fresh = UNetModel(ucfg)
+        sd = torch.load(path, map_location="cpu", weights_only=True)
+        fresh.load_state_dict(sd, strict=True, assign=True)
+        ref = trainer.state_dict_of(flat)
+        same = all(torch.equal(sd[k], ref[k].cpu()) for k in list(ref)[::50])
+        log(f"{V2_TRAIN}: {os.path.basename(path)} loads strictly into a fresh UNetModel ({len(sd)} tensors), "
+            f"every 50th equal to the trainer's f32 {'master' if flat is trainer.master else 'EMA'}: {same}")
+        if not same:
+            raise AssertionError(f"{V2_TRAIN}: {path} does not hold the trainer's weights")
+        del sd, fresh
+    shutil.rmtree(V2_DIR, ignore_errors=True)
+
+
+def _v2_gradient_check(trainer):
+    """After the first step: every UNet parameter's gradient (the step's
+    flat gradient buffer, before the clip) finite; those exactly zero counted."""
+    import torch
+
+    finite = [n for n, g in zip(trainer.param_names, trainer._grad_views) if not bool(torch.isfinite(g).all())]
+    zero = [n for n, g in zip(trainer.param_names, trainer._grad_views) if not bool(g.any())]
+    norms = sum(p.dtype == torch.float32 for p in trainer.params) if trainer.working.dtype != torch.float32 else "f32"
+    log(f"{V2_TRAIN}: step 1's gradients: {len(trainer.param_names)} UNet tensors ({norms} of them norm affines), "
+        f"non-finite {len(finite)}, exactly zero {len(zero)}{' ' + str(zero[:5]) if zero else ''}")
+    if finite:
+        raise AssertionError(f"{V2_TRAIN}: non-finite gradients in {finite[:5]}")
+
+
+def main(argv=None) -> int:
+    argv = sys.argv[1:] if argv is None else argv
+    only = ()
+    if argv[:1] == ["--phases"] and len(argv) == 2:
+        only = tuple(argv[1].split(","))
+    elif argv:
+        print("usage: chip_smoke.py [--phases name,name,...]", file=sys.stderr)
+        return 2
     if not os.path.isdir(os.path.join(HERE, "t2v_turbo_tpu_torch")):
         print("chip_smoke: t2v_turbo_tpu_torch is not beside this script", file=sys.stderr)
         return 1
@@ -2473,6 +2933,7 @@ def main() -> int:
     open(os.path.join(OUT_DIR, "chip_smoke.log"), "w").close()
     records = {}
     step_times = {}  # phase 6's s/step, logged beside phase 8's
+    v2 = {}  # phase 11's pickles, for phase 12
     phases = [
         ("device", phase_device),
         ("build", phase_build),
@@ -2484,7 +2945,12 @@ def main() -> int:
         (BLIP_IV2, phase_training_blip_iv2),
         ("training on real data", lambda: phase_training_real_data(step_times)),
         ("training reference", phase_training_reference),
+        (V2_GEN, phase_v2_generation),
+        (V2_PRE, lambda: v2.update(latent_glob=phase_v2_preprocess())),
+        (V2_TRAIN, lambda: phase_v2_training(v2["latent_glob"])),
     ]
+    if only:  # a development run of some phases (no argument: all of them)
+        phases = [(n, f) for n, f in phases if n in ("device", "build") + only]
     failed = []
     for name, fn in phases:
         t0 = time.perf_counter()

@@ -12,6 +12,10 @@ weight is then drawn from --seed (non-zero everywhere, 1/sqrt(fan_in)).
 collapse): the reference's `unet_lora.pt` list or a `unet_lora.npz` of
 either package's trainer. The output is written by the port's own
 io/video.py: .npy always, .mp4 when an ffmpeg binary is present.
+T2V-Turbo-v2 (a v2 student's unet.pt, motion-conditioned; its operating
+point is 16 steps from an origin grid of 200):
+  ... --unet-ckpt runs/v2/unet.pt --use-motion-cond --motion-gs 0.05 \
+      --percentage 0.3 --steps 16 --lcm-origin-steps 200
 The models run in bf16 on --device (default cuda:0), where every GroupNorm
 and LayerNorm, and every attention of head dim 64 or 512 but the CLIP
 tower's causal one, run the hand-written kernels (ops/attention.py::sdpa).
@@ -42,6 +46,11 @@ def parse_args(argv=None):
     p.add_argument("--height", type=int, default=320)
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--guidance-scale", type=float, default=7.5)
+    p.add_argument("--use-motion-cond", action="store_true",
+                   help="a v2 student's motion-guidance embedding (its UNet has motion_cond_proj)")
+    p.add_argument("--motion-gs", type=float, default=0.05)
+    p.add_argument("--percentage", type=float, default=0.3,
+                   help="the top share of the timesteps given --motion-gs (0 below)")
     p.add_argument("--num-videos", type=int, default=1)
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--output", default="output.mp4")
@@ -60,7 +69,7 @@ def build_pipeline(args, spec=None):
     from ..pipelines.vc2 import T2VTurboVC2Pipeline
     from ..utils.tokenizer import CLIPTokenizer
 
-    spec = spec or vc2_spec()
+    spec = spec or vc2_spec(motion_cond=getattr(args, "use_motion_cond", False))
     device = torch.device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     with torch.device(device):
@@ -126,6 +135,9 @@ def main(argv=None):
         num_inference_steps=args.steps,
         lcm_origin_steps=args.lcm_origin_steps,
         generator=gen,
+        use_motion_cond=args.use_motion_cond,
+        motion_gs=args.motion_gs,
+        percentage=args.percentage,
     )
     frames = video_to_uint8(video)
     print(f"generated {frames.shape} in {time.time() - t0:.1f}s", file=sys.stderr)

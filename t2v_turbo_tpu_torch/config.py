@@ -28,7 +28,9 @@ class VC2ModelSpec:
         return DiffusionSchedule.create(num_timesteps=1000, linear_start=0.00085, linear_end=0.012)
 
 
-def vc2_spec() -> VC2ModelSpec:
+def vc2_spec(motion_cond: bool = False) -> VC2ModelSpec:
     """The T2V-Turbo VC2 student: the teacher's UNet plus the 256-d
-    w-embedding projection (`time_cond_proj`)."""
-    return VC2ModelSpec(unet=UNetConfig(time_cond_proj_dim=256))
+    w-embedding projection (`time_cond_proj`); with `motion_cond`, the v2
+    student's 256-d motion-guidance projection and `combine_proj` too."""
+    return VC2ModelSpec(unet=UNetConfig(time_cond_proj_dim=256,
+                                        motion_cond_proj_dim=256 if motion_cond else None))

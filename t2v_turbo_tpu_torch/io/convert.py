@@ -10,6 +10,12 @@
   numpy alone: this module imports neither jax nor flax.
 - `split_vc2_checkpoint`: a VideoCrafter2 LatentDiffusion state dict ->
   (unet, vae, clip) state dicts with their prefixes stripped.
+- `student_unet_state_dict`: a teacher's (or a student's) UNet state dict
+  completed for a student UNet: a zero `time_cond_proj` where it lacks one,
+  as the JAX CLIs zero-fill it; missing motion projections are refused.
+- `save_unet`: a UNet state dict as the reference's v2 trainer exports
+  `unet.pt` / `target_unet.pt` (f32 tensors keyed as its UNetModel;
+  `load_checkpoint` reads them back).
 - `load_clip_text`: strict load of an open_clip text-tower state dict minus
   exactly the keys the penultimate tower does not hold.
 - `lora_to_jax` / `lora_from_jax`: the port's LoRA factors (the reference's
@@ -29,6 +35,7 @@ Layout conventions (JAX -> reference torch):
 
 from __future__ import annotations
 
+import os
 from typing import Dict, Mapping, Tuple
 
 import numpy as np
@@ -41,7 +48,7 @@ StateDict = Dict[str, torch.Tensor]
 
 
 def _t(a) -> torch.Tensor:
-    return torch.from_numpy(np.ascontiguousarray(np.asarray(a, dtype=np.float32)))
+    return torch.from_numpy(np.array(a, dtype=np.float32, order="C"))
 
 
 def _lin(node, name, sd, conv_dims=0):
@@ -144,8 +151,9 @@ def unet_state_dict_from_jax(params: Mapping) -> StateDict:
     for name in ("time_embed", "fps_embedding"):
         _lin(p[f"{name}_0"], f"{name}.0", sd)
         _lin(p[f"{name}_2"], f"{name}.2", sd)
-    if "time_cond_proj" in p:
-        _lin(p["time_cond_proj"], "time_cond_proj", sd)
+    for name in ("time_cond_proj", "motion_cond_proj", "combine_proj"):
+        if name in p:
+            _lin(p[name], name, sd)
     _transformer(p["init_attn"], "init_attn.0", sd, conv1d_proj=True)
     # JAX input block i is torch input block i + 1 (torch block 0 is conv_in)
     for i, layers in _blocks(p, "input_blocks").items():
@@ -287,6 +295,34 @@ def load_checkpoint(path: str) -> StateDict:
     """torch.load a reference checkpoint (a Lightning `state_dict` or a bare one)."""
     obj = torch.load(path, map_location="cpu", weights_only=True)
     return obj.get("state_dict", obj)
+
+
+def student_unet_state_dict(sd: Mapping, cfg) -> StateDict:
+    """`sd` ready for a strict load into a UNet of config `cfg`: a zero
+    `time_cond_proj.weight` (the w-embedding's input) added where `cfg` has
+    the projection and `sd` does not (a teacher checkpoint; the JAX CLIs'
+    zero-fill, t2v_turbo_tpu/apps/train_v2.py:235-240). Motion projections
+    are never made up: a config with `motion_cond_proj_dim` whose `sd` lacks
+    them raises, naming them."""
+    sd = dict(sd)
+    if cfg.time_cond_proj_dim is not None and "time_cond_proj.weight" not in sd:
+        sd["time_cond_proj.weight"] = torch.zeros(cfg.model_channels, cfg.time_cond_proj_dim)
+    if cfg.motion_cond_proj_dim is not None:
+        missing = [k for k in ("motion_cond_proj.weight", "combine_proj.weight") if k not in sd]
+        if missing:
+            raise KeyError(f"the checkpoint has no motion-conditioning weights {missing}; "
+                           "train without --use-motion-cond or load a v2 student's unet.pt")
+    return sd
+
+
+def save_unet(sd: Mapping, path: str) -> str:
+    """torch.save a UNet state dict as f32 CPU tensors under the reference
+    UNetModel's keys (the reference v2 trainer's unet.pt / target_unet.pt,
+    train_latent_t2v_turbo_v2.py:760-773); returns `path`."""
+    sd = {k: v.detach().float().cpu().contiguous() for k, v in sd.items()}
+    torch.save(sd, path + ".tmp")
+    os.replace(path + ".tmp", path)
+    return path
 
 
 def load_clip_text(model, sd: Mapping) -> None:

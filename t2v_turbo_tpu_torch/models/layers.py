@@ -23,6 +23,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops import fused_gn_silu_conv, group_norm, layer_norm, sdpa
+from ..ops.attention import attention
 
 
 class GroupNorm(nn.Module):
@@ -85,7 +86,10 @@ def to_frames(x: torch.Tensor) -> torch.Tensor:
 class CrossAttention(nn.Module):
     """Multi-head attention on (B, S, C) rows; self-attention when `context`
     is None (reference attention.py:50-240, without the image and rel-pos
-    branches)."""
+    branches). `record_probs` takes the plain `attention` and also returns
+    its f32 probabilities as (B*heads, Sq, Sk), the reference's
+    attention_probs (the MotionClone capture); every other call goes
+    through `sdpa`'s kernels."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
                  dim_head: int = 64):
@@ -98,14 +102,21 @@ class CrossAttention(nn.Module):
         self.to_v = nn.Linear(ctx_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(0.0))
 
-    def forward(self, x, context=None):
+    def forward(self, x, context=None, record_probs: bool = False):
         ctx = x if context is None else context
         b, sq, _ = x.shape
         q = self.to_q(x).view(b, sq, self.heads, self.dim_head)
         k = self.to_k(ctx).view(b, -1, self.heads, self.dim_head)
         v = self.to_v(ctx).view(b, -1, self.heads, self.dim_head)
-        out = sdpa(q, k, v, scale=self.dim_head**-0.5)
-        return self.to_out(out.reshape(b, sq, self.heads * self.dim_head))
+        scale = self.dim_head**-0.5
+        if record_probs:
+            out, probs = attention(q, k, v, scale=scale, return_probs=True)
+        else:
+            out = sdpa(q, k, v, scale=scale)
+        out = self.to_out(out.reshape(b, sq, self.heads * self.dim_head))
+        if record_probs:
+            return out, probs.reshape(b * self.heads, sq, -1)
+        return out
 
 
 class GEGLU(nn.Module):
@@ -130,7 +141,8 @@ class FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    """self-attn -> cross-attn -> GEGLU FF with pre-LN residuals."""
+    """self-attn -> cross-attn -> GEGLU FF with pre-LN residuals;
+    `record_probs` also returns attn1's probabilities (JAX layers.py:380-414)."""
 
     def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: Optional[int] = None):
         super().__init__()
@@ -139,10 +151,15 @@ class BasicTransformerBlock(nn.Module):
         self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head)
         self.norm1, self.norm2, self.norm3 = LayerNorm(dim), LayerNorm(dim), LayerNorm(dim)
 
-    def forward(self, x, context=None):
-        x = x + self.attn1(self.norm1(x))
+    def forward(self, x, context=None, record_probs: bool = False):
+        a = self.attn1(self.norm1(x), record_probs=record_probs)
+        probs = None
+        if record_probs:
+            a, probs = a
+        x = x + a
         x = x + self.attn2(self.norm2(x), context)
-        return x + self.ff(self.norm3(x))
+        x = x + self.ff(self.norm3(x))
+        return (x, probs) if record_probs else x
 
 
 class SpatialTransformer(nn.Module):
@@ -172,7 +189,9 @@ class SpatialTransformer(nn.Module):
 class TemporalTransformer(nn.Module):
     """Self-attention over T at each pixel of a clip (B, C, T, H, W). The
     GroupNorm's statistics span the whole clip. `conv1d_proj` stores the
-    projections as Conv1d, as the reference's `init_attn` does."""
+    projections as Conv1d, as the reference's `init_attn` does.
+    `record_probs` also returns the list of each block's attn1
+    probabilities, (B*H*W*heads, T, T) each."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  conv1d_proj: bool = False):
@@ -189,14 +208,20 @@ class TemporalTransformer(nn.Module):
             BasicTransformerBlock(inner, n_heads, d_head) for _ in range(depth)
         )
 
-    def forward(self, x):
+    def forward(self, x, record_probs: bool = False):
         b, c, t, hh, ww = x.shape
         h = self.norm(x).permute(0, 3, 4, 2, 1).reshape(b * hh * ww, t, c)
         h = dense(self.proj_in, h)
+        probs = []
         for block in self.transformer_blocks:
-            h = block(h)
+            if record_probs:
+                h, p = block(h, record_probs=True)
+                probs.append(p)
+            else:
+                h = block(h)
         h = dense(self.proj_out, h)
-        return x + h.view(b, hh, ww, t, c).permute(0, 4, 3, 1, 2)
+        out = x + h.view(b, hh, ww, t, c).permute(0, 4, 3, 1, 2)
+        return (out, probs) if record_probs else out
 
 
 def _temporal_conv(ch: int) -> nn.Conv3d:

@@ -2,7 +2,9 @@
 
 Per level: ResBlock(+TemporalConvBlock) -> SpatialTransformer ->
 TemporalTransformer, a temporal transformer after conv_in (`init_attn`),
-timestep + fps + LCM w-embedding (`time_cond_proj`) conditioning.
+timestep + fps + LCM w-embedding (`time_cond_proj`) conditioning, and for
+the v2 students the motion-guidance embedding (`motion_cond_proj`, mixed
+with the w-embedding by `combine_proj`).
 Submodule names are the reference UNetModel's state-dict keys
 (lvdm/modules/networks/openaimodel3d.py:312-740).
 
@@ -15,6 +17,18 @@ its activations, as the JAX module's `nn.remat` and the reference's
 `use_checkpoint` do: `torch.utils.checkpoint` (non-reentrant) around each
 call, which re-enters the same kernels' autograd functions when it
 recomputes. It acts only while gradients are being recorded.
+
+`record_probs=True` (MotionClone's capture) also returns the softmax
+probabilities of attn1 in the temporal transformer of every output block
+that has one (nine at full width, output blocks 3-11), each (B*H*W*heads,
+T, T) in f32, in ascending output-block order. Those nine attentions take
+the plain `attention` (they need their probabilities); every other
+attention keeps its kernel. The JAX module sows the same tensors and
+`training/motion.py` there lists them by sorted key string (output blocks
+10, 11, 3, ..., 9 at full width): a different order of the same layers, and
+since both the generated and the reference capture come in one order and
+the rank loss is a mean over layers, each layer still meets its own
+reference.
 """
 
 from __future__ import annotations
@@ -61,6 +75,7 @@ class UNetConfig:
     temporal_transformer_depth: int = 1
     context_dim: int = 1024
     time_cond_proj_dim: Optional[int] = None  # 256 for the LCM students
+    motion_cond_proj_dim: Optional[int] = None  # 256 for the v2 motion-conditioned students
 
     @property
     def time_embed_dim(self) -> int:
@@ -82,6 +97,9 @@ class UNetModel(nn.Module):
         self.fps_embedding = _embedding_mlp(mc, ted)
         if cfg.time_cond_proj_dim is not None:
             self.time_cond_proj = nn.Linear(cfg.time_cond_proj_dim, mc, bias=False)
+        if cfg.motion_cond_proj_dim is not None:
+            self.motion_cond_proj = nn.Linear(cfg.motion_cond_proj_dim, mc, bias=False)
+            self.combine_proj = nn.Linear(2 * mc, mc, bias=False)
 
         def spatial(ch):
             return SpatialTransformer(ch, ch // nhc, nhc, cfg.transformer_depth, cfg.context_dim)
@@ -138,14 +156,21 @@ class UNetModel(nn.Module):
             return checkpoint(layer, *args, use_reentrant=False)
         return layer(*args)
 
-    def _run(self, layers, h, emb, context, batch):
+    def _run(self, layers, h, emb, context, batch, probs=None):
+        """The block's layers; with a `probs` list, the temporal
+        transformer's attn1 probabilities are appended to it."""
         for layer in layers:
             if isinstance(layer, ResBlock):
                 h = self._block(layer, h, emb, batch)
             elif isinstance(layer, SpatialTransformer):
                 h = self._block(layer, h, context)
             elif isinstance(layer, TemporalTransformer):
-                h = to_frames(self._block(layer, to_clip(h, batch)))
+                if probs is None:
+                    h = to_frames(self._block(layer, to_clip(h, batch)))
+                else:
+                    out, p = self._block(layer, to_clip(h, batch), True)
+                    h = to_frames(out)
+                    probs.extend(p)
             else:  # Downsample / Upsample
                 h = layer(h)
         return h
@@ -157,7 +182,9 @@ class UNetModel(nn.Module):
         context: torch.Tensor,  # (B, L, context_dim)
         fps=None,  # scalar or (B,)
         timestep_cond: Optional[torch.Tensor] = None,  # (B, time_cond_proj_dim)
-    ) -> torch.Tensor:
+        motion_cond: Optional[torch.Tensor] = None,  # (B, motion_cond_proj_dim)
+        record_probs: bool = False,
+    ):
         cfg = self.cfg
         b, t, hh, ww, cin = x.shape
         dtype = compute_dtype(self)
@@ -165,7 +192,11 @@ class UNetModel(nn.Module):
 
         t_emb = timestep_embedding(timesteps.to(device), cfg.model_channels).to(dtype)
         if timestep_cond is not None:
-            t_emb = t_emb + self.time_cond_proj(timestep_cond.to(device, dtype))
+            cond = self.time_cond_proj(timestep_cond.to(device, dtype))
+            if motion_cond is not None:
+                m = self.motion_cond_proj(motion_cond.to(device, dtype))
+                cond = self.combine_proj(torch.cat([cond, m], dim=-1))
+            t_emb = t_emb + cond
         emb = self.time_embed(t_emb)
         fps = torch.as_tensor(16.0 if fps is None else fps, dtype=torch.float32, device=device).expand(b)
         emb = emb + self.fps_embedding(timestep_embedding(fps, cfg.model_channels).to(dtype))
@@ -182,8 +213,10 @@ class UNetModel(nn.Module):
             h = self._run(layers, h, emb_f, ctx_f, b)
             hs.append(h)
         h = self._run(self.middle_block, h, emb_f, ctx_f, b)
+        probs = [] if record_probs else None
         for layers in self.output_blocks:
-            h = self._run(layers, torch.cat([h, hs.pop()], dim=1), emb_f, ctx_f, b)
+            h = self._run(layers, torch.cat([h, hs.pop()], dim=1), emb_f, ctx_f, b, probs)
 
         h = gn_silu_conv(self.out[0], self.out[2], h)
-        return h.view(b, t, cfg.out_channels, hh, ww).permute(0, 1, 3, 4, 2).to(x.dtype).contiguous()
+        out = h.view(b, t, cfg.out_channels, hh, ww).permute(0, 1, 3, 4, 2).to(x.dtype).contiguous()
+        return (out, probs) if record_probs else out

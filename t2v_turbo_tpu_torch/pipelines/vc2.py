@@ -5,6 +5,12 @@ LCM loop (UNet, boundary-condition combine, renoise) as a plain Python loop
 over the 4 timesteps [999, 759, 519, 279], then decode every frame with the
 VAE. Randomness comes from an explicit `torch.Generator`; tests may pass the
 latents and the per-step noise instead, so two implementations can share them.
+
+T2V-Turbo-v2's students also take a motion-guidance embedding
+(`use_motion_cond`): guidance_scale_embedding(motion_gs) at the steps whose
+timestep t >= num_timesteps * (1 - percentage), of 0 below that (JAX
+pipelines/vc2.py:107-120, the reference pipeline :190-204). The v2
+operating point is 16 steps from an LCM origin grid of 200.
 """
 
 from __future__ import annotations
@@ -62,10 +68,15 @@ class T2VTurboVC2Pipeline:
         prompt_embeds: Optional[torch.Tensor] = None,
         noise: Optional[Sequence[torch.Tensor]] = None,
         output_type: str = "video",
+        use_motion_cond: bool = False,
+        motion_gs: float = 0.1,
+        percentage: float = 0.3,
     ) -> torch.Tensor:
         """-> video (B, T, H, W, 3) in [-1, 1], or the final latents when
         output_type="latent". `noise`, when given, is the renoise draw of
         each step (used only when there is more than one step)."""
+        if use_motion_cond and getattr(self.unet, "motion_cond_proj", None) is None:
+            raise ValueError("use_motion_cond needs a UNet built with motion_cond_proj_dim")
         levels = len(self.unet.cfg.channel_mult)
         multiple = self.vae_scale * 2 ** (levels - 1)
         if height % multiple or width % multiple:
@@ -94,7 +105,12 @@ class T2VTurboVC2Pipeline:
         denoised = lat
         for i, (t, pt) in enumerate(zip(ts, prev_ts)):
             tb = torch.full((bs,), t, dtype=torch.long, device=self.device)
-            eps = self.unet(lat, tb, ctx, fps=fps_arr, timestep_cond=w_emb)
+            kw = {}
+            if use_motion_cond:
+                gs = motion_guidance_scale(t, motion_gs, percentage, self.schedule.num_timesteps)
+                kw["motion_cond"] = guidance_scale_embedding(
+                    torch.full((bs,), gs, device=self.device), self.w_embedding_dim).to(self.dtype)
+            eps = self.unet(lat, tb, ctx, fps=fps_arr, timestep_cond=w_emb, **kw)
             step_noise = None
             if num_inference_steps > 1:
                 step_noise = noise[i].to(self.device) if noise is not None else self._randn(shape, generator)
@@ -106,6 +122,12 @@ class T2VTurboVC2Pipeline:
         b, t, hh, ww, c = denoised.shape
         video = self.vae.decode(denoised.reshape(b * t, hh, ww, c).to(self.dtype) / self.scale_factor)
         return video.reshape(b, t, *video.shape[1:])
+
+
+def motion_guidance_scale(t: int, motion_gs: float, percentage: float, num_timesteps: int = 1000) -> float:
+    """The motion-guidance scale the v2 student is given at timestep t:
+    `motion_gs` in the top `percentage` of the schedule, else 0."""
+    return 0.0 if t < num_timesteps * (1.0 - percentage) else float(motion_gs)
 
 
 def video_to_uint8(video: torch.Tensor) -> np.ndarray:

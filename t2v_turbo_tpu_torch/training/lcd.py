@@ -137,9 +137,18 @@ def lcd_loss(
         distill = torch.mean((model_pred - target) ** 2)
     else:
         distill = huber_loss(model_pred, target, cfg.huber_c)
+    return with_reward_terms(distill, model_pred, batch, cfg, reward_fn, video_reward_fn)
+
+
+def with_reward_terms(distill, model_pred, batch, cfg, reward_fn=None, video_reward_fn=None):
+    """(loss, terms): the distillation loss plus, for each reward fn, its
+    term -(r * mask).sum() / max(mask.sum(), 1) * scale, r the fn's (B,)
+    rewards of `model_pred` and mask the batch's `reward_mask` /
+    `video_reward_mask` (ones when absent); the scales are cfg's
+    reward_scale / video_reward_scale."""
     terms = {"distill_loss": distill}
     total = distill
-    b = latents.shape[0]
+    b = model_pred.shape[0]
     for name, fn, mask_key, scale in (
         ("reward_loss", reward_fn, "reward_mask", cfg.reward_scale),
         ("video_rm_loss", video_reward_fn, "video_reward_mask", cfg.video_reward_scale),
@@ -147,7 +156,7 @@ def lcd_loss(
         if fn is None:
             continue
         mask = batch.get(mask_key)
-        mask = torch.ones(b, device=latents.device) if mask is None else mask.float()
+        mask = torch.ones(b, device=model_pred.device) if mask is None else mask.float()
         r = fn(model_pred, batch)
         terms[name] = -(r * mask).sum() / mask.sum().clamp_min(1.0) * scale
         total = total + terms[name]

@@ -17,6 +17,15 @@ before the learning rate), with the moments stored as:
 (torch.optim.AdamW would default to 0.01). The learning rate is constant
 (the JAX factory's warmup and cosine schedules have no caller here yet).
 
+The v2 groups (`is_temporal_param`, `make_v2_optimizer`): init_attn and
+the temporal transformers train at --temporal-lr, the rest at the base
+rate (reference train_latent_t2v_turbo_v2.py:799-845). The JAX package
+runs one Adam and scales the temporal leaves' updates by t_lr / lr
+(t2v_turbo_tpu/training/optim.py:212-290), numerically the same as one
+optimizer a group, which is what the port's full-model trainer holds: an
+optimizer over each group's segments of its flat master, under one global
+clip.
+
 `flat_buffer` lays many tensors into one f32 buffer at 256-aligned offsets
 with zeros between them: an optimizer over that one buffer computes what
 one over the separate tensors computes (the int8 blocks are each tensor's
@@ -27,12 +36,14 @@ tensor.
 
 from __future__ import annotations
 
-from typing import List
+import re
+from typing import List, Optional
 
 import torch
 import torch.nn.functional as F
 
 BLOCK = 256
+STEP_CHUNK = 1 << 24  # elements an optimizer step takes at a time (a multiple of BLOCK)
 MOMENTS = {"adamw": "f32", "adamw_bf16": "bf16", "adamw8bit": "q8"}
 
 
@@ -60,10 +71,6 @@ def q8_quantize(x: torch.Tensor):
     return torch.clamp(torch.round(blocks / safe), -127, 127).to(torch.int8), scale
 
 
-def q8_dequantize(q: torch.Tensor, scale: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    return (q.float() * scale).reshape(-1)[: like.numel()].reshape(like.shape)
-
-
 class AdamW:
     """AdamW over a list of f32 parameters, updated in place by `step(grads)`."""
 
@@ -75,21 +82,26 @@ class AdamW:
         self.learning_rate, self.b1, self.b2, self.eps = learning_rate, b1, b2, eps
         self.weight_decay, self.moments = weight_decay, moments
         self.count = 0
-        self.mu = [self._store(torch.zeros_like(p, dtype=torch.float32)) for p in self.params]
-        self.nu = [self._store(torch.zeros_like(p, dtype=torch.float32)) for p in self.params]
+        self.mu = [self._zeros(p) for p in self.params]
+        self.nu = [self._zeros(p) for p in self.params]
 
-    def _store(self, x: torch.Tensor):
+    def _zeros(self, p: torch.Tensor):
+        """A zero moment for p in its storage: int8 blocks and their scales,
+        bf16 or f32."""
         if self.moments == "q8":
-            return q8_quantize(x)
-        return x.to(torch.bfloat16) if self.moments == "bf16" else x
-
-    def _load(self, stored, like: torch.Tensor) -> torch.Tensor:
-        if self.moments == "q8":
-            return q8_dequantize(*stored, like)
-        return stored.float()
+            n_blocks = -(-p.numel() // BLOCK)
+            return (torch.zeros((n_blocks, BLOCK), dtype=torch.int8, device=p.device),
+                    torch.zeros((n_blocks, 1), dtype=torch.float32, device=p.device))
+        return torch.zeros_like(p, dtype=torch.bfloat16 if self.moments == "bf16" else torch.float32)
 
     @torch.no_grad()
-    def step(self, grads: List[torch.Tensor]) -> None:
+    def step(self, grads: List[torch.Tensor], scale=None) -> None:
+        """One update with grads (times `scale`, a scalar tensor, when given:
+        the clip; a bf16 gradient is scaled, rounded back to bf16, then
+        taken in f32, as the JAX trainer's bf16 gradient tree). Runs over
+        STEP_CHUNK elements of each parameter at a time, so the f32
+        temporaries stay small beside a full model's flat master; the chunks
+        end on int8 block boundaries, so the result is the whole tensor's."""
         lr = self.learning_rate
         self.count += 1
         b1, b2 = self.b1, self.b2
@@ -97,18 +109,45 @@ class AdamW:
         bc1 = float(1 - torch.tensor(b1) ** count)  # f32 powers, as optax and JAX
         bc2 = float(1 - torch.tensor(b2) ** count)
         for i, (p, g) in enumerate(zip(self.params, grads)):
-            g = g.float()
-            m = b1 * self._load(self.mu[i], p) + (1 - b1) * g
-            if self.moments == "q8":
-                v = b2 * self._load(self.nu[i], p) ** 2 + (1 - b2) * g * g
-            else:
-                v = b2 * self._load(self.nu[i], p) + (1 - b2) * g * g
-            step = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
-            if self.weight_decay > 0:
-                step = step + self.weight_decay * p.float()
-            p.add_((-lr * step).to(p.dtype))
-            self.mu[i] = self._store(m)
-            self.nu[i] = self._store(torch.sqrt(v) if self.moments == "q8" else v)
+            pf, gf = p.view(-1), g.reshape(-1)
+            for lo in range(0, pf.numel(), STEP_CHUNK):
+                hi = min(pf.numel(), lo + STEP_CHUNK)
+                gc = gf[lo:hi]
+                if scale is not None:
+                    gc = gc * scale
+                    if g.dtype != torch.float32:
+                        gc = gc.to(g.dtype)
+                gc = gc.float()
+                m = b1 * self._load(self.mu[i], lo, hi) + (1 - b1) * gc
+                if self.moments == "q8":
+                    v = b2 * self._load(self.nu[i], lo, hi) ** 2 + (1 - b2) * gc * gc
+                else:
+                    v = b2 * self._load(self.nu[i], lo, hi) + (1 - b2) * gc * gc
+                step = (m / bc1) / (torch.sqrt(v / bc2) + self.eps)
+                if self.weight_decay > 0:
+                    step = step + self.weight_decay * pf[lo:hi].float()
+                pf[lo:hi].add_((-lr * step).to(p.dtype))
+                self._put(self.mu[i], lo, m)
+                self._put(self.nu[i], lo, torch.sqrt(v) if self.moments == "q8" else v)
+
+    def _load(self, stored, lo: int, hi: int) -> torch.Tensor:
+        """Elements [lo, hi) of a stored moment, in f32."""
+        if self.moments == "q8":
+            q, scale = stored
+            b0, b1 = lo // BLOCK, -(-hi // BLOCK)
+            return (q[b0:b1].float() * scale[b0:b1]).reshape(-1)[: hi - lo]
+        return stored.view(-1)[lo:hi].float()
+
+    def _put(self, stored, lo: int, x: torch.Tensor) -> None:
+        """Store x (f32) as elements [lo, lo + len) of a moment, in place."""
+        if self.moments == "q8":
+            q, scale = stored
+            xq, xs = q8_quantize(x)
+            b0 = lo // BLOCK
+            q[b0:b0 + xq.shape[0]] = xq
+            scale[b0:b0 + xs.shape[0]] = xs
+        else:
+            stored.view(-1)[lo:lo + x.numel()] = x
 
     def state_dict(self) -> dict:
         return {"count": self.count, "mu": self.mu, "nu": self.nu, "moments": self.moments}
@@ -131,3 +170,29 @@ def make_optimizer(params, name: str = "adamw", learning_rate: float = 1e-5,
     if name not in MOMENTS:
         raise ValueError(name)
     return AdamW(params, learning_rate, weight_decay=weight_decay, moments=MOMENTS[name], **kw)
+
+
+_TEMPORAL = re.compile(r"init_attn\.|(input|output)_blocks\.\d+\.2\.|middle_block\.2\.")
+
+
+def is_temporal_param(name: str) -> bool:
+    """True for the parameters of init_attn and of the temporal transformers
+    (index 2 of every block that has attention), under the port's (the
+    reference's) UNet keys. JAX's flax names put the same modules at
+    `input_blocks_{i}_2` with i one less (the port's input block 0 is
+    conv_in), `middle_block_2`, `output_blocks_{i}_2` and `init_attn`."""
+    return _TEMPORAL.match(name) is not None
+
+
+def v2_param_label(name: str) -> str:
+    """The v2 optimizer group of a UNet parameter: "temporal" or "base"."""
+    return "temporal" if is_temporal_param(name) else "base"
+
+
+def make_v2_optimizer(params, label: str, name: str = "adamw", learning_rate: float = 1e-5,
+                      temporal_learning_rate: Optional[float] = None, **kw) -> AdamW:
+    """The optimizer of one v2 group (`v2_param_label`): the temporal group
+    at `temporal_learning_rate` (the base rate when None), the rest at
+    `learning_rate`."""
+    lr = temporal_learning_rate if label == "temporal" and temporal_learning_rate is not None else learning_rate
+    return make_optimizer(params, name, lr, **kw)

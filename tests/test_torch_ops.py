@@ -219,7 +219,9 @@ def test_port_imports_no_jax():
         for needed in ("apps.generate", "apps.train_v1", "io.video", "lora", "training.trainer",
                        "rewards.reward_fn", "rewards.vit", "training.reward_adapters", "ops.fused_conv",
                        "data.transforms", "data.videoio", "data.webdata", "data.datasets", "rewards.blip",
-                       "rewards.internvideo2", "utils.bert_tokenizer", "training.validation", "apps.soak_v1"):
+                       "rewards.internvideo2", "utils.bert_tokenizer", "training.validation", "apps.soak_v1",
+                       "apps.preprocess", "apps.train_v2", "training.motion", "training.preprocess",
+                       "training.lcd_v2", "training.ema"):
             assert "t2v_turbo_tpu_torch." + needed in names, names
         print(len(names))
         """

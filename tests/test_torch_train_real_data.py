@@ -243,3 +243,23 @@ def test_a_data_error_reaches_the_caller_of_run(tmp_path):
     with pytest.raises(IOError, match="a shard went away"):
         trainer.run(failing())
     assert trainer.step == 1
+
+
+@pytest.mark.parametrize("source", ["shards", "csv"])
+def test_v2_preprocess_on_real_data(shards, source, tmp_path):
+    """apps/preprocess.py on decoded, centre-cropped clips, encoded by the
+    tiny VAE with per-caption contexts: 2 samples with the motion prior,
+    read back by MP4LatentDataset with their captions."""
+    from t2v_turbo_tpu_torch.apps import preprocess
+    from t2v_turbo_tpu_torch.data.datasets import MP4LatentDataset
+
+    pattern, index = shards
+    data = ["--data-shards", pattern] if source == "shards" else ["--data-csv", index]
+    preprocess.main(["--tiny-model", "--random-weights", *data, "--height", "16", "--width", "16", "--n-frames", "4",
+                     "--num-samples", "2", "--device", "cpu", "--output-dir", str(tmp_path)])
+    paths = sorted(str(p) for p in tmp_path.glob("*.pkl"))
+    assert [os.path.basename(p) for p in paths] == ["sample_000000.pkl", "sample_000001.pkl"]
+    for p in paths:
+        d = MP4LatentDataset([p])[0]
+        assert d["z_t"].shape == (4, 8, 8, 4) and d["prompt_emb"].shape == (7, 16)
+        assert d["txt"].startswith("a clip number") and np.abs(d["score"]).max() > 0
