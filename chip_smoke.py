@@ -1175,7 +1175,30 @@ def _kernel_cases():
                    lambda x, w, b: N.layer_norm(x, w, b, 1e-5), lambda x, w, b: N.layer_norm_plain(x, w, b, 1e-5),
                    ("dx", "d weight", "d bias"), _elementwise(1e-2, 1e-2)),
     ]
-    return serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn + towers + full_model
+    # The ModelScope path's shapes (`ms_path_shapes`: the MS UNet at
+    # 16x256x256, the VAE's decode at 256x256 with its mid block at S = 1024,
+    # D = 512, the full-depth text tower), each kernel held to its plain twin
+    # and timed, and B5 at the trained text tower's rows (3 x 77, phase 16):
+    # last, after the earlier PRs' cases
+    ms_shapes = {k: set() for k in MS_KERNELS}
+    for part in ms_path_shapes().values():
+        for k, c in part.items():
+            ms_shapes[k] |= set(c)
+    ms = []
+    for b, h, sq, sk, d in sorted(ms_shapes["flash_attention"]):
+        why, atol = (why_short, 2e-2) if sk <= 77 else (why_bf, 2e-3)
+        ms.append(flash(f"MS ({b},{h},{sq},{sk},{d}) bf16", attn(b, sq, h, d, bf, sk=sk), atol, 2e-2, 5, why,
+                        f64=False, kernel="flash_attention_d512" if d == 512 else "flash_attention"))
+    ms += [small_seq(f"MS ({r},{t},{h},64) bf16", attn(r, t, h, 64, bf), (r, t, h), iters=10)
+           for r, t, h in sorted(ms_shapes["small_seq_attention"])]
+    ms += [conv(f"MS {shape[1]}->{shape[4]} ({shape[5]},{shape[6]}) {shape[:4]} bf16", shape, iters=5, f64=False)
+           for shape in sorted(ms_shapes["fused_gn_silu_conv"])]
+    ms += [gn(f"MS GN+SiLU {shape} bf16", shape, shape[1], 1e-6, 5) for shape in sorted(ms_shapes["group_norm"])]
+    ms += [gn_stats(f"B7 statistics, MS {shape} bf16", shape, shape[1], False, iters=5)
+           for shape in sorted(ms_shapes["group_norm_stats"])]
+    ms += [ln(f"MS LN {shape} bf16", shape, shape[1], bf, 1e-2, why_norm_bf)
+           for shape in sorted(ms_shapes["layer_norm"] | {(3 * 77, 1024)})]
+    return serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn + towers + full_model + ms
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -2895,7 +2918,7 @@ def _train_v2(latent_glob, batch):
         if not same:
             raise AssertionError(f"{V2_TRAIN}: {path} does not hold the trainer's weights")
         del sd, fresh
-    shutil.rmtree(V2_DIR, ignore_errors=True)
+    shutil.rmtree(out_dir, ignore_errors=True)  # the pickles stay for phase 16
 
 
 def _v2_gradient_check(trainer):
@@ -2910,6 +2933,392 @@ def _v2_gradient_check(trainer):
         f"non-finite {len(finite)}, exactly zero {len(zero)}{' ' + str(zero[:5]) if zero else ''}")
     if finite:
         raise AssertionError(f"{V2_TRAIN}: non-finite gradients in {finite[:5]}")
+
+
+# This slice's phases (13-16): MotionClone motion transfer, the DDIM
+# inversion round trip, ModelScope generation and v2 training with the text
+# encoder. MotionClone and the inversion start, as phase 8, at decoded
+# frames: the card's host has no libav.
+MOTION = "motion clone"
+INVERSE = "inverse ddim"
+MS = "ModelScope"
+V2_TEXT = "v2 text encoder"
+MS_KERNELS = ("flash_attention", "small_seq_attention", "fused_gn_silu_conv", "group_norm", "group_norm_stats",
+              "layer_norm")
+
+
+def ms_path_shapes():
+    """{"unet", "vae", "text": {kernel: Counter(shape)}}: the kernel launches,
+    keyed as each wrapper's `by_shape` counts them, of one MS UNet pass at
+    16x256x256 (latents 16x32x32), one decode of 16 frames by the VAE and one
+    encode by the full-depth text tower, from a dry run on the meta device
+    with the models' kernel entry points replaced by recorders that take the
+    dispatch's own decisions (`sdpa`'s short-sequence gate, the fused conv's
+    statistics launch). Phase 3 holds every shape, phase 15 expects exactly
+    these launches."""
+    import collections
+
+    import torch
+
+    from t2v_turbo_tpu_torch.models import AutoencoderKL, CLIPTextConfig, CLIPTextModel, VAEConfig, layers
+    from t2v_turbo_tpu_torch.models import vae as vae_module
+    from t2v_turbo_tpu_torch.models.unet_ms import MSUNet3DConditionModel, MSUNetConfig
+    from t2v_turbo_tpu_torch.ops import attention as A
+    from t2v_turbo_tpu_torch.ops import fused_conv as FC
+    from t2v_turbo_tpu_torch.ops import norms as N
+
+    counts = collections.defaultdict(collections.Counter)
+
+    def sdpa(q, k, v, scale=None):
+        if A._small_seq(q, k, v):
+            counts["small_seq_attention"][tuple(q.shape[:3])] += 1
+        elif q.shape[-1] in A.FLASH_HEAD_DIMS:
+            counts["flash_attention"][(q.shape[0], q.shape[2], q.shape[1], k.shape[1], q.shape[3])] += 1
+        return A.attention(q, k, v, scale=scale)
+
+    def group_norm(x, w, b, g=32, eps=1e-5, act=None):
+        counts["group_norm"][tuple(x.shape)] += 1
+        return N.group_norm_plain(x, w, b, g, eps, act)
+
+    def layer_norm(x, w, b, eps=1e-5, act=None):
+        counts["layer_norm"][(x.numel() // x.shape[-1], x.shape[-1])] += 1
+        return N.layer_norm_plain(x, w, b, eps)
+
+    def conv(x, gs, gb, w, b, g, eps, *film):
+        counts["fused_gn_silu_conv"][tuple(x.shape) + (w.shape[0],) + tuple(w.shape[2:])] += 1
+        counts["group_norm_stats"][tuple(x.shape)] += 1
+        return FC.fused_gn_silu_conv_plain(x, gs, gb, w, b, g, eps, *film)
+
+    patched = [(layers, "sdpa", sdpa), (vae_module, "sdpa", sdpa), (layers, "group_norm", group_norm),
+               (layers, "layer_norm", layer_norm), (layers, "fused_gn_silu_conv", conv)]
+    saved = [(m, n, getattr(m, n)) for m, n, _ in patched]
+    out = {}
+    try:
+        for m, n, f in patched:
+            setattr(m, n, f)
+        with torch.device("meta"), torch.no_grad():
+            unet = MSUNet3DConditionModel(MSUNetConfig(time_cond_proj_dim=256)).to(torch.bfloat16)
+            unet(torch.zeros(1, 16, 32, 32, 4), torch.zeros(1, dtype=torch.long), torch.zeros(1, 77, 1024),
+                 timestep_cond=torch.zeros(1, 256))
+            out["unet"], counts = dict(counts), collections.defaultdict(collections.Counter)
+            AutoencoderKL(VAEConfig()).to(torch.bfloat16).decode(torch.zeros(16, 32, 32, 4))
+            out["vae"], counts = dict(counts), collections.defaultdict(collections.Counter)
+            CLIPTextModel(CLIPTextConfig(penultimate=False)).to(torch.bfloat16)(torch.zeros(1, 77, dtype=torch.long))
+            out["text"] = dict(counts)
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+    return out
+
+
+def reference_clip():
+    """A decoded reference video, seeded: 16 frames of 360x640 uint8, a
+    colour ramp panning 12 pixels a frame with a bright bar crossing it (the
+    motion the transfer copies)."""
+    import numpy as np
+
+    r = np.random.RandomState(7)
+    yy, xx = np.mgrid[0:360, 0:640]
+    ramp = r.uniform(40, 215, 3) + 40 * np.stack([np.sin(yy / 37), np.cos(xx / 53), np.sin((xx + yy) / 71)], -1)
+    frames = []
+    for t in range(16):
+        f = np.roll(ramp, 12 * t, axis=1)
+        f[:, 100 + 24 * t: 140 + 24 * t] = 250
+        frames.append(f)
+    return np.clip(np.stack(frames) + r.randint(0, 12, (16, 360, 640, 3)), 0, 255).astype(np.uint8)
+
+
+def _path_checks(what, passes, per, kernels=TRAIN_KERNELS):
+    """The routes of phases 4 and 6-12 on a path: every flash and B7 launch
+    wgmma, every norm on its staged or vector route, every B8 launch bulk,
+    each of `kernels` launched; returns the launches by kernel."""
+    launches = {n: c for n, c in read_launches().items() if n in kernels}
+    log(f"{what}: kernel launches {launches}")
+    check_flash_routes(what, passes, per)
+    check_conv_routes(what, passes)
+    check_norm_routes(what, passes, per)
+    check_small_seq(what, passes, per, shapes=False)
+    missing = [n for n, c in launches.items() if c <= 0]
+    if missing:
+        raise AssertionError(f"{what}: kernels not launched {missing}")
+    return launches
+
+
+def phase_motion_clone():
+    """apps/motion_sample.py at full width with seeded weights (VC2 UNet,
+    VAE, ViT-H text tower) on a decoded reference clip: the reference's
+    50-point grid, guidance 7.5, percentage 0.3 (15 guided steps), rank-1
+    loss x100; then the same run at temp_loss_scale 0, whose final in-band
+    motion statistic the guided run's must undercut."""
+    import math
+
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import motion_sample
+    from t2v_turbo_tpu_torch.pipelines.motion_clone import guided_indices
+
+    out_path = os.path.join(OUT_DIR, "motion_clone_video.npy")
+    args = motion_sample.parse_args(["--random-weights", "--device", "cuda:0", "--seed", "0", "--prompt", PROMPTS[1],
+                                     "--reference-prompt", PROMPTS[0], "--num-ddim-timesteps", "50",
+                                     "--percentage", "0.3", "--temp-loss-scale", "100", "--output", out_path])
+    t0 = time.perf_counter()
+    job = motion_sample.build_job(args, frames=reference_clip())
+    torch.cuda.synchronize()
+    guided = guided_indices(job.cfg)
+    ref = job.ref_latents
+    log(f"{MOTION}: job built in {time.perf_counter() - t0:.1f} s (the clip 16x360x640 resized and cropped to "
+        f"320x512 and VAE-encoded: latents {tuple(ref.shape)}, std {float(ref.std()):.4f}, finite "
+        f"{bool(torch.isfinite(ref).all())}); {len(guided)} guided steps at indices {guided[0]}..{guided[-1]}")
+    if len(guided) != 15 or not bool(torch.isfinite(ref).all()):
+        raise AssertionError(f"{MOTION}: {len(guided)} guided steps, reference latents finite "
+                             f"{bool(torch.isfinite(ref).all())}")
+    traces, seconds = {}, {}
+    for scale in (100.0, 0.0):
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        with PlainAttentionCount() as plain:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            latents, trace = motion_sample.run(job, return_trace=True, temp_loss_scale=scale)
+            torch.cuda.synchronize()
+            seconds[scale] = time.perf_counter() - t0
+        traces[scale] = trace["motion_loss"].float().cpu().numpy()
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        finite = bool(torch.isfinite(latents).all()) and bool(np.isfinite(traces[scale]).all())
+        log(f"{MOTION}: temp_loss_scale {scale:g}: {seconds[scale]:.2f} s (50 inversion steps, {len(guided)} guided "
+            f"and {50 - len(guided)} plain DDIM steps; {50 + 3 * len(guided) + 2 * (50 - len(guided))} UNet "
+            f"forwards and {len(guided)} backwards), latents {tuple(latents.shape)} finite {finite}; max_memory_"
+            f"allocated {peak:.2f} GiB; motion statistic (unscaled rank loss) at the guided steps "
+            f"{' '.join(f'{v:.5f}' for v in traces[scale])}; plain attention calls {plain.text()}")
+        want_plain = {(64, True): 18 * len(guided)}  # two captures of nine layers a guided step
+        if not finite or len(traces[scale]) != len(guided) or dict(plain.counts) != want_plain:
+            raise AssertionError(f"{MOTION}: finite {finite}, {len(traces[scale])} statistics, plain calls "
+                                 f"{dict(plain.counts)} (want {want_plain})")
+        if scale:
+            _path_checks(MOTION, 1, "run")
+            t0 = time.perf_counter()
+            path = motion_sample.write_output(job, latents, args)
+            torch.cuda.synchronize()
+            video = np.load(path)
+            log(f"{MOTION}: decoded and written in {time.perf_counter() - t0:.2f} s: "
+                f"{os.path.relpath(path, HERE)} {video.shape} {video.dtype}")
+            if video.shape != (16, 320, 512, 3):
+                raise AssertionError(f"{MOTION}: the written video is {video.shape}")
+    down, flat = float(traces[100.0][-1]), float(traces[0.0][-1])
+    ok = math.isclose(traces[100.0][0], traces[0.0][0], rel_tol=1e-3) and down < flat
+    log(f"{MOTION}: s/video {seconds[100.0]:.2f} (guided), {seconds[0.0]:.2f} (scale 0); the first guided step's "
+        f"statistic {traces[100.0][0]:.5f} vs {traces[0.0][0]:.5f} (the same latents), the last's {down:.5f} guided "
+        f"against {flat:.5f} unguided (descending the statistic lowers it) {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{MOTION}: the guided run's final motion statistic {down} is not below {flat}")
+
+
+def phase_inverse_ddim():
+    """apps/inverse_ddim.py at full width with seeded weights on the same
+    decoded clip: invert 25 indices of the 50-point grid, DDIM back down,
+    the round trip's rmse and relative error."""
+    import math
+
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import inverse_ddim
+
+    args = inverse_ddim.parse_args(["--random-weights", "--device", "cuda:0", "--seed", "0", "--prompt", PROMPTS[0]])
+    job = inverse_ddim.build_job(args, frames=reference_clip())
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    z_rec, err = inverse_ddim.round_trip(job)
+    torch.cuda.synchronize()
+    seconds = time.perf_counter() - t0
+    ok = all(math.isfinite(v) for v in err.values()) and bool(torch.isfinite(z_rec).all())
+    log(f"{INVERSE}: {args.invert_steps} inversion and {args.invert_steps} DDIM steps of a {args.num_ddim_timesteps}-"
+        f"point grid in {seconds:.2f} s; rmse {err['rmse']:.5f}, relative {err['relative']:.5f} (random weights: "
+        f"the probe's figure, not a bar); max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"finite {ok}")
+    if not ok:
+        raise AssertionError(f"{INVERSE}: round trip {err}")
+    _path_checks(INVERSE, 2 * args.invert_steps, "UNet pass", SERVING_KERNELS)
+
+
+def phase_ms():
+    """generate --backbone ms at full width with seeded weights: the MS UNet
+    (320, 640, 1280, 1280; 1.41 B parameters), the SD VAE and the full-depth
+    ViT-H text tower; 3 prompts, 4 steps, 16x256x256; every launch by kernel,
+    route and shape against the meta-device dry run; one profiled video."""
+    import collections
+
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import generate
+    from t2v_turbo_tpu_torch.ops import attention as A
+    from t2v_turbo_tpu_torch.ops import fused_conv as FC
+    from t2v_turbo_tpu_torch.ops import norms as N
+
+    want_one = ms_path_shapes()
+    steps = 4
+    want = {k: collections.Counter() for k in MS_KERNELS}
+    for part, n in (("unet", steps * len(PROMPTS)), ("vae", len(PROMPTS)), ("text", len(PROMPTS))):
+        for k, c in want_one[part].items():
+            for shape, m in c.items():
+                want[k][shape] += n * m
+    t0 = time.perf_counter()
+    args = generate.parse_args(["--prompt", PROMPTS[0], "--backbone", "ms", "--random-weights", "--seed", "0",
+                                "--device", "cuda:0", "--height", "256", "--width", "256"])
+    pipe = generate.build_pipeline(args)
+    torch.cuda.synchronize()
+    n_params = {n: sum(p.numel() for p in m.parameters())
+                for n, m in (("unet", pipe.unet), ("vae", pipe.vae), ("text", pipe.text_model))}
+    log(f"{MS}: pipeline built in {time.perf_counter() - t0:.1f} s; parameters {n_params}; text tower "
+        f"{pipe.text_model.cfg.layers_run} blocks run")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    video_s = []
+    with PlainAttentionCount() as plain:
+        for i, prompt in enumerate(PROMPTS):
+            gen = torch.Generator(device="cuda").manual_seed(4000 + i)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            video = pipe(prompt=prompt, height=256, width=256, frames=16, num_inference_steps=steps, generator=gen)
+            torch.cuda.synchronize()
+            video_s.append(time.perf_counter() - t0)
+            v = video.float()
+            finite = bool(torch.isfinite(v).all())
+            log(f"{MS}: video {i}: shape {tuple(video.shape)}, finite {finite}, min {float(v.min()):.4f} max "
+                f"{float(v.max()):.4f} std {float(v.std()):.4f}, {video_s[-1]:.3f} s")
+            if tuple(video.shape) != (1, 16, 256, 256, 3) or not finite or not float(v.max() - v.min()) > 0:
+                raise AssertionError(f"{MS}: video {i} is malformed")
+    log(f"{MS}: s/video (videos 2-3) {' '.join(f'{s:.3f}' for s in video_s[1:])}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; plain attention calls {plain.text()}")
+    wrappers_ = {"flash_attention": A.flash_attention, "small_seq_attention": A.small_seq_attention,
+                 "fused_gn_silu_conv": FC.fused_gn_silu_conv, "group_norm": N.fused_group_norm,
+                 "group_norm_stats": N.group_norm_affine_cuda, "layer_norm": N.fused_layer_norm}
+    bad = []
+    for name, w in wrappers_.items():
+        got = collections.Counter(w.by_shape)
+        ok = got == want[name]
+        log(f"{MS}: {name} launches {w.launches} by route {dict(w.by_route)}, by shape {dict(sorted(got.items()))} "
+            f"(the dry run's: {'equal' if ok else dict(sorted(want[name].items()))}) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            bad.append(name)
+    check_flash_routes(MS, steps * len(PROMPTS), "UNet pass")
+    check_conv_routes(MS, steps * len(PROMPTS))
+    check_norm_routes(MS, len(PROMPTS), "video")
+    check_small_seq(MS, steps * len(PROMPTS), "UNet pass", shapes=False)
+    if bad or plain.counts:
+        raise AssertionError(f"{MS}: launches by shape differ from the dry run for {bad}; plain attention "
+                             f"{dict(plain.counts)}")
+    _profile_one_video(pipe, "profile_ms_video.txt", f"{MS} profile", height=256, width=256, frames=16)
+
+
+def phase_v2_text_encoder(latent_glob):
+    """apps/train_v2.py with --train-text-encoder at phase 12's point (batch
+    3, else the largest that fits, said so): the text tower's last 3 blocks
+    that run and ln_final train in their own group, the rest frozen; 3
+    steps; the frozen text tensors bitwise unchanged and the trained ones
+    moved; the EMA over the UNet alone; text_encoder.npz in JAX's layout."""
+    import gc
+    import shutil
+
+    import torch
+
+    try:
+        for batch in (3, 2, 1):
+            gc.collect()
+            torch.cuda.empty_cache()
+            try:
+                _train_v2_text(latent_glob, batch)
+                return
+            except torch.cuda.OutOfMemoryError:
+                if batch == 1:
+                    raise
+                log(f"{V2_TEXT}: out of memory at batch {batch} (peak {torch.cuda.max_memory_allocated() / 2**30:.2f} "
+                    f"GiB); running batch {batch - 1}")
+    finally:
+        shutil.rmtree(V2_DIR, ignore_errors=True)
+
+
+def _train_v2_text(latent_glob, batch):
+    import math
+
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import train_v2
+    from t2v_turbo_tpu_torch.io.convert import clip_text_to_jax
+    from t2v_turbo_tpu_torch.training.optim import TEXT_PREFIX
+
+    out_dir = os.path.join(V2_DIR, "train_text")
+    argv = ["--random-weights", "--latent-glob", latent_glob, "--device", "cuda:0", "--seed", "0",
+            "--output-dir", out_dir, "--batch-size", str(batch), "--use-remat", "--use-motion-cond",
+            "--use-target-unet", "--ema-decay", "0.95", "--optimizer", "adamw8bit", "--learning-rate", "1e-5",
+            "--temporal-lr", "1e-5", "--reward-fn", "hpsv2", "--reward-scale", "0.2", "--video-rm-fn", "vi_clip",
+            "--video-reward-scale", "0.5", "--vae-decode-batch-size", "16", "--max-steps", "3",
+            "--checkpointing-steps", "1000000", "--train-text-encoder", "--unlocked-text-layers", "4"]
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, data, _ = train_v2.build_trainer(train_v2.parse_args(argv))
+    torch.cuda.synchronize()
+    text = trainer.text_encoder
+    frozen = {n: p.detach().clone() for n, p in text.named_parameters() if not p.requires_grad}
+    live = sorted(n[len(TEXT_PREFIX):] for n in trainer.param_names if n.startswith(TEXT_PREFIX))
+    live0 = {k: v.clone() for k, v in trainer.text_state_dict().items() if k in live}
+    blocks = sorted({int(n.split(".")[2]) for n in live if n.startswith("transformer.")})
+    unet_names = {n for n, _ in trainer.student.named_parameters()}
+    ema_ok = (trainer.ema.numel() == trainer._n_unet < trainer.master.numel()
+              and set(trainer.state_dict_of(trainer.ema)) == unet_names
+              and sum(p.numel() for p in trainer.target.parameters()) == sum(p.numel() for p in trainer.student.parameters()))
+    sizes = {lb: sum(p.numel() for p in opt.params) for lb, opt in trainer.optimizers.items()}
+    log(f"{V2_TEXT}: built in {time.perf_counter() - t0:.1f} s ({' '.join(argv)}); text tower "
+        f"{text.cfg.layers_run} blocks run: {len(live)} tensors train ({sum(live0[k].numel() for k in live)} elements: "
+        f"blocks {blocks} and ln_final), {len(frozen)} frozen; optimizer groups (elements with padding) {sizes}; "
+        f"the EMA {trainer.ema.numel()} elements of the master's {trainer.master.numel()}, the UNet's alone "
+        f"{'OK' if ema_ok else 'FAIL'}; memory after build {torch.cuda.memory_allocated() / 2**30:.2f} GiB")
+    if blocks != [text.cfg.layers_run - 3 + i for i in range(3)] or "ln_final.weight" not in live or not ema_ok:
+        raise AssertionError(f"{V2_TEXT}: trained blocks {blocks}, ln_final {'ln_final.weight' in live}, EMA {ema_ok}")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    step_s = []
+    for i in range(3):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        metrics = trainer.step_once(next(data))
+        loss, gnorm = float(metrics["loss"]), float(metrics["grad_norm"])
+        torch.cuda.synchronize()
+        step_s.append(time.perf_counter() - t0)
+        still = all(torch.equal(p, frozen[n]) for n, p in text.named_parameters() if n in frozen)
+        now = trainer.text_state_dict()
+        moved = sum(not torch.equal(now[k], live0[k]) for k in live)
+        log(f"{V2_TEXT}: step {i + 1}{' (warm-up)' if i == 0 else ''}: {step_s[-1]:.3f} s, "
+            + ", ".join(f"{k} {float(v):.6f}" for k, v in metrics.items())
+            + f"; frozen text tensors bitwise unchanged {still}; trained ones moved {moved} of {len(live)}; "
+            f"max_memory_allocated {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        if not (math.isfinite(loss) and math.isfinite(gnorm) and gnorm > 0 and still and moved == len(live)):
+            raise AssertionError(f"{V2_TEXT} step {i + 1}: loss {loss}, grad_norm {gnorm}, frozen unchanged {still}, "
+                                 f"moved {moved} of {len(live)}")
+    launches = {n: c for n, c in read_launches().items() if n in TRAIN_KERNELS or n in D512_KERNELS}
+    log(f"{V2_TEXT}: kernel launches a step {dict((n, c / 3) for n, c in launches.items())}")
+    check_flash_routes(V2_TEXT, 3, "step")
+    check_conv_routes(V2_TEXT, 3 * 3)
+    check_norm_routes(V2_TEXT, 3, "step")
+    check_small_seq(V2_TEXT, 3, "step", shapes=False)
+    if any(c <= 0 for c in launches.values()):
+        raise AssertionError(f"{V2_TEXT}: kernels not launched {launches}")
+    log(f"{V2_TEXT}: batch {batch}{'' if batch == 3 else ' (the recipe is 3: it did not fit)'}; s/step (steps 2-3) "
+        f"{' '.join(f'{s:.3f}' for s in step_s[1:])}; max_memory_allocated "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    npz = clip_text_to_jax(trainer.text_state_dict())
+    path = os.path.join(out_dir, "text_encoder.npz")
+    np.savez(path, **npz)
+    n_blocks = len({k.split("/")[1] for k in npz if k.startswith("params/resblocks_")})
+    ok = all(v.dtype == np.float32 for v in npz.values()) and n_blocks == text.cfg.layers_run
+    log(f"{V2_TEXT}: text_encoder.npz {len(npz)} arrays ({n_blocks} blocks, float32 {ok}), "
+        f"{os.path.getsize(path) / 2**20:.1f} MiB")
+    if not ok:
+        raise AssertionError(f"{V2_TEXT}: text_encoder.npz is malformed")
+
 
 
 def main(argv=None) -> int:
@@ -2948,6 +3357,10 @@ def main(argv=None) -> int:
         (V2_GEN, phase_v2_generation),
         (V2_PRE, lambda: v2.update(latent_glob=phase_v2_preprocess())),
         (V2_TRAIN, lambda: phase_v2_training(v2["latent_glob"])),
+        (MOTION, phase_motion_clone),
+        (INVERSE, phase_inverse_ddim),
+        (MS, phase_ms),
+        (V2_TEXT, lambda: phase_v2_text_encoder(v2["latent_glob"])),
     ]
     if only:  # a development run of some phases (no argument: all of them)
         phases = [(n, f) for n, f in phases if n in ("device", "build") + only]

@@ -1,4 +1,5 @@
-"""CLI: prompt -> video with the PyTorch port (VC2 backbone, 4-step T2V-Turbo).
+"""CLI: prompt -> video with the PyTorch port (4-step T2V-Turbo on the VC2 or
+the ModelScope backbone).
 
 Usage:
   python -m t2v_turbo_tpu_torch.apps.generate \\
@@ -16,6 +17,13 @@ T2V-Turbo-v2 (a v2 student's unet.pt, motion-conditioned; its operating
 point is 16 steps from an origin grid of 200):
   ... --unet-ckpt runs/v2/unet.pt --use-motion-cond --motion-gs 0.05 \
       --percentage 0.3 --steps 16 --lcm-origin-steps 200
+ModelScope (--backbone ms; its operating point is 16 frames at 256x256: the
+size flags keep their VC2 defaults, as the JAX CLI's, so pass
+--height 256 --width 256): the diffusers folder of text-to-video-ms-1.7b, or seeded
+weights with --random-weights; --unet-ckpt replaces its UNet with an LCM
+student's (diffusers keys), --lora-ckpt folds the reference's MS LoRA
+(r = 32) into it (the reference's app_ms.py:181-227):
+  ... --backbone ms --ms-dir /path/to/text-to-video-ms-1.7b --lora-ckpt unet_lora.pt --height 256 --width 256
 The models run in bf16 on --device (default cuda:0), where every GroupNorm
 and LayerNorm, and every attention of head dim 64 or 512 but the CLIP
 tower's causal one, run the hand-written kernels (ops/attention.py::sdpa).
@@ -33,7 +41,11 @@ import torch
 def parse_args(argv=None):
     p = argparse.ArgumentParser(description="T2V-Turbo text-to-video (PyTorch port)")
     p.add_argument("--prompt", required=True)
+    p.add_argument("--backbone", default="vc2", choices=["vc2", "ms"],
+                   help="vc2 = VideoCrafter2 (320x512); ms = ModelScope (256x256: pass the size)")
     p.add_argument("--checkpoint", default=None, help="VideoCrafter2 model.ckpt")
+    p.add_argument("--ms-dir", default=None,
+                   help="ModelScope diffusers folder with unet/, vae/ and text_encoder/ subfolders")
     p.add_argument("--unet-ckpt", default=None, help="LCM student unet.pt (replaces the ckpt's UNet)")
     p.add_argument("--lora-ckpt", default=None,
                    help="v1 LoRA to fold into the UNet: unet_lora.pt or unet_lora.npz")
@@ -60,7 +72,10 @@ def parse_args(argv=None):
 
 
 def build_pipeline(args, spec=None):
-    """Models, weights and tokenizer -> a ready T2VTurboVC2Pipeline."""
+    """Models, weights and tokenizer -> a ready T2VTurboVC2Pipeline (with
+    --backbone ms, `build_ms_pipeline`'s T2VTurboMSPipeline)."""
+    if getattr(args, "backbone", "vc2") == "ms":
+        return build_ms_pipeline(args)
     from ..config import vc2_spec
     from ..io.convert import load_checkpoint, load_clip_text, split_vc2_checkpoint
     from ..models import (
@@ -100,6 +115,53 @@ def build_pipeline(args, spec=None):
         schedule=spec.make_schedule(), device=device, scale_factor=spec.scale_factor,
         dtype=dtype,
     )
+
+
+def build_ms_pipeline(args, unet_cfg=None, vae_cfg=None, text_cfg=None):
+    """The ModelScope backbone (the reference's app_ms.py /
+    t2v_turbo_ms_pipeline): the MS UNet with the 256-d w-embedding input,
+    the SD VAE and the full-depth CLIP text tower, from --ms-dir or seeded
+    (--random-weights); the configs default to the published ones (tests
+    pass small ones; a --ms-dir tower's config comes from its folder)."""
+    from ..io.convert import load_checkpoint
+    from ..io.ms import load_ms_components, ms_unet_state_dict
+    from ..models import AutoencoderKL, CLIPTextConfig, CLIPTextModel, VAEConfig, cast_compute_dtype_, seeded_init_
+    from ..models.unet_ms import MSUNet3DConditionModel, MSUNetConfig
+    from ..diffusion import DiffusionSchedule
+    from ..pipelines.ms import T2VTurboMSPipeline
+    from ..utils.tokenizer import CLIPTokenizer
+
+    ucfg = unet_cfg or MSUNetConfig(time_cond_proj_dim=256)
+    device = torch.device(args.device)
+    dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
+    comps = None
+    if args.ms_dir:
+        comps = load_ms_components(args.ms_dir)
+        text_cfg = comps["text_cfg"]
+    elif not args.random_weights:
+        print("error: the MS backbone needs --ms-dir (a diffusers folder) or --random-weights", file=sys.stderr)
+        sys.exit(2)
+    with torch.device(device):
+        unet = MSUNet3DConditionModel(ucfg)
+        vae = AutoencoderKL(vae_cfg or VAEConfig())
+        text = CLIPTextModel(text_cfg or CLIPTextConfig(penultimate=False))
+    if comps is not None:
+        unet_sd = load_checkpoint(args.unet_ckpt) if args.unet_ckpt else comps["unet"]
+        unet.load_state_dict(ms_unet_state_dict(unet_sd, ucfg), strict=True)
+        vae.load_state_dict(comps["vae"], strict=True)
+        text.load_state_dict(comps["text"], strict=True)
+    else:
+        for i, m in enumerate((unet, vae, text)):
+            seeded_init_(m, args.seed + 1_000_000 * i)
+    if args.lora_ckpt:
+        from ..io.lora_import import apply_lora_pt_ms, load_lora_pt
+
+        with torch.no_grad():
+            unet.load_state_dict(apply_lora_pt_ms(unet.state_dict(), load_lora_pt(args.lora_ckpt), ucfg), strict=True)
+    for m in (unet, vae, text):
+        cast_compute_dtype_(m, dtype).eval().requires_grad_(False)
+    return T2VTurboMSPipeline(unet=unet, vae=vae, text_model=text, tokenizer=CLIPTokenizer(),
+                              schedule=DiffusionSchedule.create(), device=device, dtype=dtype)
 
 
 def lora_state_dict(unet, path, cfg):

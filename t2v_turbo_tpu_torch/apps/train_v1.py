@@ -97,6 +97,8 @@ def parse_args(argv=None):
     p.add_argument("--max-grad-norm", type=float, default=10.0)
     p.add_argument("--gradient-accumulation-steps", type=int, default=1,
                    help="average grads over K micro-batches per update")
+    p.add_argument("--grads-bf16", action="store_true",
+                   help="the LoRA gradient buffer in bf16 (the norm in f32; refused with accumulation)")
     p.add_argument("--seed", type=int, default=453645634)
     p.add_argument("--use-remat", action="store_true",
                    help="recompute each block's activations in the backward (the UNet's, and "
@@ -227,7 +229,7 @@ def build_trainer(args, raw_videos=None, validation=False):
             checkpoint_every=args.checkpointing_steps,
             keep_checkpoints=args.checkpoints_total_limit, log_every=1, seed=args.seed,
             max_grad_norm=args.max_grad_norm, lora_rank=args.lora_rank,
-            grad_accum_steps=args.gradient_accumulation_steps,
+            grad_accum_steps=args.gradient_accumulation_steps, grads_bf16=args.grads_bf16,
         ),
         reward_fn=reward_fn,
         video_reward_fn=video_reward_fn,

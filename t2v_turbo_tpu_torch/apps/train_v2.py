@@ -24,8 +24,17 @@ choice of samples (`add_v2_reward_fields`). At the end `unet.pt` and, with
 --use-target-unet, `target_unet.pt` (the EMA network) are written in the
 reference's layout, f32, for apps/generate.py --unet-ckpt.
 
-Not ported yet: --train-text-encoder / --unlocked-text-layers, --fsdp,
---multihost, --seq-shards.
+--train-text-encoder trains the text tower beside the UNet (the reference
+:816-830, 989-992): each batch's captions are tokenised on the host and
+re-encoded by the tower at every step; only the last --unlocked-text-layers
+blocks of the reference's full tower (the penultimate tower runs one fewer,
+so one fewer trains) and ln_final move, in an optimizer group at the base
+rate (optim.v2_param_label); the EMA target covers the UNet alone. The
+trained tower is written as text_encoder.npz with the JAX CLI's keys,
+shapes and dtypes (io/convert.py::clip_text_to_jax), so either package
+reads it.
+
+Not ported yet: --fsdp, --multihost, --seq-shards.
 """
 
 from __future__ import annotations
@@ -68,6 +77,10 @@ def parse_args(argv=None):
                    help="recompute each block's activations in the backward (the UNet's, and "
                         "InternVideo2's with --video-rm-fn vi_clip2)")
     p.add_argument("--grads-bf16", action="store_true", help="the gradient buffer in bf16 (the norm in f32)")
+    p.add_argument("--train-text-encoder", action="store_true",
+                   help="re-encode captions every step and train the last text blocks and ln_final")
+    p.add_argument("--unlocked-text-layers", type=int, default=4,
+                   help="blocks of the reference's full text tower that train (counted from its end)")
     p.add_argument("--device", default="cuda:0")
     # reward feedback (the reference's --reward_fn_name / --video_rm_name ..., :507-573, 1068-1162)
     p.add_argument("--reward-fn", default="none", choices=["none", "clip", "hpsv2", "pick", "img_reward"])
@@ -137,6 +150,26 @@ def add_v2_reward_fields(base_iter, args, image_rm, video_rm):
         yield batch
 
 
+def build_text_encoder(args, device, ctx_len: int, clip_sd=None):
+    """--train-text-encoder's tower, f32 (the trainer's master): the VC2
+    penultimate ViT-H tower (the --checkpoint's, else seeded), or with
+    --tiny-model JAX's tiny tower at the pickles' context length (width
+    16, 3 blocks, 2 run)."""
+    from ..config import vc2_spec
+    from ..io.convert import load_clip_text
+    from ..models import CLIPTextConfig, CLIPTextModel, seeded_init_
+
+    tcfg = CLIPTextConfig(width=16, heads=4, layers=3, context_length=ctx_len) if args.tiny_model \
+        else vc2_spec().text
+    with torch.device(device):
+        text = CLIPTextModel(tcfg)
+    if clip_sd is not None:
+        load_clip_text(text, clip_sd)
+    else:
+        seeded_init_(text, args.seed + 5_000_000)
+    return text
+
+
 def build_trainer(args):
     """(trainer, data iterator, UNet config) from the parsed flags."""
     from ..config import vc2_spec
@@ -159,9 +192,9 @@ def build_trainer(args):
         raise SystemExit(f"error: no latent pickles match {args.latent_glob}")
     with torch.device(device):
         student = UNetModel(ucfg, use_remat=args.use_remat)  # f32: the trainer's master
-    vae_sd = None
+    vae_sd = clip_sd = None
     if args.checkpoint:
-        unet_sd, vae_sd, _ = split_vc2_checkpoint(load_checkpoint(args.checkpoint))
+        unet_sd, vae_sd, clip_sd = split_vc2_checkpoint(load_checkpoint(args.checkpoint))
         student.load_state_dict(student_unet_state_dict(unet_sd, ucfg), strict=True)
     elif args.random_weights:
         seeded_init_(student, args.seed)
@@ -172,6 +205,16 @@ def build_trainer(args):
     rewards = args.reward_fn != "none" or args.video_rm_fn != "none"
     vae = build_vae(args, device, dtype, vae_sd) if rewards else None
     reward_fn, video_reward_fn, image_rm, video_rm = build_reward_stack(args, device, dtype, vae)
+    ds = MP4LatentDataset(paths, seed=args.seed)
+    text = tokenizer = None
+    label = v2_param_label
+    if args.train_text_encoder:
+        from ..utils.tokenizer import CLIPTokenizer
+
+        text = build_text_encoder(args, device, ds[0]["prompt_emb"].shape[0], clip_sd)
+        tokenizer = CLIPTokenizer(context_length=text.cfg.context_length)
+        label = functools.partial(v2_param_label, unlocked_text_layers=args.unlocked_text_layers,
+                                  text_resblocks=text.cfg.layers_run)
     sched = DiffusionSchedule.create()
     trainer = LCDTrainer(
         student=student,
@@ -192,31 +235,40 @@ def build_trainer(args):
         video_reward_fn=video_reward_fn,
         loss_fn=lcd_v2.trainer_loss,
         draws_fn=lcd_v2.trainer_draws,
-        param_label=v2_param_label,
+        param_label=label,
+        text_encoder=text,
     )
-    return trainer, make_data_iter(args, MP4LatentDataset(paths, seed=args.seed), image_rm, video_rm), ucfg
+    return trainer, make_data_iter(args, ds, image_rm, video_rm, tokenizer), ucfg
 
 
-def make_data_iter(args, ds, image_rm=None, video_rm=None):
+def make_data_iter(args, ds, image_rm=None, video_rm=None, tokenizer=None):
     """The trainer's batches: the dataset's, with the reward fields when a
-    reward model is given; the captions stay on the host."""
+    reward model is given and, with a `tokenizer` (--train-text-encoder),
+    the captions' `tokens`; the captions stay on the host."""
     base = ds.batches(args.batch_size)
     if image_rm is not None or video_rm is not None:
         base = add_v2_reward_fields(base, args, image_rm, video_rm)
     for batch in base:
-        batch.pop("txt", None)
+        txt = batch.pop("txt", None)
         batch.pop("short_txt", None)
+        if tokenizer is not None:
+            batch["tokens"] = tokenizer(list(txt) if txt is not None else [""] * batch["z_t"].shape[0])
         yield batch
 
 
 def export_unets(trainer, output_dir: str):
-    """Write unet.pt (the trained student) and, with the EMA target
-    network, target_unet.pt; returns their paths."""
-    from ..io.convert import save_unet
+    """Write unet.pt (the trained student), with the EMA target network
+    target_unet.pt, and with a trained text encoder text_encoder.npz (the
+    JAX CLI's layout); returns their paths."""
+    from ..io.convert import clip_text_to_jax, save_unet
 
     paths = [save_unet(trainer.export_student_params(), os.path.join(output_dir, "unet.pt"))]
     if trainer.ema is not None:
         paths.append(save_unet(trainer.state_dict_of(trainer.ema), os.path.join(output_dir, "target_unet.pt")))
+    if trainer.text_encoder is not None:
+        path = os.path.join(output_dir, "text_encoder.npz")
+        np.savez(path, **clip_text_to_jax(trainer.text_state_dict()))
+        paths.append(path)
     return paths
 
 

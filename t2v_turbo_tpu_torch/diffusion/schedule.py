@@ -1,10 +1,11 @@
 """The diffusion noise schedule (port of t2v_turbo_tpu/diffusion/schedule.py):
 the tables, `extract`, and the forward diffusion `q_sample` / `add_noise`
 that training draws its noisy latents with (the VC2 latent-scale variant of
-`q_sample` is v2 training's and is not ported yet).
+`q_sample` has no caller in the port).
 
 The tables are computed in float64 numpy exactly as the JAX package does for
-the `scaled_linear` schedule of every T2V-Turbo config, then held as float32
+the `scaled_linear` schedule of every T2V-Turbo config, optionally rescaled
+to a zero terminal SNR (`rescale_betas_zero_snr`), then held as float32
 tensors; `to(device)` moves them next to the latents.
 """
 
@@ -27,9 +28,12 @@ class DiffusionSchedule:
 
     @classmethod
     def create(
-        cls, num_timesteps: int = 1000, linear_start: float = 0.00085, linear_end: float = 0.012
+        cls, num_timesteps: int = 1000, linear_start: float = 0.00085, linear_end: float = 0.012,
+        rescale_betas_zero_snr: bool = False,
     ) -> "DiffusionSchedule":
         betas = np.linspace(linear_start**0.5, linear_end**0.5, num_timesteps, dtype=np.float64) ** 2
+        if rescale_betas_zero_snr:
+            betas = rescale_zero_terminal_snr(betas)
         alphas_cumprod = np.cumprod(1.0 - betas)
 
         def f32(a):
@@ -49,6 +53,29 @@ class DiffusionSchedule:
             sqrt_alphas_cumprod=self.sqrt_alphas_cumprod.to(device),
             sqrt_one_minus_alphas_cumprod=self.sqrt_one_minus_alphas_cumprod.to(device),
         )
+
+
+def rescale_zero_terminal_snr(betas: np.ndarray) -> np.ndarray:
+    """Betas rescaled so that the last timestep has zero SNR (arXiv
+    2305.08891, Algorithm 1; the reference scheduler/t2v_turbo_scheduler.py:96-126):
+    sqrt(alpha_bar) shifted to end at 0 and scaled to keep its first value."""
+    alphas_bar = np.cumprod(1.0 - np.asarray(betas, dtype=np.float64))
+    ab_sqrt = np.sqrt(alphas_bar)
+    ab0, abT = ab_sqrt[0], ab_sqrt[-1]
+    alphas_bar = ((ab_sqrt - abT) * (ab0 / (ab0 - abT))) ** 2
+    alphas = np.concatenate([alphas_bar[:1], alphas_bar[1:] / alphas_bar[:-1]])
+    return 1.0 - alphas
+
+
+def make_vc2_scale_arr(num_timesteps: int, scale_a: float = 1.0, scale_b: float = 0.7,
+                       mid_step: int = 400) -> np.ndarray:
+    """VideoCrafter2's per-timestep latent scale: the first `mid_step`
+    entries ramp from scale_a to scale_b, the rest are scale_b. The
+    reference builds the tail `num_timesteps` long and cuts the whole to
+    `num_timesteps` (its off-by-mid_step quirk, lvdm/models/ddpm3d.py:448-456);
+    the values are the same."""
+    arr = np.concatenate([np.linspace(scale_a, scale_b, mid_step), np.full(num_timesteps, scale_b)])
+    return arr[:num_timesteps].astype(np.float64)
 
 
 def extract(table: torch.Tensor, t: torch.Tensor, ndim: int) -> torch.Tensor:

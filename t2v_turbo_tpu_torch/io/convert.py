@@ -16,6 +16,10 @@
 - `save_unet`: a UNet state dict as the reference's v2 trainer exports
   `unet.pt` / `target_unet.pt` (f32 tensors keyed as its UNetModel;
   `load_checkpoint` reads them back).
+- `clip_text_to_jax`: the other way for a text tower: the port's
+  open_clip-keyed state dict -> the flat "params/..." arrays of the JAX
+  CLIPTextModel tree (the keys, shapes and f32 dtype of the JAX train_v2
+  CLI's text_encoder.npz).
 - `load_clip_text`: strict load of an open_clip text-tower state dict minus
   exactly the keys the penultimate tower does not hold.
 - `lora_to_jax` / `lora_from_jax`: the port's LoRA factors (the reference's
@@ -241,6 +245,27 @@ def clip_text_state_dict_from_jax(params: Mapping) -> StateDict:
     _norm(p["ln_final"], "ln_final", sd)
     _clip_blocks(p, sd)
     return sd
+
+
+def clip_text_to_jax(sd: Mapping) -> Dict[str, np.ndarray]:
+    """The port's `CLIPTextModel` state dict -> {"params/<flax path>": f32
+    array}, the inverse of `clip_text_state_dict_from_jax` flattened with
+    "/" as the JAX CLI writes text_encoder.npz."""
+    f32 = {k: np.asarray(torch.as_tensor(v).detach().float().cpu()) for k, v in sd.items()}
+    out = {"params/token_embedding": f32["token_embedding.weight"],
+           "params/positional_embedding": f32["positional_embedding"],
+           "params/ln_final/scale": f32["ln_final.weight"], "params/ln_final/bias": f32["ln_final.bias"]}
+    i = 0
+    while f"transformer.resblocks.{i}.ln_1.weight" in f32:
+        rp, jp = f"transformer.resblocks.{i}", f"params/resblocks_{i}"
+        for n in ("ln_1", "ln_2"):
+            out[f"{jp}/{n}/scale"], out[f"{jp}/{n}/bias"] = f32[f"{rp}.{n}.weight"], f32[f"{rp}.{n}.bias"]
+        out[f"{jp}/in_proj/kernel"] = f32[f"{rp}.attn.in_proj_weight"].T
+        out[f"{jp}/in_proj/bias"] = f32[f"{rp}.attn.in_proj_bias"]
+        for jn, tn in (("out_proj", "attn.out_proj"), ("c_fc", "mlp.c_fc"), ("c_proj", "mlp.c_proj")):
+            out[f"{jp}/{jn}/kernel"], out[f"{jp}/{jn}/bias"] = f32[f"{rp}.{tn}.weight"].T, f32[f"{rp}.{tn}.bias"]
+        i += 1
+    return {k: np.ascontiguousarray(v) for k, v in out.items()}
 
 
 def clip_text_pooled_state_dict_from_jax(params: Mapping) -> StateDict:

@@ -1,5 +1,5 @@
-"""The reference's `unet_lora.pt` LoRA files for the VC2 UNet (port of
-t2v_turbo_tpu/io/lora_import.py, VC2 part, and of the LoRA half of
+"""The reference's `unet_lora.pt` LoRA files for the VC2 and the ModelScope
+UNets (port of t2v_turbo_tpu/io/lora_import.py and of the LoRA half of
 t2v_turbo_tpu/io/torch_export.py).
 
 The file is a flat list [up_0, down_0, up_1, down_1, ...] in the reference's
@@ -18,6 +18,14 @@ transformer; the port's modules hold the same names). The tensors are the
 - `flax_path`: a module name -> the JAX package's parameter path, so the
   factors can be written in the JAX trainer's `unet_lora.npz` layout
   (io/convert.py).
+- `lora_module_order_ms` / `apply_lora_pt_ms`: the same for the MS UNet
+  (models/unet_ms.py, whose module names are diffusers'), in diffusers'
+  `named_modules` order: in each block resnets, temp_convs, attentions,
+  temp_attentions, then the resampler; up_blocks before mid_block, since
+  diffusers registers them so (model_scope/unet_3d_condition.py:159-190); a
+  BasicTransformerBlock's attn1, attn2, then ff; every up-block resnet has
+  a conv_shortcut. The MS LoRA (r = 32) is folded into the base weights
+  with alpha 1, as the reference's app_ms.py:206-215 collapses it.
 """
 
 from __future__ import annotations
@@ -113,7 +121,11 @@ def load_lora_pt(path: str) -> List[torch.Tensor]:
 def apply_lora_pt(state_dict: Dict[str, torch.Tensor], weights, cfg: UNetConfig,
                   alpha: float = 1.0) -> Dict[str, torch.Tensor]:
     """Fold a [up, down, ...] list into a UNet state dict: W += alpha * up @ down."""
-    order = lora_module_order(cfg)
+    return _fold(state_dict, weights, lora_module_order(cfg), alpha)
+
+
+def _fold(state_dict, weights, order, alpha: float) -> Dict[str, torch.Tensor]:
+    """W += alpha * up @ down for each module of `order`, the list's pairs in turn."""
     if len(weights) != 2 * len(order):
         raise ValueError(
             f"lora file has {len(weights)} tensors, expected {2 * len(order)} for this config"
@@ -125,6 +137,58 @@ def apply_lora_pt(state_dict: Dict[str, torch.Tensor], weights, cfg: UNetConfig,
         delta = (up.flatten(1) @ down.flatten(1)).reshape(w.shape)
         out[f"{name}.weight"] = (w.float() + alpha * delta.to(w.device)).to(w.dtype)
     return out
+
+
+def _ms_transformer_order(prefix: str) -> List[Tuple[str, str]]:
+    block = f"{prefix}.transformer_blocks.0"
+    attn = [(f"{block}.{a}.{t}", "linear") for a in ("attn1", "attn2") for t in ("to_q", "to_k", "to_v", "to_out.0")]
+    return ([(f"{prefix}.proj_in", "linear")] + attn
+            + [(f"{block}.ff.net.0.proj", "linear"), (f"{block}.ff.net.2", "linear"), (f"{prefix}.proj_out", "linear")])
+
+
+def _ms_block_order(prefix: str, shortcuts, n_attn: int, resample: str = None) -> List[Tuple[str, str]]:
+    order = []
+    for j, shortcut in enumerate(shortcuts):
+        order += [(f"{prefix}.resnets.{j}.conv1", "conv2d"), (f"{prefix}.resnets.{j}.time_emb_proj", "linear"),
+                  (f"{prefix}.resnets.{j}.conv2", "conv2d")]
+        if shortcut:
+            order.append((f"{prefix}.resnets.{j}.conv_shortcut", "conv2d"))
+    order += [(f"{prefix}.temp_convs.{j}.conv{i}.{2 if i == 1 else 3}", "conv3d")
+              for j in range(len(shortcuts)) for i in range(1, 5)]
+    for kind in ("attentions", "temp_attentions"):
+        for j in range(n_attn):
+            order += _ms_transformer_order(f"{prefix}.{kind}.{j}")
+    if resample:
+        order.append((f"{prefix}.{resample}.0.conv", "conv2d"))
+    return order
+
+
+def lora_module_order_ms(cfg) -> List[Tuple[str, str]]:
+    """(module name, kind) of every LoRA-injected layer of the MS UNet
+    (an MSUNetConfig), in `unet_lora.pt` order (see the module docstring)."""
+    chans, L = cfg.block_out_channels, cfg.layers_per_block
+    n = len(chans)
+    order = [("conv_in", "conv2d"), ("time_embedding.linear_1", "linear")]
+    if cfg.time_cond_proj_dim is not None:
+        order.append(("time_embedding.cond_proj", "linear"))
+    order += [("time_embedding.linear_2", "linear")] + _ms_transformer_order("transformer_in")
+    ch = chans[0]
+    for i, out_ch in enumerate(chans):
+        last = i == n - 1
+        order += _ms_block_order(f"down_blocks.{i}", [(ch if j == 0 else out_ch) != out_ch for j in range(L)],
+                                 0 if last else L, None if last else "downsamplers")
+        ch = out_ch
+    for i in range(n):
+        order += _ms_block_order(f"up_blocks.{i}", [True] * (L + 1), L + 1 if i else 0,
+                                 "upsamplers" if i < n - 1 else None)
+    order += _ms_block_order("mid_block", [False, False], 1)
+    return order + [("conv_out", "conv2d")]
+
+
+def apply_lora_pt_ms(state_dict: Dict[str, torch.Tensor], weights, cfg,
+                     alpha: float = 1.0) -> Dict[str, torch.Tensor]:
+    """Fold an MS [up, down, ...] list into an MS UNet state dict: W += alpha * up @ down."""
+    return _fold(state_dict, weights, lora_module_order_ms(cfg), alpha)
 
 
 def export_lora_pt(factors, cfg: UNetConfig, shapes: Dict[str, torch.Size],

@@ -77,8 +77,7 @@ class T2VTurboVC2Pipeline:
         each step (used only when there is more than one step)."""
         if use_motion_cond and getattr(self.unet, "motion_cond_proj", None) is None:
             raise ValueError("use_motion_cond needs a UNet built with motion_cond_proj_dim")
-        levels = len(self.unet.cfg.channel_mult)
-        multiple = self.vae_scale * 2 ** (levels - 1)
+        multiple = self.vae_scale * 2 ** (self._levels() - 1)
         if height % multiple or width % multiple:
             raise ValueError(f"height/width must be multiples of {multiple} (got {height}x{width})")
         if prompt_embeds is None:
@@ -110,7 +109,7 @@ class T2VTurboVC2Pipeline:
                 gs = motion_guidance_scale(t, motion_gs, percentage, self.schedule.num_timesteps)
                 kw["motion_cond"] = guidance_scale_embedding(
                     torch.full((bs,), gs, device=self.device), self.w_embedding_dim).to(self.dtype)
-            eps = self.unet(lat, tb, ctx, fps=fps_arr, timestep_cond=w_emb, **kw)
+            eps = self._unet_call(lat, tb, ctx, fps_arr, w_emb, **kw)
             step_noise = None
             if num_inference_steps > 1:
                 step_noise = noise[i].to(self.device) if noise is not None else self._randn(shape, generator)
@@ -122,6 +121,13 @@ class T2VTurboVC2Pipeline:
         b, t, hh, ww, c = denoised.shape
         video = self.vae.decode(denoised.reshape(b * t, hh, ww, c).to(self.dtype) / self.scale_factor)
         return video.reshape(b, t, *video.shape[1:])
+
+
+    def _levels(self) -> int:
+        return len(self.unet.cfg.channel_mult)
+
+    def _unet_call(self, lat, tb, ctx, fps, w_emb, **kw):
+        return self.unet(lat, tb, ctx, fps=fps, timestep_cond=w_emb, **kw)
 
 
 def motion_guidance_scale(t: int, motion_gs: float, percentage: float, num_timesteps: int = 1000) -> float:

@@ -158,6 +158,32 @@ class VideoRewardModel(_RewardModel):
         self.load_state_dict({k: v for k, v in sd.items() if k != "temp"}, strict=True)
 
 
+def _hf_tower(rest: dict, tower: str, dst: str, out: dict, names: list) -> None:
+    """Move an HF CLIP encoder's layers `{tower}encoder.layers.{i}` from
+    `rest` into `out` as open_clip's `{dst}resblocks.{i}` (q, k and v packed
+    into `attn.in_proj_*`); the other per-layer tensors are added to
+    `names` as (HF name, open_clip name) pairs for the caller to move."""
+    take, i = rest.pop, 0
+    while f"{tower}encoder.layers.{i}.layer_norm1.weight" in rest:
+        src, blk = f"{tower}encoder.layers.{i}", f"{dst}resblocks.{i}"
+        for n in ("weight", "bias"):
+            out[f"{blk}.attn.in_proj_{n}"] = torch.cat(
+                [torch.as_tensor(take(f"{src}.self_attn.{p}_proj.{n}")) for p in "qkv"])
+        names += [(f"{src}.{hf}", f"{blk}.{oc}") for hf, oc in (
+            ("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"), ("self_attn.out_proj", "attn.out_proj"),
+            ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj"))]
+        i += 1
+
+
+def _move_pairs(rest: dict, out: dict, names: list, what: str) -> dict:
+    for hf, oc in names:
+        for n in ("weight", "bias"):
+            out[f"{oc}.{n}"] = rest.pop(f"{hf}.{n}")
+    if rest:
+        raise RuntimeError(f"keys outside the HF {what} layout: {sorted(rest)[:5]}")
+    return out
+
+
 def hf_clip_to_open_clip(sd) -> dict:
     """An HF transformers `CLIPModel` state dict (PickScore's layout) -> the
     open_clip keys `load_open_clip` takes: the key table of the JAX
@@ -180,23 +206,30 @@ def hf_clip_to_open_clip(sd) -> dict:
     }
     names = [("text_model.final_layer_norm", "ln_final"), ("vision_model.pre_layrnorm", "visual.ln_pre"),
              ("vision_model.post_layernorm", "visual.ln_post")]
-    for tower, dst in (("text_model", "transformer"), ("vision_model", "visual.transformer")):
-        i = 0
-        while f"{tower}.encoder.layers.{i}.layer_norm1.weight" in rest:
-            src, blk = f"{tower}.encoder.layers.{i}", f"{dst}.resblocks.{i}"
-            for n in ("weight", "bias"):
-                out[f"{blk}.attn.in_proj_{n}"] = torch.cat(
-                    [torch.as_tensor(take(f"{src}.self_attn.{p}_proj.{n}")) for p in "qkv"])
-            names += [(f"{src}.{hf}", f"{blk}.{oc}") for hf, oc in (
-                ("layer_norm1", "ln_1"), ("layer_norm2", "ln_2"), ("self_attn.out_proj", "attn.out_proj"),
-                ("mlp.fc1", "mlp.c_fc"), ("mlp.fc2", "mlp.c_proj"))]
-            i += 1
-    for hf, oc in names:
-        for n in ("weight", "bias"):
-            out[f"{oc}.{n}"] = take(f"{hf}.{n}")
-    if rest:
-        raise RuntimeError(f"keys outside the HF CLIPModel layout: {sorted(rest)[:5]}")
-    return out
+    _hf_tower(rest, "text_model.", "transformer.", out, names)
+    _hf_tower(rest, "vision_model.", "visual.transformer.", out, names)
+    return _move_pairs(rest, out, names, "CLIPModel")
+
+
+def hf_text_prefix(sd) -> str:
+    """"text_model." for an HF CLIPTextModel state dict, "" for a bare one."""
+    return "text_model." if any(k.startswith("text_model.") for k in sd) else ""
+
+
+def hf_clip_text_to_open_clip(sd) -> dict:
+    """An HF transformers `CLIPTextModel` state dict (the ModelScope
+    backbone's text encoder) -> the open_clip text keys the port's
+    `CLIPTextModel` loads (the JAX `import_hf_clip_text_model_params`
+    table, t2v_turbo_tpu/io/torch_import.py:908-958): the embeddings, the
+    layers packed as `hf_clip_to_open_clip` packs them, final_layer_norm ->
+    ln_final. `position_ids` is dropped; any other key left unused raises."""
+    tp = hf_text_prefix(sd)
+    rest = {k: v for k, v in sd.items() if not k.endswith("embeddings.position_ids")}
+    out = {"token_embedding.weight": rest.pop(f"{tp}embeddings.token_embedding.weight"),
+           "positional_embedding": rest.pop(f"{tp}embeddings.position_embedding.weight")}
+    names = [(f"{tp}final_layer_norm", "ln_final")]
+    _hf_tower(rest, tp, "transformer.", out, names)
+    return _move_pairs(rest, out, names, "CLIPTextModel")
 
 
 def build_image_reward_model(state_dict=None, tokenizer=None, vit_cfg: ViTConfig = VIT_H_14,

@@ -156,7 +156,11 @@ def lcd_v2_loss(
 def trainer_loss(trainer, batch, draws):
     """`LCDTrainer`'s loss hook for v2: `lcd_v2_loss` of its student, with
     its EMA target network (None: the student), schedule, solver, config
-    (`lcd_cfg`, an LCDV2Config) and reward fns."""
+    (`lcd_cfg`, an LCDV2Config) and reward fns. With a trained text
+    encoder, the context is the batch's `tokens` encoded by it at every
+    step (the reference :989-992; the target's context too)."""
+    if trainer.text_encoder is not None:
+        batch = dict(batch, prompt_emb=trainer.text_encoder(batch["tokens"]))
     return lcd_v2_loss(trainer.student, batch, draws, target=trainer.target, sched=trainer.sched,
                        solver=trainer.solver, cfg=trainer.lcd_cfg, reward_fn=trainer.reward_fn,
                        video_reward_fn=trainer.video_reward_fn)

@@ -24,7 +24,15 @@ runs one Adam and scales the temporal leaves' updates by t_lr / lr
 (t2v_turbo_tpu/training/optim.py:212-290), numerically the same as one
 optimizer a group, which is what the port's full-model trainer holds: an
 optimizer over each group's segments of its flat master, under one global
-clip.
+clip. With the text encoder trained (`v2_param_label`'s text arguments; the
+text tower's parameters named "text.<its own key>"), only the last
+`unlocked_text_layers` blocks of the reference's full tower and ln_final
+train, in a "text" group at the base rate (JAX's "base" label for them:
+Adam is elementwise, so a group of its own computes the same); the rest of
+the tower is "frozen": no optimizer slot and no gradient
+(`requires_grad=False`), which leaves them out of the global norm as JAX's
+pre-clip `frozen_grad_mask` does (JAX `make_v2_label_fn`,
+t2v_turbo_tpu/training/optim.py:293-335).
 
 `flat_buffer` lays many tensors into one f32 buffer at 256-aligned offsets
 with zeros between them: an optimizer over that one buffer computes what
@@ -184,15 +192,41 @@ def is_temporal_param(name: str) -> bool:
     return _TEMPORAL.match(name) is not None
 
 
-def v2_param_label(name: str) -> str:
-    """The v2 optimizer group of a UNet parameter: "temporal" or "base"."""
+TEXT_PREFIX = "text."
+_TEXT_BLOCK = re.compile(r"transformer\.resblocks\.(\d+)\.")
+
+
+def v2_text_label(name: str, unlocked_text_layers: int = 4, text_resblocks: int = 23) -> str:
+    """The group of a text-tower parameter (its own key): "text" for
+    ln_final and for the blocks whose index counted in the reference's full
+    tower of text_resblocks + 1 blocks lies among the last
+    `unlocked_text_layers` (the full tower's last block, which the
+    penultimate tower does not run, is one of them: unlocked - 1 live
+    blocks train), "frozen" for the rest (the embeddings included).
+    `text_resblocks` is the number of blocks the tower runs."""
+    if name.startswith("ln_final."):
+        return "text"
+    m = _TEXT_BLOCK.match(name)
+    if m and int(m.group(1)) >= text_resblocks + 1 - unlocked_text_layers:
+        return "text"
+    return "frozen"
+
+
+def v2_param_label(name: str, unlocked_text_layers: int = 4, text_resblocks: int = 23) -> str:
+    """The v2 optimizer group of a trainable parameter: a UNet parameter's
+    "temporal" or "base"; a text-tower parameter's (named TEXT_PREFIX + its
+    key) `v2_text_label`."""
+    if name.startswith(TEXT_PREFIX):
+        return v2_text_label(name[len(TEXT_PREFIX):], unlocked_text_layers, text_resblocks)
     return "temporal" if is_temporal_param(name) else "base"
 
 
 def make_v2_optimizer(params, label: str, name: str = "adamw", learning_rate: float = 1e-5,
                       temporal_learning_rate: Optional[float] = None, **kw) -> AdamW:
     """The optimizer of one v2 group (`v2_param_label`): the temporal group
-    at `temporal_learning_rate` (the base rate when None), the rest at
-    `learning_rate`."""
+    at `temporal_learning_rate` (the base rate when None), the rest (the
+    text group too) at `learning_rate`. The frozen label has none."""
+    if label == "frozen":
+        raise ValueError("the frozen group has no optimizer")
     lr = temporal_learning_rate if label == "temporal" and temporal_learning_rate is not None else learning_rate
     return make_optimizer(params, name, lr, **kw)

@@ -23,6 +23,11 @@ prefetcher, the checkpoints, the watchdog and the metrics:
   views of the EMA's compute-dtype copy and of the EMA itself), the v2
   target network. One optimizer per group over the master's segments.
   The loss is the `loss_fn` hook (lcd_v2.py's, through apps/train_v2.py).
+  With a `text_encoder` (v2's --train-text-encoder), its parameters that
+  `param_label` does not call "frozen" (named "text.<key>") join the
+  master after the UNet's, non-norm then norm, with their own working
+  copy; the frozen ones keep no slot and no gradient. The EMA and the
+  target cover the UNet alone (JAX's ema_path="unet").
 - A step: the LCD loss and its gradients with respect to the factors; the
   global gradient norm in f32; with one micro-step per update, the
   gradients scaled by min(1, max_grad_norm / (norm + 1e-6)) and applied;
@@ -62,7 +67,7 @@ from ..lora import LoRAConfig, apply_lora, base_state_dict, init_lora, lora_fact
 from ..models.layers import GroupNorm, LayerNorm
 from .ema import update_ema
 from .lcd import LCDConfig, lcd_loss, sample_draws
-from .optim import STEP_CHUNK, flat_buffer
+from .optim import STEP_CHUNK, TEXT_PREFIX, flat_buffer
 from .watchdog import GracefulShutdown, Heartbeat
 
 
@@ -78,7 +83,7 @@ class TrainerConfig:
     lora_rank: Optional[int] = 64  # None: full-model training (v2)
     grad_accum_steps: int = 1
     ema_decay: Optional[float] = None  # full model: the EMA target network's decay
-    grads_bf16: bool = False  # full model: the gradient buffer in bf16 (the norm stays f32)
+    grads_bf16: bool = False  # the gradient buffer in bf16 (the norm stays f32)
 
 
 def draws_seed(seed: int, step: int) -> int:
@@ -122,7 +127,8 @@ class LCDTrainer:
                  optimizer: Callable, cfg: TrainerConfig,
                  reward_fn: Optional[Callable] = None, video_reward_fn: Optional[Callable] = None,
                  loss_fn: Callable = v1_loss, draws_fn: Callable = v1_draws,
-                 param_label: Optional[Callable[[str], str]] = None):
+                 param_label: Optional[Callable[[str], str]] = None,
+                 text_encoder: Optional[torch.nn.Module] = None):
         """student: the UNet to train; teacher: the frozen UNet (v1);
         reward_fn / video_reward_fn: the reward feedback terms
         (training/reward_adapters.py), whose models must be frozen.
@@ -132,8 +138,10 @@ class LCDTrainer:
         None): the student (f32) is trained whole, its non-norm weights run
         in bf16 on a CUDA device (f32 on the CPU); param_label(name) puts
         each parameter in an optimizer group (default "base"); optimizer:
-        (params, label) -> that group's optimizer (optim.make_v2_optimizer).
-        loss_fn(trainer, batch, draws) -> (loss, terms) and
+        (params, label) -> that group's optimizer (optim.make_v2_optimizer);
+        text_encoder: a text tower trained beside the student (full model
+        only), its parameters labelled as "text." + key, the "frozen" ones
+        left out. loss_fn(trainer, batch, draws) -> (loss, terms) and
         draws_fn(trainer, batch) -> draws give the step's loss (default: v1's
         LCD loss and draws)."""
         self.cfg, self.lcd_cfg = cfg, lcd_cfg
@@ -144,6 +152,11 @@ class LCDTrainer:
         self.student = student
         self.teacher = teacher.requires_grad_(False) if teacher is not None else None
         self.target = None
+        self.text_encoder = text_encoder
+        if text_encoder is not None and cfg.lora_rank is not None:
+            raise ValueError("a trained text encoder needs the full-model mode (lora_rank=None)")
+        if cfg.grads_bf16 and cfg.grad_accum_steps > 1:
+            raise ValueError("grads_bf16 would accumulate micro-step gradients in bf16: use f32 gradients")
         if cfg.lora_rank is None:
             self._init_full(optimizer, param_label or (lambda name: "base"))
         else:
@@ -168,7 +181,10 @@ class LCDTrainer:
         self.factors = lora_factors(student)
         self._lora_modules = [student.get_submodule(n) for n in sorted(self.factors)]
         self.params = [self.factors[n][k] for n, k in keys]
-        self._grad_flat, self._grad_views = flat_buffer([torch.zeros_like(p) for p in self.params])
+        gdtype = torch.bfloat16 if cfg.grads_bf16 else torch.float32
+        self._grad_flat = torch.zeros_like(self.flat, dtype=gdtype)
+        self._grad_views = [self._grad_flat[v.storage_offset():v.storage_offset() + v.numel()].view(v.shape)
+                            for v in views]
         self.optimizer = optimizer([self.flat])
         self._groups = [(self.optimizer, [slice(0, self.flat.numel())])]
 
@@ -176,20 +192,40 @@ class LCDTrainer:
         """The master, the working copy, the gradient buffer, the groups'
         optimizers and, with ema_decay, the EMA and its target UNet."""
         cfg, student = self.cfg, self.student
-        if cfg.grads_bf16 and cfg.grad_accum_steps > 1:
-            raise ValueError("grads_bf16 would accumulate micro-step gradients in bf16: use f32 gradients")
-        is_norm = _is_norm_param(student)
-        named = list(student.named_parameters())
+        dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
+        modules = {"": student} if self.text_encoder is None else {"": student, TEXT_PREFIX: self.text_encoder}
+        norm_tests = {prefix: _is_norm_param(m) for prefix, m in modules.items()}
+        named = [(n, p) for n, p in student.named_parameters()]
+        if self.text_encoder is not None:
+            for n, p in self.text_encoder.named_parameters():
+                if param_label(TEXT_PREFIX + n) != "frozen":
+                    named.append((TEXT_PREFIX + n, p))
+                    continue
+                p.requires_grad_(False)
+                if not norm_tests[TEXT_PREFIX](n):  # in the compute dtype, as the trained weights' working copy
+                    p.data = p.data.to(dtype)
+
+        def is_text(name):
+            return name.startswith(TEXT_PREFIX)
+
+        def owner(name):  # (module, its own key)
+            prefix = TEXT_PREFIX if is_text(name) else ""
+            return modules[prefix], name[len(prefix):]
+
+        def is_norm(name):
+            return norm_tests[TEXT_PREFIX if is_text(name) else ""](owner(name)[1])
+
         labels = sorted({param_label(n) for n, _ in named}, key=lambda lb: (lb != "base", lb))
         rank = {lb: i for i, lb in enumerate(labels)}
-        order = sorted(named, key=lambda np_: (is_norm(np_[0]), rank[param_label(np_[0])]))
+        order = sorted(named, key=lambda np_: (is_text(np_[0]), is_norm(np_[0]), rank[param_label(np_[0])]))
         self.param_names = [n for n, _ in order]
-        dtype = torch.bfloat16 if self.device.type == "cuda" else torch.float32
         with torch.no_grad():
             self.master, master_views = flat_buffer([p.detach() for _, p in order])
         # each tensor's [start, end of its padded span) in the master
         offsets = [v.storage_offset() for v in master_views] + [self.master.numel()]
-        n_work = offsets[sum(not is_norm(n) for n in self.param_names)]
+        last_work = max(i for i, n in enumerate(self.param_names) if not is_norm(n))
+        n_work = offsets[last_work + 1]  # the working copy covers every non-norm weight
+        self._n_unet = offsets[sum(not is_text(n) for n in self.param_names)]
         self.working = self.master[:n_work].to(dtype)
         self._n_work = n_work
         # the groups' segments of the master: (label, non-norm or norm) runs
@@ -204,22 +240,29 @@ class LCDTrainer:
             self._groups.append((optimizer([self.master[s] for s in slices], lb), slices))
         self.optimizers = {lb: opt for (opt, _), lb in zip(self._groups, labels)}
 
-        def install(module, work, full, requires_grad):
+        def install(target, work, full, requires_grad):
+            """Parameters as views of `work` / `full` (norms): every trained
+            one, or with a `target` UNet the UNet's into it."""
             for i, name in enumerate(self.param_names):
+                module, key = owner(name)
+                if target is not None:
+                    if is_text(name):
+                        continue
+                    module = target
                 lo, n = offsets[i], order[i][1].numel()
                 src = full if is_norm(name) else work
-                _set_parameter(module, name, src[lo:lo + n].view(order[i][1].shape), requires_grad)
+                _set_parameter(module, key, src[lo:lo + n].view(order[i][1].shape), requires_grad)
 
-        install(student, self.working, self.master, True)
-        self.params = [student.get_parameter(n) for n in self.param_names]
+        install(None, self.working, self.master, True)
+        self.params = [owner(n)[0].get_parameter(owner(n)[1]) for n in self.param_names]
         self._offsets = offsets[:-1]
         gdtype = torch.bfloat16 if cfg.grads_bf16 else torch.float32
         self._grad_flat = torch.zeros(self.master.numel(), dtype=gdtype, device=self.device)
         self._grad_views = [self._grad_flat[o:o + p.numel()].view(p.shape) for o, p in zip(offsets, self.params)]
         self.ema = None
         if cfg.ema_decay is not None:
-            self.ema = self.master.clone()
-            self.target_working = self.ema[:n_work].to(dtype)
+            self.ema = self.master[:self._n_unet].clone()
+            self.target_working = self.ema[:min(n_work, self._n_unet)].to(dtype)
             with torch.device("meta"):
                 self.target = type(student)(student.cfg)
             install(self.target, self.target_working, self.ema, False)
@@ -237,14 +280,21 @@ class LCDTrainer:
             return
         self.working.copy_(self.master[:self._n_work])
         if self.ema is not None:
-            update_ema(self.ema, self.master, self.cfg.ema_decay)
-            self.target_working.copy_(self.ema[:self._n_work])
+            update_ema(self.ema, self.master[:self._n_unet], self.cfg.ema_decay)
+            self.target_working.copy_(self.ema[:self.target_working.numel()])
 
     def state_dict_of(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Full model: the student's parameters as they lie in `flat` (the
         master or the EMA), f32, under the UNet's state-dict keys."""
         return {n: flat[o:o + p.numel()].view(p.shape)
-                for n, o, p in zip(self.param_names, self._offsets, self.params)}
+                for n, o, p in zip(self.param_names, self._offsets, self.params) if not n.startswith(TEXT_PREFIX)}
+
+    def text_state_dict(self) -> Dict[str, torch.Tensor]:
+        """The trained text encoder's state dict in f32: its trained
+        parameters from the master, the frozen ones as they are."""
+        trained = {n[len(TEXT_PREFIX):]: self.master[o:o + p.numel()].view(p.shape)
+                   for n, o, p in zip(self.param_names, self._offsets, self.params) if n.startswith(TEXT_PREFIX)}
+        return {k: trained.get(k, v).detach().float() for k, v in self.text_encoder.state_dict().items()}
 
     # ------------------------------------------------------------------
     def loss_and_grads(self, batch: Dict[str, torch.Tensor], draws):
@@ -346,7 +396,7 @@ class LCDTrainer:
                 self.master.copy_(state["master"])
                 if self.ema is not None:
                     self.ema.copy_(state["ema"])
-                    self.target_working.copy_(self.ema[:self._n_work])
+                    self.target_working.copy_(self.ema[:self.target_working.numel()])
                 self.working.copy_(self.master[:self._n_work])
             else:
                 for n, f in self.factors.items():

@@ -147,3 +147,63 @@ def test_generate_with_the_motion_embedding():
     assert float((a - b).abs().max()) > 0
     with pytest.raises(KeyError):  # a v1 student checkpoint has no motion projections
         convert.student_unet_state_dict(UNetModel(UNetConfig(**train_v1.TINY_UNET_KW)).state_dict(), spec.unet)
+
+
+def test_train_v2_text_encoder_exports_the_jax_npz(tmp_path):
+    """--train-text-encoder: the batches carry the captions' tokens, the
+    text tower trains beside the UNet, and text_encoder.npz has the keys,
+    shapes and dtypes of the JAX CLI's export (its tiny tower's flax tree,
+    flattened with "/"), which convert back into the port's tower."""
+    import jax
+    import jax.numpy as jnp
+
+    from t2v_turbo_tpu.models.clip_text import CLIPTextConfig as JCLIPTextConfig
+    from t2v_turbo_tpu.models.clip_text import CLIPTextModel as JCLIPText
+    from t2v_turbo_tpu_torch.models import CLIPTextModel
+
+    lat = tmp_path / "latents"
+    preprocess.main(["--random-weights", "--synthetic-data", "--tiny-model", "--device", "cpu", "--num-samples",
+                     "2", "--no-motion-prior", "--output-dir", str(lat)])
+    out = tmp_path / "run"
+    argv = ["--random-weights", "--tiny-model", "--device", "cpu", "--latent-glob", str(lat / "*.pkl"),
+            "--output-dir", str(out), "--max-steps", "1", "--batch-size", "2", "--use-target-unet",
+            "--train-text-encoder", "--unlocked-text-layers", "2"]
+    trainer, data, _ = train_v2.build_trainer(train_v2.parse_args(argv))
+    batch = next(data)
+    assert batch["tokens"].shape == (2, 7) and batch["tokens"].dtype == np.int32
+    assert set(trainer.optimizers) == {"base", "temporal", "text"}
+    assert np.isfinite(float(trainer.step_once(batch)["loss"]))
+    paths = train_v2.export_unets(trainer, str(out))
+    assert [p.rsplit("/", 1)[1] for p in paths] == ["unet.pt", "target_unet.pt", "text_encoder.npz"]
+    got = np.load(out / "text_encoder.npz")
+    jtext = JCLIPText(cfg=JCLIPTextConfig(width=16, heads=4, layers=3, context_length=7))
+    shapes = jax.eval_shape(lambda: jtext.init(jax.random.PRNGKey(3), jnp.zeros((1, 7), jnp.int32)))
+    want = {"/".join(str(getattr(k, "key", k)) for k in path): v
+            for path, v in jax.tree_util.tree_flatten_with_path(shapes)[0]}
+    assert set(got.files) == set(want)
+    for k, v in want.items():
+        assert got[k].shape == v.shape and got[k].dtype == v.dtype, k
+    tree = {}
+    for k in got.files:
+        node = tree
+        *parents, leaf = k.split("/")
+        for part in parents:
+            node = node.setdefault(part, {})
+        node[leaf] = got[k]
+    tower = CLIPTextModel(trainer.text_encoder.cfg)
+    tower.load_state_dict(convert.clip_text_state_dict_from_jax(tree), strict=True)
+    for k, v in trainer.text_state_dict().items():
+        torch.testing.assert_close(tower.state_dict()[k], v, rtol=0, atol=0)
+
+
+def test_train_v1_bf16_gradients(tmp_path):
+    """train_v1 --grads-bf16: the LoRA gradient buffer in bf16 (the norm in
+    f32); with gradient accumulation it is refused, as in JAX."""
+    argv = ["--tiny-model", "--random-weights", "--synthetic-data", "--device", "cpu", "--grads-bf16",
+            "--output-dir", str(tmp_path)]
+    trainer, data, _ = train_v1.build_trainer(train_v1.parse_args(argv))
+    assert trainer._grad_flat.dtype == torch.bfloat16
+    metrics = trainer.step_once(next(data))
+    assert np.isfinite(float(metrics["loss"])) and float(metrics["grad_norm"]) > 0
+    with pytest.raises(ValueError, match="bf16"):
+        train_v1.build_trainer(train_v1.parse_args(argv + ["--gradient-accumulation-steps", "2"]))

@@ -185,9 +185,9 @@ def _full_trainer(tmp_path, student, **kw):
     cfg = dict(output_dir=str(tmp_path), lora_rank=None, max_grad_norm=1e9, log_every=1)
     cfg.update(kw.pop("cfg", {}))
     sched = P.DiffusionSchedule.create()
+    kw.setdefault("param_label", optim.v2_param_label)
     return LCDTrainer(student=student, sched=sched, solver=P.DDIMSolver.create(sched.alphas_cumprod.numpy()),
-                      lcd_cfg=lcd_v2.LCDV2Config(**CFG), cfg=TrainerConfig(**cfg),
-                      param_label=optim.v2_param_label, **kw)
+                      lcd_cfg=lcd_v2.LCDV2Config(**CFG), cfg=TrainerConfig(**cfg), **kw)
 
 
 def test_one_grouped_update_matches_jax(tmp_path):
@@ -288,3 +288,205 @@ def test_bf16_gradients(tmp_path):
     assert trainer._grad_flat.dtype == torch.bfloat16 and float(metrics["grad_norm"]) > 0
     with pytest.raises(ValueError, match="bf16"):
         _v2_trainer(tmp_path / "k", grads_bf16=True, grad_accum_steps=2)
+
+
+# --- the text encoder trained beside the UNet (--train-text-encoder) --------
+
+TEXT_KW = dict(vocab_size=64, width=16, heads=4, layers=4, context_length=7)  # 3 blocks run
+UNLOCKED = 2  # of the full tower's 4: block 2 of the 3 that run, and block 3, which does not
+
+
+def _text_marks(tcfg_kw, unlocked, text_resblocks):
+    """JAX's v2 labels of a text tower's leaves, as the port's state dict:
+    {port key: label}."""
+    from t2v_turbo_tpu.models.clip_text import CLIPTextConfig as JCLIPTextConfig
+    from t2v_turbo_tpu.models.clip_text import CLIPTextModel as JCLIPText
+
+    jtext = JCLIPText(cfg=JCLIPTextConfig(**tcfg_kw))
+    shapes = jax.eval_shape(lambda: jtext.init(jax.random.PRNGKey(0), jnp.zeros((1, tcfg_kw.get(
+        "context_length", 77)), jnp.int32)))
+    label = joptim.make_v2_label_fn(train_text_encoder=True, unlocked_text_layers=unlocked,
+                                    text_resblocks=text_resblocks)
+    names = ("frozen", "base")
+    marks = jax.tree_util.tree_map_with_path(
+        lambda path, leaf: np.full(leaf.shape, float(names.index(label(
+            (jax.tree_util.DictKey("text"),) + tuple(path)))), np.float32), shapes)
+    sd = convert.clip_text_state_dict_from_jax(marks)
+    return {k: "text" if v.flatten()[0] else "frozen" for k, v in sd.items()}
+
+
+@pytest.mark.parametrize("tcfg_kw,unlocked", [(TEXT_KW, UNLOCKED), (TEXT_KW, 1), (TEXT_KW, 5),
+                                              (dict(layers=24), 4)])
+def test_text_labels_match_jax(tcfg_kw, unlocked):
+    """Every text parameter's group is JAX's label (its "base" is the
+    port's "text" group): ln_final and the last unlocked - 1 blocks that
+    run train; the embeddings never do; at the full ViT-H tower blocks
+    20-22."""
+    from t2v_turbo_tpu_torch.models import CLIPTextConfig
+
+    runs = CLIPTextConfig(**tcfg_kw).layers_run
+    want = _text_marks(tcfg_kw, unlocked, runs)
+    got = {k: optim.v2_param_label(optim.TEXT_PREFIX + k, unlocked, runs) for k in want}
+    assert got == want
+    assert want["token_embedding.weight"] == want["positional_embedding"] == "frozen"
+    assert want["ln_final.weight"] == "text"
+    if tcfg_kw == dict(layers=24):
+        live = sorted({int(k.split(".")[2]) for k, v in want.items() if v == "text" and k.startswith("transformer")})
+        assert live == [20, 21, 22]
+    with pytest.raises(ValueError, match="frozen"):
+        optim.make_v2_optimizer([torch.zeros(3)], "frozen")
+
+
+@pytest.fixture(scope="module")
+def text_case():
+    """One v2 step with the text encoder trained, in JAX: the UNet and the
+    tower's loss and gradients (JAX's pre-clip mask on the frozen leaves),
+    the global norm, the clip, and make_v2_optimizer's update of the
+    combined tree (eps 1: an update smooth in the gradient)."""
+    from t2v_turbo_tpu.models.clip_text import CLIPTextConfig as JCLIPTextConfig
+    from t2v_turbo_tpu.models.clip_text import CLIPTextModel as JCLIPText
+    from t2v_turbo_tpu_torch.models import CLIPTextConfig, CLIPTextModel
+
+    student = UNetModel(UNetConfig(**KW))
+    sd = seeded_numpy_state_dict(student, 91)
+    text = CLIPTextModel(CLIPTextConfig(**TEXT_KW))
+    tsd = seeded_numpy_state_dict(text, 92)
+    jcfg = JUNetConfig(**KW)
+    junet, jtext = JUNet(cfg=jcfg), JCLIPText(cfg=JCLIPTextConfig(**TEXT_KW))
+    jt_params = ti.import_clip_text_params(tsd, layers=TEXT_KW["layers"])
+    tree = {"unet": {"params": ti.import_unet_params(sd, jcfg)}, "text": {"params": jt_params}}
+    batch = v2_batch(93)
+    batch["tokens"] = np.random.RandomState(94).randint(1, 64, size=(3, 7)).astype(np.int32)
+    jsched = J.DiffusionSchedule.create()
+    jsolver = J.DDIMSolver.create(np.asarray(jsched.alphas_cumprod))
+    key = jax.random.PRNGKey(95)
+    runs = TEXT_KW["layers"] - 1
+    label = joptim.make_v2_label_fn(train_text_encoder=True, unlocked_text_layers=UNLOCKED, text_resblocks=runs)
+
+    def apply(p, z, t, c, fps=None, timestep_cond=None, motion_cond=None):
+        return junet.apply(p, z, t, c, fps=fps, timestep_cond=timestep_cond, motion_cond=motion_cond)
+
+    def loss(tr):
+        b = {k: jnp.asarray(v) for k, v in batch.items()}
+        b["prompt_emb"] = jtext.apply(tr["text"], b["tokens"])
+        return jlcd_v2_loss(tr["unet"], b, key, student_apply=apply, target_params=None, target_apply=apply,
+                            sched=jsched, solver=jsolver, cfg=JLCDV2Config(**CFG), reward_fn=reward)[0]
+
+    max_norm = 0.5
+    tx = joptim.make_v2_optimizer("adamw", 1e-3, temporal_learning_rate=1e-2, train_text_encoder=True,
+                                  unlocked_text_layers=UNLOCKED, text_resblocks=runs, eps=1.0)
+
+    @jax.jit
+    def step(tr):
+        value, grads = jax.value_and_grad(loss)(tr)
+        grads = jax.tree_util.tree_map_with_path(lambda p, g: jnp.zeros_like(g) if label(p) == "frozen" else g,
+                                                 grads)
+        gnorm = jnp.sqrt(sum(jnp.sum(jnp.square(g)) for g in jax.tree.leaves(grads)))
+        scale = jnp.minimum(1.0, max_norm / (gnorm + 1e-6))
+        updates, _ = tx.update(jax.tree.map(lambda g: g * scale, grads), tx.init(tr), tr)
+        return value, grads, gnorm, optax.apply_updates(tr, updates)
+
+    value, grads, gnorm, new = step(tree)
+    k_w, _ = jax.random.split(key)
+    return dict(sd=sd, tsd=tsd, batch=batch, loss=float(value), grads=grads, gnorm=float(gnorm), new=new,
+                w=np.asarray(5.0 + 10.0 * jax.random.uniform(k_w, (3,))), max_norm=max_norm)
+
+
+def test_text_encoder_step_matches_jax(tmp_path, text_case):
+    """The port trainer's step with the text encoder: the loss, the
+    gradient norm (the frozen text tensors, which keep no slot and no
+    gradient, are out of it as JAX's masked ones), each trained tensor's
+    gradient (1e-3 x its max, floored at 1e-7 x the largest of all) and the
+    updated UNet and tower (lr x 1e-3 x max|g|: eps 1 makes the update
+    smooth in g); the frozen tensors bitwise unchanged; the EMA over the
+    UNet alone."""
+    from t2v_turbo_tpu_torch.models import CLIPTextConfig, CLIPTextModel
+
+    c = text_case
+    student, text = UNetModel(UNetConfig(**KW)), CLIPTextModel(CLIPTextConfig(**TEXT_KW))
+    student.load_state_dict(to_torch(c["sd"]), strict=True)
+    text.load_state_dict(to_torch(c["tsd"]), strict=True)
+    runs = TEXT_KW["layers"] - 1
+    trainer = _full_trainer(
+        tmp_path, student, loss_fn=lcd_v2.trainer_loss, draws_fn=lcd_v2.trainer_draws, text_encoder=text,
+        param_label=functools.partial(optim.v2_param_label, unlocked_text_layers=UNLOCKED, text_resblocks=runs),
+        optimizer=functools.partial(optim.make_v2_optimizer, name="adamw", learning_rate=1e-3,
+                                    temporal_learning_rate=1e-2, eps=1.0),
+        reward_fn=reward, cfg=dict(max_grad_norm=c["max_norm"], ema_decay=0.9))
+    assert set(trainer.optimizers) == {"base", "temporal", "text"}
+    frozen = {n: p.detach().clone() for n, p in text.named_parameters() if not p.requires_grad}
+    live = sorted(n for n, p in text.named_parameters() if p.requires_grad)
+    assert live == sorted(n[len(optim.TEXT_PREFIX):] for n in trainer.param_names if n.startswith(optim.TEXT_PREFIX))
+    assert {n.split(".")[2] for n in live if n.startswith("transformer")} == {"2"} and "ln_final.weight" in live
+    assert "token_embedding.weight" in frozen and not any(n.startswith("transformer.resblocks.2.") for n in frozen)
+    slots = sum(p.numel() for opt in trainer.optimizers.values() for p in opt.params)
+    assert slots == trainer.master.numel()  # frozen tensors: no master, no moments
+    text_before = {k: v.clone() for k, v in trainer.text_state_dict().items()}
+    ema0 = trainer.ema.clone()
+
+    metrics = trainer.train_step({k: torch.from_numpy(np.asarray(v)) for k, v in c["batch"].items()},
+                                 lcd_v2.LCDV2Draws(torch.tensor(c["w"])))
+    assert float(metrics["loss"]) == pytest.approx(c["loss"], rel=1e-5)
+    assert float(metrics["grad_norm"]) == pytest.approx(c["gnorm"], rel=1e-4)
+    assert c["gnorm"] > c["max_norm"]  # the clip acts
+    jgrads = {**{optim.TEXT_PREFIX + k: v.numpy() for k, v in convert.clip_text_state_dict_from_jax(
+        c["grads"]["text"]).items()}, **{k: v.numpy() for k, v in convert.unet_state_dict_from_jax(
+            c["grads"]["unet"]).items()}}
+    floor = 1e-7 * max(float(np.abs(g).max()) for g in jgrads.values())
+    for name, g in zip(trainer.param_names, trainer._grad_views):
+        want = jgrads[name]
+        np.testing.assert_allclose(g.numpy(), want, atol=max(1e-3 * float(np.abs(want).max()), floor), err_msg=name)
+    gmax = max(float(np.abs(g).max()) for g in jgrads.values())
+    want_unet = convert.unet_state_dict_from_jax(c["new"]["unet"])
+    want_text = convert.clip_text_state_dict_from_jax(c["new"]["text"])
+    got_unet, got_text = trainer.export_student_params(), trainer.text_state_dict()
+    for got, want in ((got_unet, want_unet), (got_text, want_text)):
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), atol=1e-3 * 1e-2 * gmax, err_msg=k)
+    for n, v in frozen.items():
+        assert torch.equal(text.get_parameter(n), v) and torch.equal(got_text[n], v.float()), n
+    assert all(not torch.equal(got_text[n], text_before[n]) for n in live)
+    # the EMA and the target network: the UNet's parameters alone
+    assert set(trainer.state_dict_of(trainer.ema)) == {n for n, _ in student.named_parameters()}
+    assert trainer.ema.numel() < trainer.master.numel()
+    n = trainer.ema.numel()
+    torch.testing.assert_close(trainer.ema, 0.9 * ema0 + 0.1 * trainer.master[:n], rtol=1e-6, atol=1e-7)
+
+
+def test_zero_snr_and_use_scale_ddim_match_jax():
+    """The zero-terminal-SNR betas (JAX's schedule option) and the VC2
+    latent-scale DDIM step with eta > 0, the noise fed in, against JAX's,
+    to f32 rounding; the generator draws the same step as the noise it
+    draws; the inversion refuses use_scale, as JAX's."""
+    jsched = J.DiffusionSchedule.create(rescale_betas_zero_snr=True)
+    sched = P.DiffusionSchedule.create(rescale_betas_zero_snr=True)
+    np.testing.assert_allclose(sched.alphas_cumprod.numpy(), np.asarray(jsched.alphas_cumprod), rtol=1e-6,
+                               atol=1e-12)
+    assert float(sched.alphas_cumprod[-1]) == 0.0 and float(sched.alphas_cumprod[0]) > 0.99
+    np.testing.assert_allclose(P.schedule.rescale_zero_terminal_snr(np.linspace(1e-4, 2e-2, 100)),
+                               J.schedule.rescale_zero_terminal_snr(np.linspace(1e-4, 2e-2, 100)), rtol=1e-12)
+    ac = np.asarray(J.DiffusionSchedule.create().alphas_cumprod)
+    kw = dict(ddim_timesteps=50, use_scale=True, ddim_eta=0.7, scale_b=0.7, mid_step=400)
+    jsolver, solver = J.DDIMSolver.create(ac, **kw), P.DDIMSolver.create(ac, **kw)
+    for f in ("ddim_scale_arr", "ddim_scale_arr_prev", "ddim_sigmas", "ddim_alpha_cumprods_prev"):
+        np.testing.assert_allclose(getattr(solver, f).numpy(), np.asarray(getattr(jsolver, f)), rtol=1e-6, err_msg=f)
+    assert float(solver.ddim_sigmas.max()) > 0 and float(solver.ddim_scale_arr.min()) < 1.0
+    rng = np.random.RandomState(96)
+    x0, eps, noise = (rng.randn(3, 4, 8, 8, 4).astype(np.float32) for _ in range(3))
+    index = np.array([49, 20, 3], np.int32)
+    want = np.asarray(jsolver.ddim_step(jnp.asarray(x0), jnp.asarray(eps), jnp.asarray(index), jnp.asarray(noise)))
+    got = solver.ddim_step(torch.from_numpy(x0), torch.from_numpy(eps), torch.from_numpy(index).long(),
+                           torch.from_numpy(noise))
+    np.testing.assert_allclose(got.numpy(), want, rtol=1e-5, atol=1e-5)
+    no_noise = np.asarray(jsolver.ddim_step(jnp.asarray(x0), jnp.asarray(eps), jnp.asarray(index)))
+    np.testing.assert_allclose(solver.ddim_step(torch.from_numpy(x0), torch.from_numpy(eps),
+                                                torch.from_numpy(index).long()).numpy(), no_noise, rtol=1e-5,
+                               atol=1e-5)
+    drawn = torch.randn((3, 4, 8, 8, 4), generator=torch.Generator().manual_seed(7))
+    by_gen = solver.ddim_step(torch.from_numpy(x0), torch.from_numpy(eps), torch.from_numpy(index).long(),
+                              generator=torch.Generator().manual_seed(7))
+    torch.testing.assert_close(by_gen, solver.ddim_step(torch.from_numpy(x0), torch.from_numpy(eps),
+                                                        torch.from_numpy(index).long(), drawn), rtol=0, atol=0)
+    with pytest.raises(ValueError, match="use_scale"):
+        solver.ddim_reverse_step(torch.from_numpy(x0), torch.from_numpy(eps), torch.tensor([19, 19, 19]))
