@@ -226,6 +226,28 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 memory, one profiled step (chiprun_out/profile_train_v2.txt);
                 unet.pt and target_unet.pt exported and loaded strictly into
                 fresh UNets. Work files under build/chip_smoke_v2, removed.
+ 13-16. motion clone, inverse ddim, ModelScope, v2 text encoder:
+                MotionClone and the DDIM inversion at full width,
+                the MS backbone's launches by shape against a meta-device
+                dry run (`ms_path_shapes`), text-encoder training.
+ 17. serving:   apps/serve.py at full width (VC2 16x320x512, bf16, 4 steps,
+                seeded weights; `serve.build_server`, the server in a
+                thread on 127.0.0.1): the three prompts POSTed (latency_s,
+                request to written file, and the client's s/video), every
+                launch of one video on its route; two concurrent POSTs,
+                each equal to the bit to its sequential video; /healthz,
+                /gallery, /videos/<name>. A 48-frame request with
+                decode_frame_chunk=16: its launches by kernel and shape
+                equal to `serving_48_shapes`' dry run (phase 3 holds that
+                UNet's 63 shapes, checked only, as "(48 frames)"), peak
+                memory, and the chunked decode of its latents against one
+                decode of all 48 (<= 1e-2 on the [-1, 1] video). Then
+                `warmup --export` (export_s and bytes a program) and the
+                same three prompts served from the artifacts
+                (`ArtifactPipeline.from_dir` with the live weights): each
+                video equal to the live one to the bit, the launches of one
+                video by kernel, route and shape equal to a live video's;
+                the phase's wall time.
 `python3 chip_smoke.py --phases "v2 generation,v2 preprocess"` runs only the
 named phases (after device and build), for development; with no argument
 every phase runs.
@@ -1198,7 +1220,30 @@ def _kernel_cases():
            for shape in sorted(ms_shapes["group_norm_stats"])]
     ms += [ln(f"MS LN {shape} bf16", shape, shape[1], bf, 1e-2, why_norm_bf)
            for shape in sorted(ms_shapes["layer_norm"] | {(3 * 77, 1024)})]
-    return serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn + towers + full_model + ms
+    # The 48-frame request's UNet shapes (`serving_48_shapes`: every kernel
+    # at batch 48 or over 48 frames; its decode runs in 16-frame chunks, the
+    # 16-frame path's shapes), each held to its plain twin, checked only
+    # (the " (48 frames)" names are not records): last, after the MS cases
+    u48 = serving_48_shapes()["unet"]
+    why_round = ("bf16 output; the two paths round the probabilities to bf16 at different points (the kernel "
+                 "unnormalised, plain normalised), which moves an output by up to 2^-8*max|v|, ~0.02 for N(0,1) "
+                 "values, at any key count; both are also held to f64 math below")
+    f48 = [flash(f"48 frames ({b},{h},{sq},{sk},{d}) bf16", attn(b, sq, h, d, bf, sk=sk), 2e-2, 2e-2, 3, why_round)
+           for b, h, sq, sk, d in sorted(u48["flash_attention"])]
+    for r, t, h in sorted(u48["small_seq_attention"]):
+        f48.append(small_seq(f"48 frames ({r},{t},{h},64) bf16", attn(r, t, h, 64, bf), (r, t, h), iters=3))
+        f48[-1].update(tols=[_elementwise(2e-2, 2e-2)], why=why_round.replace(
+            "the kernel unnormalised, plain normalised", "after f32 sums in another order"))
+    f48 += [conv(f"48 frames {shape[1]}->{shape[4]} ({shape[5]},{shape[6]}) {shape[:4]} bf16", shape, iters=3,
+                 f64=False) for shape in sorted(u48["fused_gn_silu_conv"])]
+    f48 += [gn(f"48 frames GN+SiLU {shape} bf16", shape, shape[1], 1e-5, 3) for shape in sorted(u48["group_norm"])]
+    f48 += [gn_stats(f"B7 statistics, 48 frames {shape} bf16", shape, shape[1], False, iters=3)
+            for shape in sorted(u48["group_norm_stats"])]
+    f48 += [ln(f"48 frames LN {shape} bf16", shape, shape[1], bf, 1e-2, why_norm_bf) for shape in sorted(u48["layer_norm"])]
+    for case in f48:
+        case["kernel"] += " (48 frames)"
+    return (serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn + towers + full_model
+            + ms + f48)
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -2947,22 +2992,18 @@ MS_KERNELS = ("flash_attention", "small_seq_attention", "fused_gn_silu_conv", "g
               "layer_norm")
 
 
-def ms_path_shapes():
-    """{"unet", "vae", "text": {kernel: Counter(shape)}}: the kernel launches,
-    keyed as each wrapper's `by_shape` counts them, of one MS UNet pass at
-    16x256x256 (latents 16x32x32), one decode of 16 frames by the VAE and one
-    encode by the full-depth text tower, from a dry run on the meta device
-    with the models' kernel entry points replaced by recorders that take the
-    dispatch's own decisions (`sdpa`'s short-sequence gate, the fused conv's
-    statistics launch). Phase 3 holds every shape, phase 15 expects exactly
-    these launches."""
+def _dry_run_shapes(parts):
+    """{part: {kernel: Counter(shape)}} of the kernel launches, keyed as each
+    wrapper's `by_shape` counts them, of each (part, fn) in `parts`, run on
+    the meta device with the models' kernel entry points replaced by
+    recorders that take the dispatch's own decisions (`sdpa`'s short-sequence
+    gate, the fused conv's statistics launch)."""
     import collections
 
     import torch
 
-    from t2v_turbo_tpu_torch.models import AutoencoderKL, CLIPTextConfig, CLIPTextModel, VAEConfig, layers
+    from t2v_turbo_tpu_torch.models import layers
     from t2v_turbo_tpu_torch.models import vae as vae_module
-    from t2v_turbo_tpu_torch.models.unet_ms import MSUNet3DConditionModel, MSUNetConfig
     from t2v_turbo_tpu_torch.ops import attention as A
     from t2v_turbo_tpu_torch.ops import fused_conv as FC
     from t2v_turbo_tpu_torch.ops import norms as N
@@ -2997,18 +3038,55 @@ def ms_path_shapes():
         for m, n, f in patched:
             setattr(m, n, f)
         with torch.device("meta"), torch.no_grad():
-            unet = MSUNet3DConditionModel(MSUNetConfig(time_cond_proj_dim=256)).to(torch.bfloat16)
-            unet(torch.zeros(1, 16, 32, 32, 4), torch.zeros(1, dtype=torch.long), torch.zeros(1, 77, 1024),
-                 timestep_cond=torch.zeros(1, 256))
-            out["unet"], counts = dict(counts), collections.defaultdict(collections.Counter)
-            AutoencoderKL(VAEConfig()).to(torch.bfloat16).decode(torch.zeros(16, 32, 32, 4))
-            out["vae"], counts = dict(counts), collections.defaultdict(collections.Counter)
-            CLIPTextModel(CLIPTextConfig(penultimate=False)).to(torch.bfloat16)(torch.zeros(1, 77, dtype=torch.long))
-            out["text"] = dict(counts)
+            for part, fn in parts:
+                fn()
+                out[part], counts = dict(counts), collections.defaultdict(collections.Counter)
     finally:
         for m, n, f in saved:
             setattr(m, n, f)
     return out
+
+
+def ms_path_shapes():
+    """`_dry_run_shapes` of one MS UNet pass at 16x256x256 (latents
+    16x32x32), one decode of 16 frames by the VAE and one encode by the
+    full-depth text tower. Phase 3 holds every shape, phase 15 expects
+    exactly these launches."""
+    import torch
+
+    from t2v_turbo_tpu_torch.models import AutoencoderKL, CLIPTextConfig, CLIPTextModel, VAEConfig
+    from t2v_turbo_tpu_torch.models.unet_ms import MSUNet3DConditionModel, MSUNetConfig
+
+    return _dry_run_shapes([
+        ("unet", lambda: MSUNet3DConditionModel(MSUNetConfig(time_cond_proj_dim=256)).to(torch.bfloat16)(
+            torch.zeros(1, 16, 32, 32, 4), torch.zeros(1, dtype=torch.long), torch.zeros(1, 77, 1024),
+            timestep_cond=torch.zeros(1, 256))),
+        ("vae", lambda: AutoencoderKL(VAEConfig()).to(torch.bfloat16).decode(torch.zeros(16, 32, 32, 4))),
+        ("text", lambda: CLIPTextModel(CLIPTextConfig(penultimate=False)).to(torch.bfloat16)(
+            torch.zeros(1, 77, dtype=torch.long))),
+    ])
+
+
+def serving_48_shapes():
+    """`_dry_run_shapes` of the 48-frame request (the envelope's top, the
+    reference app.py's 48-frame limit): one VC2 UNet pass at 48x320x512
+    (latents 48x40x64), one decode of a 16-frame chunk at 320x512 and one
+    text encode. Phase 3 holds the UNet's shapes (the decode's and the text
+    tower's are the 16-frame path's), the serving phase expects exactly
+    these launches."""
+    import torch
+
+    from t2v_turbo_tpu_torch.config import vc2_spec
+    from t2v_turbo_tpu_torch.models import AutoencoderKL, CLIPTextModel, UNetModel
+
+    spec = vc2_spec()
+    return _dry_run_shapes([
+        ("unet", lambda: UNetModel(spec.unet).to(torch.bfloat16)(
+            torch.zeros(1, 48, 40, 64, 4), torch.zeros(1, dtype=torch.long), torch.zeros(1, 77, 1024),
+            fps=torch.full((1,), 16.0), timestep_cond=torch.zeros(1, 256))),
+        ("vae", lambda: AutoencoderKL(spec.vae).to(torch.bfloat16).decode(torch.zeros(16, 40, 64, 4))),
+        ("text", lambda: CLIPTextModel(spec.text).to(torch.bfloat16)(torch.zeros(1, 77, dtype=torch.long))),
+    ])
 
 
 def reference_clip():
@@ -3213,6 +3291,207 @@ def phase_ms():
     _profile_one_video(pipe, "profile_ms_video.txt", f"{MS} profile", height=256, width=256, frames=16)
 
 
+SERVE = "serving"
+
+
+def launch_snapshot():
+    """{kernel: (launches, by route, by shape)} of every wrapper's counters."""
+    return {n: (w.launches, dict(getattr(w, "by_route", {})), dict(getattr(w, "by_shape", {})))
+            for n, w in wrappers().items()}
+
+
+def _http(url, path, body=None):
+    """(status, JSON or bytes) of a GET, or a POST of `body` as JSON."""
+    import urllib.error
+    import urllib.request
+
+    data = None if body is None else json.dumps(body).encode()
+    req = urllib.request.Request(url + path, data=data, method="GET" if body is None else "POST")
+    try:
+        with urllib.request.urlopen(req, timeout=600) as r:
+            raw, ctype = r.read(), r.headers.get("Content-Type", "")
+            return r.status, json.loads(raw) if ctype == "application/json" else raw
+    except urllib.error.HTTPError as e:
+        return e.code, e.read()
+
+
+def _served(srv):
+    import threading
+
+    threading.Thread(target=srv.serve_forever, daemon=True).start()
+    return f"http://127.0.0.1:{srv.server_address[1]}"
+
+
+def _post_video(url, what, body):
+    """POST /generate; (the response, the client's wall s, the written frames)."""
+    import numpy as np
+
+    t0 = time.perf_counter()
+    code, out = _http(url, "/generate", body)
+    wall = time.perf_counter() - t0
+    if code != 200:
+        raise AssertionError(f"{what}: POST /generate {body} -> {code} {out}")
+    frames = np.load(out["path"]) if out["path"].endswith(".npy") else None
+    log(f"{what}: {body.get('frames', 16)} frames, seed {body['seed']}: latency_s {out['latency_s']}, wall "
+        f"{wall:.3f} s, shape {out['shape']}, {out['video_url']}")
+    return out, wall, frames
+
+
+def phase_serving():
+    """apps/serve.py on the card at full width (VC2 16x320x512, bf16, 4 steps,
+    seeded weights), live and from `warmup --export` artifacts."""
+    import collections
+    import contextlib
+    import io
+    import shutil
+    import tempfile
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import serve, warmup
+    from t2v_turbo_tpu_torch.ops import attention as A
+    from t2v_turbo_tpu_torch.pipelines.artifact import ArtifactPipeline, video_to_uint8
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_serving_", dir=os.path.join(HERE, "build"))
+    try:
+        # 1. serve live: serve.py's own composition, in a thread
+        argv = ["--random-weights", "--device", "cuda:0", "--port", "0", "--output-dir", os.path.join(work, "live")]
+        t0 = time.perf_counter()
+        srv, pipe, _ = serve.build_server(argv)
+        url = _served(srv)
+        log(f"{SERVE}: live server built in {time.perf_counter() - t0:.1f} s at {url}")
+        live, walls, snap = [], [], None
+        for i, prompt in enumerate(PROMPTS):
+            reset_launches()
+            out, wall, frames = _post_video(url, f"{SERVE} live", {"prompt": prompt, "seed": 1000 + i})
+            if i == 0:
+                snap = launch_snapshot()
+                check_flash_routes(f"{SERVE} live video", 4, "UNet pass")
+                check_conv_routes(f"{SERVE} live video", 4)
+                check_norm_routes(f"{SERVE} live video", 1, "video")
+                check_small_seq(f"{SERVE} live video", 4, "UNet pass")
+            if out["shape"] != [16, 320, 512, 3] or frames is None or frames.shape != (16, 320, 512, 3):
+                raise AssertionError(f"{SERVE}: video {i} is malformed: {out}")
+            live.append(frames)
+            walls.append(wall)
+        log(f"{SERVE} live: s/video (client wall, videos 2-3) {' '.join(f'{w:.3f}' for w in walls[1:])}")
+        # two concurrent requests: each equals its sequential video
+        with ThreadPoolExecutor(2) as ex:
+            both = list(ex.map(lambda i: _post_video(url, f"{SERVE} concurrent", {"prompt": PROMPTS[i],
+                                                                                 "seed": 1000 + i}), (1, 2)))
+        equal = [bool(np.array_equal(f, live[i])) for (_, _, f), i in zip(both, (1, 2))]
+        log(f"{SERVE}: two concurrent POSTs equal the sequential videos to the bit: {equal} "
+            f"{'OK' if all(equal) else 'FAIL'}")
+        if not all(equal):
+            raise AssertionError(f"{SERVE}: concurrent videos differ from sequential ones")
+        code, health = _http(url, "/healthz")
+        code_g, gallery = _http(url, "/gallery")
+        code_v, raw = _http(url, both[0][0]["video_url"])
+        with open(both[0][0]["path"], "rb") as f:
+            same = raw == f.read()
+        log(f"{SERVE}: /healthz {code} {health}; /gallery {code_g} ({len(gallery)} videos); "
+            f"{both[0][0]['video_url']} {code_v} ({len(raw)} bytes, the written file's: {same})")
+        if (code, code_g, code_v) != (200, 200, 200) or not same or len(gallery) != 5 \
+                or health["compiled_shapes"] != [[16, 320, 512, 4, 50]]:
+            raise AssertionError(f"{SERVE}: GET routes {code}, {code_g}, {code_v}, health {health}")
+
+        # 2. the 48-frame envelope, decoded 16 frames a chunk
+        want = collections.defaultdict(collections.Counter)
+        for part, n in (("unet", 4), ("vae", 3), ("text", 1)):
+            for k, c in serving_48_shapes()[part].items():
+                for shape, m in c.items():
+                    want[k][shape] += n * m
+        reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        out, _, frames = _post_video(url, f"{SERVE} 48 frames", {"prompt": PROMPTS[0], "seed": 4800, "frames": 48,
+                                                                 "decode_frame_chunk": 16})
+        peak = torch.cuda.max_memory_allocated()
+        if out["shape"] != [48, 320, 512, 3]:
+            raise AssertionError(f"{SERVE}: the 48-frame video is malformed: {out}")
+        by_shape = {n: collections.Counter(w[2]) for n, w in launch_snapshot().items() if n in want}
+        bad = [n for n in want if by_shape.get(n) != want[n]]
+        log(f"{SERVE} 48 frames: max_memory_allocated {peak / 2**30:.2f} GiB; launches by shape equal the dry "
+            f"run's (4 UNet passes at 48 frames, 3 decodes of 16 frames, 1 text encode) "
+            f"{'OK' if not bad else 'FAIL ' + str(bad)}")
+        check_flash_routes(f"{SERVE} 48 frames", 4, "UNet pass")
+        check_conv_routes(f"{SERVE} 48 frames", 4)
+        check_norm_routes(f"{SERVE} 48 frames", 1, "video")
+        if bad:
+            raise AssertionError(f"{SERVE}: 48-frame launches by shape differ from the dry run for {bad}")
+        gen = torch.Generator(device="cuda").manual_seed(4800)
+        lat = pipe(prompt=PROMPTS[0], frames=48, generator=gen, output_type="latent").reshape(48, 40, 64, 4)
+        chunked = torch.cat([pipe.decode_latents(lat[i:i + 16]) for i in range(0, 48, 16)])
+        whole = pipe.decode_latents(lat)
+        raw = (chunked.float() - whole.float()).abs()
+        at = int(raw.argmax())
+        err = float((chunked.float().clamp(-1, 1) - whole.float().clamp(-1, 1)).abs().max())
+        same_as_served = bool(np.array_equal(video_to_uint8(chunked), frames))
+        log(f"{SERVE} 48 frames: decoded in chunks of 16 against all 48 at once, max_abs_err on the [-1, 1] video "
+            f"{err:.3e} (<= 1e-2: the decode's bf16 convs and GroupNorm plans at batch 48 may sum in another "
+            f"order); before the clamp {float(raw.max()):.3e} at a value of {float(whole.flatten()[at]):.3f}; "
+            f"the chunked decode equals the served video: {same_as_served} "
+            f"{'OK' if err <= 1e-2 and same_as_served else 'FAIL'}")
+        if err > 1e-2 or not same_as_served:
+            raise AssertionError(f"{SERVE}: chunked decode {err}, served video equal {same_as_served}")
+        del lat, chunked, whole, raw
+        srv.shutdown()
+        srv.server_close()
+
+        # 3. export, then serve the same prompts from the artifacts
+        art_dir = os.path.join(work, "pt2")
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(io.StringIO()):  # its JSON summary: the numbers are logged below
+            manifest = warmup.main(["--device", "cuda:0", "--export", art_dir])
+        export_wall = time.perf_counter() - t0
+        log(f"{SERVE} export: warmup --export in {export_wall:.1f} s: " + "; ".join(
+            f"{n} export_s {e['export_s']}, {e['bytes']} bytes" for n, e in manifest["programs"].items()))
+        t0 = time.perf_counter()
+        art = ArtifactPipeline.from_dir(art_dir, unet_sd=pipe.unet.state_dict(), vae_sd=pipe.vae.state_dict(),
+                                        text_sd=pipe.text_model.state_dict(), tokenizer=pipe.tokenizer,
+                                        device="cuda:0")
+        args = serve.parse_args(["--artifacts", art_dir, "--device", "cuda:0", "--port", "0", "--output-dir",
+                                 os.path.join(work, "artifacts")])
+        srv = serve.make_server(art, args)
+        url = _served(srv)
+        log(f"{SERVE} artifacts: programs loaded in {time.perf_counter() - t0:.1f} s")
+        walls = []
+        for i, prompt in enumerate(PROMPTS):
+            reset_launches()
+            out, wall, frames = _post_video(url, f"{SERVE} artifacts", {"prompt": prompt, "seed": 1000 + i})
+            walls.append(wall)
+            if i == 0:
+                got = launch_snapshot()
+                same = got == snap
+                log(f"{SERVE} artifacts: launches by kernel, route and shape during a video equal a live video's: "
+                    f"{same}; flash {dict(A.flash_attention.by_route)} {'OK' if same else 'FAIL'}")
+                if not same:
+                    diff = {n: (got[n], snap[n]) for n in got if got[n] != snap[n]}
+                    raise AssertionError(f"{SERVE}: artifact launches differ from live: {diff}")
+                check_flash_routes(f"{SERVE} artifact video", 4, "UNet pass")
+            if not np.array_equal(frames, live[i]):
+                d = np.abs(frames.astype(int) - live[i].astype(int)).max()
+                raise AssertionError(f"{SERVE}: artifact video {i} differs from the live one, max|d| {d} (uint8)")
+        log(f"{SERVE} artifacts: s/video (client wall, videos 2-3) {' '.join(f'{w:.3f}' for w in walls[1:])}; "
+            f"the 3 videos equal the live ones to the bit (uint8) OK")
+        code, health = _http(url, "/healthz")
+        gen = [torch.Generator(device="cuda").manual_seed(1000) for _ in range(2)]
+        v_art, v_live = art(prompt=PROMPTS[0], generator=gen[0]), pipe(prompt=PROMPTS[0], generator=gen[1])
+        err = float((v_art.float() - v_live.float()).abs().max())
+        log(f"{SERVE} artifacts: the [-1, 1] video of prompt 0 against the live pipeline's: max|d| {err:.3e} "
+            f"(bit-equal {torch.equal(v_art, v_live)}); /healthz compiled_shapes {health['compiled_shapes']} "
+            f"{'OK' if torch.equal(v_art, v_live) else 'FAIL'}")
+        if not torch.equal(v_art, v_live):
+            raise AssertionError(f"{SERVE}: artifact video differs from live, max|d| {err}")
+        srv.shutdown()
+        srv.server_close()
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"{SERVE}: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def phase_v2_text_encoder(latent_glob):
     """apps/train_v2.py with --train-text-encoder at phase 12's point (batch
     3, else the largest that fits, said so): the text tower's last 3 blocks
@@ -3361,6 +3640,7 @@ def main(argv=None) -> int:
         (INVERSE, phase_inverse_ddim),
         (MS, phase_ms),
         (V2_TEXT, lambda: phase_v2_text_encoder(v2["latent_glob"])),
+        (SERVE, phase_serving),
     ]
     if only:  # a development run of some phases (no argument: all of them)
         phases = [(n, f) for n, f in phases if n in ("device", "build") + only]

@@ -28,6 +28,10 @@
   folds a conv kernel's (kh, kw, I) or (kt, 1, I) into in_f and keeps
   GEGLU's proj as in = C, out = 2F.
 
+The module imports nothing of models/ at import time, so a host that serves
+exported programs (pipelines/artifact.py) reads a checkpoint through
+`load_checkpoint` / `split_vc2_checkpoint` without the model code.
+
 Layout conventions (JAX -> reference torch):
   Dense kernel (in, out)           -> Linear weight (out, in)
   Conv kernel (kh, kw, I, O)       -> Conv2d weight (O, I, kh, kw)
@@ -44,9 +48,6 @@ from typing import Dict, Mapping, Tuple
 
 import numpy as np
 import torch
-
-from ..models.clip_text import unused_checkpoint_keys
-from ..models.vae import VAEConfig
 
 StateDict = Dict[str, torch.Tensor]
 
@@ -192,8 +193,13 @@ def _ae_mid(node, p, sd):
         _lin(a[n], f"{p}.mid.attn_1.{n}", sd, conv_dims=2)
 
 
-def vae_state_dict_from_jax(params: Mapping, cfg: VAEConfig = VAEConfig()) -> StateDict:
-    """flax AutoencoderKL params -> the port's (and the reference's) VAE state dict."""
+def vae_state_dict_from_jax(params: Mapping, cfg=None) -> StateDict:
+    """flax AutoencoderKL params -> the port's (and the reference's) VAE
+    state dict (`cfg`: its VAEConfig, by default the VC2 VAE's)."""
+    if cfg is None:
+        from ..models.vae import VAEConfig
+
+        cfg = VAEConfig()
     p = params.get("params", params)
     enc, dec = p["encoder"], p["decoder"]
     sd: StateDict = {}
@@ -353,6 +359,8 @@ def save_unet(sd: Mapping, path: str) -> str:
 def load_clip_text(model, sd: Mapping) -> None:
     """Strictly load an open_clip text-tower state dict into the penultimate
     tower, after dropping exactly `unused_checkpoint_keys`."""
+    from ..models.clip_text import unused_checkpoint_keys
+
     drop = set(unused_checkpoint_keys(sd, model.cfg))
     model.load_state_dict({k: v for k, v in sd.items() if k not in drop}, strict=True)
 

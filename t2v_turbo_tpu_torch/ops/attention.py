@@ -13,7 +13,10 @@ in the JAX package's `attention_xla_bshd` / `sdpa_bshd`
   hand-written kernels of csrc/: when q, k or v needs a gradient, the
   `FlashAttention` autograd function (forward with log-sum-exp, then the
   two backward kernels), else the plain forward kernel. It raises on
-  anything else; it never falls back.
+  anything else; it never falls back. Without a gradient it calls the
+  operator `t2v_turbo::flash_attention` (cuda_lib.define_op), whose CUDA
+  kernel is `flash_attention_cuda` and whose CPU kernel is `attention`, so
+  `torch.export` records the call as one node (`small_seq_attention` too).
 - The kernel wrappers, each with its plain twin (run for CPU tensors, and
   the card's oracle) and a `launches` counter:
   `flash_attention` (B1: forward; counters on `flash_attention`),
@@ -195,18 +198,19 @@ def _row_stats_strides(lse):
 
 
 def flash_attention(q, k, v, scale=None):
-    """Flash attention on (B, S, H, D): `attention` for a CPU tensor; for a
-    CUDA tensor the autograd function when a gradient is needed, else the
-    forward kernel.
+    """Flash attention on (B, S, H, D). When a gradient is needed: the
+    autograd function for a CUDA tensor, `attention` for a CPU one. Else the
+    operator `t2v_turbo::flash_attention`: the forward kernel for a CUDA
+    tensor, `attention` for a CPU one.
 
     Replaces t2v_turbo_tpu/ops/attention.py::flash_attention (and
     flash_attention_bshd) with its custom VJP.
     """
-    if q.device.type == "cpu":
-        return attention(q, k, v, scale=scale)
     if torch.is_grad_enabled() and (q.requires_grad or k.requires_grad or v.requires_grad):
+        if q.device.type == "cpu":
+            return attention(q, k, v, scale=scale)
         return FlashAttention.apply(q, k, v, scale)
-    return flash_attention_cuda(q, k, v, scale)
+    return torch.ops.t2v_turbo.flash_attention(q, k, v, q.shape[-1] ** -0.5 if scale is None else scale)
 
 
 def _count(wrapper, route, shape):
@@ -564,14 +568,13 @@ class FlashAttention(torch.autograd.Function):
 
 
 def small_seq_attention(q, k, v, scale=None):
-    """Self-attention over short sequences on (B, S, H, 64), S <= 64 (B8):
-    `attention` for a CPU tensor, the kernel for a CUDA one (forward only).
+    """Self-attention over short sequences on (B, S, H, 64), S <= 64 (B8),
+    through the operator `t2v_turbo::small_seq_attention`: `attention` for a
+    CPU tensor, the kernel for a CUDA one (forward only).
 
     Replaces tests_tpu/bench_small_seq_attention.py::small_seq_attention.
     """
-    if q.device.type == "cpu":
-        return attention(q, k, v, scale=scale)
-    return small_seq_attention_cuda(q, k, v, scale)
+    return torch.ops.t2v_turbo.small_seq_attention(q, k, v, q.shape[-1] ** -0.5 if scale is None else scale)
 
 
 small_seq_attention.launches = 0
@@ -682,3 +685,18 @@ def sdpa(q, k, v, scale=None):
     if q.shape[-1] in FLASH_HEAD_DIMS:
         return flash_attention(q, k, v, scale)
     return attention(q, k, v, scale=scale)
+
+
+def _attention_cpu(q, k, v, scale):
+    """The operators' CPU kernel: `attention`, laid out as the kernels' outputs."""
+    return attention(q, k, v, scale=scale).contiguous()
+
+
+def _attention_fake(q, k, v, scale):
+    return q.new_empty(q.shape)
+
+
+cuda_lib.define_op("flash_attention(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+                   flash_attention_cuda, _attention_cpu, _attention_fake)
+cuda_lib.define_op("small_seq_attention(Tensor q, Tensor k, Tensor v, float scale) -> Tensor",
+                   small_seq_attention_cuda, _attention_cpu, _attention_fake)

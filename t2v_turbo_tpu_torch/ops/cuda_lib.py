@@ -10,6 +10,14 @@ Nothing here runs when the module is imported.
 
 There is no fallback: without `nvcc`, or on a card that is not sm_90, the
 build or the load raises.
+
+`define_op` registers a forward launcher as an operator of the `t2v_turbo`
+namespace (`torch.ops.t2v_turbo.<name>`): its CUDA kernel is the launcher,
+its CPU kernel the plain version, and its fake kernel only allocates the
+outputs. `torch.export` traces the fake kernel and records the operator as
+one node, so an exported program launches the hand-written kernels when it
+runs. Route and plan choices read data pointers and load this library, so
+they live inside the launchers, never in code that runs while tracing.
 """
 
 from __future__ import annotations
@@ -35,6 +43,27 @@ DTYPE_CODES = {torch.float32: 0, torch.bfloat16: 1}
 # Held while a wrapper adds a launch to its counters: the trainer's data
 # thread (the VAE encode) and the step's thread launch kernels at once.
 COUNT_LOCK = threading.Lock()
+OPS_NAMESPACE = "t2v_turbo"
+_OPS = torch.library.Library(OPS_NAMESPACE, "DEF")
+
+
+def define_op(schema: str, cuda, cpu, fake):
+    """Define `t2v_turbo::<schema>` with its CUDA, CPU and fake kernels;
+    returns the operator (`torch.ops.t2v_turbo.<name>`). The fake kernel
+    serves tracing only: a plain meta tensor goes to the CUDA launcher,
+    which refuses it (no fallback)."""
+    from torch._subclasses.fake_tensor import FakeTensor
+
+    name = schema.split("(", 1)[0]
+
+    def fake_or_refuse(x, *args):
+        return fake(x, *args) if isinstance(x, FakeTensor) else cuda(x, *args)
+
+    _OPS.define(schema)
+    _OPS.impl(name, cuda, "CUDA")
+    _OPS.impl(name, cpu, "CPU")
+    torch.library.register_fake(f"{OPS_NAMESPACE}::{name}", fake_or_refuse, lib=_OPS)
+    return getattr(getattr(torch.ops, OPS_NAMESPACE), name)
 
 
 def _sources():

@@ -284,20 +284,32 @@ def fused_gn_silu_conv(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, num_gr
     """y = conv(silu(film(group_norm(x)))) + bias on (N, C, H, W), fused.
 
     CPU: `fused_gn_silu_conv_plain`. CUDA: the kernel, through
-    `FusedGnSiluConv` when an input needs a gradient. Replaces
+    `FusedGnSiluConv` when an input needs a gradient. Without a gradient,
+    through the operator `t2v_turbo::fused_gn_silu_conv`, whose kernels are
+    `fused_gn_silu_conv_cuda` (the statistics launch included) and the
+    plain version. Replaces
     t2v_turbo_tpu/ops/fused_conv.py::fused_gn_silu_conv.
     """
     _check_film(film_scale, film_shift)
     args = (x, gn_scale, gn_bias, conv_kernel, conv_bias, num_groups, eps, film_scale, film_shift)
-    if x.device.type == "cpu":
-        return fused_gn_silu_conv_plain(*args)
     inputs = (x, gn_scale, gn_bias, conv_kernel, conv_bias, film_scale, film_shift)
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in inputs):
+        if x.device.type == "cpu":
+            return fused_gn_silu_conv_plain(*args)
         return FusedGnSiluConv.apply(x, gn_scale, gn_bias, conv_kernel, conv_bias, film_scale,
                                      film_shift, num_groups, eps)
-    return fused_gn_silu_conv_cuda(*args)
+    return torch.ops.t2v_turbo.fused_gn_silu_conv(*args)
 
 
 fused_gn_silu_conv.launches = 0
 fused_gn_silu_conv.by_route = collections.Counter()
 fused_gn_silu_conv.by_shape = collections.Counter()
+
+
+def _conv_fake(x, gn_scale, gn_bias, conv_kernel, *rest):
+    return x.new_empty((x.shape[0], conv_kernel.shape[0], *x.shape[2:]))
+
+
+cuda_lib.define_op("fused_gn_silu_conv(Tensor x, Tensor gn_scale, Tensor gn_bias, Tensor conv_kernel, "
+                   "Tensor? conv_bias, int num_groups, float eps, Tensor? film_scale, Tensor? film_shift) -> Tensor",
+                   fused_gn_silu_conv_cuda, fused_gn_silu_conv_plain, _conv_fake)

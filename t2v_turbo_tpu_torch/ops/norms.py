@@ -15,7 +15,10 @@ W), so their statistics span all frames; the per-frame call sites pass
 Dispatch: `group_norm` / `layer_norm` call the hand-written kernels
 (`csrc/norms.cu`) through `fused_group_norm` / `fused_layer_norm`. Those
 wrappers run the plain version only for a tensor on the CPU; a CUDA tensor
-goes to the kernel, or the wrapper raises. Each wrapper counts its kernel
+goes to the kernel, or the wrapper raises. Calls that need no gradient go
+through the operators `t2v_turbo::group_norm` / `t2v_turbo::layer_norm`
+(cuda_lib.define_op: the launcher for CUDA, the plain version for the CPU),
+which `torch.export` records as nodes. Each wrapper counts its kernel
 launches in `launches`, split by route in `by_route` and by shape in
 `by_shape`. `group_norm_affine_cuda` is the GroupNorm kernel's statistics
 mode for the fused GroupNorm+SiLU+conv (ops/fused_conv.py), with the same
@@ -368,14 +371,15 @@ def fused_group_norm(x, weight, bias, num_groups=32, eps=1e-5, act=None):
 
     CUDA: the kernel of csrc/norms.cu on `gn_plan`'s route (any group size;
     no shape gate), through `_GroupNormFn` when an input needs a gradient.
-    CPU: `group_norm_plain`.
+    CPU: `group_norm_plain`. Without a gradient, through the operator
+    `t2v_turbo::group_norm`, whose kernels are these two.
     Replaces t2v_turbo_tpu/ops/fused_norms.py::fused_group_norm.
     """
-    if x.device.type == "cpu":
-        return group_norm_plain(x, weight, bias, num_groups, eps, act)
     if _needs_grad(x, weight, bias):
+        if x.device.type == "cpu":
+            return group_norm_plain(x, weight, bias, num_groups, eps, act)
         return _GroupNormFn.apply(x, weight, bias, num_groups, eps, act)
-    return group_norm_cuda(x, weight, bias, num_groups, eps, act)
+    return torch.ops.t2v_turbo.group_norm(x, weight, bias, num_groups, eps, act)
 
 
 _counters(fused_group_norm)
@@ -478,13 +482,14 @@ def fused_layer_norm(x, weight, bias, eps=1e-5, act=None):
     """LayerNorm(+act) over the last axis of a contiguous tensor.
 
     CUDA: the kernel of csrc/norms.cu on `ln_plan`'s route, through
-    `_LayerNormFn` when an input needs a gradient. CPU: `layer_norm_plain`. Replaces t2v_turbo_tpu/ops/fused_norms.py::fused_layer_norm.
+    `_LayerNormFn` when an input needs a gradient. CPU: `layer_norm_plain`.
+    Without a gradient, through the operator `t2v_turbo::layer_norm`. Replaces t2v_turbo_tpu/ops/fused_norms.py::fused_layer_norm.
     """
-    if x.device.type == "cpu":
-        return layer_norm_plain(x, weight, bias, eps, act)
     if _needs_grad(x, weight, bias):
+        if x.device.type == "cpu":
+            return layer_norm_plain(x, weight, bias, eps, act)
         return _LayerNormFn.apply(x, weight, bias, eps, act)
-    return layer_norm_cuda(x, weight, bias, eps, act)
+    return torch.ops.t2v_turbo.layer_norm(x, weight, bias, eps, act)
 
 
 _counters(fused_layer_norm)
@@ -518,3 +523,13 @@ def group_norm(x, weight, bias, num_groups=32, eps=1e-5, act=None):
 def layer_norm(x, weight, bias, eps=1e-5, act=None):
     """LayerNorm(+act) over the last axis: the models' entry point."""
     return fused_layer_norm(x.contiguous(), weight, bias, eps, act)
+
+
+def _norm_fake(x, weight, bias, *cfg):
+    return torch.empty_like(x)
+
+
+cuda_lib.define_op("group_norm(Tensor x, Tensor weight, Tensor bias, int num_groups, float eps, str? act) -> Tensor",
+                   group_norm_cuda, group_norm_plain, _norm_fake)
+cuda_lib.define_op("layer_norm(Tensor x, Tensor weight, Tensor bias, float eps, str? act) -> Tensor",
+                   layer_norm_cuda, layer_norm_plain, _norm_fake)

@@ -21,10 +21,10 @@ class T2VTurboMSPipeline(T2VTurboVC2Pipeline):
     def _levels(self) -> int:
         return len(self.unet.cfg.block_out_channels)
 
-    def _unet_call(self, lat, tb, ctx, fps, w_emb, **kw):
+    def _unet_kwargs(self, fps, w_emb, **kw):
         if kw:
             raise ValueError(f"the MS UNet takes no {sorted(kw)}")
-        return self.unet(lat, tb, ctx, timestep_cond=w_emb)
+        return dict(timestep_cond=w_emb)
 
     def __call__(self, *args, **kwargs):
         kwargs.setdefault("height", 256)

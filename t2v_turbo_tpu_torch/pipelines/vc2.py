@@ -2,8 +2,9 @@
 
 Encode the prompt with the CLIP text tower, draw N(0, 1) latents, run the
 LCM loop (UNet, boundary-condition combine, renoise) as a plain Python loop
-over the 4 timesteps [999, 759, 519, 279], then decode every frame with the
-VAE. Randomness comes from an explicit `torch.Generator`; tests may pass the
+over the 4 timesteps [999, 759, 519, 279] (`lcm_step`), then decode the
+frames with the VAE, all at once or `decode_frame_chunk` at a time
+(`decode_latents`; JAX pipelines/vc2.py:288-293). Randomness comes from an explicit `torch.Generator`; tests may pass the
 latents and the per-step noise instead, so two implementations can share them.
 
 T2V-Turbo-v2's students also take a motion-guidance embedding
@@ -18,10 +19,11 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Optional, Sequence
 
-import numpy as np
 import torch
 
 from ..diffusion import DiffusionSchedule, LCMScheduler, guidance_scale_embedding
+from ..diffusion.scheduler import lcm_update
+from .artifact import video_to_uint8  # noqa: F401  (the CLIs' uint8 conversion, kept beside the artifact host's)
 
 
 @dataclasses.dataclass
@@ -71,10 +73,13 @@ class T2VTurboVC2Pipeline:
         use_motion_cond: bool = False,
         motion_gs: float = 0.1,
         percentage: float = 0.3,
+        decode_frame_chunk: Optional[int] = None,
     ) -> torch.Tensor:
         """-> video (B, T, H, W, 3) in [-1, 1], or the final latents when
         output_type="latent". `noise`, when given, is the renoise draw of
-        each step (used only when there is more than one step)."""
+        each step (used only when there is more than one step).
+        `decode_frame_chunk`: frames a VAE decode call (None: all B*T at
+        once; the last chunk may be shorter)."""
         if use_motion_cond and getattr(self.unet, "motion_cond_proj", None) is None:
             raise ValueError("use_motion_cond needs a UNet built with motion_cond_proj_dim")
         multiple = self.vae_scale * 2 ** (self._levels() - 1)
@@ -104,30 +109,44 @@ class T2VTurboVC2Pipeline:
         denoised = lat
         for i, (t, pt) in enumerate(zip(ts, prev_ts)):
             tb = torch.full((bs,), t, dtype=torch.long, device=self.device)
-            kw = {}
+            motion = None
             if use_motion_cond:
                 gs = motion_guidance_scale(t, motion_gs, percentage, self.schedule.num_timesteps)
-                kw["motion_cond"] = guidance_scale_embedding(
+                motion = guidance_scale_embedding(
                     torch.full((bs,), gs, device=self.device), self.w_embedding_dim).to(self.dtype)
-            eps = self._unet_call(lat, tb, ctx, fps_arr, w_emb, **kw)
             step_noise = None
             if num_inference_steps > 1:
                 step_noise = noise[i].to(self.device) if noise is not None else self._randn(shape, generator)
-            lat_next, denoised = self.scheduler.step(eps.float(), t, pt, lat.float(), step_noise)
-            lat = lat_next.to(self.dtype)
+            lat, denoised = self.lcm_step(lat, tb, ctx, fps_arr, w_emb, self.scheduler.step_scalars(t, pt),
+                                          step_noise, motion)
 
         if output_type == "latent":
             return denoised
         b, t, hh, ww, c = denoised.shape
-        video = self.vae.decode(denoised.reshape(b * t, hh, ww, c).to(self.dtype) / self.scale_factor)
+        flat = denoised.reshape(b * t, hh, ww, c)
+        chunk = decode_frame_chunk or b * t
+        video = torch.cat([self.decode_latents(flat[i:i + chunk]) for i in range(0, b * t, chunk)])
         return video.reshape(b, t, *video.shape[1:])
 
+    def lcm_step(self, lat, tb, ctx, fps, w_emb, scalars, noise=None, motion_cond=None):
+        """One LCM step: the UNet, the boundary combine, the renoise ->
+        (the next latents in the pipeline's dtype, the f32 denoised ones).
+        warmup --export traces exactly this as the `lcm_step` program."""
+        kw = {} if motion_cond is None else {"motion_cond": motion_cond}
+        eps = self.unet(lat, tb, ctx, **self._unet_kwargs(fps, w_emb, **kw))
+        lat_next, denoised = lcm_update(eps.float(), lat.float(), scalars, noise)
+        return lat_next.to(self.dtype), denoised
+
+    def decode_latents(self, z):
+        """(N, h, w, 4) denoised latents -> (N, H, W, 3) frames in [-1, 1]
+        (the `vae_decode` program)."""
+        return self.vae.decode(z.to(self.dtype) / self.scale_factor)
 
     def _levels(self) -> int:
         return len(self.unet.cfg.channel_mult)
 
-    def _unet_call(self, lat, tb, ctx, fps, w_emb, **kw):
-        return self.unet(lat, tb, ctx, fps=fps, timestep_cond=w_emb, **kw)
+    def _unet_kwargs(self, fps, w_emb, **kw):
+        return dict(fps=fps, timestep_cond=w_emb, **kw)
 
 
 def motion_guidance_scale(t: int, motion_gs: float, percentage: float, num_timesteps: int = 1000) -> float:
@@ -135,8 +154,3 @@ def motion_guidance_scale(t: int, motion_gs: float, percentage: float, num_times
     `motion_gs` in the top `percentage` of the schedule, else 0."""
     return 0.0 if t < num_timesteps * (1.0 - percentage) else float(motion_gs)
 
-
-def video_to_uint8(video: torch.Tensor) -> np.ndarray:
-    """[-1, 1] float video -> uint8 numpy, on the host."""
-    v = ((video.float() + 1.0) / 2.0).clamp(0, 1).cpu().numpy()
-    return (v * 255).round().astype(np.uint8)
