@@ -248,6 +248,32 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 video equal to the live one to the bit, the launches of one
                 video by kernel, route and shape equal to a live video's;
                 the phase's wall time.
+ 18. image conditioning: image-conditioned VC2 at full width, bf16, seeded:
+                ImageCondEncoder(finegrained) (ViT-H/14 at 224, 257 tokens ->
+                the 4-deep Resampler's 16 tokens) on a 320x512 image,
+                append_image_context (77 text rows repeated to 200, then
+                the 16 tokens), the UNet with use_image_attention sampled by
+                ddim_sample_loop (the "sampler" grid, 25 steps, CFG 7.5
+                against the empty prompt with the same image tokens), the
+                VAE's decode: s/video, peak memory, every launch by kernel
+                and shape equal to `image_path_shapes`' dry run (B1 at 16
+                and 200 keys), one profiled video
+                (chiprun_out/profile_image_video.txt); then one UNet pass in
+                coarse mode (ImageProjModel, 4 tokens: B1 at 4 keys).
+ 19. UNet switches: relative position and the causal mask in every
+                temporal attention and the scale-shift norm in every
+                ResBlock, sampled by p_sample_loop (10 ancestral steps, a
+                generator): every out_layers conv through B7 with its FiLM,
+                no B8 launch over the 16 frames (the plain path), every
+                launch by shape equal to `switch_path_shapes`' dry run.
+ 20. x_transformer: TransformerWrapper at latent-diffusion's BERTEmbedder
+                width (30522 tokens, 77 positions, 1280 wide, 32 layers),
+                seeded, f32: the card's embeddings against the CPU's.
+                Phase 3 holds every (kernel, shape) of phases 18-19's dry
+                runs (`_lvdm_cases`: the plain twin, f64 where the kernel
+                has such a check, the route, two launches with equal bits);
+                B1 at 4, 16 and 200 keys and B7 / B4's statistics with the
+                FiLM are recorded under their own names.
 `python3 chip_smoke.py --phases "v2 generation,v2 preprocess"` runs only the
 named phases (after device and build), for development; with no argument
 every phase runs.
@@ -323,6 +349,17 @@ KERNELS = {
     "flash_attention_d512_packed": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
                                     "t2v_turbo_tpu/ops/attention.py:540"),
     "pack_bshd": ("t2v_turbo_tpu_torch/csrc/pack_bshd.cu", "t2v_turbo_tpu/ops/attention.py:590"),
+    # B1 at the image-conditioned UNet's key lengths: the image branch's 4
+    # (ImageProjModel) and 16 (Resampler) tokens, the text branch's 200 rows;
+    # B7 and B4's statistics mode with the scale-shift ResBlock's FiLM
+    "flash_attention_sk4": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
+                            "t2v_turbo_tpu/ops/attention.py:257"),
+    "flash_attention_sk16": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
+                             "t2v_turbo_tpu/ops/attention.py:257"),
+    "flash_attention_sk200": ("t2v_turbo_tpu_torch/csrc/flash_attention_sm90.cu",
+                              "t2v_turbo_tpu/ops/attention.py:257"),
+    "fused_gn_silu_conv_film": ("t2v_turbo_tpu_torch/csrc/fused_conv.cu", "t2v_turbo_tpu/ops/fused_conv.py:71"),
+    "group_norm_stats_film": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
 }
 # (record, wrapper name): the packed records count their wrapper's launches
 # on the packed route
@@ -360,7 +397,7 @@ def wrappers():
 def reset_launches():
     for w in wrappers().values():
         w.launches = 0
-        for counts in ("by_head_dim", "by_route", "by_shape"):
+        for counts in ("by_head_dim", "by_route", "by_shape", "by_film_shape"):
             if hasattr(w, counts):
                 getattr(w, counts).clear()
 
@@ -662,6 +699,7 @@ def _kernel_cases():
             shapes = [(b, s, h, d)] + 2 * [(b, sk or s, h, d)]
             return [torch.randn(sh, generator=g, device="cuda").to(dtype) for sh in shapes]
         make.shape = (b, h, s, sk or s)  # (B, H, Sq, Sk): the forward cases' coverage
+        make.dims, make.dtype = (b, h, s, sk or s, d), dtype  # as the wrappers' `by_shape` keys them
         return make
 
     def norm_inputs(shape, c, dtype, film=None, offset=0):
@@ -694,6 +732,8 @@ def _kernel_cases():
                     route=(A.flash_attention, route), shape=getattr(make, "shape", None), iters=iters,
                     library=_sdpa_fwd,
                     bound=lambda q, k, v: attention_bound(q, k, "fwd"),
+                    holds=[("flash_attention", make.dims)] if route == "wgmma" and getattr(
+                        make, "dtype", None) == bf else [],
                     **({"exact": _attention_f64} if f64 else {}))
 
     def flash_lse(label, make, atol, rtol, iters, why, route="wgmma", kernel="flash_attention_fwd_lse"):
@@ -719,7 +759,8 @@ def _kernel_cases():
                     shape=tuple(shape), dtype=dtype,
                     library=lambda x, w, b: {"F.group_norm+F.silu": lambda: F.silu(
                         F.group_norm(x, 32, w.to(x.dtype), b.to(x.dtype), eps))},
-                    bound=lambda x, w, b: norm_bound(x, c, 10))
+                    bound=lambda x, w, b: norm_bound(x, c, 10),
+                    holds=[("group_norm", tuple(shape))] if dtype == bf and offset == 0 else [])
 
     def gn_stats(label, shape, c, film, iters=20):
         plan = N.gn_plan(shape[0], c, 32, prod(shape[2:]), bf, stats=True)
@@ -731,7 +772,8 @@ def _kernel_cases():
                     why="f32 (N, C) vectors (group_stats + the affine and FiLM fold); the statistics summed in "
                         "another order", route=(N.group_norm_affine_cuda, plan.route), library=lambda *_: {},
                     bound=lambda x, *_: bound_ms(3 * x.numel(), x.numel() * x.element_size() + 8 * x.shape[0] * c
-                                                 + 8 * c, "float32"))
+                                                 + 8 * c, "float32"),
+                    holds=[("group_norm_stats", tuple(shape))] + [("group_norm_stats film", tuple(shape))] * film)
 
     def ln(label, shape, c, dtype, atol, why, eps=1e-5):
         plan = N.ln_plan(shape[0], c, dtype)
@@ -743,7 +785,7 @@ def _kernel_cases():
                     route=(N.fused_layer_norm, plan.route),
                     library=lambda x, w, b: {"F.layer_norm": lambda: F.layer_norm(
                         x, (c,), w.to(x.dtype), b.to(x.dtype), eps)},
-                    bound=lambda x, w, b: norm_bound(x, c, 8))
+                    bound=lambda x, w, b: norm_bound(x, c, 8), holds=[("layer_norm", tuple(shape))] * (dtype == bf))
 
     def norm_determinism(kernel, label, make, fn):
         return dict(kernel=f"{kernel} determinism", label=label, make=make, fn=fn, plain=fn,
@@ -792,6 +834,8 @@ def _kernel_cases():
                     why=("f32 with TF32 off; the GroupNorm folded into x*a+b and the sums in another order"
                          if f32_case else why_conv_bf), iters=iters, library=unfused,
                     bound=lambda x, gs, gb, w, *_: conv_bound(x, w, o),
+                    holds=[] if f32_case else [("fused_gn_silu_conv", tuple(shape))]
+                    + [("fused_gn_silu_conv film", tuple(shape))] * film,
                     **({"exact": _fused_conv_f64} if f64 and not f32_case else {}))
 
     def small_seq(label, make, shape, iters=20, dtype=bf, aligned=True):
@@ -807,6 +851,7 @@ def _kernel_cases():
                          "logits are summed in another order; both are also held to f64 math below"),
                     iters=iters, library=_sdpa_fwd, beside={"B1 flash": A.flash_attention_cuda},
                     bound=lambda q, k, v: attention_bound(q, k, "fwd"),
+                    holds=[("small_seq_attention", tuple(shape))] * (aligned and not f32_case),
                     **({} if f32_case else {"exact": _attention_f64}))
 
     b7 = [
@@ -1242,8 +1287,84 @@ def _kernel_cases():
     f48 += [ln(f"48 frames LN {shape} bf16", shape, shape[1], bf, 1e-2, why_norm_bf) for shape in sorted(u48["layer_norm"])]
     for case in f48:
         case["kernel"] += " (48 frames)"
-    return (serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn + towers + full_model
+    table = (serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn + towers + full_model
             + ms + f48)
+    return table + _lvdm_cases(table, attn, flash, conv, gn, gn_stats, ln, small_seq, why_short, why_round)
+
+
+# B1's records at the image-conditioned UNet's new key lengths
+SK_RECORDS = {4: "flash_attention_sk4", 16: "flash_attention_sk16", 200: "flash_attention_sk200"}
+
+
+def lvdm_path_shapes():
+    """{kernel (a dry-run key): set of shapes} launched by the image
+    conditioning and UNet switches phases (`image_path_shapes`,
+    `switch_path_shapes`)."""
+    import collections
+
+    shapes = collections.defaultdict(set)
+    for runs in (image_path_shapes(), switch_path_shapes()):
+        for part in runs.values():
+            for k, c in part.items():
+                shapes[k] |= set(c)
+    return shapes
+
+
+def _lvdm_cases(cases_before, attn, flash, conv, gn, gn_stats, ln, small_seq, why_short, why_round):
+    """Phase 3's cases for the image conditioning and UNet switches phases:
+    every (kernel, shape) of their meta-device dry runs must be held by a
+    case of the table (a case's `holds`: its kernel on the path's route and
+    dtype at that shape), or fails. The cases added here, each held to its
+    plain twin (and f64 where the kernel has such a check), on its route,
+    and launched twice with equal bits (`twice`): B1 at the new key lengths
+    4, 16 and 200 (SK_RECORDS) and B7 / B4's statistics mode with the FiLM
+    (`fused_gn_silu_conv_film`, `group_norm_stats_film`), at every shape of
+    the paths and recorded under those names (level 0 first, whose times
+    the record keeps); and, checked only as "<kernel> (lvdm)", the paths'
+    other shapes that no earlier case holds (the image tower's and the
+    Resampler's LayerNorm rows, UNet GroupNorm and B7-statistics shapes of
+    every VC2 pass that no case held before)."""
+    import torch
+
+    bf = torch.bfloat16
+    shapes = lvdm_path_shapes()
+    held = {key for case in cases_before for key in case.get("holds", ())}
+    cases = []
+    for b, h, sq, sk, d in sorted(shapes["flash_attention"], key=lambda s: (s[3], -s[2], s[4])):
+        if sk in SK_RECORDS:
+            why = why_short if sk <= 77 else why_round
+            cases.append(flash(f"lvdm ({b},{h},{sq},{sk},{d}) bf16", attn(b, sq, h, d, bf, sk=sk), 2e-2, 2e-2, 5,
+                               why, kernel=SK_RECORDS[sk]))
+    for shape in sorted(shapes["fused_gn_silu_conv film"], key=lambda s: (-s[2] * s[3], s)):
+        cases.append(conv(f"lvdm {shape[1]}->{shape[4]} ({shape[5]},{shape[6]}) {shape[:4]} bf16, FiLM", shape,
+                          film=True, iters=5))
+        cases[-1]["kernel"] = "fused_gn_silu_conv_film"
+    for shape in sorted(shapes["group_norm_stats film"], key=lambda s: (-prod(s[2:]), s)):
+        cases.append(gn_stats(f"B7 statistics, lvdm {shape} bf16, FiLM", shape, shape[1], True, iters=5))
+        cases[-1]["kernel"] = "group_norm_stats_film"
+    held |= {key for case in cases for key in case["holds"]}
+    others = {  # a checked-only case for a shape of the family
+        "group_norm": lambda s: gn(f"lvdm GN+SiLU {s} bf16", s, s[1], 1e-6, 3),
+        "group_norm_stats": lambda s: gn_stats(f"B7 statistics, lvdm {s} bf16", s, s[1], False, iters=3),
+        "layer_norm": lambda s: ln(f"lvdm LN {s} bf16", s, s[1], bf, 1e-2, "bf16 output; f32 statistics summed "
+                                   "in another order can move a value by one bf16 ulp"),
+        "fused_gn_silu_conv": lambda s: conv(f"lvdm {s[1]}->{s[4]} ({s[5]},{s[6]}) {s[:4]} bf16", s, iters=3),
+        "small_seq_attention": lambda s: small_seq(f"lvdm ({s[0]},{s[1]},{s[2]},64) bf16",
+                                                   attn(s[0], s[1], s[2], 64, bf), s, iters=3),
+        "flash_attention": lambda s: flash(f"lvdm {s} bf16", attn(s[0], s[2], s[1], s[4], bf, sk=s[3]), 2e-2, 2e-2,
+                                           3, why_round),
+    }
+    for family, make in others.items():
+        for shape in sorted(s for s in shapes[family] if (family, s) not in held):
+            cases.append(make(shape))
+            cases[-1]["kernel"] = f"{family} (lvdm)"
+            held |= set(cases[-1]["holds"])
+    for case in cases:
+        case["twice"] = True
+    missing = sorted((k, s) for k, ss in shapes.items() for s in ss if (k, s) not in held)
+    if missing:
+        raise AssertionError(f"phase 3 holds no case for these launches of the lvdm phases: {missing}")
+    return cases
 
 
 # The training path's attentions (B, Sq, Sk, H, D): every UNet attention the
@@ -1605,9 +1726,14 @@ def phase_kernels(records):
             del err
         if counter:
             ok = ok and taken == {route: 1}
+        bits = ""
+        if case.get("twice"):  # a second launch must give the first one's bits
+            same = all(torch.equal(a, b) for a, b in zip(got, _as_tuple(case["fn"](*inputs))))
+            ok, bits = ok and same, f"two launches equal bits {same}; "
         line = f"kernel {name}: {label}: finite {finite}; " + "".join(
             f"{n} max_abs_err {e:.3e} (<= {text}); " for n, e, (_, text) in zip(case["outputs"], errs, case["tols"])
-        ) + (f"route {taken} (expected {route}); " if counter else "") + f"({case['why']}) {'OK' if ok else 'FAIL'}"
+        ) + (f"route {taken} (expected {route}); " if counter else "") + bits + f"({case['why']}) " \
+            f"{'OK' if ok else 'FAIL'}"
         if name in KERNELS:
             library = {n: cuda_time_ms(c, case["iters"]) for n, c in case["library"](*inputs).items()}
             times = (cuda_time_ms(lambda: case["fn"](*inputs), case["iters"]),
@@ -1747,21 +1873,23 @@ def _stage_times(pipe):
         f"{1e3 * sum(text_s):.1f}; VAE decode ms {1e3 * sum(dec_s):.1f}")
 
 
-def _profiled(fn, name):
+def _profiled(fn, name, cpu=True):
     """(fn's result, wall ms, device-kernel ms, CUDA events) of one call
-    under torch.profiler; the op table into chiprun_out/<name>."""
+    under torch.profiler; the op table into chiprun_out/<name>. `cpu=False`
+    traces the device alone (a long call's CPU ops make the tables slow)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU] * cpu + [ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         out = fn()
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=90)
+    table = averages.table(sort_by="self_cuda_time_total", row_limit=40, max_name_column_width=90)
     os.makedirs(OUT_DIR, exist_ok=True)
     with open(os.path.join(OUT_DIR, name), "w") as f:
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
@@ -3028,6 +3156,9 @@ def _dry_run_shapes(parts):
     def conv(x, gs, gb, w, b, g, eps, *film):
         counts["fused_gn_silu_conv"][tuple(x.shape) + (w.shape[0],) + tuple(w.shape[2:])] += 1
         counts["group_norm_stats"][tuple(x.shape)] += 1
+        if film and film[0] is not None:  # the launches with a FiLM, as `by_film_shape` counts them
+            counts["fused_gn_silu_conv film"][tuple(x.shape) + (w.shape[0],) + tuple(w.shape[2:])] += 1
+            counts["group_norm_stats film"][tuple(x.shape)] += 1
         return FC.fused_gn_silu_conv_plain(x, gs, gb, w, b, g, eps, *film)
 
     patched = [(layers, "sdpa", sdpa), (vae_module, "sdpa", sdpa), (layers, "group_norm", group_norm),
@@ -3087,6 +3218,59 @@ def serving_48_shapes():
         ("vae", lambda: AutoencoderKL(spec.vae).to(torch.bfloat16).decode(torch.zeros(16, 40, 64, 4))),
         ("text", lambda: CLIPTextModel(spec.text).to(torch.bfloat16)(torch.zeros(1, 77, dtype=torch.long))),
     ])
+
+
+IMG = "image conditioning"
+SWITCHES = "UNet switches"
+XT = "x_transformer"
+IMG_STEPS, IMG_CFG = 25, 7.5
+SWITCH_STEPS = 10
+# the switch variant: the reference's temporal options on, the rest at VC2's defaults
+SWITCH_UNET_KW = dict(use_relative_position=True, use_causal_attention=True, use_scale_shift_norm=True,
+                      temporal_length=16)
+
+
+def image_path_shapes():
+    """`_dry_run_shapes` of the image-conditioned VC2 phase's parts: a UNet
+    pass with `use_image_attention` over 16x40x64 latents with the
+    finegrained context (200 text rows + 16 Resampler tokens) and with the
+    coarse one (+ 4 ImageProjModel tokens), the finegrained and the coarse
+    ImageCondEncoder on one 320x512 image (ViT-H/14 at 224 and the head),
+    one text encode and one 16-frame decode."""
+    import torch
+
+    from t2v_turbo_tpu_torch.config import vc2_spec
+    from t2v_turbo_tpu_torch.models import AutoencoderKL, CLIPTextModel, UNetConfig, UNetModel
+    from t2v_turbo_tpu_torch.models.image_cond import ImageCondEncoder
+
+    spec = vc2_spec()
+
+    def unet(n_ctx):
+        return lambda: UNetModel(UNetConfig(use_image_attention=True)).to(torch.bfloat16)(
+            torch.zeros(1, 16, 40, 64, 4), torch.zeros(1, dtype=torch.long), torch.zeros(1, n_ctx, 1024))
+
+    def encoder(finegrained):
+        return lambda: ImageCondEncoder(finegrained).to(torch.bfloat16)(torch.zeros(1, 320, 512, 3))
+
+    return _dry_run_shapes([
+        ("unet", unet(216)), ("unet coarse", unet(204)), ("encoder", encoder(True)),
+        ("encoder coarse", encoder(False)),
+        ("text", lambda: CLIPTextModel(spec.text).to(torch.bfloat16)(torch.zeros(1, 77, dtype=torch.long))),
+        ("vae", lambda: AutoencoderKL(spec.vae).to(torch.bfloat16).decode(torch.zeros(16, 40, 64, 4))),
+    ])
+
+
+def switch_path_shapes():
+    """`_dry_run_shapes` of one pass of the switch variant's UNet
+    (SWITCH_UNET_KW) over 16x40x64 latents with a 77-row context: its
+    temporal attentions take the plain path (relative position, causal
+    mask), every ResBlock's out_layers conv carries the FiLM."""
+    import torch
+
+    from t2v_turbo_tpu_torch.models import UNetConfig, UNetModel
+
+    return _dry_run_shapes([("unet", lambda: UNetModel(UNetConfig(**SWITCH_UNET_KW)).to(torch.bfloat16)(
+        torch.zeros(1, 16, 40, 64, 4), torch.zeros(1, dtype=torch.long), torch.zeros(1, 77, 1024)))])
 
 
 def reference_clip():
@@ -3492,6 +3676,256 @@ def phase_serving():
     log(f"{SERVE}: phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+LVDM_KERNELS = ("flash_attention", "small_seq_attention", "fused_gn_silu_conv", "group_norm", "group_norm_stats",
+                "layer_norm")
+
+
+def _want(dry, runs):
+    """{kernel: Counter(shape)}: the dry run's parts, each times its count in `runs` ({part: n})."""
+    import collections
+
+    want = collections.defaultdict(collections.Counter)
+    for part, n in runs.items():
+        for k, c in dry[part].items():
+            for shape, m in c.items():
+                want[k][shape] += n * m
+    return want
+
+
+def _launches_as_dry_run(what, want):
+    """Every wrapper's launches by shape (and B7's and the statistics mode's
+    FiLM launches) against `want`; logs them and raises on a difference."""
+    import collections
+
+    from t2v_turbo_tpu_torch.ops import fused_conv as FC
+    from t2v_turbo_tpu_torch.ops import norms as N
+
+    got = {n: collections.Counter(w.by_shape) for n, w in wrappers().items() if n in LVDM_KERNELS}
+    got["fused_gn_silu_conv film"] = collections.Counter(FC.fused_gn_silu_conv.by_film_shape)
+    got["group_norm_stats film"] = collections.Counter(N.group_norm_affine_cuda.by_film_shape)
+    bad = []
+    for name, c in got.items():
+        ok = c == want.get(name, collections.Counter())
+        log(f"{what}: {name} launches {sum(c.values())} by shape {dict(sorted(c.items()))} (the dry run's: "
+            f"{'equal' if ok else dict(sorted(want.get(name, {}).items()))}) {'OK' if ok else 'FAIL'}")
+        bad += [] if ok else [name]
+    if bad:
+        raise AssertionError(f"{what}: launches by shape differ from the dry run for {bad}")
+    return got
+
+
+def _device_ms_line(what, wall_ms, busy_ms, events, name):
+    b7_ms = sum(e.self_device_time_total for e in events if "gn_silu_conv" in e.key) / 1e3
+    fwd_ms, _, fwd512_ms, _ = flash_device_ms(events)
+    log(f"{what}: wall {wall_ms:.1f} ms, device kernels {busy_ms:.1f} ms, idle share "
+        f"{max(0.0, 1 - busy_ms / wall_ms):.3f}; B7 {b7_ms:.1f} ms; B1 {fwd_ms:.2f} ms (D = 512 {fwd512_ms:.2f}); "
+        f"B8 {small_seq_device_ms(events):.3f} ms; " + _norm_profile(events) + f" -> chiprun_out/{name}")
+
+
+def phase_image_conditioning(records):
+    """Image-conditioned VC2 at full width, bf16, seeded: the ViT-H/14 text
+    tower's 77x1024 context, ImageCondEncoder(finegrained) on a seeded
+    320x512 image (the tower's 257 tokens at 224 -> the 4-deep Resampler's 16
+    tokens), append_image_context -> (1, 216, 1024), the UNet with
+    use_image_attention over 16x40x64 latents sampled by ddim_sample_loop on
+    the "sampler" grid (IMG_STEPS steps, CFG IMG_CFG against the empty
+    prompt's rows with the same image tokens), the VAE's decode; every launch
+    by kernel and shape against `image_path_shapes`' dry run; one profiled
+    video; then one UNet pass in coarse mode (ImageProjModel, 4 tokens)."""
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import generate
+    from t2v_turbo_tpu_torch.config import VC2ModelSpec
+    from t2v_turbo_tpu_torch.diffusion import DDIMSolver, ddim_sample_loop
+    from t2v_turbo_tpu_torch.models import UNetConfig, cast_compute_dtype_, seeded_init_
+    from t2v_turbo_tpu_torch.models.image_cond import ImageCondEncoder, append_image_context
+    from t2v_turbo_tpu_torch.ops import attention as A
+
+    t0 = time.perf_counter()
+    dry = image_path_shapes()
+    log(f"{IMG}: the dry run took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    args = generate.parse_args(["--prompt", PROMPTS[0], "--random-weights", "--seed", "0", "--device", "cuda:0"])
+    pipe = generate.build_pipeline(args, spec=VC2ModelSpec(unet=UNetConfig(use_image_attention=True)))
+    encoders = {}
+    for i, fine in enumerate((True, False)):
+        with torch.device("cuda"):
+            enc = seeded_init_(ImageCondEncoder(finegrained=fine), 7 + 1_000_000 * i)
+        encoders[fine] = cast_compute_dtype_(enc, torch.bfloat16).eval().requires_grad_(False)
+    torch.cuda.synchronize()
+    n_params = {n: sum(p.numel() for p in m.parameters()) for n, m in (
+        ("unet", pipe.unet), ("tower", encoders[True].tower), ("resampler", encoders[True].image_proj_model),
+        ("image_proj", encoders[False].image_proj_model))}
+    log(f"{IMG}: built in {time.perf_counter() - t0:.1f} s; parameters {n_params}")
+    image = torch.rand((1, 320, 512, 3), generator=torch.Generator("cuda").manual_seed(5), device="cuda") * 2 - 1
+    solver = DDIMSolver.create(pipe.schedule.alphas_cumprod.cpu().numpy(), ddim_timesteps=IMG_STEPS, device="cuda")
+
+    @torch.no_grad()
+    def video(prompt, seed):
+        gen = torch.Generator("cuda").manual_seed(seed)
+        tokens = encoders[True](image)
+        ctx = append_image_context(pipe.encode_prompt(prompt), tokens)
+        uncond = append_image_context(pipe.encode_prompt(""), tokens)
+        x_t = torch.randn((1, 16, 40, 64, 4), generator=gen, device="cuda")
+        z = ddim_sample_loop(lambda x, t: pipe.unet(x, t, ctx), solver, x_t, gen, cfg_scale=IMG_CFG,
+                             uncond_model_fn=lambda x, t: pipe.unet(x, t, uncond), grid="sampler")
+        return pipe.decode_latents(z.reshape(16, 40, 64, 4)).reshape(1, 16, 320, 512, 3), ctx
+
+    passes = 2 * IMG_STEPS
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainAttentionCount() as plain:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, ctx = video(PROMPTS[0], 5000)
+        torch.cuda.synchronize()
+        video_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    v = out.float()
+    finite = bool(torch.isfinite(v).all())
+    log(f"{IMG}: video: shape {tuple(out.shape)}, finite {finite}, min {float(v.min()):.4f} max "
+        f"{float(v.max()):.4f} std {float(v.std()):.4f}; context {tuple(ctx.shape)}; {IMG_STEPS} DDIM steps at CFG "
+        f"{IMG_CFG} ({passes} UNet passes), s/video {video_s:.3f} (the first: allocator warm-up included); "
+        f"max_memory_allocated {peak / 2**30:.2f} GiB; plain attention calls {plain.text()}")
+    if tuple(out.shape) != (1, 16, 320, 512, 3) or not finite or not float(v.max() - v.min()) > 0 \
+            or tuple(ctx.shape) != (1, 216, 1024):
+        raise AssertionError(f"{IMG}: the video is malformed")
+    _launches_as_dry_run(IMG, _want(dry, {"unet": passes, "encoder": 1, "text": 2, "vae": 1}))
+    check_flash_routes(IMG, passes, "UNet pass")
+    check_conv_routes(IMG, passes)
+    check_norm_routes(IMG, 1, "video")
+    check_small_seq(IMG, passes, "UNet pass")
+    by_sk = {sk: sum(c for shape, c in A.flash_attention.by_shape.items() if shape[3] == sk) for sk in (16, 200)}
+    for sk, n in by_sk.items():
+        records[SK_RECORDS[sk]]["launches"] = n
+    log(f"{IMG}: B1 launches by key length {by_sk} (the image branch's 16 tokens, the text branch's 200 rows)")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    video(PROMPTS[1], 5001)
+    torch.cuda.synchronize()
+    log(f"{IMG}: s/video, a second video {time.perf_counter() - t0:.3f}")
+    t0 = time.perf_counter()
+    _, wall_ms, busy_ms, events = _profiled(lambda: video(PROMPTS[2], 5002), "profile_image_video.txt", cpu=False)
+    log(f"{IMG} profile: the profiled video and its tables took {time.perf_counter() - t0:.1f} s")
+    _device_ms_line(f"{IMG} profile", wall_ms, busy_ms, events, "profile_image_video.txt")
+
+    # coarse mode: the pooled embedding -> ImageProjModel's 4 tokens, one UNet pass
+    reset_launches()
+    with torch.no_grad():
+        tokens = encoders[False](image)
+        ctx4 = append_image_context(ctx[:, :200], tokens)
+        x = torch.randn((1, 16, 40, 64, 4), generator=torch.Generator("cuda").manual_seed(5003), device="cuda")
+        eps = pipe.unet(x, torch.full((1,), 500, device="cuda"), ctx4)
+    finite = bool(torch.isfinite(eps.float()).all())
+    log(f"{IMG} coarse: tokens {tuple(tokens.shape)}, context {tuple(ctx4.shape)}, UNet output "
+        f"{tuple(eps.shape)} finite {finite}")
+    if tuple(ctx4.shape) != (1, 204, 1024) or not finite:
+        raise AssertionError(f"{IMG}: the coarse pass is malformed")
+    _launches_as_dry_run(f"{IMG} coarse", _want(dry, {"unet coarse": 1, "encoder coarse": 1}))
+    check_flash_routes(f"{IMG} coarse", 1, "UNet pass")
+    records[SK_RECORDS[4]]["launches"] = sum(c for shape, c in A.flash_attention.by_shape.items() if shape[3] == 4)
+
+
+def phase_unet_switches(records):
+    """The UNet's switches at full width, bf16, seeded: relative position and
+    the causal mask in every temporal attention, the scale-shift norm in
+    every ResBlock (SWITCH_UNET_KW), the rest at VC2's defaults, sampled by
+    p_sample_loop over SWITCH_STEPS ancestral steps with a generator, on a
+    seeded 77x1024 context; every launch by kernel and shape against
+    `switch_path_shapes`' dry run: each ResBlock's out_layers conv through B7
+    with its FiLM, the temporal attentions on the plain path (no B8 launch
+    over 16 frames)."""
+    import torch
+
+    from t2v_turbo_tpu_torch.diffusion import DiffusionSchedule
+    from t2v_turbo_tpu_torch.diffusion.ancestral import p_sample_loop
+    from t2v_turbo_tpu_torch.models import UNetConfig, UNetModel, cast_compute_dtype_, seeded_init_
+    from t2v_turbo_tpu_torch.models.layers import ResBlock
+    from t2v_turbo_tpu_torch.ops import attention as A
+
+    dry = switch_path_shapes()
+    with torch.device("cuda"):
+        unet = seeded_init_(UNetModel(UNetConfig(**SWITCH_UNET_KW)), 21)
+    cast_compute_dtype_(unet, torch.bfloat16).eval().requires_grad_(False)
+    n_res = sum(isinstance(m, ResBlock) for m in unet.modules())
+    gen = torch.Generator("cuda").manual_seed(6)
+    ctx = torch.randn((1, 77, 1024), generator=gen, device="cuda")
+    x_t = torch.randn((1, 16, 40, 64, 4), generator=gen, device="cuda")
+    reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    with PlainAttentionCount() as plain, torch.no_grad():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        z = p_sample_loop(lambda x, t: unet(x, t, ctx), DiffusionSchedule.create(), x_t, gen,
+                          timesteps=SWITCH_STEPS)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    finite = bool(torch.isfinite(z).all())
+    log(f"{SWITCHES}: {SWITCH_UNET_KW}: {SWITCH_STEPS} ancestral steps, latents {tuple(z.shape)} finite {finite}, "
+        f"std {float(z.std()):.4f}; s/step {wall / SWITCH_STEPS:.4f} (the first step's allocator warm-up "
+        f"included); max_memory_allocated {peak / 2**30:.2f} GiB; plain attention calls "
+        f"{plain.text(SWITCH_STEPS, 'UNet pass')}")
+    if tuple(z.shape) != (1, 16, 40, 64, 4) or not finite:
+        raise AssertionError(f"{SWITCHES}: the sample is malformed")
+    got = _launches_as_dry_run(SWITCHES, _want(dry, {"unet": SWITCH_STEPS}))
+    check_flash_routes(SWITCHES, SWITCH_STEPS, "UNet pass")
+    check_conv_routes(SWITCHES, SWITCH_STEPS)
+    check_norm_routes(SWITCHES, SWITCH_STEPS, "UNet pass")
+    check_small_seq(SWITCHES, SWITCH_STEPS, "UNet pass", shapes=False)
+    temporal_b8 = sum(c for (r, t, h), c in A.small_seq_attention.by_shape.items() if t == 16)
+    film = sum(got["fused_gn_silu_conv film"].values())
+    log(f"{SWITCHES}: B8 launches over the 16 frames {temporal_b8} (the temporal attentions take the plain path) "
+        f"{'OK' if temporal_b8 == 0 else 'FAIL'}; B7 launches with the FiLM {film}, {n_res} ResBlocks x "
+        f"{SWITCH_STEPS} passes {'OK' if film == n_res * SWITCH_STEPS else 'FAIL'}")
+    if temporal_b8 or film != n_res * SWITCH_STEPS:
+        raise AssertionError(f"{SWITCHES}: B8 over 16 frames {temporal_b8}, B7 FiLM launches {film}")
+    records["fused_gn_silu_conv_film"]["launches"] = film
+    records["group_norm_stats_film"]["launches"] = sum(got["group_norm_stats film"].values())
+
+
+def phase_x_transformer():
+    """models/x_transformer.py at the width of latent-diffusion's txt2img
+    BERTEmbedder (TransformerWrapper over an Encoder: vocabulary 30522, 77
+    tokens, n_embed 1280, 32 layers, heads 8 of 64), seeded, f32: its
+    embeddings on the card against the same module on the CPU (TF32 off;
+    no kernel is involved)."""
+    import copy
+
+    import torch
+
+    from t2v_turbo_tpu_torch.models.x_transformer import Encoder, TransformerWrapper
+
+    torch.manual_seed(0)
+    cpu = TransformerWrapper(num_tokens=30522, max_seq_len=77, attn_layers=Encoder(dim=1280, depth=32)).eval()
+    card = copy.deepcopy(cpu).cuda()
+    tokens = torch.randint(0, 30522, (2, 77), generator=torch.Generator().manual_seed(1))
+    tf32 = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            ref = cpu(tokens, return_embeddings=True)
+            cpu_s = time.perf_counter() - t0
+            card(tokens.cuda(), return_embeddings=True)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            got = card(tokens.cuda(), return_embeddings=True)
+            torch.cuda.synchronize()
+            card_s = time.perf_counter() - t0
+            logits = card(tokens.cuda())
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = tf32
+    err = float((got.cpu() - ref).abs().max())
+    tol = 1e-3 * max(1.0, float(ref.abs().max()))
+    ok = err <= tol and bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (2, 77, 30522)
+    log(f"{XT}: {sum(p.numel() for p in cpu.parameters())} parameters; embeddings {tuple(got.shape)} card vs CPU "
+        f"max|diff| {err:.3e} (<= {tol:.3e}: f32, 32 layers summed in another order); logits "
+        f"{tuple(logits.shape)}; ms a forward: card {1e3 * card_s:.1f}, CPU {1e3 * cpu_s:.1f} {'OK' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{XT}: the card's forward differs from the CPU's by {err:.3e}")
+
+
 def phase_v2_text_encoder(latent_glob):
     """apps/train_v2.py with --train-text-encoder at phase 12's point (batch
     3, else the largest that fits, said so): the text tower's last 3 blocks
@@ -3641,6 +4075,9 @@ def main(argv=None) -> int:
         (MS, phase_ms),
         (V2_TEXT, lambda: phase_v2_text_encoder(v2["latent_glob"])),
         (SERVE, phase_serving),
+        (IMG, lambda: phase_image_conditioning(records)),
+        (SWITCHES, lambda: phase_unet_switches(records)),
+        (XT, phase_x_transformer),
     ]
     if only:  # a development run of some phases (no argument: all of them)
         phases = [(n, f) for n, f in phases if n in ("device", "build") + only]

@@ -1,4 +1,5 @@
-from .ddim import DDIMSolver
+from .ancestral import p_sample, p_sample_loop, posterior_tables
+from .ddim import DDIMSolver, ddim_sample_loop
 from .lcm import (
     guidance_scale_embedding,
     huber_loss,
@@ -16,10 +17,14 @@ __all__ = [
     "LCMScheduler",
     "add_noise",
     "bcast_right",
+    "ddim_sample_loop",
     "extract",
     "guidance_scale_embedding",
     "huber_loss",
     "lcm_timesteps",
+    "p_sample",
+    "p_sample_loop",
+    "posterior_tables",
     "predicted_noise",
     "predicted_origin",
     "q_sample",

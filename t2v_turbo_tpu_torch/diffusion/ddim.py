@@ -8,6 +8,9 @@ float32. With `use_scale` the step applies VideoCrafter2's latent scale
 (the reference ode_solver/ddim_solver.py:36-87) and, at `ddim_eta` > 0, adds
 sigma_t times a noise draw the caller passes in or draws from an explicit
 `torch.Generator`; the inversion refuses `use_scale`, as JAX's does.
+
+`ddim_sample_loop` is the lvdm API's whole DDIM chain (eta noise, CFG, the
+latent scale) on either of the two grids the reference samples on.
 """
 
 from __future__ import annotations
@@ -104,3 +107,69 @@ class DDIMSolver:
     def index_to_timestep(self, index):
         """DDIM grid index (B,) -> absolute diffusion timestep (B,)."""
         return self.ddim_timesteps[index.to(self.ddim_timesteps.device)]
+
+
+def ddim_sample_loop(model_fn, solver: DDIMSolver, x_T: torch.Tensor,
+                     generator: Optional[torch.Generator] = None, cfg_scale: float = 1.0,
+                     uncond_model_fn=None, temperature: float = 1.0, grid: str = "sampler",
+                     eta: float = 0.0, noise_fn=None) -> torch.Tensor:
+    """The whole DDIM chain with eta noise, CFG and VideoCrafter2's latent
+    scale: the reference's standalone DDIMSampler (lvdm/models/samplers/
+    ddim.py:306-430), as JAX's `ddim_sample_loop`, a Python loop over the
+    grid from its end.
+
+    `grid="sampler"`: DDIMSampler's uniform grid i*(T//N) + 1, its tables
+    from the solver's full alpha table, its sigmas from `eta`; a solver with
+    use_scale is refused (it holds no full scale table). `grid="solver"`: the
+    solver's own grid (i+1)*(T//N) - 1 and tables, its ddim_eta sigmas (`eta`
+    is ignored) and, with use_scale, pred_x0 / scale_t carried by scale_prev.
+
+    `model_fn(x, t_batch) -> eps` has the conditioning closed over, and so
+    has `uncond_model_fn`, which cfg_scale != 1 needs. Each step adds
+    sigma * temperature * noise: step i's noise (grid index n-1-i) is
+    `noise_fn(i)` when given, else a draw from `generator` on x's device
+    (made at every step, as JAX draws at sigma 0 too)."""
+    if cfg_scale != 1.0 and uncond_model_fn is None:
+        raise ValueError("cfg_scale != 1 requires uncond_model_fn")
+    dev = x_T.device
+    solver = solver.to(dev)
+    n, b = solver.ddim_timesteps.shape[0], x_T.shape[0]
+    scale_t = scale_prev = None
+    if grid == "sampler":
+        if solver.use_scale:
+            raise NotImplementedError("use_scale needs the full scale_arr; use grid='solver'")
+        big_t = solver.alpha_cumprods.shape[0]
+        ts = torch.arange(n, device=dev) * (big_t // n) + 1
+        ac = solver.alpha_cumprods[ts]
+        ac_prev = torch.cat([solver.alpha_cumprods[:1], ac[:-1]])
+        sigmas = eta * torch.sqrt((1 - ac_prev) / (1 - ac) * (1 - ac / ac_prev))
+    elif grid == "solver":
+        ts, ac, ac_prev = solver.ddim_timesteps, solver.ddim_alpha_cumprods, solver.ddim_alpha_cumprods_prev
+        sigmas = solver.ddim_sigmas
+        if solver.use_scale:
+            scale_t, scale_prev = solver.ddim_scale_arr, solver.ddim_scale_arr_prev
+    else:
+        raise ValueError(f"unknown grid: {grid!r}")
+
+    x = x_T
+    nd = x.dim()
+    for step, i in enumerate(range(n - 1, -1, -1)):
+        tb = ts[i].expand(b)
+        e_t = model_fn(x, tb)
+        if cfg_scale != 1.0:
+            e_u = uncond_model_fn(x, tb)
+            e_t = e_u + cfg_scale * (e_t - e_u)
+        idx = torch.full((b,), i, dtype=torch.long, device=dev)
+        a_t, a_prev, sigma = (extract(tab, idx, nd) for tab in (ac, ac_prev, sigmas))
+        pred_x0 = (x - torch.sqrt(1.0 - a_t) * e_t) / torch.sqrt(a_t)
+        dir_xt = torch.sqrt(torch.clamp_min(1.0 - a_prev - sigma**2, 0.0)) * e_t
+        z = noise_fn(step) if noise_fn is not None else torch.randn(
+            x.shape, generator=generator, device=dev, dtype=x.dtype)
+        noise = sigma * z.to(dev, x.dtype) * temperature
+        if scale_t is not None:
+            pred_x0 = pred_x0 / extract(scale_t, idx, nd)
+            x0_term = torch.sqrt(a_prev) * extract(scale_prev, idx, nd) * pred_x0
+        else:
+            x0_term = torch.sqrt(a_prev) * pred_x0
+        x = x0_term + dir_xt + noise
+    return x

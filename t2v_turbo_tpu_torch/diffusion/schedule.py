@@ -19,8 +19,9 @@ import torch
 
 @dataclasses.dataclass(frozen=True)
 class DiffusionSchedule:
-    """Cumulative-alpha tables, each a (T,) float32 tensor."""
+    """The betas and the cumulative-alpha tables, each a (T,) float32 tensor."""
 
+    betas: torch.Tensor
     alphas_cumprod: torch.Tensor
     sqrt_alphas_cumprod: torch.Tensor
     sqrt_one_minus_alphas_cumprod: torch.Tensor
@@ -40,6 +41,7 @@ class DiffusionSchedule:
             return torch.tensor(np.asarray(a, dtype=np.float32))
 
         return cls(
+            betas=f32(betas),
             alphas_cumprod=f32(alphas_cumprod),
             sqrt_alphas_cumprod=f32(np.sqrt(alphas_cumprod)),
             sqrt_one_minus_alphas_cumprod=f32(np.sqrt(1.0 - alphas_cumprod)),
@@ -49,6 +51,7 @@ class DiffusionSchedule:
     def to(self, device) -> "DiffusionSchedule":
         return dataclasses.replace(
             self,
+            betas=self.betas.to(device),
             alphas_cumprod=self.alphas_cumprod.to(device),
             sqrt_alphas_cumprod=self.sqrt_alphas_cumprod.to(device),
             sqrt_one_minus_alphas_cumprod=self.sqrt_one_minus_alphas_cumprod.to(device),

@@ -8,6 +8,10 @@
   `import_clip_text_pooled_params` / `import_clip_vision_params` /
   `import_viclip_params` (t2v_turbo_tpu/io/torch_import.py), written with
   numpy alone: this module imports neither jax nor flax.
+- `image_proj_state_dict_from_jax` / `resampler_state_dict_from_jax`: the
+  image-conditioning heads (models/ip_resampler.py). The x_transformer
+  stack needs no converter: its port holds the reference's keys, which the
+  JAX package's `import_x_transformer_params` reads.
 - `split_vc2_checkpoint`: a VideoCrafter2 LatentDiffusion state dict ->
   (unet, vae, clip) state dicts with their prefixes stripped.
 - `student_unet_state_dict`: a teacher's (or a student's) UNet state dict
@@ -84,9 +88,13 @@ def _norm(node, name, sd):
 
 
 def _attn(node, p, sd):
-    for n in ("to_q", "to_k", "to_v"):
-        _lin(node[n], f"{p}.{n}", sd)
+    for n in ("to_q", "to_k", "to_v", "to_k_ip", "to_v_ip"):
+        if n in node:
+            _lin(node[n], f"{p}.{n}", sd)
     _lin(node["to_out"], f"{p}.to_out.0", sd)
+    for n in ("relative_position_k", "relative_position_v"):
+        if n in node:
+            sd[f"{p}.{n}.embeddings_table"] = _t(node[n]["embeddings_table"])
 
 
 def _block(node, p, sd):
@@ -149,17 +157,23 @@ def _blocks(p, prefix):
 
 
 def unet_state_dict_from_jax(params: Mapping) -> StateDict:
-    """flax UNetModel params -> the port's (and the reference's) UNet state dict."""
+    """flax UNetModel params -> the port's (and the reference's) UNet state
+    dict, for any of UNetConfig's switches: the image branch's `to_k_ip` /
+    `to_v_ip`, the relative-position tables and the scale-shift
+    `emb_layers.1` (2 * out wide) carry over, and a switch that is off has
+    no keys on either side."""
     p = params.get("params", params)
     sd: StateDict = {}
     _conv2d(p["conv_in"], "input_blocks.0.0", sd)
     for name in ("time_embed", "fps_embedding"):
-        _lin(p[f"{name}_0"], f"{name}.0", sd)
-        _lin(p[f"{name}_2"], f"{name}.2", sd)
+        if f"{name}_0" in p:
+            _lin(p[f"{name}_0"], f"{name}.0", sd)
+            _lin(p[f"{name}_2"], f"{name}.2", sd)
     for name in ("time_cond_proj", "motion_cond_proj", "combine_proj"):
         if name in p:
             _lin(p[name], name, sd)
-    _transformer(p["init_attn"], "init_attn.0", sd, conv1d_proj=True)
+    if "init_attn" in p:
+        _transformer(p["init_attn"], "init_attn.0", sd, conv1d_proj=True)
     # JAX input block i is torch input block i + 1 (torch block 0 is conv_in)
     for i, layers in _blocks(p, "input_blocks").items():
         for j, node in layers.items():
@@ -308,6 +322,39 @@ def video_vit_state_dict_from_jax(params: Mapping) -> StateDict:
     _conv2d(p["conv1"], "conv1", sd)
     sd["conv1.weight"] = sd["conv1.weight"][:, :, None]
     _vision_tower(p, sd)
+    return sd
+
+
+def image_proj_state_dict_from_jax(params: Mapping) -> StateDict:
+    """flax ip_resampler.ImageProjModel params -> the port's (the reference's)
+    `proj` / `norm` state dict."""
+    p = params.get("params", params)
+    sd: StateDict = {}
+    _lin(p["proj"], "proj", sd)
+    _norm(p["norm"], "norm", sd)
+    return sd
+
+
+def resampler_state_dict_from_jax(params: Mapping) -> StateDict:
+    """flax ip_resampler.Resampler params -> the port's (the reference's)
+    state dict: `latents`, `proj_in`, `layers.{i}.0.*` (the attention),
+    `layers.{i}.1.{0,1,3}` (the feed-forward), `proj_out`, `norm_out`."""
+    p = params.get("params", params)
+    sd: StateDict = {"latents": _t(p["latents"])}
+    _lin(p["proj_in"], "proj_in", sd)
+    i = 0
+    while f"layers_{i}_attn" in p:
+        a = p[f"layers_{i}_attn"]
+        for n in ("norm1", "norm2"):
+            _norm(a[n], f"layers.{i}.0.{n}", sd)
+        for n in ("to_q", "to_kv", "to_out"):
+            _lin(a[n], f"layers.{i}.0.{n}", sd)
+        _norm(p[f"layers_{i}_ff_norm"], f"layers.{i}.1.0", sd)
+        _lin(p[f"layers_{i}_ff_in"], f"layers.{i}.1.1", sd)
+        _lin(p[f"layers_{i}_ff_out"], f"layers.{i}.1.3", sd)
+        i += 1
+    _lin(p["proj_out"], "proj_out", sd)
+    _norm(p["norm_out"], "norm_out", sd)
     return sd
 
 

@@ -7,7 +7,9 @@ reference checkpoint keys (lvdm/modules/attention.py,
 lvdm/modules/networks/openaimodel3d.py), so a reference state dict loads with
 `load_state_dict(strict=True)`, quirks included: `temopral_conv`, the
 `conv{i}.{2|3}` indices, (3,1,1) Conv3d temporal kernels, `ff.net.0.proj`,
-`to_out.0`, and Conv1d projections in `init_attn`.
+`to_out.0`, Conv1d projections in `init_attn`, and the switches' own keys
+(`relative_position_{k,v}.embeddings_table`, `to_k_ip` / `to_v_ip`, the
+scale-shift `emb_layers.1` of width 2 * out).
 
 Norm parameters stay float32 (`cast_compute_dtype_` skips them), as the JAX
 package feeds norm affines in f32; every other parameter is held in the
@@ -24,6 +26,10 @@ import torch.nn.functional as F
 
 from ..ops import fused_gn_silu_conv, group_norm, layer_norm, sdpa
 from ..ops.attention import attention
+
+# The text rows of an image-conditioned context; the image tokens follow
+# (the reference's text_context_len, JAX layers.py:217).
+TEXT_CONTEXT_LEN = 200
 
 
 class GroupNorm(nn.Module):
@@ -51,17 +57,19 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps, act)
 
 
-def gn_silu_conv(norm: GroupNorm, conv: nn.Module, x: torch.Tensor) -> torch.Tensor:
+def gn_silu_conv(norm: GroupNorm, conv: nn.Module, x: torch.Tensor, film=None) -> torch.Tensor:
     """conv(silu(norm(x))) through the fused kernel (B7): a 'same' Conv2d on
     frames (N, C, H, W), or a (k, 1, 1) Conv3d on a clip (B, C, T, H, W),
     run as a (k, 1) conv on the clip viewed as (B, C, T, H*W), so the
     statistics span the clip. `conv.weight` is the module's parametrised
-    (LoRA-merged) weight, so the LoRA factors get their gradient."""
+    (LoRA-merged) weight, so the LoRA factors get their gradient. `film`:
+    (scale, shift), each (N, C), applied as h * (1 + scale) + shift between
+    the norm and the SiLU."""
     w, shape = conv.weight, x.shape
     if x.dim() == 5:
         x, w = x.reshape(*shape[:3], -1), w.reshape(*w.shape[:3], 1)
     y = fused_gn_silu_conv(x.contiguous(), norm.weight, norm.bias, w.contiguous(), conv.bias,
-                           norm.num_groups, norm.eps)
+                           norm.num_groups, norm.eps, *(film or (None, None)))
     return y.view(shape[0], -1, *shape[2:])
 
 
@@ -83,16 +91,44 @@ def to_frames(x: torch.Tensor) -> torch.Tensor:
     return x.transpose(1, 2).reshape(b * t, c, hh, ww)
 
 
+class RelativePosition(nn.Module):
+    """The learned relative-position table (reference attention.py:24-47):
+    (length_q, length_k, num_units) rows of `embeddings_table`, indexed by
+    key - query clipped to +-max_relative_position."""
+
+    def __init__(self, num_units: int, max_relative_position: int):
+        super().__init__()
+        self.max_relative_position = max_relative_position
+        self.embeddings_table = nn.Parameter(torch.empty(2 * max_relative_position + 1, num_units))
+        nn.init.xavier_uniform_(self.embeddings_table)
+
+    def forward(self, length_q: int, length_k: int) -> torch.Tensor:
+        m, dev = self.max_relative_position, self.embeddings_table.device
+        dist = torch.arange(length_k, device=dev)[None, :] - torch.arange(length_q, device=dev)[:, None]
+        return self.embeddings_table[dist.clamp(-m, m) + m]
+
+
 class CrossAttention(nn.Module):
     """Multi-head attention on (B, S, C) rows; self-attention when `context`
-    is None (reference attention.py:50-240, without the image and rel-pos
-    branches). `record_probs` takes the plain `attention` and also returns
-    its f32 probabilities as (B*heads, Sq, Sk), the reference's
-    attention_probs (the MotionClone capture); every other call goes
-    through `sdpa`'s kernels."""
+    is None (reference attention.py:50-240, JAX layers.py:200-316).
+
+    - `relative_position` (temporal blocks): the logits gain q . k2 and the
+      output probs . v2 from two `RelativePosition` tables over
+      `temporal_length`.
+    - `causal` masks keys after the query.
+    - `record_probs` also returns the f32 probabilities as (B*heads, Sq,
+      Sk), the reference's attention_probs (the MotionClone capture).
+    These three take the plain `attention` (with its bias and mask); every
+    other call goes through `sdpa`'s kernels, which take neither.
+    - `img_cross_attention` (attn2 of the image-conditioned UNet): the
+      context's rows past TEXT_CONTEXT_LEN are image tokens, attended
+      through `to_k_ip` / `to_v_ip` with the same queries (through `sdpa`)
+      and added (the reference's image_cross_attention_scale, 1). A context
+      with no rows past it is refused, as JAX refuses it."""
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
-                 dim_head: int = 64):
+                 dim_head: int = 64, relative_position: bool = False, temporal_length: Optional[int] = None,
+                 img_cross_attention: bool = False):
         super().__init__()
         inner = heads * dim_head
         ctx_dim = context_dim or query_dim
@@ -101,18 +137,46 @@ class CrossAttention(nn.Module):
         self.to_k = nn.Linear(ctx_dim, inner, bias=False)
         self.to_v = nn.Linear(ctx_dim, inner, bias=False)
         self.to_out = nn.Sequential(nn.Linear(inner, query_dim), nn.Dropout(0.0))
+        self.relative_position = relative_position
+        if relative_position:
+            if temporal_length is None:
+                raise ValueError("relative_position needs temporal_length")
+            self.relative_position_k = RelativePosition(dim_head, temporal_length)
+            self.relative_position_v = RelativePosition(dim_head, temporal_length)
+        self.img_cross_attention = img_cross_attention
+        if img_cross_attention:
+            self.to_k_ip = nn.Linear(ctx_dim, inner, bias=False)
+            self.to_v_ip = nn.Linear(ctx_dim, inner, bias=False)
 
-    def forward(self, x, context=None, record_probs: bool = False):
+    def forward(self, x, context=None, causal: bool = False, record_probs: bool = False):
         ctx = x if context is None else context
+        ctx_img = None
+        if self.img_cross_attention:
+            if ctx.shape[1] <= TEXT_CONTEXT_LEN:
+                raise ValueError(
+                    f"img_cross_attention=True needs image tokens appended beyond text_context_len="
+                    f"{TEXT_CONTEXT_LEN}, but context has only {ctx.shape[1]} tokens; append image "
+                    "context (models/image_cond.py append_image_context) or build the UNet without "
+                    "use_image_attention.")
+            ctx, ctx_img = ctx[:, :TEXT_CONTEXT_LEN], ctx[:, TEXT_CONTEXT_LEN:]
         b, sq, _ = x.shape
-        q = self.to_q(x).view(b, sq, self.heads, self.dim_head)
-        k = self.to_k(ctx).view(b, -1, self.heads, self.dim_head)
-        v = self.to_v(ctx).view(b, -1, self.heads, self.dim_head)
+        split = lambda t: t.view(b, -1, self.heads, self.dim_head)  # noqa: E731
+        q, k, v = split(self.to_q(x)), split(self.to_k(ctx)), split(self.to_v(ctx))
         scale = self.dim_head**-0.5
-        if record_probs:
-            out, probs = attention(q, k, v, scale=scale, return_probs=True)
+        if self.relative_position or causal or record_probs:
+            sk = k.shape[1]
+            bias = None
+            if self.relative_position:
+                k2 = self.relative_position_k(sq, sk)
+                bias = torch.einsum("bqhd,qkd->bhqk", q.float(), k2.float()) * scale
+            out, probs = attention(q, k, v, bias=bias, causal=causal, scale=scale, return_probs=True)
+            if self.relative_position:
+                v2 = self.relative_position_v(sq, sk)
+                out = out + torch.einsum("bhqk,qkd->bqhd", probs.to(out.dtype), v2.to(out.dtype))
         else:
             out = sdpa(q, k, v, scale=scale)
+        if ctx_img is not None:
+            out = out + sdpa(q, split(self.to_k_ip(ctx_img)), split(self.to_v_ip(ctx_img)), scale=scale)
         out = self.to_out(out.reshape(b, sq, self.heads * self.dim_head))
         if record_probs:
             return out, probs.reshape(b * self.heads, sq, -1)
@@ -142,37 +206,45 @@ class FeedForward(nn.Module):
 
 class BasicTransformerBlock(nn.Module):
     """self-attn -> cross-attn -> GEGLU FF with pre-LN residuals;
-    `record_probs` also returns attn1's probabilities (JAX layers.py:380-414)."""
+    `record_probs` also returns attn1's probabilities (JAX layers.py:380-414).
+    Relative position and `causal` apply to both attentions (the temporal
+    blocks'); the image branch to attn2 only."""
 
-    def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: Optional[int] = None):
+    def __init__(self, dim: int, n_heads: int, d_head: int, context_dim: Optional[int] = None,
+                 relative_position: bool = False, temporal_length: Optional[int] = None,
+                 img_cross_attention: bool = False):
         super().__init__()
-        self.attn1 = CrossAttention(dim, None, n_heads, d_head)
+        rel = dict(relative_position=relative_position, temporal_length=temporal_length)
+        self.attn1 = CrossAttention(dim, None, n_heads, d_head, **rel)
         self.ff = FeedForward(dim)
-        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head)
+        self.attn2 = CrossAttention(dim, context_dim, n_heads, d_head, img_cross_attention=img_cross_attention,
+                                    **rel)
         self.norm1, self.norm2, self.norm3 = LayerNorm(dim), LayerNorm(dim), LayerNorm(dim)
 
-    def forward(self, x, context=None, record_probs: bool = False):
-        a = self.attn1(self.norm1(x), record_probs=record_probs)
+    def forward(self, x, context=None, record_probs: bool = False, causal: bool = False):
+        a = self.attn1(self.norm1(x), causal=causal, record_probs=record_probs)
         probs = None
         if record_probs:
             a, probs = a
         x = x + a
-        x = x + self.attn2(self.norm2(x), context)
+        x = x + self.attn2(self.norm2(x), context, causal=causal)
         x = x + self.ff(self.norm3(x))
         return (x, probs) if record_probs else x
 
 
 class SpatialTransformer(nn.Module):
-    """Per-frame transformer on (N, C, H, W) with Linear projections."""
+    """Per-frame transformer on (N, C, H, W) with Linear projections;
+    `img_cross_attention` gives attn2 the image branch."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
-                 context_dim: Optional[int] = None):
+                 context_dim: Optional[int] = None, img_cross_attention: bool = False):
         super().__init__()
         inner = n_heads * d_head
         self.norm = GroupNorm(in_channels, 32, eps=1e-6)
         self.proj_in = nn.Linear(in_channels, inner)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, n_heads, d_head, context_dim) for _ in range(depth)
+            BasicTransformerBlock(inner, n_heads, d_head, context_dim, img_cross_attention=img_cross_attention)
+            for _ in range(depth)
         )
         self.proj_out = nn.Linear(inner, in_channels)
 
@@ -191,11 +263,16 @@ class TemporalTransformer(nn.Module):
     GroupNorm's statistics span the whole clip. `conv1d_proj` stores the
     projections as Conv1d, as the reference's `init_attn` does.
     `record_probs` also returns the list of each block's attn1
-    probabilities, (B*H*W*heads, T, T) each."""
+    probabilities, (B*H*W*heads, T, T) each. `relative_position` (over
+    `temporal_length`) and `causal_attention` apply to both attentions of
+    every block. Self-only: the reference's temporal cross-attention
+    (`only_self_att=False`) is not ported, as the JAX package cannot build it."""
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
-                 conv1d_proj: bool = False):
+                 conv1d_proj: bool = False, relative_position: bool = False, causal_attention: bool = False,
+                 temporal_length: Optional[int] = None):
         super().__init__()
+        self.causal_attention = causal_attention
         inner = n_heads * d_head
         self.norm = GroupNorm(in_channels, 32, eps=1e-6)
         if conv1d_proj:
@@ -205,7 +282,9 @@ class TemporalTransformer(nn.Module):
             self.proj_in = nn.Linear(in_channels, inner)
             self.proj_out = nn.Linear(inner, in_channels)
         self.transformer_blocks = nn.ModuleList(
-            BasicTransformerBlock(inner, n_heads, d_head) for _ in range(depth)
+            BasicTransformerBlock(inner, n_heads, d_head, relative_position=relative_position,
+                                  temporal_length=temporal_length)
+            for _ in range(depth)
         )
 
     def forward(self, x, record_probs: bool = False):
@@ -215,10 +294,10 @@ class TemporalTransformer(nn.Module):
         probs = []
         for block in self.transformer_blocks:
             if record_probs:
-                h, p = block(h, record_probs=True)
+                h, p = block(h, record_probs=True, causal=self.causal_attention)
                 probs.append(p)
             else:
-                h = block(h)
+                h = block(h, causal=self.causal_attention)
         h = dense(self.proj_out, h)
         out = x + h.view(b, hh, ww, t, c).permute(0, 4, 3, 1, 2)
         return (out, probs) if record_probs else out
@@ -266,27 +345,39 @@ class Upsample(nn.Module):
 
 
 class ResBlock(nn.Module):
-    """GN-SiLU-conv residual block with the timestep embedding added, then a
-    TemporalConvBlock. x: (B*T, C, H, W); emb: (B*T, E)."""
+    """GN-SiLU-conv residual block with the timestep embedding, then a
+    TemporalConvBlock (`use_temporal_conv`). x: (B*T, C, H, W); emb: (B*T, E).
+    With `use_scale_shift_norm` the embedding is (scale, shift), 2 * out
+    wide, and FiLMs the out norm (h * (1 + scale) + shift before the SiLU,
+    JAX layers.py:622-633), inside the fused kernel; else it is added to h
+    before the out norm."""
 
-    def __init__(self, channels: int, emb_channels: int, out_channels: Optional[int] = None):
+    def __init__(self, channels: int, emb_channels: int, out_channels: Optional[int] = None,
+                 use_temporal_conv: bool = True, use_scale_shift_norm: bool = False):
         super().__init__()
         out = out_channels or channels
+        self.use_scale_shift_norm, self.use_temporal_conv = use_scale_shift_norm, use_temporal_conv
         self.in_layers = nn.Sequential(
             GroupNorm(channels), nn.SiLU(), nn.Conv2d(channels, out, 3, padding=1)
         )
-        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, out))
+        self.emb_layers = nn.Sequential(nn.SiLU(), nn.Linear(emb_channels, 2 * out if use_scale_shift_norm else out))
         self.out_layers = nn.Sequential(
             GroupNorm(out), nn.SiLU(), nn.Dropout(0.0), nn.Conv2d(out, out, 3, padding=1)
         )
         self.skip_connection = nn.Conv2d(channels, out, 1) if out != channels else nn.Identity()
-        self.temopral_conv = TemporalConvBlock(out)  # the reference's spelling
+        if use_temporal_conv:
+            self.temopral_conv = TemporalConvBlock(out)  # the reference's spelling
 
     def forward(self, x, emb, batch_size: int):
         h = gn_silu_conv(self.in_layers[0], self.in_layers[2], x)
-        h = h + self.emb_layers(emb)[:, :, None, None]
-        h = gn_silu_conv(self.out_layers[0], self.out_layers[3], h)
+        emb_out = self.emb_layers(emb)
+        if self.use_scale_shift_norm:
+            h = gn_silu_conv(self.out_layers[0], self.out_layers[3], h, film=emb_out.chunk(2, dim=-1))
+        else:
+            h = gn_silu_conv(self.out_layers[0], self.out_layers[3], h + emb_out[:, :, None, None])
         h = self.skip_connection(x) + h
+        if not self.use_temporal_conv:
+            return h
         return to_frames(self.temopral_conv(to_clip(h, batch_size)))
 
 

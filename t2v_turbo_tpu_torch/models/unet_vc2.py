@@ -59,10 +59,18 @@ from .layers import (
 class UNetConfig:
     """The VC2 UNet hyper-parameters; the defaults are configs/vc2_t2v_512.yaml.
 
-    That file's switches are all on and fixed here: temporal convs in every
-    ResBlock, a temporal transformer after every spatial one, `init_attn`,
-    fps conditioning; self-only temporal attention without relative
-    position or causal mask."""
+    The switches (JAX `UNetConfig`, the reference UNetModel's arguments)
+    default to that file's values: temporal convs in every ResBlock
+    (`temporal_conv`), a temporal transformer after every spatial one
+    (`temporal_attention`), `init_attn` (`addition_attention`), fps
+    conditioning (`fps_cond`); self-only temporal attention without relative
+    position or causal mask; the timestep embedding added before the out
+    norm (`use_scale_shift_norm` FiLMs it instead); no image branch
+    (`use_image_attention`: every spatial attn2 also attends to the image
+    tokens after the 200 text rows). A switch that is off drops its
+    submodules and their keys, as the reference does.
+    `temporal_selfatt_only=False` is refused: the JAX package cannot build
+    it (its TemporalTransformer reads a `context_dim` it does not have)."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -76,6 +84,23 @@ class UNetConfig:
     context_dim: int = 1024
     time_cond_proj_dim: Optional[int] = None  # 256 for the LCM students
     motion_cond_proj_dim: Optional[int] = None  # 256 for the v2 motion-conditioned students
+    temporal_conv: bool = True
+    temporal_attention: bool = True
+    temporal_selfatt_only: bool = True
+    use_relative_position: bool = False
+    use_causal_attention: bool = False
+    temporal_length: int = 16
+    addition_attention: bool = True
+    fps_cond: bool = True
+    use_scale_shift_norm: bool = False
+    use_image_attention: bool = False
+
+    def __post_init__(self):
+        if not self.temporal_selfatt_only:
+            raise NotImplementedError(
+                "temporal_selfatt_only=False (temporal cross-attention to the text) is not ported: the JAX "
+                "package's TemporalTransformer reads self.context_dim, which it lacks (AttributeError at "
+                "t2v_turbo_tpu/models/layers.py:499), so there is no reference to hold it to")
 
     @property
     def time_embed_dim(self) -> int:
@@ -94,7 +119,8 @@ class UNetModel(nn.Module):
         mc, ted, nhc = cfg.model_channels, cfg.time_embed_dim, cfg.num_head_channels
 
         self.time_embed = _embedding_mlp(mc, ted)
-        self.fps_embedding = _embedding_mlp(mc, ted)
+        if cfg.fps_cond:
+            self.fps_embedding = _embedding_mlp(mc, ted)
         if cfg.time_cond_proj_dim is not None:
             self.time_cond_proj = nn.Linear(cfg.time_cond_proj_dim, mc, bias=False)
         if cfg.motion_cond_proj_dim is not None:
@@ -102,22 +128,27 @@ class UNetModel(nn.Module):
             self.combine_proj = nn.Linear(2 * mc, mc, bias=False)
 
         def spatial(ch):
-            return SpatialTransformer(ch, ch // nhc, nhc, cfg.transformer_depth, cfg.context_dim)
+            return SpatialTransformer(ch, ch // nhc, nhc, cfg.transformer_depth, cfg.context_dim,
+                                      img_cross_attention=cfg.use_image_attention)
 
         def temporal(ch, n_heads=None, conv1d_proj=False):
             return TemporalTransformer(
-                ch, n_heads or ch // nhc, nhc, cfg.temporal_transformer_depth, conv1d_proj
+                ch, n_heads or ch // nhc, nhc, cfg.temporal_transformer_depth, conv1d_proj,
+                relative_position=cfg.use_relative_position, causal_attention=cfg.use_causal_attention,
+                temporal_length=cfg.temporal_length,
             )
 
         def res(ch_in, ch_out):
-            return ResBlock(ch_in, ted, ch_out)
+            return ResBlock(ch_in, ted, ch_out, use_temporal_conv=cfg.temporal_conv,
+                            use_scale_shift_norm=cfg.use_scale_shift_norm)
 
         def attn_layers(ch):
-            return [spatial(ch), temporal(ch)]
+            return [spatial(ch)] + ([temporal(ch)] if cfg.temporal_attention else [])
 
         self.input_blocks = nn.ModuleList([nn.ModuleList([nn.Conv2d(cfg.in_channels, mc, 3, padding=1)])])
-        # reference init_attn: 8 heads, Conv1d projections (openaimodel3d.py:439-453)
-        self.init_attn = nn.Sequential(temporal(mc, n_heads=8, conv1d_proj=True))
+        if cfg.addition_attention:
+            # reference init_attn: 8 heads, Conv1d projections (openaimodel3d.py:439-453)
+            self.init_attn = nn.Sequential(temporal(mc, n_heads=8, conv1d_proj=True))
 
         ch, ds = mc, 1
         input_chans = [ch]
@@ -198,15 +229,17 @@ class UNetModel(nn.Module):
                 cond = self.combine_proj(torch.cat([cond, m], dim=-1))
             t_emb = t_emb + cond
         emb = self.time_embed(t_emb)
-        fps = torch.as_tensor(16.0 if fps is None else fps, dtype=torch.float32, device=device).expand(b)
-        emb = emb + self.fps_embedding(timestep_embedding(fps, cfg.model_channels).to(dtype))
+        if cfg.fps_cond:
+            fps = torch.as_tensor(16.0 if fps is None else fps, dtype=torch.float32, device=device).expand(b)
+            emb = emb + self.fps_embedding(timestep_embedding(fps, cfg.model_channels).to(dtype))
 
         emb_f = emb.repeat_interleave(t, dim=0)
         ctx_f = context.to(device, dtype).repeat_interleave(t, dim=0)
 
         h = x.reshape(b * t, hh, ww, cin).permute(0, 3, 1, 2).to(dtype).contiguous()
         h = self.input_blocks[0][0](h)
-        h = to_frames(self._block(self.init_attn[0], to_clip(h, b)))
+        if cfg.addition_attention:
+            h = to_frames(self._block(self.init_attn[0], to_clip(h, b)))
 
         hs = [h]
         for layers in self.input_blocks[1:]:

@@ -28,7 +28,8 @@ and the `out` head.
   of csrc/fused_conv.cu on the plan. It raises on a CPU tensor or anything
   else the kernels do not take.
 - `fused_gn_silu_conv`: the entry point, with a `launches` counter and its
-  split `by_route` and `by_shape` ((N, C, H, W, O, kh, kw)). CPU: the plain
+  split `by_route` and `by_shape` ((N, C, H, W, O, kh, kw)); `by_film_shape`
+  counts the launches that carried a FiLM. CPU: the plain
   version. CUDA: the kernel, through `FusedGnSiluConv` when an input needs
   a gradient.
 - `FusedGnSiluConv`: the forward is the kernel (the plain version on CPU
@@ -241,6 +242,8 @@ def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, n
         fused_gn_silu_conv.launches += 1
         fused_gn_silu_conv.by_route[plan.route] += 1
         fused_gn_silu_conv.by_shape[(n, c, hh, ww, o, kh, kw)] += 1
+        if film_scale is not None:
+            fused_gn_silu_conv.by_film_shape[(n, c, hh, ww, o, kh, kw)] += 1
     return y
 
 
@@ -304,6 +307,7 @@ def fused_gn_silu_conv(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, num_gr
 fused_gn_silu_conv.launches = 0
 fused_gn_silu_conv.by_route = collections.Counter()
 fused_gn_silu_conv.by_shape = collections.Counter()
+fused_gn_silu_conv.by_film_shape = collections.Counter()  # the launches with a FiLM
 
 
 def _conv_fake(x, gn_scale, gn_bias, conv_kernel, *rest):

@@ -413,7 +413,7 @@ def group_norm_affine_cuda(x, gn_scale, gn_bias, num_groups=32, eps=1e-5, film_s
     GroupNorm+SiLU+conv. x: (N, C, *spatial) contiguous on the card;
     gn_scale, gn_bias: (C,) f32 and the FiLM (N, C) f32 (or both None), on
     x's device (ops/fused_conv.py checks them). Counts its launches as
-    `fused_group_norm` does. The plain version is
+    `fused_group_norm` does, and those with a FiLM in `by_film_shape`. The plain version is
     `ops.fused_conv.gn_affine_vectors`."""
     if x.device.type != "cuda":
         raise RuntimeError(f"group_norm_affine_cuda: no kernel for device {x.device}")
@@ -430,10 +430,14 @@ def group_norm_affine_cuda(x, gn_scale, gn_bias, num_groups=32, eps=1e-5, film_s
     )
     cuda_lib.check(err, "group_norm_affine_cuda")
     _count(group_norm_affine_cuda, plan.route, tuple(x.shape))
+    if film_scale is not None:
+        with cuda_lib.COUNT_LOCK:
+            group_norm_affine_cuda.by_film_shape[tuple(x.shape)] += 1
     return a, b
 
 
 _counters(group_norm_affine_cuda)
+group_norm_affine_cuda.by_film_shape = collections.Counter()  # the launches with a FiLM
 
 # The LayerNorm kernel's limits (csrc/norms.cu): threads a block, 16-byte
 # vectors a lane holds.

@@ -88,11 +88,14 @@ class _Tower(nn.Module):
         self.ln_post = LayerNorm(cfg.width)
         self.proj = nn.Parameter(torch.empty(cfg.width, cfg.output_dim))
 
-    def _encode(self, x):
-        """(B, 1 + N, width) tokens, class token first -> (B, output_dim)."""
+    def _encode(self, x, return_tokens: bool = False):
+        """(B, 1 + N, width) tokens, class token first -> (B, output_dim), or
+        with `return_tokens` the blocks' (B, 1 + N, width) output."""
         x = self.ln_pre(x)
         for block in self.transformer.resblocks:
             x = block(x)
+        if return_tokens:
+            return x
         x = self.ln_post(x[:, 0])
         return x @ self.proj.to(x.dtype)
 
@@ -103,13 +106,17 @@ class VisionTransformer(_Tower):
         p = cfg.patch_size
         self.conv1 = nn.Conv2d(3, cfg.width, p, stride=p, bias=False)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """(B, H, W, 3) normalised images -> (B, output_dim) features."""
+    def forward(self, x: torch.Tensor, return_tokens: bool = False) -> torch.Tensor:
+        """(B, H, W, 3) normalised images -> (B, output_dim) features; with
+        `return_tokens` the (B, 1 + N, width) tokens after the last block,
+        without ln_post or the projection (the reference's
+        FrozenOpenCLIPImageEmbedderV2 token path, the finegrained Resampler's
+        input; JAX vit.py:153-190)."""
         dtype = compute_dtype(self)
         x = self.conv1(x.permute(0, 3, 1, 2).to(dtype)).flatten(2).transpose(1, 2)  # (B, N, W)
         cls = self.class_embedding.to(dtype).expand(x.shape[0], 1, -1)
         x = torch.cat([cls, x], dim=1) + self.positional_embedding.to(dtype)
-        return self._encode(x)
+        return self._encode(x, return_tokens)
 
 
 class VideoVisionTransformer(_Tower):

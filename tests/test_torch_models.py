@@ -69,8 +69,8 @@ class TestUNet:
         w = rng.randn(2, 8).astype(np.float32)
         ts = np.array([999, 279])
         fps = np.array([16.0, 8.0], np.float32)
-        ref = junet.apply(params, jnp.asarray(x), jnp.asarray(ts), jnp.asarray(ctx),
-                          fps=jnp.asarray(fps), timestep_cond=jnp.asarray(w))
+        ref = jax.jit(junet.apply)(params, jnp.asarray(x), jnp.asarray(ts), jnp.asarray(ctx),
+                                   fps=jnp.asarray(fps), timestep_cond=jnp.asarray(w))
         with torch.no_grad():
             got = port(torch.from_numpy(x), torch.from_numpy(ts), torch.from_numpy(ctx),
                        fps=torch.from_numpy(fps), timestep_cond=torch.from_numpy(w))
@@ -127,7 +127,7 @@ class TestVAE:
     def test_decode_matches_jax(self, vae_pair):
         port, jvae, params = vae_pair
         z = np.random.RandomState(6).randn(3, 8, 8, 4).astype(np.float32)
-        ref = jvae.apply(params, jnp.asarray(z), method=jvae.decode)
+        ref = jax.jit(lambda p, z: jvae.apply(p, z, method=jvae.decode))(params, jnp.asarray(z))
         with torch.no_grad():
             got = port.decode(torch.from_numpy(z))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=3e-4)
@@ -135,7 +135,7 @@ class TestVAE:
     def test_encode_matches_jax(self, vae_pair):
         port, jvae, params = vae_pair
         x = np.random.RandomState(7).randn(2, 16, 16, 3).astype(np.float32)
-        ref = jvae.apply(params, jnp.asarray(x), method=jvae.encode)
+        ref = jax.jit(lambda p, x: jvae.apply(p, x, method=jvae.encode))(params, jnp.asarray(x))
         with torch.no_grad():
             got = port.encode(torch.from_numpy(x))
         for g, r in zip(got, ref):
@@ -181,7 +181,7 @@ class TestTextTower:
         port.load_state_dict(sd, strict=True)
         tokens = np.random.RandomState(9).randint(0, 50, (2, 8)).astype(np.int32)
         jt = JText(cfg=JTextConfig(**TINY_TEXT_KW))
-        ref = jt.apply({"params": params}, jnp.asarray(tokens))
+        ref = jax.jit(jt.apply)({"params": params}, jnp.asarray(tokens))
         with torch.no_grad():
             got = port.eval()(torch.from_numpy(tokens))
         np.testing.assert_allclose(got.numpy(), np.asarray(ref), atol=1e-4)

@@ -1,8 +1,10 @@
 """MotionClone motion transfer and the DDIM inversion round trip in the port
 (pipelines/motion_clone.py, apps/motion_sample.py, apps/inverse_ddim.py)
-against the JAX package's, on the CPU, in f32, on shared weights: the tiny
-teacher UNet of the JAX CLIs (tests/test_preprocess_motionclone.py's) with
-seeded numpy weights, converted by the JAX importer.
+against the JAX package's, on the CPU, in f32, on shared weights, seeded
+from numpy and converted by the JAX importer: the transfer on a one-level
+cut of the CLIs' tiny teacher UNet (tests/test_preprocess_motionclone.py's;
+one level keeps both output blocks' captured temporal attentions and halves
+the JAX compile of the guided step), the CLIs on their own tiny UNet.
 
 - motion_transfer_sample on a 10-point grid at percentage 0.3 (guided
   indices 9, 8, 7), with a reward gradient at reward_scale 0.5: the guided
@@ -21,6 +23,8 @@ seeded numpy weights, converted by the JAX importer.
 One JAX compile of each program (the guided and the plain step, the
 inversion's resampling scan).
 """
+
+import dataclasses
 
 import jax.numpy as jnp
 import numpy as np
@@ -50,7 +54,7 @@ def _jax_cfg(cfg):
 
 @pytest.fixture(scope="module")
 def teacher():
-    cfg = motion_sample.tiny_unet_config()
+    cfg = dataclasses.replace(motion_sample.tiny_unet_config(), channel_mult=(1,), attention_resolutions=(1,))
     port = UNetModel(cfg)
     sd = seeded_numpy_state_dict(port, 70)
     port.load_state_dict(to_torch(sd), strict=True)

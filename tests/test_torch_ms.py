@@ -86,9 +86,9 @@ def test_ms_unet_matches_jax_on_shared_weights():
     rng = np.random.RandomState(121)
     x, ctx, w = rng.randn(2, 4, 8, 8, 4), rng.randn(2, 7, 24), rng.randn(2, 8)
     ts = np.array([17, 903])
-    want = JMSUNet(cfg=JMSConfig(**TINY)).apply({"params": ti.import_ms_unet_params(sd, **LEVELS)},
-                                                *(jnp.asarray(a, jnp.float32) for a in (x, ts, ctx)),
-                                                timestep_cond=jnp.asarray(w, jnp.float32))
+    want = jax.jit(JMSUNet(cfg=JMSConfig(**TINY)).apply)(
+        {"params": ti.import_ms_unet_params(sd, **LEVELS)}, *(jnp.asarray(a, jnp.float32) for a in (x, ts, ctx)),
+        timestep_cond=jnp.asarray(w, jnp.float32))
     with torch.no_grad():
         got = model(*(torch.tensor(a, dtype=torch.float32) for a in (x, ts, ctx)),
                     timestep_cond=torch.tensor(w, dtype=torch.float32))
@@ -139,7 +139,8 @@ def test_hf_text_tower_matches_jax(act):
     params, kw = ti.import_hf_clip_text_model_params({k: v.numpy() for k, v in sd.items()},
                                                      quick_gelu=act == "quick_gelu")
     tokens = np.random.RandomState(123).randint(0, 64, size=(2, 16))
-    want = JText(cfg=JTextConfig(**dict(kw, heads=2))).apply({"params": params}, jnp.asarray(tokens, jnp.int32))
+    want = jax.jit(JText(cfg=JTextConfig(**dict(kw, heads=2))).apply)({"params": params},
+                                                                       jnp.asarray(tokens, jnp.int32))
     with torch.no_grad():
         got = tower(torch.from_numpy(tokens))
         ref = hf(input_ids=torch.from_numpy(tokens)).last_hidden_state
