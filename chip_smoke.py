@@ -274,6 +274,30 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 has such a check, the route, two launches with equal bits);
                 B1 at 4, 16 and 200 keys and B7 / B4's statistics with the
                 FiLM are recorded under their own names.
+ 21. sharded sampling: data- and sequence-parallel VC2 sampling at full
+                width (16x320x512, seeded weights, generate's seed 0). This
+                process computes the single-rank references (one f32 UNet
+                pass with TF32 off; the bf16 4-step video of one prompt and
+                of two, timed) and joins a world of one rank over NCCL (one
+                all_reduce; the pipeline over that mesh equals the
+                pipeline without one, video and launches by kernel, route
+                and shape). Then 2 ranks spawned on the one card
+                (torch.multiprocessing, spawn) over gloo with
+                share_device=True (NCCL refuses two ranks on one device;
+                gloo stages every collective through host memory): the f32
+                UNet pass at (data, seq) = (1, 2) within 2e-4 of one
+                process; the bf16 videos at (1, 2) (one prompt) and (2, 1)
+                (two prompts), mean|d| <= 1e-2 against one rank; one
+                `serve --seq-shards 2` request answered by rank 0, equal to
+                the (1, 2) video to the bit. Each rank's launches of a
+                timed video by kernel and shape equal `sharded_path_shapes`'
+                dry run, on the paths' routes (B4's partials and apply, B7
+                on given (a, b) at T / seq + 1 frames, B8 bulk at B*H*W / 2
+                rows); s/video of (1, 1), (1, 2), (2, 1) and rank 0's
+                collectives (calls, transport s, staged MiB) beside the
+                card's name and power limit. Phase 3 holds every shape of
+                that dry run (`_sharded_cases`: the four sequence-parallel
+                entries recorded at each level, the rest checked).
 `python3 chip_smoke.py --phases "v2 generation,v2 preprocess"` runs only the
 named phases (after device and build), for development; with no argument
 every phase runs.
@@ -284,6 +308,7 @@ written to chiprun_out/chip_smoke.log.
 
 from __future__ import annotations
 
+import functools
 import json
 import os
 from math import prod
@@ -360,7 +385,17 @@ KERNELS = {
                               "t2v_turbo_tpu/ops/attention.py:257"),
     "fused_gn_silu_conv_film": ("t2v_turbo_tpu_torch/csrc/fused_conv.cu", "t2v_turbo_tpu/ops/fused_conv.py:71"),
     "group_norm_stats_film": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
+    # sequence-parallel sampling (phase 21): B4's split route's two halves as
+    # entries (a seq rank's chunk partials; the apply, and B7's (a, b), from
+    # every rank's partials with their counts) and B7 on given (a, b) over
+    # the halo-extended clip; their launches are phase 21's ranks'
+    "group_norm_partials": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
+    "group_norm_from_partials": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
+    "group_norm_affine_from_partials": ("t2v_turbo_tpu_torch/csrc/norms.cu", "t2v_turbo_tpu/ops/fused_norms.py:90"),
+    "fused_gn_silu_conv_ab": ("t2v_turbo_tpu_torch/csrc/fused_conv.cu", "t2v_turbo_tpu/ops/fused_conv.py:71"),
 }
+SEQ_KERNELS = ("group_norm_partials", "group_norm_from_partials", "group_norm_affine_from_partials",
+               "fused_gn_silu_conv_ab")
 # (record, wrapper name): the packed records count their wrapper's launches
 # on the packed route
 PACKED_RECORDS = (("flash_attention_bwd_dkv_packed", "flash_attention_bwd_dkv"),
@@ -391,7 +426,10 @@ def wrappers():
             "group_norm": N.fused_group_norm, "group_norm_stats": N.group_norm_affine_cuda,
             "layer_norm": N.fused_layer_norm,
             "fused_gn_silu_conv": FC.fused_gn_silu_conv, "small_seq_attention": A.small_seq_attention,
-            "pack_bshd": A.pack_bshd}
+            "pack_bshd": A.pack_bshd, "group_norm_partials": N.group_norm_partials,
+            "group_norm_from_partials": N.group_norm_from_partials,
+            "group_norm_affine_from_partials": N.group_norm_affine_from_partials,
+            "fused_gn_silu_conv_ab": FC.fused_gn_silu_conv_ab}
 
 
 def reset_launches():
@@ -1289,7 +1327,9 @@ def _kernel_cases():
         case["kernel"] += " (48 frames)"
     table = (serving + train + fwd_path + b7_unet + norms + b8_more + b6 + packed + encoder_gn + towers + full_model
             + ms + f48)
-    return table + _lvdm_cases(table, attn, flash, conv, gn, gn_stats, ln, small_seq, why_short, why_round)
+    table += _lvdm_cases(table, attn, flash, conv, gn, gn_stats, ln, small_seq, why_short, why_round)
+    return table + _sharded_cases(table, attn, flash, conv, gn, gn_stats, ln, small_seq, norm_inputs, unfused,
+                                  why_round)
 
 
 # B1's records at the image-conditioned UNet's new key lengths
@@ -1844,6 +1884,11 @@ def phase_main_path(records):
     check_conv_routes("main path", len(PROMPTS) * 4)
     check_norm_routes("main path", len(PROMPTS), "video")
     check_small_seq("main path", len(PROMPTS) * 4, "UNet pass")
+    seq = {n: c for n, c in read_launches().items() if n in SEQ_KERNELS}
+    log(f"main path: sequence-parallel entries' launches {seq} (none without a mesh) "
+        f"{'OK' if not any(seq.values()) else 'FAIL'}")
+    if any(seq.values()):
+        raise AssertionError(f"main path: the single-device path launched sequence-parallel entries {seq}")
     for name, n in launches.items():
         records[name]["launches"] = n
         if n <= 0:
@@ -3120,12 +3165,13 @@ MS_KERNELS = ("flash_attention", "small_seq_attention", "fused_gn_silu_conv", "g
               "layer_norm")
 
 
-def _dry_run_shapes(parts):
+def _dry_run_shapes(parts, patches=()):
     """{part: {kernel: Counter(shape)}} of the kernel launches, keyed as each
     wrapper's `by_shape` counts them, of each (part, fn) in `parts`, run on
     the meta device with the models' kernel entry points replaced by
     recorders that take the dispatch's own decisions (`sdpa`'s short-sequence
-    gate, the fused conv's statistics launch)."""
+    gate, the fused conv's statistics launch, the partials' plan); `patches`:
+    more (module, name, function) replacements for the run."""
     import collections
 
     import torch
@@ -3161,8 +3207,30 @@ def _dry_run_shapes(parts):
             counts["group_norm_stats film"][tuple(x.shape)] += 1
         return FC.fused_gn_silu_conv_plain(x, gs, gb, w, b, g, eps, *film)
 
+    def partials(x, g=32):
+        counts["group_norm_partials"][tuple(x.shape)] += 1
+        n, c = x.shape[:2]
+        k = N.partials_plan(n, c, g, prod(x.shape[2:]), x.dtype).k
+        return x.new_empty((n * g, k, 2), dtype=torch.float32), x.new_empty((k,), dtype=torch.int32)
+
+    def from_partials(x, parts, cnt, w, b, g=32, eps=1e-5, act=None):
+        counts["group_norm_from_partials"][tuple(x.shape)] += 1
+        return torch.empty_like(x)
+
+    def affine_from_partials(parts, cnt, w, b, g=32, eps=1e-5, *film):
+        n, c = parts.shape[0] // g, w.shape[0]
+        counts["group_norm_affine_from_partials"][(n, c, parts.shape[1])] += 1
+        return (parts.new_empty((n, c)), parts.new_empty((n, c)))
+
+    def conv_ab(x, a, b, w, bias=None):
+        counts["fused_gn_silu_conv_ab"][tuple(x.shape) + (w.shape[0],) + tuple(w.shape[2:])] += 1
+        return x.new_empty((x.shape[0], w.shape[0], *x.shape[2:]))
+
     patched = [(layers, "sdpa", sdpa), (vae_module, "sdpa", sdpa), (layers, "group_norm", group_norm),
-               (layers, "layer_norm", layer_norm), (layers, "fused_gn_silu_conv", conv)]
+               (layers, "layer_norm", layer_norm), (layers, "fused_gn_silu_conv", conv),
+               (layers, "group_norm_partials", partials), (layers, "group_norm_from_partials", from_partials),
+               (layers, "group_norm_affine_from_partials", affine_from_partials),
+               (layers, "fused_gn_silu_conv_ab", conv_ab)] + list(patches)
     saved = [(m, n, getattr(m, n)) for m, n, _ in patched]
     out = {}
     try:
@@ -4034,6 +4102,531 @@ def _train_v2_text(latent_glob, batch):
 
 
 
+SHARDED = "sharded sampling"
+SHARD_SEED = 2100  # the generator seed of the phase's videos (every rank's and the reference's)
+SHARD_CONFIGS = ((1, 2), (2, 1))  # (data, seq) of the bf16 videos: one prompt over seq, two over data
+SHARD_CHECKED = ("flash_attention", "small_seq_attention", "fused_gn_silu_conv", "group_norm", "group_norm_stats",
+                 "layer_norm") + SEQ_KERNELS
+
+
+@functools.lru_cache(maxsize=1)
+def sharded_path_shapes():
+    """{(data, seq, rank): {part: {kernel: Counter(shape)}}}: `_dry_run_shapes`
+    of each rank of phase 21's bf16 runs (SHARD_CONFIGS; 16x320x512): one
+    UNet pass on the rank's (B / data, T / seq) block with the seq group a
+    stand-in and the collectives replaced by shape-only versions, the
+    decode of its share of the frames and the text encode of every prompt.
+    Phase 3 holds every shape; phase 21 expects exactly these launches."""
+    import torch
+
+    from t2v_turbo_tpu_torch.config import vc2_spec
+    from t2v_turbo_tpu_torch.models import AutoencoderKL, CLIPTextModel, UNetModel
+    from t2v_turbo_tpu_torch.parallel import collectives as C
+    from t2v_turbo_tpu_torch.parallel.mesh import AxisGroup
+    from t2v_turbo_tpu_torch.pipelines.vc2 import frame_split
+
+    def halo(x, group, dim):
+        lo, hi = C.halo_sides(group)
+        edge = x.narrow(dim, 0, 1)
+        return torch.cat([edge] * lo + [x] + [edge] * hi, dim)
+
+    def gather(parts, counts, group):
+        return parts.repeat(1, group.size, 1), counts.repeat(group.size)
+
+    def to_space(x, group):
+        b, c, t, s = x.shape
+        return x.new_empty((b, c, t * group.size, s // group.size))
+
+    def to_seq(x, group):
+        b, c, t, s = x.shape
+        return x.new_empty((b, c, t // group.size, s * group.size))
+
+    patches = [(C, "halo_exchange", halo), (C, "gather_partials", gather), (C, "seq_to_space", to_space),
+               (C, "space_to_seq", to_seq)]
+    spec = vc2_spec()
+    out = {}
+    for data, seq in SHARD_CONFIGS:
+        prompts = data  # one prompt a data rank
+        for rank in range(data * seq):
+            def unet(index=rank % seq):
+                model = UNetModel(spec.unet).to(torch.bfloat16)
+                model.set_seq_group(AxisGroup("seq", seq, index, tuple(range(seq)), None, "gloo"))  # no group
+                b = prompts // data
+                model(torch.zeros(b, 16 // seq, 40, 64, 4), torch.zeros(b, dtype=torch.long),
+                      torch.zeros(b, 77, 1024), fps=torch.full((b,), 16.0), timestep_cond=torch.zeros(b, 256))
+            frames = frame_split(prompts * 16, data * seq)[rank]
+            out[(data, seq, rank)] = _dry_run_shapes([
+                ("unet", unet),
+                ("vae", lambda n=frames: AutoencoderKL(spec.vae).to(torch.bfloat16).decode(torch.zeros(n, 40, 64, 4))),
+                ("text", lambda: CLIPTextModel(spec.text).to(torch.bfloat16)(
+                    torch.zeros(prompts, 77, dtype=torch.long))),
+            ], patches)
+    return out
+
+
+def _sharded_cases(cases_before, attn, flash, conv, gn, gn_stats, ln, small_seq, norm_inputs, unfused, why_round):
+    """Phase 3's cases for phase 21 (sequence- and data-parallel sampling):
+    every (kernel, shape) of `sharded_path_shapes` must be held by a case,
+    or fails. The sequence-parallel entries at every shape of the path,
+    recorded under their own names (level 0 first, whose times the record
+    keeps), each held to its plain twin on its route and launched twice
+    with equal bits: B4's partials (`group_norm_partials`) of a rank's clip
+    shard, B4's apply from two ranks' partials with their counts
+    (`group_norm_from_partials`), B7's (a, b) from them
+    (`group_norm_affine_from_partials`), B7 on given (a, b) over the clip
+    extended by its halo frames (`fused_gn_silu_conv_ab`, T / seq + 1 frames
+    at seq 2); and, checked only as "<kernel> (sharded)", the path's other
+    shapes that no earlier case holds (B8 at B*H*W / seq rows, the per-frame
+    kernels at T / seq frames, the decode of a rank's share, the text
+    tower at two prompts)."""
+    import collections
+
+    import torch
+    import torch.nn.functional as F
+
+    from t2v_turbo_tpu_torch.ops import fused_conv as FC
+    from t2v_turbo_tpu_torch.ops import norms as N
+
+    bf = torch.bfloat16
+    shapes = collections.defaultdict(set)
+    for runs in sharded_path_shapes().values():
+        for part in runs.values():
+            for k, c in part.items():
+                shapes[k] |= set(c)
+    held = {key for case in cases_before for key in case.get("holds", ())}
+
+    def with_parts(shape, c):
+        """x (a rank's clip shard), w, b, and the partials of x and of a
+        second rank's shard with their counts, gathered in rank order."""
+        base = norm_inputs(shape, c, bf)
+
+        def make():
+            x, w, b = base()
+            g = torch.Generator("cuda").manual_seed(c + 1)
+            other = (3.0 * torch.randn(shape, generator=g, device="cuda") + 1.0).to(bf)
+            halves = [N.group_norm_partials_plain(t, 32) for t in (x, other)]
+            return [x, w, b, torch.cat([p for p, _ in halves], 1).contiguous(), torch.cat([n for _, n in halves])]
+        return make
+
+    def partials(shape):
+        plan = N.partials_plan(shape[0], shape[1], 32, prod(shape[2:]), bf)
+        return dict(kernel="group_norm_partials", label=f"seq rank's clip {shape} bf16 [split, {plan.k} chunks of "
+                    f"{plan.chunk}]", make=norm_inputs(shape, shape[1], bf),
+                    fn=lambda x, w, b: N.group_norm_partials(x, 32),
+                    plain=lambda x, w, b: N.group_norm_partials_plain(x, 32), outputs=("parts", "counts"),
+                    tols=[_elementwise(1e-3, 1e-4), _elementwise(0.0, 0.0)], iters=20, graph=True,
+                    why="f32 sums (and sums of squares about the chunk's mean) of up to 8192 bf16 values in another "
+                        "order; the counts exact", route=(N.group_norm_partials, "split"),
+                    library=lambda x, w, b: {"F.group_norm": lambda: F.group_norm(x, 32, w.to(bf), b.to(bf), 1e-6)},
+                    bound=lambda x, *_: bound_ms(3 * x.numel(), x.numel() * x.element_size(), "float32"),
+                    holds=[("group_norm_partials", shape)])
+
+    def apply(shape):
+        return dict(kernel="group_norm_from_partials", label=f"seq rank's clip {shape} bf16, 2 ranks' partials "
+                    "[split]", make=with_parts(shape, shape[1]),
+                    fn=lambda x, w, b, p, n: N.group_norm_from_partials(x, p, n, w, b, 32, 1e-6),
+                    plain=lambda x, w, b, p, n: N.group_norm_from_partials_plain(x, p, n, w, b, 32, 1e-6),
+                    outputs=("y",), tols=[_elementwise(1e-2, 1e-2)], iters=20, graph=True,
+                    why="bf16 output; f32 statistics combined in another order can move a value by one bf16 ulp",
+                    route=(N.group_norm_from_partials, "split"),
+                    library=lambda x, w, b, *_: {"F.group_norm": lambda: F.group_norm(x, 32, w.to(bf), b.to(bf), 1e-6)},
+                    bound=lambda x, *_: norm_bound(x, shape[1], 10), holds=[("group_norm_from_partials", shape)])
+
+    def affine(key, shape):
+        return dict(kernel="group_norm_affine_from_partials", label=f"(a, b) of {key[0]}x{key[1]} from {key[2]} "
+                    f"partials (2 ranks of {shape}) [warp]", make=with_parts(shape, shape[1]),
+                    fn=lambda x, w, b, p, n: N.group_norm_affine_from_partials(p, n, w, b, 32, 1e-5),
+                    plain=lambda x, w, b, p, n: N.group_norm_affine_from_partials_plain(p, n, w, b, 32, 1e-5),
+                    outputs=("a", "b"), tols=2 * [_elementwise(1e-5, 1e-5)], iters=20, graph=True,
+                    why="f32 (N, C) vectors; the partials combined in another order",
+                    route=(N.group_norm_affine_from_partials, "warp"), library=lambda *_: {},
+                    bound=lambda x, w, b, p, n: bound_ms(
+                        10 * p.numel(), p.numel() * 4 + 8 * key[0] * key[1] + 8 * key[1], "float32"),
+                    holds=[("group_norm_affine_from_partials", key)])
+
+    def conv_ab(shape):
+        n, c, hh, ww, o, kh, kw = shape
+        plan = FC.conv_plan(*shape, bf)
+
+        def make():  # B7's inputs, the statistics folded into (a, b)
+            g = torch.Generator("cuda").manual_seed(c + o + hh)
+            x = (2.0 * torch.randn((n, c, hh, ww), generator=g, device="cuda") + 0.5).to(bf)
+            gs = 1.0 + 0.1 * torch.randn(c, generator=g, device="cuda")
+            gb = 0.1 * torch.randn(c, generator=g, device="cuda")
+            a, b = FC.gn_affine_vectors(x, gs, gb, 32, 1e-5)
+            w = (torch.randn((o, c, kh, kw), generator=g, device="cuda") / (c * kh * kw) ** 0.5).to(bf)
+            return [x, a, b, w, (0.1 * torch.randn(o, generator=g, device="cuda")).to(bf)]
+
+        def library(x, a, b, w, bias):
+            return {"x*a+b, F.silu, F.conv2d": lambda: F.conv2d(F.silu(x * a[:, :, None, None].to(bf)
+                                                                    + b[:, :, None, None].to(bf)), w, bias,
+                                                                    padding=(1, 0))}
+        return dict(kernel="fused_gn_silu_conv_ab", label=f"halo-extended clip {c}->{o} ({kh},{kw}) {shape[:4]} bf16 "
+                    f"[{plan.tw}x{plan.tr} tiles, {plan.splits} split(s), {prod(plan.grid)} blocks]", make=make,
+                    fn=FC.fused_gn_silu_conv_ab, plain=FC.fused_gn_silu_conv_ab_plain, outputs=("y",),
+                    tols=[_elementwise(2e-2, 2e-2)], iters=10,
+                    why="bf16 output; both round silu(x*a+b) to bf16 (an activation may land one ulp apart) and the "
+                        "kernel sums the C*kh*kw products in another order",
+                    route=(FC.fused_gn_silu_conv_ab, plan.route), library=library,
+                    bound=lambda x, a, b, w, bias: conv_bound(x, w, o), holds=[("fused_gn_silu_conv_ab", shape)])
+
+    cases = []
+    by_size = lambda s: (-prod(s[2:]), s)  # noqa: E731  (level 0 first: the record keeps its times)
+    clips = sorted(shapes["group_norm_partials"], key=by_size)
+    cases += [partials(s) for s in clips] + [apply(s) for s in sorted(shapes["group_norm_from_partials"], key=by_size)]
+    for key in sorted(shapes["group_norm_affine_from_partials"], key=lambda k: (k[1], -k[2])):  # level 0 first
+        clip = next(s for s in clips if s[:2] == key[:2] and 2 * N.partials_plan(
+            s[0], s[1], 32, prod(s[2:]), bf).k == key[2])
+        cases.append(affine(key, clip))
+    cases += [conv_ab(s) for s in sorted(shapes["fused_gn_silu_conv_ab"], key=lambda s: (-s[2] * s[3], s))]
+    held |= {key for case in cases for key in case["holds"]}
+    others = {  # a checked-only case for a shape of the family
+        "group_norm": lambda s: gn(f"sharded GN+SiLU {s} bf16", s, s[1], 1e-6, 3),
+        "group_norm_stats": lambda s: gn_stats(f"B7 statistics, sharded {s} bf16", s, s[1], False, iters=3),
+        "layer_norm": lambda s: ln(f"sharded LN {s} bf16", s, s[1], bf, 1e-2, "bf16 output; f32 statistics summed "
+                                   "in another order can move a value by one bf16 ulp"),
+        "fused_gn_silu_conv": lambda s: conv(f"sharded {s[1]}->{s[4]} ({s[5]},{s[6]}) {s[:4]} bf16", s, iters=3,
+                                             f64=False),
+        "small_seq_attention": lambda s: small_seq(f"sharded ({s[0]},{s[1]},{s[2]},64) bf16",
+                                                   attn(s[0], s[1], s[2], 64, bf), s, iters=3),
+        "flash_attention": lambda s: flash(f"sharded {s} bf16", attn(s[0], s[2], s[1], s[4], bf, sk=s[3]), 2e-2, 2e-2,
+                                           3, why_round, f64=False),
+    }
+    for family, make in others.items():
+        for shape in sorted(s for s in shapes[family] if (family, s) not in held):
+            cases.append(make(shape))
+            cases[-1]["kernel"] = f"{family} (sharded)"
+            held |= set(cases[-1]["holds"])
+    for case in cases:
+        case["twice"] = True
+    missing = sorted((k, s) for k, ss in shapes.items() for s in ss if (k, s) not in held)
+    if missing:
+        raise AssertionError(f"phase 3 holds no case for these launches of the sharded sampling phase: {missing}")
+    return cases
+
+
+def _sharded_rank(rank, world, port, work, queue):
+    """One rank of phase 21 (a spawned process): joins a gloo world on the
+    one card, runs the f32 UNet pass at (1, 2), the bf16 videos at (1, 2)
+    and (2, 1), the served request at (1, 2), and puts its counters (or its
+    traceback) on `queue`."""
+    try:
+        queue.put((rank, True, _sharded_rank_work(rank, world, port, work)))
+    except BaseException:  # report to the parent, which fails the phase
+        queue.put((rank, False, traceback.format_exc()))
+        raise
+
+
+def _sharded_rank_work(rank, world, port, work):
+    import dataclasses
+    import threading
+
+    import numpy as np
+    import torch
+
+    sys.path.insert(0, HERE)
+    from t2v_turbo_tpu_torch.apps import generate, serve
+    from t2v_turbo_tpu_torch.config import vc2_spec
+    from t2v_turbo_tpu_torch.models import UNetModel, seeded_init_
+    from t2v_turbo_tpu_torch.parallel import collectives, multihost
+    from t2v_turbo_tpu_torch.parallel.mesh import make_mesh, shard
+
+    device = multihost.initialize(f"localhost:{port}", world, rank, backend="gloo", share_device=True, timeout_s=300)
+    out = {"device": str(device)}
+    try:
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        seq_mesh = make_mesh(data=1, seq=2, device=device)
+        data_mesh = make_mesh(data=2, seq=1, device=device)
+        # (a) one f32 UNet pass on this rank's 8 frames
+        x = torch.load(os.path.join(work, "unet_inputs.pt"))
+        with torch.device(device):
+            unet = UNetModel(vc2_spec().unet)
+        seeded_init_(unet, 0)  # generate --random-weights --seed 0's UNet, in f32
+        unet.eval().requires_grad_(False).set_seq_group(seq_mesh.axis("seq"))
+        with torch.no_grad():
+            y = unet(shard(seq_mesh, x["lat"], ("data", "seq")), x["t"].to(device), x["ctx"].to(device),
+                     fps=x["fps"].to(device), timestep_cond=x["w_emb"].to(device))
+        torch.save(y.cpu(), os.path.join(work, f"unet_f32_{rank}.pt"))
+        del unet, y
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = True
+        out["peak_f32_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        torch.cuda.reset_peak_memory_stats()
+        # (b) the bf16 4-step videos
+        args = generate.parse_args(["--prompt", PROMPTS[0], "--random-weights", "--seed", "0", "--device", "cuda"])
+        pipe = generate.build_pipeline(args, mesh=seq_mesh)
+        runs = {(1, 2): (pipe, PROMPTS[0]), (2, 1): (dataclasses.replace(pipe, mesh=data_mesh), list(PROMPTS[:2]))}
+        for (data, seq), (p, prompt) in runs.items():
+            p.unet.set_seq_group(p.mesh.axis("seq"))
+            walls = []
+            for i in range(2):  # a warm-up call, then the timed one with its counters
+                reset_launches()
+                collectives.reset_counters()
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                video = p(prompt=prompt, generator=torch.Generator(device=device).manual_seed(SHARD_SEED))
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            out[(data, seq)] = {"s_video": walls, "launches": launch_snapshot(),
+                                "collectives": collectives.read_counters()}
+            if rank == 0:
+                np.save(os.path.join(work, f"video_{data}x{seq}.npy"), video.float().cpu().numpy())
+            elif video is not None:
+                raise AssertionError(f"rank {rank} returned a video")
+        pipe.unet.set_seq_group(seq_mesh.axis("seq"))
+        out["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30  # the bf16 runs: its own weights and 8 frames
+        # (c) serve --seq-shards 2: rank 0 answers a POST, rank 1 follows
+        sargs = serve.parse_args(["--random-weights", "--device", "cuda", "--seq-shards", "2", "--port", "0",
+                                  "--output-dir", os.path.join(work, "served")])
+        if rank == 0:
+            srv = serve.make_server(pipe, sargs)
+            threading.Thread(target=srv.serve_forever, daemon=True).start()
+            try:
+                code, answer = _http(f"http://127.0.0.1:{srv.server_address[1]}", "/generate",
+                                     {"prompt": PROMPTS[0], "seed": SHARD_SEED})
+            finally:
+                srv.shutdown()
+                serve.stop(srv)
+                srv.server_close()
+            out["served"] = (code, answer)
+        else:
+            serve.follow(pipe)
+            out["served"] = "followed"
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def _nccl_world_of_one(pipe):
+    """A world of one rank over NCCL on the card (initialize's CUDA path, one
+    collective), and the pipeline over its mesh: the single-device path,
+    its video and its launches by kernel, route and shape equal to the
+    pipeline's without a mesh."""
+    import dataclasses
+
+    import torch
+    import torch.distributed as dist
+
+    from t2v_turbo_tpu_torch.parallel import multihost
+    from t2v_turbo_tpu_torch.parallel.mesh import make_mesh
+
+    def video(p):
+        reset_launches()
+        v = p(prompt=PROMPTS[0], generator=torch.Generator(device="cuda").manual_seed(SHARD_SEED))
+        return v, launch_snapshot()
+
+    plain, snap = video(pipe)
+    t0 = time.perf_counter()
+    device = multihost.initialize(f"localhost:{_free_port()}", 1, 0, timeout_s=120)
+    try:
+        one = torch.ones(4, device=device)
+        dist.all_reduce(one)
+        backend = dist.get_backend()
+        got, got_snap = video(dataclasses.replace(pipe, mesh=make_mesh(device=device)))
+    finally:
+        multihost.shutdown()
+        pipe.unet.set_seq_group(None)
+    same = torch.equal(got, plain) and got_snap == snap
+    log(f"{SHARDED}: a world of one rank on {device} over {backend} ({time.perf_counter() - t0:.1f} s, all_reduce "
+        f"{one.tolist()}): its video and its launches by kernel, route and shape equal the pipeline's without a mesh "
+        f"{'OK' if same and backend == 'nccl' and one.tolist() == [1.0] * 4 else 'FAIL'}")
+    if not same or backend != "nccl":
+        diff = {n: (got_snap[n], snap[n]) for n in snap if got_snap[n] != snap[n]}
+        raise AssertionError(f"{SHARDED}: the world of one differs: video equal {torch.equal(got, plain)}, {diff}")
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def phase_sharded(records):
+    """Data- and sequence-parallel VC2 sampling at full width on two ranks
+    that share the one card (gloo: NCCL refuses two ranks on one device;
+    the collectives stage through host memory), against the single-rank
+    run in this process."""
+    import collections
+    import shutil
+    import tempfile
+
+    import numpy as np
+    import torch
+    import torch.multiprocessing as mp
+
+    from t2v_turbo_tpu_torch.apps.generate import build_pipeline, parse_args
+    from t2v_turbo_tpu_torch.config import vc2_spec
+    from t2v_turbo_tpu_torch.diffusion import guidance_scale_embedding
+    from t2v_turbo_tpu_torch.models import UNetModel, seeded_init_
+    from t2v_turbo_tpu_torch.pipelines.vc2 import video_to_uint8
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_sharded_", dir=os.path.join(HERE, "build"))
+    try:
+        # the single-rank references: (a) one f32 UNet pass, TF32 off
+        torch.backends.cudnn.allow_tf32 = False
+        g = torch.Generator(device="cuda").manual_seed(SHARD_SEED)
+        x = {"lat": torch.randn((1, 16, 40, 64, 4), generator=g, device="cuda"),
+             "t": torch.full((1,), 500, dtype=torch.long),
+             "ctx": torch.randn((1, 77, 1024), generator=g, device="cuda"),
+             "fps": torch.full((1,), 16.0), "w_emb": guidance_scale_embedding(torch.full((1,), 7.5), 256)}
+        torch.save({k: v.cpu() for k, v in x.items()}, os.path.join(work, "unet_inputs.pt"))
+        with torch.device("cuda"):
+            unet = UNetModel(vc2_spec().unet)
+        seeded_init_(unet, 0)
+        unet.eval().requires_grad_(False)
+        with torch.no_grad():
+            ref_f32 = unet(x["lat"], x["t"].cuda(), x["ctx"], fps=x["fps"].cuda(), timestep_cond=x["w_emb"].cuda())
+        ref_f32 = ref_f32.cpu()
+        del unet, x
+        torch.cuda.empty_cache()
+        torch.backends.cudnn.allow_tf32 = True
+        # (b) the bf16 videos, (1, 1), timed as the ranks time theirs
+        pipe = build_pipeline(parse_args(["--prompt", PROMPTS[0], "--random-weights", "--seed", "0", "--device",
+                                          "cuda:0"]))
+        refs, single_s = {}, {}
+        torch.cuda.reset_peak_memory_stats()
+        with torch.no_grad():
+            for data, prompt in ((1, PROMPTS[0]), (2, list(PROMPTS[:2]))):
+                walls = []
+                for _ in range(2):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    v = pipe(prompt=prompt, generator=torch.Generator(device="cuda").manual_seed(SHARD_SEED))
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+                refs[data], single_s[data] = v.float().cpu(), walls[-1]
+            single_peak = torch.cuda.max_memory_allocated() / 2**30
+            _nccl_world_of_one(pipe)
+        del pipe, v
+        torch.cuda.empty_cache()
+
+        # the two ranks, spawned (they load the library phase 2 built)
+        log(f"{SHARDED}: spawning 2 ranks on cuda:0 over gloo with share_device=True (NCCL refuses two ranks on one "
+            "device; gloo stages every collective through host memory)")
+        ctx = mp.get_context("spawn")
+        queue = ctx.Queue()
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_sharded_rank, args=(r, 2, port, work, queue)) for r in range(2)]
+        for p in procs:
+            p.start()
+        results, deadline = {}, time.time() + 600
+        try:
+            while len(results) < 2:
+                try:
+                    rank, ok, res = queue.get(timeout=5)
+                except Exception:  # queue.Empty: check that the ranks still live
+                    if time.time() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                        raise AssertionError(f"{SHARDED}: ranks ended without a result (exit codes "
+                                             f"{[p.exitcode for p in procs]})")
+                    continue
+                if not ok:
+                    raise AssertionError(f"{SHARDED}: rank {rank} failed:\n{res}")
+                results[rank] = res
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+        log(f"{SHARDED}: both ranks done in {time.perf_counter() - t0:.1f} s (spawn, build, runs), exit codes "
+            f"{[p.exitcode for p in procs]}; max_memory_allocated a rank: the f32 UNet pass "
+            f"{[round(results[r]['peak_f32_gib'], 2) for r in (0, 1)]} GiB, the bf16 videos and the request "
+            f"{[round(results[r]['peak_gib'], 2) for r in (0, 1)]} GiB (each rank its own copy of the weights), one "
+            f"rank's two videos here {single_peak:.2f} GiB")
+        if any(p.exitcode != 0 for p in procs):
+            raise AssertionError(f"{SHARDED}: rank exit codes {[p.exitcode for p in procs]}")
+
+        # (a) the f32 UNet pass
+        got = torch.cat([torch.load(os.path.join(work, f"unet_f32_{r}.pt")) for r in (0, 1)], dim=1)
+        err = float((got - ref_f32).abs().max())
+        log(f"{SHARDED}: f32 UNet pass at (data, seq) = (1, 2) against one process: max|d| {err:.3e} (<= 2e-4, the "
+            f"North-star UNet tolerance; |ref| <= {float(ref_f32.abs().max()):.3f}) {'OK' if err <= 2e-4 else 'FAIL'}")
+        if not err <= 2e-4:
+            raise AssertionError(f"{SHARDED}: the f32 sharded UNet pass differs by {err}")
+        # (b) the bf16 videos
+        for data, seq in SHARD_CONFIGS:
+            v = torch.from_numpy(np.load(os.path.join(work, f"video_{data}x{seq}.npy")))
+            d = (v - refs[data]).abs()
+            mean, most = float(d.mean()), float(d.max())
+            log(f"{SHARDED}: bf16 4-step video at (data, seq) = ({data}, {seq}), {data} prompt(s), shape "
+                f"{tuple(v.shape)}, against one rank: mean|d| {mean:.3e} (<= 1e-2 on [-1, 1]), max|d| {most:.3e} "
+                f"{'OK' if mean <= 1e-2 and tuple(v.shape) == tuple(refs[data].shape) else 'FAIL'}")
+            if not mean <= 1e-2 or tuple(v.shape) != tuple(refs[data].shape):
+                raise AssertionError(f"{SHARDED}: the ({data}, {seq}) video differs: mean {mean}, max {most}")
+        # (c) the served request
+        code, answer = results[0]["served"]
+        served = np.load(answer["path"]) if code == 200 else None
+        want = video_to_uint8(torch.from_numpy(np.load(os.path.join(work, "video_1x2.npy"))))[0]
+        same = served is not None and np.array_equal(served, want)
+        log(f"{SHARDED}: serve --seq-shards 2: rank 0 answered {code} (latency_s {answer.get('latency_s')}, shape "
+            f"{answer.get('shape')}), rank 1 {results[1]['served']}; the video equals the (1, 2) run's to the bit "
+            f"(uint8) {'OK' if same and results[1]['served'] == 'followed' else 'FAIL'}")
+        if not same or results[1]["served"] != "followed":
+            raise AssertionError(f"{SHARDED}: serving failed: {code} {answer}")
+
+        # every rank's launches: the dry run's, on the paths' routes
+        dry = sharded_path_shapes()
+        seq_launches = collections.Counter()
+        for data, seq in SHARD_CONFIGS:
+            for r in (0, 1):
+                snap = results[r][(data, seq)]["launches"]
+                want = _want(dry[(data, seq, r)], {"unet": 4, "vae": 1, "text": 1})
+                bad = [n for n in SHARD_CHECKED
+                       if collections.Counter(snap[n][2]) != want.get(n, collections.Counter())]
+                routes = {n: snap[n][1] for n in ("flash_attention", "small_seq_attention", "fused_gn_silu_conv",
+                                                  "fused_gn_silu_conv_ab", "group_norm_partials",
+                                                  "group_norm_from_partials", "group_norm_affine_from_partials")}
+                wrong = {n: r_ for n, r_ in routes.items() if set(r_) - {"wgmma", "bulk", "split", "warp"}}
+                wrong.update({n: snap[n][1] for n in ("group_norm", "group_norm_stats")
+                              if set(snap[n][1]) - {"cta", "cluster", "split"}})
+                need = ["flash_attention", "group_norm", "layer_norm", "fused_gn_silu_conv", "small_seq_attention"]
+                if seq > 1:
+                    need += list(SEQ_KERNELS)
+                    halo = [s for s in snap["fused_gn_silu_conv_ab"][2] if s[2] != 16 // seq + 1]
+                    rows = sorted(snap["small_seq_attention"][2])
+                    log(f"{SHARDED} ({data}, {seq}) rank {r}: B7 on given (a, b) by shape "
+                        f"{dict(sorted(snap['fused_gn_silu_conv_ab'][2].items()))}; B8 by shape {rows}")
+                    if halo:
+                        raise AssertionError(f"{SHARDED}: B7 on given (a, b) at shapes without the halo: {halo}")
+                    seq_launches.update({n: snap[n][0] for n in SEQ_KERNELS})
+                missing = [n for n in need if snap[n][0] <= 0]
+                log(f"{SHARDED} ({data}, {seq}) rank {r}: launches {({n: snap[n][0] for n in SHARD_CHECKED})} by "
+                    f"route {({n: v for n, v in routes.items() if v})}; by kernel and shape equal the dry run's "
+                    f"{'OK' if not (bad or wrong or missing) else 'FAIL'}")
+                if bad or wrong or missing:
+                    raise AssertionError(f"{SHARDED}: rank {r} at ({data}, {seq}): shapes differ for {bad}, routes "
+                                         f"{wrong}, not launched {missing}")
+        for name in SEQ_KERNELS:
+            records.get(name, {})["launches"] = seq_launches[name]  # (a --phases run has no phase-3 records)
+
+        # times; the collectives of the timed runs
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60).stdout.strip()
+        line = [f"(1, 1) {single_s[1]:.3f} (one prompt), {single_s[2]:.3f} (two prompts)"]
+        for data, seq in SHARD_CONFIGS:
+            r0 = results[0][(data, seq)]
+            coll = r0["collectives"]
+            secs = sum(c["seconds"] for c in coll.values())
+            staged = sum(c["staged_bytes"] for c in coll.values())
+            calls = {n: c["calls"] for n, c in coll.items() if c["calls"]}
+            line.append(f"({data}, {seq}) {r0['s_video'][-1]:.3f}")
+            log(f"{SHARDED} ({data}, {seq}): rank 0's collectives in the timed video: {calls} calls, "
+                f"{secs:.3f} s of transport (synchronised, staged through host memory), "
+                f"{staged / 2**20:.1f} MiB staged")
+        log(f"{SHARDED}: s/video {'; '.join(line)} [{smi}]; two ranks sharing one card, over gloo with every "
+            "collective staged through host memory: not a scaling figure")
+    finally:
+        torch.backends.cudnn.allow_tf32 = True
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"{SHARDED}: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = ()
@@ -4078,6 +4671,7 @@ def main(argv=None) -> int:
         (IMG, lambda: phase_image_conditioning(records)),
         (SWITCHES, lambda: phase_unet_switches(records)),
         (XT, phase_x_transformer),
+        (SHARDED, lambda: phase_sharded(records)),
     ]
     if only:  # a development run of some phases (no argument: all of them)
         phases = [(n, f) for n, f in phases if n in ("device", "build") + only]

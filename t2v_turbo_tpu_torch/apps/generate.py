@@ -27,6 +27,16 @@ student's (diffusers keys), --lora-ckpt folds the reference's MS LoRA
 The models run in bf16 on --device (default cuda:0), where every GroupNorm
 and LayerNorm, and every attention of head dim 64 or 512 but the CLIP
 tower's causal one, run the hand-written kernels (ops/attention.py::sdpa).
+
+Sharded (VC2): one process per rank under torchrun, the batch over
+--data-shards ranks and the frames over --seq-shards (--model-shards, tensor
+parallelism, is A12b and refused); the world must hold exactly
+data * seq * model ranks, each on cuda:{LOCAL_RANK} (NCCL), and rank 0
+writes the output:
+  torchrun --nproc-per-node 2 -m t2v_turbo_tpu_torch.apps.generate --random-weights \\
+      --prompt "..." --seq-shards 2 --output out.npy
+--device cpu runs the ranks on the CPU over gloo; --multihost joins
+torchrun's world even at one shard.
 """
 
 from __future__ import annotations
@@ -67,14 +77,61 @@ def parse_args(argv=None):
     p.add_argument("--seed", type=int, default=123)
     p.add_argument("--output", default="output.mp4")
     p.add_argument("--save-fps", type=int, default=8)
-    p.add_argument("--device", default="cuda:0")
+    p.add_argument("--device", default="cuda:0",
+                   help="cuda:N or cpu; under a mesh the device type only (each rank takes cuda:{LOCAL_RANK})")
+    add_mesh_args(p)
     return p.parse_args(argv)
 
 
-def build_pipeline(args, spec=None):
+def add_mesh_args(p):
+    """The mesh flags of generate and serve."""
+    p.add_argument("--data-shards", type=int, default=1, help="mesh data axis: videos of a batch over ranks")
+    p.add_argument("--seq-shards", type=int, default=1, help="mesh seq axis: the frames of a video over ranks")
+    p.add_argument("--model-shards", type=int, default=1,
+                   help="mesh model axis (tensor parallelism): not ported yet (A12b), must be 1")
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's torch.distributed world (implied by a shard count above 1)")
+
+
+def make_cli_mesh(args):
+    """The mesh the flags ask for, or None: joins torchrun's world (unless
+    the process already joined one) and uses exactly data * seq * model
+    ranks, refusing a world of another size, as JAX's _maybe_make_mesh uses
+    exactly that many devices."""
+    import torch.distributed as dist
+
+    from ..parallel import multihost
+    from ..parallel.mesh import make_mesh
+
+    shards = (args.data_shards, args.seq_shards, args.model_shards)
+    need = shards[0] * shards[1] * shards[2]
+    if min(shards) < 1:
+        raise SystemExit(f"error: shard counts must be >= 1, got {shards}")
+    if args.model_shards > 1:
+        raise SystemExit("error: --model-shards > 1 (tensor parallelism) is not ported yet (A12b)")
+    if need == 1 and not args.multihost:
+        return None
+    if getattr(args, "backbone", "vc2") != "vc2":
+        raise SystemExit("error: sharded sampling runs the VC2 backbone only")
+    device = None
+    if not dist.is_initialized():
+        if not multihost.torchrun_env():
+            raise SystemExit(f"error: {need} shard(s) need {need} ranks: launch under torchrun --nproc-per-node "
+                             f"{need} (its MASTER_ADDR, MASTER_PORT, RANK and WORLD_SIZE are not set)")
+        device = multihost.initialize(device_type=torch.device(args.device).type)
+    if dist.get_world_size() != need:
+        raise SystemExit(f"error: --data/--seq/--model-shards {shards} need exactly {need} ranks, the world has "
+                         f"{dist.get_world_size()}")
+    return make_mesh(data=args.data_shards, seq=args.seq_shards, model=args.model_shards, device=device)
+
+
+def build_pipeline(args, spec=None, mesh=None):
     """Models, weights and tokenizer -> a ready T2VTurboVC2Pipeline (with
-    --backbone ms, `build_ms_pipeline`'s T2VTurboMSPipeline)."""
+    --backbone ms, `build_ms_pipeline`'s T2VTurboMSPipeline); with a `mesh`
+    on the mesh's device, sampling over its ranks."""
     if getattr(args, "backbone", "vc2") == "ms":
+        if mesh is not None:
+            raise ValueError("sharded sampling runs the VC2 backbone only")
         return build_ms_pipeline(args)
     from ..config import vc2_spec
     from ..io.convert import load_checkpoint, load_clip_text, split_vc2_checkpoint
@@ -85,7 +142,7 @@ def build_pipeline(args, spec=None):
     from ..utils.tokenizer import CLIPTokenizer
 
     spec = spec or vc2_spec(motion_cond=getattr(args, "use_motion_cond", False))
-    device = torch.device(args.device)
+    device = mesh.device if mesh is not None else torch.device(args.device)
     dtype = torch.bfloat16 if device.type == "cuda" else torch.float32
     with torch.device(device):
         unet = UNetModel(spec.unet)
@@ -113,7 +170,7 @@ def build_pipeline(args, spec=None):
     return T2VTurboVC2Pipeline(
         unet=unet, vae=vae, text_model=text, tokenizer=CLIPTokenizer(),
         schedule=spec.make_schedule(), device=device, scale_factor=spec.scale_factor,
-        dtype=dtype,
+        vae_scale=2 ** (len(spec.vae.ch_mult) - 1), dtype=dtype, mesh=mesh,
     )
 
 
@@ -175,13 +232,25 @@ def lora_state_dict(unet, path, cfg):
         return apply_lora_pt(unet.state_dict(), load_lora_pt(path), cfg)
 
 
-def main(argv=None):
+def main(argv=None, spec=None):
+    """The CLI; `spec` replaces the VC2 configs (tests pass small ones)."""
     args = parse_args(argv)
+    mesh = make_cli_mesh(args)
+    try:
+        _generate(args, spec, mesh)
+    finally:
+        if mesh is not None:
+            from ..parallel import multihost
+
+            multihost.shutdown()
+
+
+def _generate(args, spec, mesh):
     from ..io.video import save_video
     from ..pipelines.vc2 import video_to_uint8
 
     t0 = time.time()
-    pipe = build_pipeline(args)
+    pipe = build_pipeline(args, spec, mesh)
     print(f"pipeline ready in {time.time() - t0:.1f}s", file=sys.stderr)
 
     t0 = time.time()
@@ -201,6 +270,8 @@ def main(argv=None):
         motion_gs=args.motion_gs,
         percentage=args.percentage,
     )
+    if video is None:  # a rank other than 0 of a mesh: rank 0 writes
+        return
     frames = video_to_uint8(video)
     print(f"generated {frames.shape} in {time.time() - t0:.1f}s", file=sys.stderr)
     root, ext = args.output.rsplit(".", 1) if "." in args.output else (args.output, "mp4")

@@ -30,9 +30,20 @@ no module built), --ms-dir (the ModelScope folder's) or --random-weights
 (smoke mode: the seeded modules of generate --random-weights, which does
 build the model code).
 
-Not here: the data/seq/model sharding of the JAX server (above 1 is
-refused) and its persistent compile cache (the port compiles nothing but
-its kernels, which `warmup` builds ahead of time).
+Sharded (VC2, one process per rank under torchrun; the JAX server's
+--data-shards / --seq-shards): every rank builds the pipeline over the mesh
+(apps/generate.py::make_cli_mesh); rank 0 serves HTTP and, for each request,
+broadcasts the prompt and parameters to every rank, all ranks sample, and
+rank 0 answers. The other ranks `follow`: they run what rank 0 broadcasts
+until it broadcasts the shutdown; while idle, rank 0 broadcasts a heartbeat
+every HEARTBEAT_S, so no rank's wait outlasts the process group's timeout.
+  torchrun --nproc-per-node 2 -m t2v_turbo_tpu_torch.apps.serve --random-weights --seq-shards 2
+--model-shards above 1 (tensor parallelism) is A12b and refused; the
+`warmup --export` artifacts serve on one rank, and shards with --artifacts
+are refused.
+
+Not here: the JAX server's persistent compile cache (the port compiles
+nothing but its kernels, which `warmup` builds ahead of time).
 """
 
 from __future__ import annotations
@@ -43,6 +54,7 @@ import os
 import shutil
 import threading
 import time
+import traceback
 import uuid
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 
@@ -123,6 +135,10 @@ refresh();
 </script></body></html>"""
 
 _VIDEO_TYPES = {".mp4": "video/mp4", ".npy": "application/octet-stream"}
+# Sharded: while idle, rank 0 broadcasts a heartbeat this often, well inside
+# the process group's timeout (parallel/multihost.py DEFAULT_TIMEOUT_S) that
+# every other rank's wait for the next request is held to.
+HEARTBEAT_S = 60.0
 
 
 def parse_args(argv=None):
@@ -146,9 +162,9 @@ def parse_args(argv=None):
     p.add_argument("--width", type=int, default=512)
     p.add_argument("--device", default="cuda:0")
     p.add_argument("--tiny", action="store_true", help="tiny dims for smoke")
-    p.add_argument("--data-shards", type=int, default=1)
-    p.add_argument("--seq-shards", type=int, default=1)
-    p.add_argument("--model-shards", type=int, default=1)
+    from .generate import add_mesh_args
+
+    add_mesh_args(p)
     return p.parse_args(argv)
 
 
@@ -215,37 +231,120 @@ def build_artifact_pipeline(args):
                                      tokenizer=tokenizer, device=args.device)
 
 
-def build_server(argv=None):
+def build_server(argv=None, spec=None):
     """The flags -> (server, pipeline, args): the pipeline built as the
     flags ask (live or from artifacts) and `make_server` around it, not yet
-    serving."""
+    serving. Sharded, on a rank other than 0 the server is None: that rank
+    `follow`s. `spec` replaces the VC2 configs (tests pass small ones)."""
     args = parse_args(argv)
     if args.tiny:
         args.height, args.width, args.frames = 128, 128, 8
     shards = {n: getattr(args, n) for n in ("data_shards", "seq_shards", "model_shards")}
-    if any(v != 1 for v in shards.values()):
-        raise SystemExit(f"error: the port serves on one card; sharded serving ({shards}) is not ported")
+    if args.artifacts and (any(v != 1 for v in shards.values()) or args.multihost):
+        raise SystemExit(f"error: warmup --export artifacts serve on one rank; shards {shards} need the live "
+                         "pipeline (drop --artifacts)")
+    from .generate import build_pipeline, make_cli_mesh
+
+    mesh = make_cli_mesh(args)
     if torch.device(args.device).type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(f"--device {args.device}: no CUDA device (pass --device cpu to serve on the CPU)")
     if args.artifacts:
         pipe = build_artifact_pipeline(args)
     else:
-        from .generate import build_pipeline
-
         args.seed = 0  # --random-weights: generate's seeded weights at seed 0
-        pipe = build_pipeline(args)
+        pipe = build_pipeline(args, spec, mesh)
+    if mesh is not None and mesh.rank != 0:
+        return None, pipe, args
     return make_server(pipe, args), pipe, args
 
 
-def main(argv=None):
-    server, pipe, args = build_server(argv)
-    print(f"serving on http://{args.host}:{server.server_address[1]} (device {pipe.device})", flush=True)
-    server.serve_forever()
+def main(argv=None, spec=None):
+    server, pipe, args = build_server(argv, spec)
+    mesh = getattr(pipe, "mesh", None)
+    try:
+        if server is None:
+            follow(pipe)
+            return
+        print(f"serving on http://{args.host}:{server.server_address[1]} (device {pipe.device})", flush=True)
+        try:
+            server.serve_forever()
+        finally:
+            stop(server)
+    finally:
+        if mesh is not None:
+            from ..parallel import multihost
+
+            multihost.shutdown()
+
+
+def _broadcast(mesh, msg=None):
+    """Rank 0's `msg` on every rank of the mesh."""
+    import torch.distributed as dist
+
+    box = [msg]
+    dist.broadcast_object_list(box, src=mesh.axis("world").ranks[0])
+    return box[0]
+
+
+class RankRelay:
+    """Rank 0's side of a sharded server: each request (and, while idle, a
+    heartbeat every `heartbeat_s`, and the shutdown) to the other ranks,
+    under the server's pipeline lock."""
+
+    def __init__(self, mesh, lock: threading.Lock, heartbeat_s: float):
+        self.mesh, self.lock, self.closed = mesh, lock, False
+        self._stop = threading.Event()
+        self._beat = threading.Thread(target=self._heartbeat, args=(heartbeat_s,), daemon=True)
+        self._beat.start()
+
+    def send(self, msg) -> None:
+        """Broadcast `msg`; the caller holds the lock."""
+        _broadcast(self.mesh, msg)
+
+    def _heartbeat(self, every: float) -> None:
+        while not self._stop.wait(every):
+            with self.lock:
+                if not self.closed:
+                    self.send({"op": "ping"})
+
+    def close(self) -> None:
+        """Stop the heartbeat and release the other ranks (once)."""
+        self._stop.set()
+        self._beat.join(timeout=60)
+        with self.lock:
+            if not self.closed:
+                self.closed = True
+                self.send({"op": "stop"})
+
+
+def follow(pipe) -> None:
+    """A rank other than 0 of a sharded server: sample every request rank 0
+    broadcasts (every rank takes part in the collectives), until rank 0
+    broadcasts the shutdown. A request that fails here is reported and the
+    rank goes on following (rank 0 answers the error)."""
+    while True:
+        msg = _broadcast(pipe.mesh)
+        if msg["op"] == "stop":
+            return
+        if msg["op"] == "generate":
+            try:
+                pipe(generator=torch.Generator(device=pipe.device).manual_seed(msg["seed"]), **msg["call"])
+            except Exception:  # noqa: BLE001  (the follower loop must keep running)
+                traceback.print_exc()
+
+
+def stop(server) -> None:
+    """Release a sharded server's other ranks (no-op on one rank)."""
+    relay = getattr(server, "relay", None)
+    if relay is not None:
+        relay.close()
 
 
 def make_server(pipe, args) -> ThreadingHTTPServer:
     """The HTTP server around any pipeline object (the live pipeline, the
-    artifact pipeline, or a test's stub): one lock serialises its calls."""
+    artifact pipeline, or a test's stub): one lock serialises its calls.
+    Around a pipeline over a mesh of several ranks it also relays each
+    request to the other ranks (`RankRelay`, as `server.relay`)."""
     from ..io.video import save_video
     # pipelines.artifact's copy: importing pipelines.vc2 would pull the
     # model code onto a host that serves artifacts
@@ -255,6 +354,8 @@ def make_server(pipe, args) -> ThreadingHTTPServer:
     device = torch.device(getattr(pipe, "device", "cpu"))
     ext = ".mp4" if shutil.which("ffmpeg") else ".npy"
     lock = threading.Lock()
+    mesh = getattr(pipe, "mesh", None)
+    relay = RankRelay(mesh, lock, HEARTBEAT_S) if mesh is not None and mesh.size > 1 else None
     gallery: list = []
     points = set(getattr(pipe, "operating_points", ()))  # live: the points served so far
     index_html = _INDEX_HTML.replace("%EXAMPLES%", json.dumps(_EXAMPLE_PROMPTS)).encode()
@@ -305,11 +406,14 @@ def make_server(pipe, args) -> ThreadingHTTPServer:
                           frames=int(req.get("frames", args.frames)), num_inference_steps=int(req.get("steps", 4)),
                           lcm_origin_steps=int(req.get("lcm_origin_steps", 50)))
                 chunk = req.get("decode_frame_chunk")
+                call = dict(prompt=prompt, fps=int(req.get("fps", 16)),
+                            guidance_scale=float(req.get("guidance_scale", 7.5)),
+                            decode_frame_chunk=None if chunk is None else int(chunk), **kw)
+                seed = int(req.get("seed", 0))
                 with lock:
-                    video = pipe(prompt=prompt, fps=int(req.get("fps", 16)),
-                                 guidance_scale=float(req.get("guidance_scale", 7.5)),
-                                 generator=torch.Generator(device=device).manual_seed(int(req.get("seed", 0))),
-                                 decode_frame_chunk=None if chunk is None else int(chunk), **kw)
+                    if relay is not None:
+                        relay.send({"op": "generate", "call": call, "seed": seed})
+                    video = pipe(generator=torch.Generator(device=device).manual_seed(seed), **call)
                     frames_u8 = video_to_uint8(video)[0]
                     points.add((kw["frames"], kw["height"], kw["width"], kw["num_inference_steps"],
                                 kw["lcm_origin_steps"]))
@@ -323,7 +427,9 @@ def make_server(pipe, args) -> ThreadingHTTPServer:
             except Exception as e:  # noqa: BLE001
                 self._json(500, {"error": f"{type(e).__name__}: {e}"})
 
-    return ThreadingHTTPServer((args.host, args.port), Handler)
+    server = ThreadingHTTPServer((args.host, args.port), Handler)
+    server.relay = relay
+    return server
 
 
 if __name__ == "__main__":

@@ -511,37 +511,60 @@ gn_split_part_kernel(const T* __restrict__ x, int L, int chunk, float2* __restri
   if (threadIdx.x == 0) part[row * P + blockIdx.y] = make_float2(s, s2);
 }
 
-// The second launch. Warp 0 combines the row's P chunk partials: lane l
-// adds chunks l, l + 32, ... in order, then the xor butterfly; the mean
-// first, then the centred sum of squares as the chunks' sums plus n_r (m_r -
-// mean)^2 (as the cluster exchange does).
+// (mean, rstd) of a row from its P chunk partials `pr`, by one whole warp:
+// lane l adds chunks l, l + 32, ... in order, then the xor butterfly; the
+// mean first, then the centred sum of squares as the chunks' sums plus n_r
+// (m_r - mean)^2 (as the cluster exchange does). `counts`: each chunk's
+// elements (any sizes: the chunks of several seq ranks' parts of the row,
+// concatenated), or null for the chunks of one row of L elements, `chunk`
+// each (the last the rest).
+__device__ __forceinline__ float2 combine_partials(const float2* __restrict__ pr, int P, int chunk, int L,
+                                                   const int* __restrict__ counts, float eps) {
+  const int lane = threadIdx.x & 31;
+  float s = 0.0f;
+  int n = 0;
+  for (int q = lane; q < P; q += 32) {
+    s += pr[q].x;
+    if (counts != nullptr) n += counts[q];
+  }
+  if (counts != nullptr) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) n += __shfl_xor_sync(0xffffffffu, n, off);
+  }
+  const float total = counts != nullptr ? (float)n : (float)L;
+  const float mean = warp_sum(s) / total;
+  float t = 0.0f;
+  for (int q = lane; q < P; q += 32) {
+    const float2 v = pr[q];
+    const float nr = (float)(counts != nullptr ? counts[q] : min(chunk, L - q * chunk));
+    const float dr = v.x / nr - mean;
+    const float term = v.y + nr * dr * dr;
+    t += term;
+  }
+  t = warp_sum(t);
+  return make_float2(mean, rsqrtf(t / total + eps));
+}
+
+// The second launch: warp 0 combines the row's P partials, then every
+// thread normalises its vectors. P = gridDim.y and counts = null for the
+// split route (this launch's own chunks); the partials entry's callers pass
+// every seq rank's chunks with their counts.
 template <typename T, int NV>
 __global__ void __launch_bounds__(kSplitThreads)
-gn_split_apply_kernel(const GnArgs a, int chunk, const float2* __restrict__ part) {
+gn_split_apply_kernel(const GnArgs a, int chunk, const float2* __restrict__ part, int P,
+                      const int* __restrict__ counts) {
   using W = Words<T>;
   constexpr int VE = W::N;
   __shared__ float2 stat;
   const long long row = blockIdx.x;
-  const int P = gridDim.y, begin = blockIdx.y * chunk;
+  const int begin = blockIdx.y * chunk;
   const int nvec = min(chunk, a.L - begin) / VE;
   uint4 r[NV];
   split_load<T, NV>(static_cast<const T*>(a.x) + row * (long long)a.L + begin, nvec, r);
   asm volatile("griddepcontrol.wait;" ::: "memory");  // the first launch's partials are written
   if (threadIdx.x < 32) {
-    const float2* pr = part + row * P;
-    float s = 0.0f;
-    for (int q = threadIdx.x; q < P; q += 32) s += pr[q].x;
-    const float mean = warp_sum(s) / (float)a.L;
-    float t = 0.0f;
-    for (int q = threadIdx.x; q < P; q += 32) {
-      const float2 v = pr[q];
-      const float nr = (float)min(chunk, a.L - q * chunk);
-      const float dr = v.x / nr - mean;
-      const float term = v.y + nr * dr * dr;
-      t += term;
-    }
-    t = warp_sum(t);
-    if (threadIdx.x == 0) stat = make_float2(mean, rsqrtf(t / (float)a.L + a.eps));
+    const float2 st = combine_partials(part + row * P, P, chunk, a.L, counts, a.eps);
+    if (threadIdx.x == 0) stat = st;
   }
   __syncthreads();
   const float mean = stat.x, rstd = stat.y;
@@ -580,7 +603,8 @@ static cudaError_t launch_split_nv(const GnArgs& a, const GnPlan& p, float2* par
   cfg.stream = stream;
   cfg.attrs = &pdl;
   cfg.numAttrs = 1;
-  err = cudaLaunchKernelEx(&cfg, gn_split_apply_kernel<T, NV>, a, p.chunk, (const float2*)part);
+  err = cudaLaunchKernelEx(&cfg, gn_split_apply_kernel<T, NV>, a, p.chunk, (const float2*)part, p.k,
+                           (const int*)nullptr);
   return err != cudaSuccess ? err : cudaGetLastError();
 }
 
@@ -596,6 +620,84 @@ static cudaError_t launch_split(const GnArgs& a, const GnPlan& p, float* scratch
   float2* part = reinterpret_cast<float2*>(scratch);
   if (nv == kSplitMinVecs) return launch_split_nv<T, kSplitMinVecs>(a, p, part, stream);
   return nv == kSplitMaxVecs ? launch_split_nv<T, kSplitMaxVecs>(a, p, part, stream) : cudaErrorInvalidValue;
+}
+
+// ---- GroupNorm over a clip sharded along T: the split route's halves alone ---
+// A seq rank holds part of every (sample, group) row of the clip. The
+// partials entry runs gn_split_part_kernel alone on the rank's part; the
+// ranks' partials are gathered (parallel/collectives.py); the apply entry
+// runs gn_split_apply_kernel on the rank's part with every rank's partials
+// and their explicit counts (a rank's short last chunk sits mid-row once
+// they are concatenated); the affine entry folds the same statistics into
+// B7's per-(sample, channel) scale and shift. Both combine in the split
+// route's order (combine_partials), so the norm and the fold agree.
+
+template <typename T>
+static int split_vecs(const GnArgs& a, int chunk, int k) {
+  constexpr int VE = Words<T>::N;
+  const int nv = chunk / (kSplitThreads * VE);
+  const bool aligned = reinterpret_cast<uintptr_t>(a.x) % 16 == 0 &&
+                       (a.y == nullptr || reinterpret_cast<uintptr_t>(a.y) % 16 == 0);
+  if (!aligned || a.S % VE || chunk != nv * kSplitThreads * VE || (nv != kSplitMinVecs && nv != kSplitMaxVecs) ||
+      k != (a.L + chunk - 1) / chunk || k > 65535)
+    return 0;
+  return nv;
+}
+
+template <typename T>
+static cudaError_t launch_partials(const GnArgs& a, int chunk, int k, float2* part, cudaStream_t stream) {
+  const int nv = split_vecs<T>(a, chunk, k);
+  if (nv == 0 || part == nullptr) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)a.R, (unsigned)k);
+  if (nv == kSplitMinVecs)
+    gn_split_part_kernel<T, kSplitMinVecs><<<grid, kSplitThreads, 0, stream>>>(static_cast<const T*>(a.x), a.L,
+                                                                                chunk, part);
+  else
+    gn_split_part_kernel<T, kSplitMaxVecs><<<grid, kSplitThreads, 0, stream>>>(static_cast<const T*>(a.x), a.L,
+                                                                                chunk, part);
+  return cudaGetLastError();
+}
+
+template <typename T>
+static cudaError_t launch_from_partials(const GnArgs& a, int chunk, int k, const float2* part, int P,
+                                        const int* counts, cudaStream_t stream) {
+  const int nv = split_vecs<T>(a, chunk, k);
+  if (nv == 0 || a.y == nullptr || part == nullptr || counts == nullptr || P < 1) return cudaErrorInvalidValue;
+  const dim3 grid((unsigned)a.R, (unsigned)k);
+  if (nv == kSplitMinVecs)
+    gn_split_apply_kernel<T, kSplitMinVecs><<<grid, kSplitThreads, 0, stream>>>(a, chunk, part, P, counts);
+  else
+    gn_split_apply_kernel<T, kSplitMaxVecs><<<grid, kSplitThreads, 0, stream>>>(a, chunk, part, P, counts);
+  return cudaGetLastError();
+}
+
+// One warp a (sample, group) row: its statistics from the partials, then
+// the lanes write a, b of the group's channels (the statistics mode's fold:
+// a = rstd * w, b = bias - mean * a, then the FiLM).
+constexpr int kAffineRows = 8;  // warps (rows) a block
+__global__ void __launch_bounds__(32 * kAffineRows)
+gn_partials_affine_kernel(const float2* __restrict__ part, const int* __restrict__ counts, int P, long long R,
+                          int G, int C, const float* __restrict__ w, const float* __restrict__ b,
+                          const float* __restrict__ film_scale, const float* __restrict__ film_shift, float eps,
+                          float* __restrict__ a_out, float* __restrict__ b_out) {
+  const long long row = (long long)blockIdx.x * kAffineRows + (threadIdx.x >> 5);
+  if (row >= R) return;  // the whole warp leaves together
+  const float2 st = combine_partials(part + row * P, P, 0, 0, counts, eps);
+  const int cg = C / G, g = (int)(row % G);
+  const long long n = row / G;
+  for (int j = threadIdx.x & 31; j < cg; j += 32) {
+    const int c = g * cg + j;
+    const long long i = n * C + c;
+    float av = st.y * w[c];
+    float bv = b[c] - st.x * av;
+    if (film_scale != nullptr) {
+      const float s = 1.0f + film_scale[i];
+      av *= s;
+      bv = bv * s + film_shift[i];
+    }
+    a_out[i] = av;
+    b_out[i] = bv;
+  }
 }
 
 // ---- GroupNorm, element-wise route ------------------------------------------
@@ -947,6 +1049,57 @@ int t2v_group_norm_affine(const void* x, const void* w, const void* b, const voi
   if (dtype == t2v::kF32) return t2v::launch_group_norm<float>(a, p, route, sc, true, st);
   if (dtype == t2v::kBF16) return t2v::launch_group_norm<__nv_bfloat16>(a, p, route, sc, true, st);
   return (int)cudaErrorInvalidValue;
+}
+
+// The split route's partials launch alone: x (N, C, S) contiguous, 16-byte
+// aligned, S whole 16-byte vectors; part: (N*G, k) float2, each row's chunks
+// of `chunk` elements (256 threads x 2 or 4 vectors; the last the rest;
+// k = ceil(L / chunk)): (sum, sum of squares about the chunk's own mean).
+int t2v_group_norm_partials(const void* x, void* part, int dtype, long long N, int C, int G, int S, int chunk, int k,
+                            void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const t2v::GnArgs a = t2v::gn_args(x, nullptr, nullptr, N, C, G, S, 0.0f);
+  float2* pr = static_cast<float2*>(part);
+  if (dtype == t2v::kF32) return t2v::launch_partials<float>(a, chunk, k, pr, st);
+  if (dtype == t2v::kBF16) return t2v::launch_partials<__nv_bfloat16>(a, chunk, k, pr, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split route's apply launch with given statistics: x, y (N, C, S) as
+// above, chunked by (chunk, k); w, b (C,) float32; part (N*G, P) float2 and
+// counts (P,) int32: every chunk's partials and element count of each row
+// (any number, any sizes: e.g. every seq rank's, in rank order).
+int t2v_group_norm_from_partials(const void* x, const void* w, const void* b, void* y, const void* part,
+                                 const void* counts, int P, int dtype, long long N, int C, int G, int S, float eps,
+                                 int act, int chunk, int k, void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  t2v::GnArgs a = t2v::gn_args(x, w, b, N, C, G, S, eps);
+  a.y = y;
+  a.act = act;
+  const float2* pr = static_cast<const float2*>(part);
+  const int* cn = static_cast<const int*>(counts);
+  if (dtype == t2v::kF32) return t2v::launch_from_partials<float>(a, chunk, k, pr, P, cn, st);
+  if (dtype == t2v::kBF16) return t2v::launch_from_partials<__nv_bfloat16>(a, chunk, k, pr, P, cn, st);
+  return (int)cudaErrorInvalidValue;
+}
+
+// B7's a, b out: (N, C) float32 from part (N*G, P) float2 and counts (P,)
+// int32 as above; w, b (C,) float32; film_scale, film_shift (N, C) float32
+// or both null.
+int t2v_group_norm_affine_from_partials(const void* part, const void* counts, int P, const void* w, const void* b,
+                                        const void* film_scale, const void* film_shift, void* a_out, void* b_out,
+                                        long long N, int C, int G, float eps, void* stream) {
+  if (part == nullptr || counts == nullptr || P < 1 || G < 1 || C % G || N < 1 ||
+      (film_scale == nullptr) != (film_shift == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long R = N * G;
+  const long long blocks = (R + t2v::kAffineRows - 1) / t2v::kAffineRows;
+  if (blocks > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  t2v::gn_partials_affine_kernel<<<(unsigned)blocks, 32 * t2v::kAffineRows, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const float2*>(part), static_cast<const int*>(counts), P, R, G, C, static_cast<const float*>(w),
+      static_cast<const float*>(b), static_cast<const float*>(film_scale), static_cast<const float*>(film_shift), eps,
+      static_cast<float*>(a_out), static_cast<float*>(b_out));
+  return (int)cudaGetLastError();
 }
 
 // How many clusters of the staged kernel's plan (k blocks of `threads`,

@@ -14,6 +14,26 @@ scale-shift `emb_layers.1` of width 2 * out).
 Norm parameters stay float32 (`cast_compute_dtype_` skips them), as the JAX
 package feeds norm affines in f32; every other parameter is held in the
 compute dtype (bf16 on the card).
+
+Sequence parallelism: a `TemporalConvBlock` or `TemporalTransformer` whose
+`seq_group` (an AxisGroup of parallel/mesh.py, set by
+`UNetModel.set_seq_group`) has more than one rank runs on this rank's T /
+seq frames of the clip with the collectives that GSPMD inserts in the JAX
+package written out (parallel/collectives.py):
+- the whole-clip GroupNorms take the clip's statistics: this rank's chunk
+  partials (B4's split route), gathered over the seq ranks, then B4's apply
+  (`group_norm_from_partials`) or B7's (a, b)
+  (`group_norm_affine_from_partials`);
+- each (3, 1, 1) conv runs B7 on given (a, b) (`fused_gn_silu_conv_ab`) on
+  the clip extended by one neighbour frame each side (`halo_exchange`; a
+  rank at a clip edge adds none there, so B7's zero halo, after the
+  activation, stays the clip's edge) and drops the halo frames' outputs;
+- the temporal attention switches the normalised clip to all T frames of H
+  * W / seq columns (`seq_to_space`), runs proj_in, the blocks (B8 at full
+  T, so relative position and the causal mask need no change) and proj_out
+  there, and switches back (`space_to_seq`) before the residual add.
+Without a group, or with a group of one rank, the code path and the kernel
+launches are the single-device ones.
 """
 
 from __future__ import annotations
@@ -26,6 +46,9 @@ import torch.nn.functional as F
 
 from ..ops import fused_gn_silu_conv, group_norm, layer_norm, sdpa
 from ..ops.attention import attention
+from ..ops.fused_conv import fused_gn_silu_conv_ab
+from ..ops.norms import group_norm_affine_from_partials, group_norm_from_partials, group_norm_partials
+from ..parallel import collectives
 
 # The text rows of an image-conditioned context; the image tokens follow
 # (the reference's text_context_len, JAX layers.py:217).
@@ -71,6 +94,33 @@ def gn_silu_conv(norm: GroupNorm, conv: nn.Module, x: torch.Tensor, film=None) -
     y = fused_gn_silu_conv(x.contiguous(), norm.weight, norm.bias, w.contiguous(), conv.bias,
                            norm.num_groups, norm.eps, *(film or (None, None)))
     return y.view(shape[0], -1, *shape[2:])
+
+
+def _sharded(group) -> bool:
+    return group is not None and group.size > 1
+
+
+def clip_partials(norm: GroupNorm, x: torch.Tensor, group):
+    """(parts, counts) of the whole clip's GroupNorm rows from this rank's
+    frames x (B, C, T / seq, H, W): its chunk partials, gathered over the
+    seq group in rank order."""
+    parts, counts = group_norm_partials(x.contiguous(), norm.num_groups)
+    return collectives.gather_partials(parts, counts, group)
+
+
+def gn_silu_conv_seq(norm: GroupNorm, conv: nn.Module, x: torch.Tensor, group) -> torch.Tensor:
+    """`gn_silu_conv` of a (k, 1, 1) Conv3d on this rank's frames x (B, C, T
+    / seq, H, W) of a clip sharded over `group`: the clip's statistics, B7
+    on x with its neighbours' halo frames, the halo outputs dropped."""
+    b, c, t, hh, ww = x.shape
+    a, sh = group_norm_affine_from_partials(*clip_partials(norm, x, group), norm.weight, norm.bias, norm.num_groups,
+                                            norm.eps)
+    lo, _ = collectives.halo_sides(group)
+    xh = collectives.halo_exchange(x, group, 2)
+    w = conv.weight
+    y = fused_gn_silu_conv_ab(xh.reshape(b, c, xh.shape[2], hh * ww), a, sh, w.reshape(*w.shape[:3], 1).contiguous(),
+                              conv.bias)
+    return y[:, :, lo:lo + t].contiguous().view(b, -1, t, hh, ww)
 
 
 def dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -266,7 +316,11 @@ class TemporalTransformer(nn.Module):
     probabilities, (B*H*W*heads, T, T) each. `relative_position` (over
     `temporal_length`) and `causal_attention` apply to both attentions of
     every block. Self-only: the reference's temporal cross-attention
-    (`only_self_att=False`) is not ported, as the JAX package cannot build it."""
+    (`only_self_att=False`) is not ported, as the JAX package cannot build it.
+    With a `seq_group` of more than one rank, x holds this rank's T / seq
+    frames (the module docstring's sequence parallelism)."""
+
+    seq_group = None  # set by UNetModel.set_seq_group
 
     def __init__(self, in_channels: int, n_heads: int, d_head: int, depth: int = 1,
                  conv1d_proj: bool = False, relative_position: bool = False, causal_attention: bool = False,
@@ -288,6 +342,10 @@ class TemporalTransformer(nn.Module):
         )
 
     def forward(self, x, record_probs: bool = False):
+        if _sharded(self.seq_group):
+            if record_probs:
+                raise NotImplementedError("record_probs under sequence parallelism is not ported")
+            return self._forward_seq(x, self.seq_group)
         b, c, t, hh, ww = x.shape
         h = self.norm(x).permute(0, 3, 4, 2, 1).reshape(b * hh * ww, t, c)
         h = dense(self.proj_in, h)
@@ -302,6 +360,22 @@ class TemporalTransformer(nn.Module):
         out = x + h.view(b, hh, ww, t, c).permute(0, 4, 3, 1, 2)
         return (out, probs) if record_probs else out
 
+    def _forward_seq(self, x, group):
+        """This rank's frames (B, C, T / seq, H, W): the clip's norm, then
+        every block on all T frames of H * W / seq columns."""
+        b, c, t, hh, ww = x.shape
+        norm = self.norm
+        h = group_norm_from_partials(x, *clip_partials(norm, x, group), norm.weight, norm.bias, norm.num_groups,
+                                     norm.eps)
+        h = collectives.seq_to_space(h.view(b, c, t, hh * ww), group)  # (B, C, T, S / seq)
+        frames, cols = h.shape[2:]
+        h = dense(self.proj_in, h.permute(0, 3, 2, 1).reshape(b * cols, frames, c))
+        for block in self.transformer_blocks:
+            h = block(h, causal=self.causal_attention)
+        h = dense(self.proj_out, h)
+        h = collectives.space_to_seq(h.view(b, cols, frames, c).permute(0, 3, 2, 1).contiguous(), group)
+        return x + h.view(b, c, t, hh, ww)
+
 
 def _temporal_conv(ch: int) -> nn.Conv3d:
     return nn.Conv3d(ch, ch, (3, 1, 1), padding=(1, 0, 0))
@@ -309,7 +383,11 @@ def _temporal_conv(ch: int) -> nn.Conv3d:
 
 class TemporalConvBlock(nn.Module):
     """Four GN(whole clip)+SiLU -> (3,1,1) conv stages with an identity
-    residual, on (B, C, T, H, W) (reference openaimodel3d.py:257-309)."""
+    residual, on (B, C, T, H, W) (reference openaimodel3d.py:257-309). With a
+    `seq_group` of more than one rank, x holds this rank's T / seq frames
+    (`gn_silu_conv_seq`)."""
+
+    seq_group = None  # set by UNetModel.set_seq_group
 
     def __init__(self, channels: int):
         super().__init__()
@@ -320,9 +398,12 @@ class TemporalConvBlock(nn.Module):
         )
 
     def forward(self, x):
-        h = x
+        h, group = x, self.seq_group
         for stage in (self.conv1, self.conv2, self.conv3, self.conv4):
-            h = gn_silu_conv(stage[0], stage[-1], h)
+            if _sharded(group):
+                h = gn_silu_conv_seq(stage[0], stage[-1], h, group)
+            else:
+                h = gn_silu_conv(stage[0], stage[-1], h)
         return x + h
 
 

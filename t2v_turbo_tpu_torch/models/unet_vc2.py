@@ -29,6 +29,9 @@ attention keeps its kernel. The JAX module sows the same tensors and
 since both the generated and the reference capture come in one order and
 the rank loss is a mean over layers, each layer still meets its own
 reference.
+
+`set_seq_group` makes the temporal layers sequence-parallel (models/layers.py):
+forward then takes this rank's T / seq frames of every clip.
 """
 
 from __future__ import annotations
@@ -46,6 +49,7 @@ from .layers import (
     GroupNorm,
     ResBlock,
     SpatialTransformer,
+    TemporalConvBlock,
     TemporalTransformer,
     Upsample,
     compute_dtype,
@@ -180,6 +184,16 @@ class UNetModel(nn.Module):
                 self.output_blocks.append(nn.ModuleList(layers))
 
         self.out = nn.Sequential(GroupNorm(mc), nn.SiLU(), nn.Conv2d(mc, cfg.out_channels, 3, padding=1))
+
+    def set_seq_group(self, group) -> None:
+        """Run the temporal layers (init_attn, every TemporalTransformer and
+        every ResBlock's `temopral_conv`) sequence-parallel over `group` (an
+        AxisGroup of the mesh's seq axis; None or one rank: the single-device
+        path). forward's x then holds this rank's T / seq frames; the
+        spatial layers are per frame and need nothing."""
+        for m in self.modules():
+            if isinstance(m, (TemporalConvBlock, TemporalTransformer)):
+                m.seq_group = group
 
     def _block(self, layer, *args):
         """A ResBlock or transformer call, recomputed in the backward under use_remat."""

@@ -160,6 +160,16 @@ def lib() -> ctypes.CDLL:
     so.t2v_group_norm_fwd.restype = i32
     so.t2v_group_norm_affine.argtypes = [vp, vp, vp, vp, vp, vp, vp, vp, i32, i64, i32, i32, i32, f32, *gn_plan, vp]
     so.t2v_group_norm_affine.restype = i32
+    # x, part, dtype, N, C, G, S, chunk, k, stream
+    so.t2v_group_norm_partials.argtypes = [vp, vp, i32, i64, i32, i32, i32, i32, i32, vp]
+    so.t2v_group_norm_partials.restype = i32
+    # x, w, b, y, part, counts, P, dtype, N, C, G, S, eps, act, chunk, k, stream
+    so.t2v_group_norm_from_partials.argtypes = [vp, vp, vp, vp, vp, vp, i32, i32, i64, i32, i32, i32, f32, i32, i32,
+                                                i32, vp]
+    so.t2v_group_norm_from_partials.restype = i32
+    # part, counts, P, w, b, film_scale, film_shift, a, b, N, C, G, eps, stream
+    so.t2v_group_norm_affine_from_partials.argtypes = [vp, vp, i32, vp, vp, vp, vp, vp, vp, i64, i32, i32, f32, vp]
+    so.t2v_group_norm_affine_from_partials.restype = i32
     so.t2v_group_norm_max_clusters.argtypes = [i32] * 6
     so.t2v_group_norm_max_clusters.restype = i32
     so.t2v_layer_norm_fwd.argtypes = [vp, vp, vp, vp, i32, i64, i32, f32, i32, i32, i32, vp]

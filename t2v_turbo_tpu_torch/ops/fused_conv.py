@@ -32,6 +32,11 @@ and the `out` head.
   counts the launches that carried a FiLM. CPU: the plain
   version. CUDA: the kernel, through `FusedGnSiluConv` when an input needs
   a gradient.
+- `fused_gn_silu_conv_ab` (with `_cuda` and `_plain`): the fused kernel
+  alone on a given (a, b), for the sequence-parallel temporal convs
+  (models/layers.py), whose statistics span every seq rank's frames
+  (ops/norms.py::group_norm_affine_from_partials) and whose input carries
+  the neighbours' halo frames. Its own counters; forward only.
 - `FusedGnSiluConv`: the forward is the kernel (the plain version on CPU
   tensors, so the backward runs in the CPU tests) and keeps only the inputs;
   the backward is the unfused composition's gradient, as JAX `_fused_bwd`:
@@ -193,14 +198,10 @@ def _f32_vector(t, shape, device, what):
     return t
 
 
-def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, num_groups=32,
-                            eps=1e-5, film_scale=None, film_shift=None):
-    """Launch the statistics kernel and the fused kernel; raises on anything
-    they do not take."""
-    what = "fused_gn_silu_conv_cuda"
+def _check_conv_inputs(what, x, conv_kernel, conv_bias):
+    """B7's refusals of x, the kernel and the bias -> (n, c, hh, ww, o, kh, kw)."""
     if x.device.type != "cuda":
         raise RuntimeError(f"{what}: no kernel for device {x.device}")
-    _check_film(film_scale, film_shift)
     if x.dtype not in cuda_lib.DTYPE_CODES:
         raise TypeError(f"{what}: dtype {x.dtype} is not supported by the kernel")
     if x.dim() != 4 or conv_kernel.dim() != 4:
@@ -210,8 +211,8 @@ def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, n
     if ci != c or (kh, kw) not in ((3, 3), (3, 1)):
         raise ValueError(f"{what}: kernel {tuple(conv_kernel.shape)} for {c} input channels "
                          "(the UNet's 3x3 and (3,1) convs)")
-    if c % num_groups or n > 65535 or (c // num_groups) * hh * ww >= 2**31:
-        raise ValueError(f"{what}: bad shape {tuple(x.shape)} for {num_groups} groups")
+    if n > 65535:
+        raise ValueError(f"{what}: bad shape {tuple(x.shape)}: at most 65535 images")
     tensors = [conv_kernel] + ([] if conv_bias is None else [conv_bias])
     if any(t.dtype != x.dtype or t.device != x.device for t in tensors):
         raise TypeError(f"{what}: the kernel and bias must have x's dtype {x.dtype} and device")
@@ -222,13 +223,13 @@ def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, n
                          f"32-bit offsets; x {tuple(x.shape)}")
     if conv_bias is not None and tuple(conv_bias.shape) != (o,):
         raise ValueError(f"{what}: bias of shape {tuple(conv_bias.shape)}, expected ({o},)")
-    gs = _f32_vector(gn_scale, (c,), x.device, "gn_scale")
-    gb = _f32_vector(gn_bias, (c,), x.device, "gn_bias")
-    film = [None, None]
-    if film_scale is not None:
-        film = [_f32_vector(t, (n, c), x.device, name)
-                for t, name in ((film_scale, "film_scale"), (film_shift, "film_shift"))]
-    a, b = group_norm_affine_cuda(x, gs, gb, num_groups, eps, *film)
+    return n, c, hh, ww, o, kh, kw
+
+
+def _launch_conv(what, x, a, b, conv_kernel, conv_bias, shape):
+    """The fused kernel of csrc/fused_conv.cu on x with the (N, C) f32 a, b
+    -> (y, the plan's route)."""
+    n, c, hh, ww, o, kh, kw = shape
     y = torch.empty((n, o, hh, ww), dtype=x.dtype, device=x.device)
     w_ohwc = conv_kernel.permute(0, 2, 3, 1).contiguous()  # one tap's channels are one TMA row
     plan = conv_plan(n, c, hh, ww, o, kh, kw, x.dtype)
@@ -238,13 +239,78 @@ def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, n
         ww, o, kh, kw, plan.bn, plan.tw, plan.tr, plan.npos, plan.chunks_per_split, cuda_lib.stream_ptr(x.device),
     )
     cuda_lib.check(err, what)
+    return y, plan.route
+
+
+def fused_gn_silu_conv_cuda(x, gn_scale, gn_bias, conv_kernel, conv_bias=None, num_groups=32,
+                            eps=1e-5, film_scale=None, film_shift=None):
+    """Launch the statistics kernel and the fused kernel; raises on anything
+    they do not take."""
+    what = "fused_gn_silu_conv_cuda"
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {x.device}")
+    _check_film(film_scale, film_shift)
+    shape = _check_conv_inputs(what, x, conv_kernel, conv_bias)
+    n, c, hh, ww = shape[:4]
+    if c % num_groups or (c // num_groups) * hh * ww >= 2**31:
+        raise ValueError(f"{what}: bad shape {tuple(x.shape)} for {num_groups} groups")
+    gs = _f32_vector(gn_scale, (c,), x.device, "gn_scale")
+    gb = _f32_vector(gn_bias, (c,), x.device, "gn_bias")
+    film = [None, None]
+    if film_scale is not None:
+        film = [_f32_vector(t, (n, c), x.device, name)
+                for t, name in ((film_scale, "film_scale"), (film_shift, "film_shift"))]
+    a, b = group_norm_affine_cuda(x, gs, gb, num_groups, eps, *film)
+    y, route = _launch_conv(what, x, a, b, conv_kernel, conv_bias, shape)
     with cuda_lib.COUNT_LOCK:
         fused_gn_silu_conv.launches += 1
-        fused_gn_silu_conv.by_route[plan.route] += 1
-        fused_gn_silu_conv.by_shape[(n, c, hh, ww, o, kh, kw)] += 1
+        fused_gn_silu_conv.by_route[route] += 1
+        fused_gn_silu_conv.by_shape[shape] += 1
         if film_scale is not None:
-            fused_gn_silu_conv.by_film_shape[(n, c, hh, ww, o, kh, kw)] += 1
+            fused_gn_silu_conv.by_film_shape[shape] += 1
     return y
+
+
+def fused_gn_silu_conv_ab_plain(x, a, b, conv_kernel, conv_bias=None):
+    """Plain conv(silu(x*a + b)) + bias on (N, C, H, W) with given (N, C) f32
+    a, b (the activation cast once to x's dtype, as the kernel rounds it)."""
+    h = F.silu(x.float() * a.float()[:, :, None, None] + b.float()[:, :, None, None]).to(x.dtype)
+    bias = None if conv_bias is None else conv_bias.to(x.dtype)
+    return F.conv2d(h, conv_kernel.to(x.dtype), bias, padding=_padding(conv_kernel))
+
+
+def fused_gn_silu_conv_ab_cuda(x, a, b, conv_kernel, conv_bias=None):
+    """Launch the fused kernel alone on given (a, b): the statistics come
+    from elsewhere (a seq-sharded clip's, ops/norms.py's
+    group_norm_affine_from_partials). B7's refusals hold."""
+    what = "fused_gn_silu_conv_ab_cuda"
+    shape = _check_conv_inputs(what, x, conv_kernel, conv_bias)
+    n, c = shape[:2]
+    a = _f32_vector(a, (n, c), x.device, "a")
+    b = _f32_vector(b, (n, c), x.device, "b")
+    y, route = _launch_conv(what, x, a, b, conv_kernel, conv_bias, shape)
+    with cuda_lib.COUNT_LOCK:
+        fused_gn_silu_conv_ab.launches += 1
+        fused_gn_silu_conv_ab.by_route[route] += 1
+        fused_gn_silu_conv_ab.by_shape[shape] += 1
+    return y
+
+
+def fused_gn_silu_conv_ab(x, a, b, conv_kernel, conv_bias=None):
+    """y = conv(silu(x*a + b)) + bias on (N, C, H, W), fused, for given a, b.
+    CPU: the plain version; CUDA: `fused_gn_silu_conv_ab_cuda`, counted in
+    `launches`, `by_route`, `by_shape`. Forward only (the sharded path's
+    backward is A12b)."""
+    if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, a, b, conv_kernel, conv_bias)):
+        raise NotImplementedError("fused_gn_silu_conv_ab: forward only (the sharded path's backward is A12b)")
+    if x.device.type == "cpu":
+        return fused_gn_silu_conv_ab_plain(x, a, b, conv_kernel, conv_bias)
+    return fused_gn_silu_conv_ab_cuda(x, a, b, conv_kernel, conv_bias)
+
+
+fused_gn_silu_conv_ab.launches = 0
+fused_gn_silu_conv_ab.by_route = collections.Counter()
+fused_gn_silu_conv_ab.by_shape = collections.Counter()
 
 
 class FusedGnSiluConv(torch.autograd.Function):

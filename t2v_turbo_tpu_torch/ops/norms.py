@@ -39,6 +39,14 @@ The statistics mode takes `cta` or `cluster`. LayerNorm's:
 `vector` (each row read once into registers as 16-byte vectors) and
 `elementwise`.
 
+Sequence parallelism: a clip sharded along T over seq ranks normalises
+with the whole clip's statistics through the split route's two halves as
+entries of their own: `group_norm_partials` (this rank's chunk partials and
+their element counts), gathered over the seq ranks
+(parallel/collectives.py), then `group_norm_from_partials` (B4's apply) or
+`group_norm_affine_from_partials` (B7's (a, b)). Each has a plain twin and
+counters; forward only.
+
 Gradients: when an input needs one, a CUDA call goes through an
 `autograd.Function` whose forward is the kernel and whose backward
 differentiates the plain version on the saved (x, weight, bias), as the JAX
@@ -438,6 +446,213 @@ def group_norm_affine_cuda(x, gn_scale, gn_bias, num_groups=32, eps=1e-5, film_s
 
 _counters(group_norm_affine_cuda)
 group_norm_affine_cuda.by_film_shape = collections.Counter()  # the launches with a FiLM
+
+
+# ---- GroupNorm over a clip sharded along T: the split route's two halves ----
+# A clip (B, C, T, H, W) split over seq ranks along T holds, on each rank, a
+# part of every (sample, group) row. `group_norm_partials` gives this rank's
+# f32 partials of each row's chunks, (sum, sum of squares about the chunk's
+# own mean), with each chunk's element count; parallel/collectives.py's
+# gather_partials concatenates every rank's in rank order; then
+# `group_norm_from_partials` normalises this rank's part (B4's apply) and
+# `group_norm_affine_from_partials` folds them into B7's (a, b), both with
+# the whole clip's statistics. The counts travel with the partials: once
+# several ranks' chunks are concatenated, a rank's short last chunk sits in
+# the middle of the row, where the apply kernel cannot infer its size.
+
+
+def partials_plan(n, c, g, s, dtype=torch.bfloat16) -> GnPlan:
+    """The `split` plan the partials and apply entries run on (n, c, s): the
+    chunking `gn_plan` gives the whole-clip norms (4 vectors a thread, or 2
+    where 4 would give under GN_BLOCKS_PER_SM blocks an SM)."""
+    e = 16 // _vector(dtype)
+    rows, l = n * g, (c // g) * s
+    plan = split_plan(rows, l, e)
+    return plan if plan.grid >= GN_BLOCKS_PER_SM * SMS else split_plan(rows, l, e, GN_SPLIT_VECS[0])
+
+
+@functools.lru_cache(maxsize=None)
+def _chunk_counts(l, chunk, device):
+    """(P,) int32 on `device`: the elements of each chunk of a row of l (the
+    last the rest); made once a shape, so a launch copies nothing to the card."""
+    return torch.tensor([min(chunk, l - q * chunk) for q in range(-(-l // chunk))], dtype=torch.int32, device=device)
+
+
+def group_norm_partials_plain(x, num_groups=32, chunk=None):
+    """(parts (N*G, P, 2) f32, counts (P,) int32) of (N, C, *spatial): each
+    row's chunks of `chunk` elements (the last the rest; default:
+    `partials_plan`'s), their sum and sum of squares about their own mean."""
+    n, c, s = _group_shape(x, num_groups, "group_norm_partials")
+    l = (c // num_groups) * s
+    chunk = chunk or partials_plan(n, c, num_groups, s, x.dtype).chunk
+    p = -(-l // chunk)
+    counts = _chunk_counts(l, chunk, x.device)
+    xf = F.pad(x.float().reshape(n * num_groups, l), (0, p * chunk - l)).view(-1, p, chunk)
+    valid = torch.arange(chunk, device=x.device)[None, :] < counts[:, None]
+    sums = xf.sum(-1)
+    dev = torch.where(valid, xf - (sums / counts)[..., None], 0.0)
+    return torch.stack([sums, dev.square().sum(-1)], -1), counts
+
+
+def _stats_from_partials(parts, counts, eps):
+    """Each row's (mean, rstd), (R,) each, from its chunks' partials: the
+    mean, then the centred sum of squares as the chunks' sums plus n_r (m_r -
+    mean)^2 (the kernels' combination)."""
+    n_r = counts.to(parts.device, torch.float32)
+    total = n_r.sum()
+    mean = parts[..., 0].sum(-1) / total
+    dr = parts[..., 0] / n_r - mean[:, None]
+    var = (parts[..., 1] + n_r * dr * dr).sum(-1) / total
+    return mean, torch.rsqrt(var + eps)
+
+
+def group_norm_from_partials_plain(x, parts, counts, weight, bias, num_groups=32, eps=1e-5, act=None):
+    """GroupNorm(+act) of (N, C, *spatial) with the statistics of `parts`."""
+    n, c = x.shape[:2]
+    mean, rstd = (t.view(n, num_groups, 1) for t in _stats_from_partials(parts, counts, eps))
+    y = ((x.float().reshape(n, num_groups, -1) - mean) * rstd).reshape(x.shape)
+    shape = (1, c) + (1,) * (x.dim() - 2)
+    return apply_act(y * weight.float().reshape(shape) + bias.float().reshape(shape), act).to(x.dtype)
+
+
+def group_norm_affine_from_partials_plain(parts, counts, weight, bias, num_groups=32, eps=1e-5, film_scale=None,
+                                          film_shift=None):
+    """(a, b), each (N, C) f32, with film(group_norm(x)) = x*a + b for the
+    statistics of `parts` ((N*G, P, 2)); B7's fold (ops.fused_conv.gn_affine_vectors)."""
+    c = weight.shape[0]
+    n = parts.shape[0] // num_groups
+    mean, rstd = (t.view(n, num_groups).repeat_interleave(c // num_groups, dim=1)
+                  for t in _stats_from_partials(parts, counts, eps))
+    a = rstd * weight.float()
+    b = bias.float() - mean * a
+    if film_scale is not None:
+        s = 1.0 + film_scale.float()
+        a, b = a * s, b * s + film_shift.float()
+    return a, b
+
+
+def _refuse_grad(what, *tensors):
+    if _needs_grad(*(t for t in tensors if t is not None)):
+        raise NotImplementedError(f"{what}: forward only (the sharded path's backward is A12b)")
+
+
+def _split_ready(x, num_groups, what):
+    """(n, c, s, plan) of a CUDA input the split kernels take; raises otherwise."""
+    if x.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {x.device}")
+    _check_cuda_input(x, what)
+    n, c, s = _group_shape(x, num_groups, what)
+    if x.data_ptr() % 16 or s % _vector(x.dtype):
+        raise ValueError(f"{what}: the split kernels read 16-byte vectors: x must be 16-byte aligned with a "
+                         f"spatial size that is whole vectors; x {tuple(x.shape)}")
+    plan = partials_plan(n, c, num_groups, s, x.dtype)
+    if plan.k > 65535:
+        raise ValueError(f"{what}: {plan.k} chunks a row (at most 65535)")
+    return n, c, s, plan
+
+
+def _partials_ready(parts, counts, rows, device, what):
+    if parts.dtype != torch.float32 or parts.dim() != 3 or parts.shape[0] != rows or parts.shape[2] != 2:
+        raise ValueError(f"{what}: partials of shape {tuple(parts.shape)} {parts.dtype}, expected ({rows}, P, 2) f32")
+    if counts.dtype != torch.int32 or tuple(counts.shape) != (parts.shape[1],):
+        raise ValueError(f"{what}: counts of shape {tuple(counts.shape)} {counts.dtype}, expected ({parts.shape[1]},) "
+                         "int32")
+    if parts.device != device or counts.device != device or not (parts.is_contiguous() and counts.is_contiguous()):
+        raise ValueError(f"{what}: partials and counts must be contiguous on {device}")
+
+
+def group_norm_partials_cuda(x, num_groups=32):
+    """Launch the split route's partials kernel (csrc/norms.cu
+    gn_split_part_kernel) alone -> (parts, counts) as the plain version."""
+    what = "group_norm_partials_cuda"
+    n, c, s, plan = _split_ready(x, num_groups, what)
+    parts = torch.empty((n * num_groups, plan.k, 2), dtype=torch.float32, device=x.device)
+    err = cuda_lib.lib().t2v_group_norm_partials(x.data_ptr(), parts.data_ptr(), cuda_lib.DTYPE_CODES[x.dtype], n, c,
+                                                 num_groups, s, plan.chunk, plan.k, cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(err, what)
+    _count(group_norm_partials, plan.route, tuple(x.shape))
+    return parts, _chunk_counts((c // num_groups) * s, plan.chunk, x.device)
+
+
+def group_norm_from_partials_cuda(x, parts, counts, weight, bias, num_groups=32, eps=1e-5, act=None):
+    """Launch the split route's apply kernel (gn_split_apply_kernel) on x
+    with the statistics of `parts` / `counts` (explicit: any number of
+    chunks of any sizes, e.g. every seq rank's)."""
+    what = "group_norm_from_partials_cuda"
+    n, c, s, plan = _split_ready(x, num_groups, what)
+    _partials_ready(parts, counts, n * num_groups, x.device, what)
+    w, b = _affine(weight, c, x.device), _affine(bias, c, x.device)
+    y = torch.empty_like(x)
+    err = cuda_lib.lib().t2v_group_norm_from_partials(
+        x.data_ptr(), w.data_ptr(), b.data_ptr(), y.data_ptr(), parts.data_ptr(), counts.data_ptr(), parts.shape[1],
+        cuda_lib.DTYPE_CODES[x.dtype], n, c, num_groups, s, eps, _act_code(act), plan.chunk, plan.k,
+        cuda_lib.stream_ptr(x.device))
+    cuda_lib.check(err, what)
+    _count(group_norm_from_partials, plan.route, tuple(x.shape))
+    return y
+
+
+def group_norm_affine_from_partials_cuda(parts, counts, weight, bias, num_groups=32, eps=1e-5, film_scale=None,
+                                         film_shift=None):
+    """Launch gn_partials_affine_kernel: B7's (a, b) from `parts` / `counts`,
+    one warp a row combining its partials in the apply kernel's order."""
+    what = "group_norm_affine_from_partials_cuda"
+    if parts.device.type != "cuda":
+        raise RuntimeError(f"{what}: no kernel for device {parts.device}")
+    c = weight.shape[0]
+    if parts.dim() != 3 or c % num_groups or parts.shape[0] % num_groups:
+        raise ValueError(f"{what}: partials {tuple(parts.shape)} for {c} channels in {num_groups} groups")
+    n = parts.shape[0] // num_groups
+    _partials_ready(parts, counts, n * num_groups, parts.device, what)
+    w, b = _affine(weight, c, parts.device), _affine(bias, c, parts.device)
+    film = [None, None]
+    if (film_scale is None) != (film_shift is None):
+        raise ValueError(f"{what}: film_scale and film_shift must be given together")
+    if film_scale is not None:
+        film = [t.to(parts.device, torch.float32).contiguous() for t in (film_scale, film_shift)]
+        if any(tuple(t.shape) != (n, c) for t in film):
+            raise ValueError(f"{what}: the FiLM must be ({n}, {c})")
+    a_out, b_out = (torch.empty((n, c), dtype=torch.float32, device=parts.device) for _ in range(2))
+    err = cuda_lib.lib().t2v_group_norm_affine_from_partials(
+        parts.data_ptr(), counts.data_ptr(), parts.shape[1], w.data_ptr(), b.data_ptr(),
+        *[None if t is None else t.data_ptr() for t in film], a_out.data_ptr(), b_out.data_ptr(), n, c, num_groups,
+        eps, cuda_lib.stream_ptr(parts.device))
+    cuda_lib.check(err, what)
+    _count(group_norm_affine_from_partials, "warp", (n, c, parts.shape[1]))
+    return a_out, b_out
+
+
+def group_norm_partials(x, num_groups=32):
+    """(parts, counts) of x's (sample, group) rows, chunked as `partials_plan`
+    says. CUDA: `group_norm_partials_cuda`; CPU: the plain version."""
+    _refuse_grad("group_norm_partials", x)
+    if x.device.type == "cpu":
+        return group_norm_partials_plain(x, num_groups)
+    return group_norm_partials_cuda(x, num_groups)
+
+
+def group_norm_from_partials(x, parts, counts, weight, bias, num_groups=32, eps=1e-5, act=None):
+    """GroupNorm(+act) of x with the statistics of `parts` / `counts`. CUDA:
+    the kernel; CPU: the plain version."""
+    _refuse_grad("group_norm_from_partials", x, weight, bias)
+    if x.device.type == "cpu":
+        return group_norm_from_partials_plain(x, parts, counts, weight, bias, num_groups, eps, act)
+    return group_norm_from_partials_cuda(x, parts, counts, weight, bias, num_groups, eps, act)
+
+
+def group_norm_affine_from_partials(parts, counts, weight, bias, num_groups=32, eps=1e-5, film_scale=None,
+                                    film_shift=None):
+    """B7's (a, b) for the statistics of `parts` / `counts`. CUDA: the
+    kernel; CPU: the plain version."""
+    _refuse_grad("group_norm_affine_from_partials", weight, bias, film_scale, film_shift)
+    if parts.device.type == "cpu":
+        return group_norm_affine_from_partials_plain(parts, counts, weight, bias, num_groups, eps, film_scale,
+                                                     film_shift)
+    return group_norm_affine_from_partials_cuda(parts, counts, weight, bias, num_groups, eps, film_scale, film_shift)
+
+
+for _fn in (group_norm_partials, group_norm_from_partials, group_norm_affine_from_partials):
+    _counters(_fn)
 
 # The LayerNorm kernel's limits (csrc/norms.cu): threads a block, 16-byte
 # vectors a lane holds.
