@@ -298,6 +298,39 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 card's name and power limit. Phase 3 holds every shape of
                 that dry run (`_sharded_cases`: the four sequence-parallel
                 entries recorded at each level, the rest checked).
+ 22. sharded training: v1 LoRA and v2 full-model training over the (data,
+                seq) mesh at full width (16x320x512, the 77x1024 context,
+                seeded weights, synthetic latents; apps/train_v1.py's and
+                apps/train_v2.py's build_trainer with mesh=). The v1 runs
+                use Adam's eps = 1 and lr 1e-3, so the factors after a step
+                move by ~lr x the clipped gradient. This process takes two
+                v1 steps at the global batches of 1 and of 2 (no remat),
+                joins a world of one over NCCL (one v1 step over its mesh
+                equal to the step without one to the bit, launches by
+                kernel and shape included; a mesh of one is no mesh to the
+                trainer, so no collective of the trainer runs there), the v1
+                reference with the HPSv2 reward at a batch of 1 (remat, one
+                step) and two v2 steps at a global batch of 2 (VC2's UNet at
+                full depth, remat, EMA, adamw8bit). Then 2 ranks spawned on
+                the one card over gloo, one clip a rank: two v1 steps at
+                (1, 2) and at (2, 1) against one process at the global batch
+                (the factors within 5e-2 of one process's largest move, the
+                loss within 1e-2 and grad_norm within 2e-2 relative, the
+                summed gradient's cosine to the reference's >= 0.999; bf16
+                statistics and sums in another order), each rank's launches
+                by kernel and shape equal to `sharded_training_shapes`' dry
+                run; the HPSv2 run at (1, 2), one step, the same way but for
+                the dry run (the towers are not in it); v2 --fsdp at
+                (2, 1): two steps held to one process's (loss within 1e-2,
+                grad_norm within 2e-2 relative), a checkpoint (gathered,
+                one-process format, written by rank 0), a third step, then
+                a fresh trainer on each rank resuming from the file and
+                taking the third step again: equal to the uninterrupted one
+                to the bit (torch.equal on the loss, grad_norm, master and
+                EMA slices). Logged: s/step, each rank's peak memory against
+                one process's, the collectives' calls, staged MiB and
+                seconds. Phase 3 holds every shape of the v1 dry run
+                (`_sharded_cases`).
 `python3 chip_smoke.py --phases "v2 generation,v2 preprocess"` runs only the
 named phases (after device and build), for development; with no argument
 every phase runs.
@@ -2103,20 +2136,22 @@ def _train_full_width(records, remat):
 
 def _profile_train_step(trainer, data, name):
     """torch.profiler over one more training step: device time by kernel and
-    the idle share, into chiprun_out/<name>."""
+    the idle share, into chiprun_out/<name>. The device alone is traced: a
+    step's CPU ops made `key_averages()` take tens of seconds."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     host_batch = next(data)
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         float(trainer.step_once(host_batch)["loss"])
         torch.cuda.synchronize()
         wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    averages = prof.key_averages()
+    events = [e for e in averages if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in events) / 1e3
-    table = prof.key_averages().table(sort_by="self_cuda_time_total", row_limit=50, max_name_column_width=90)
+    table = averages.table(sort_by="self_cuda_time_total", row_limit=50, max_name_column_width=90)
     with open(os.path.join(OUT_DIR, name), "w") as f:
         f.write(f"wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms\n{table}\n")
     top = sorted(events, key=lambda e: -e.self_device_time_total)[:8]
@@ -2928,8 +2963,8 @@ def phase_v2_preprocess():
             samples = job.samples()
             for k in range(n):
                 if motion and k == n - 1:  # the last sample with the prior under the profiler
-                    (path, sample, seconds), wall_ms, busy_ms, events = _profiled(lambda: next(samples),
-                                                                                  "profile_v2_preprocess.txt")
+                    (path, sample, seconds), wall_ms, busy_ms, events = _profiled(
+                        lambda: next(samples), "profile_v2_preprocess.txt", cpu=False)  # ~45 UNet calls: device only
                     fwd_ms, bwd_ms, _, _ = flash_device_ms(events)
                     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
                     log(f"{V2_PRE} profile: one sample (index {int(sample['index'])}): wall {wall_ms:.1f} ms, "
@@ -3165,13 +3200,15 @@ MS_KERNELS = ("flash_attention", "small_seq_attention", "fused_gn_silu_conv", "g
               "layer_norm")
 
 
-def _dry_run_shapes(parts, patches=()):
+def _dry_run_shapes(parts, patches=(), grad=False):
     """{part: {kernel: Counter(shape)}} of the kernel launches, keyed as each
     wrapper's `by_shape` counts them, of each (part, fn) in `parts`, run on
     the meta device with the models' kernel entry points replaced by
     recorders that take the dispatch's own decisions (`sdpa`'s short-sequence
     gate, the fused conv's statistics launch, the partials' plan); `patches`:
-    more (module, name, function) replacements for the run."""
+    more (module, name, function) replacements for the run; `grad`: run with
+    gradients enabled (the dispatch a training step's student pass takes:
+    no short-sequence kernel, flash for every attention it can take)."""
     import collections
 
     import torch
@@ -3236,7 +3273,7 @@ def _dry_run_shapes(parts, patches=()):
     try:
         for m, n, f in patched:
             setattr(m, n, f)
-        with torch.device("meta"), torch.no_grad():
+        with torch.device("meta"), torch.set_grad_enabled(grad):
             for part, fn in parts:
                 fn()
                 out[part], counts = dict(counts), collections.defaultdict(collections.Counter)
@@ -4109,21 +4146,12 @@ SHARD_CHECKED = ("flash_attention", "small_seq_attention", "fused_gn_silu_conv",
                  "layer_norm") + SEQ_KERNELS
 
 
-@functools.lru_cache(maxsize=1)
-def sharded_path_shapes():
-    """{(data, seq, rank): {part: {kernel: Counter(shape)}}}: `_dry_run_shapes`
-    of each rank of phase 21's bf16 runs (SHARD_CONFIGS; 16x320x512): one
-    UNet pass on the rank's (B / data, T / seq) block with the seq group a
-    stand-in and the collectives replaced by shape-only versions, the
-    decode of its share of the frames and the text encode of every prompt.
-    Phase 3 holds every shape; phase 21 expects exactly these launches."""
+def _collective_stand_ins():
+    """(module, name, function) patches of the seq collectives by shape-only
+    versions, for a dry run of one rank."""
     import torch
 
-    from t2v_turbo_tpu_torch.config import vc2_spec
-    from t2v_turbo_tpu_torch.models import AutoencoderKL, CLIPTextModel, UNetModel
     from t2v_turbo_tpu_torch.parallel import collectives as C
-    from t2v_turbo_tpu_torch.parallel.mesh import AxisGroup
-    from t2v_turbo_tpu_torch.pipelines.vc2 import frame_split
 
     def halo(x, group, dim):
         lo, hi = C.halo_sides(group)
@@ -4141,8 +4169,26 @@ def sharded_path_shapes():
         b, c, t, s = x.shape
         return x.new_empty((b, c, t // group.size, s * group.size))
 
-    patches = [(C, "halo_exchange", halo), (C, "gather_partials", gather), (C, "seq_to_space", to_space),
-               (C, "space_to_seq", to_seq)]
+    return [(C, "halo_exchange", halo), (C, "gather_partials", gather), (C, "seq_to_space", to_space),
+            (C, "space_to_seq", to_seq)]
+
+
+@functools.lru_cache(maxsize=1)
+def sharded_path_shapes():
+    """{(data, seq, rank): {part: {kernel: Counter(shape)}}}: `_dry_run_shapes`
+    of each rank of phase 21's bf16 runs (SHARD_CONFIGS; 16x320x512): one
+    UNet pass on the rank's (B / data, T / seq) block with the seq group a
+    stand-in and the collectives replaced by shape-only versions, the
+    decode of its share of the frames and the text encode of every prompt.
+    Phase 3 holds every shape; phase 21 expects exactly these launches."""
+    import torch
+
+    from t2v_turbo_tpu_torch.config import vc2_spec
+    from t2v_turbo_tpu_torch.models import AutoencoderKL, CLIPTextModel, UNetModel
+    from t2v_turbo_tpu_torch.parallel.mesh import AxisGroup
+    from t2v_turbo_tpu_torch.pipelines.vc2 import frame_split
+
+    patches = _collective_stand_ins()
     spec = vc2_spec()
     out = {}
     for data, seq in SHARD_CONFIGS:
@@ -4189,7 +4235,7 @@ def _sharded_cases(cases_before, attn, flash, conv, gn, gn_stats, ln, small_seq,
 
     bf = torch.bfloat16
     shapes = collections.defaultdict(set)
-    for runs in sharded_path_shapes().values():
+    for runs in list(sharded_path_shapes().values()) + list(sharded_training_shapes().values()):
         for part in runs.values():
             for k, c in part.items():
                 shapes[k] |= set(c)
@@ -4301,7 +4347,7 @@ def _sharded_cases(cases_before, attn, flash, conv, gn, gn_stats, ln, small_seq,
         case["twice"] = True
     missing = sorted((k, s) for k, ss in shapes.items() for s in ss if (k, s) not in held)
     if missing:
-        raise AssertionError(f"phase 3 holds no case for these launches of the sharded sampling phase: {missing}")
+        raise AssertionError(f"phase 3 holds no case for these launches of the sharded phases: {missing}")
     return cases
 
 
@@ -4627,6 +4673,494 @@ def phase_sharded(records):
     log(f"{SHARDED}: phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+SHARDED_TRAIN = "sharded training"
+TRAIN_SHARD_LR = 1e-3  # with Adam's eps = 1 (`_eps_one`) an element moves by ~lr x its clipped gradient
+SAMPLE = 11  # the factors', gradients' and state slices' elements compared: every SAMPLE-th
+GRAD_FLASH = ("flash_attention_fwd_lse", "flash_attention_bwd_dkv", "flash_attention_bwd_dq")
+TRAIN_SHARD_CHECKED = SHARD_CHECKED + GRAD_FLASH
+# ((data, seq), a data rank's batch, extra flags, steps, the one-process reference): one clip a rank at
+# both layouts (the global batch of 1 over seq, of 2 over data), the reward run at (1, 2), one step
+V1_SHARD_RUNS = (((1, 2), 1, (), 2, "v1 B1"), ((2, 1), 1, (), 2, "v1 B2"),
+                 ((1, 2), 1, ("--reward-fn", "hpsv2", "--use-remat"), 1, "v1 reward"))
+
+
+@functools.lru_cache(maxsize=1)
+def sharded_training_shapes():
+    """{(data, seq, rank): {"nograd": {kernel: Counter(shape)}, "grad": ...}}:
+    `_dry_run_shapes` of one UNet pass on each rank's block of phase 22's
+    v1 runs without a reward (one clip a rank: T = 16 / seq, 40x64 latents,
+    the 77x1024 context), without a gradient (a step's two teacher passes
+    and its target pass: phase 21's dry run of the same block) and with one
+    (the student's pass), the seq collectives shape-only stand-ins. Phase 3
+    holds every shape; phase 22 expects exactly these launches
+    (`_training_want`)."""
+    import torch
+
+    from t2v_turbo_tpu_torch.config import vc2_spec
+    from t2v_turbo_tpu_torch.models import UNetModel
+    from t2v_turbo_tpu_torch.parallel.mesh import AxisGroup
+
+    spec = vc2_spec()
+    sampling = sharded_path_shapes()
+    out, grads = {}, {}
+    for (data, seq), b, extra, _, _ in V1_SHARD_RUNS:
+        if extra:
+            continue
+        t = 16 // seq
+        for rank in range(data * seq):
+            index = rank % seq
+            key = (b, t, seq, index)  # a rank's pass depends on its seq index (its halo sides), not its data index
+
+            def unet(index=index, b=b, t=t, seq=seq):
+                model = UNetModel(spec.unet).to(torch.bfloat16)
+                model.set_seq_group(AxisGroup("seq", seq, index, tuple(range(seq)), None, "gloo"))  # no group
+                model(torch.zeros(b, t, 40, 64, 4), torch.zeros(b, dtype=torch.long), torch.zeros(b, 77, 1024),
+                      fps=torch.full((b,), 16.0), timestep_cond=torch.zeros(b, 256))
+            if key not in grads:
+                grads[key] = _dry_run_shapes([("unet", unet)], _collective_stand_ins(), grad=True)["unet"]
+            out[(data, seq, rank)] = {"nograd": sampling[(data, seq, rank)]["unet"], "grad": grads[key]}
+    return out
+
+
+def _training_want(dry, steps):
+    """{kernel: Counter(shape)} of `steps` v1 steps (no remat) from a rank's
+    dry run: the two teacher passes and the target's without a gradient;
+    the student's with one, whose attention takes B2 forward and B3's two
+    kernels back (the norms' and B7's backward are plain math)."""
+    import collections
+
+    want = collections.defaultdict(collections.Counter)
+    for part, times in (("nograd", 3), ("grad", 1)):
+        for k, c in dry[part].items():
+            for name in (GRAD_FLASH if part == "grad" and k == "flash_attention" else (k,)):
+                for shape, m in c.items():
+                    want[name][shape] += times * steps * m
+    return want
+
+
+def _v1_train_argv(batch, out_dir, extra=()):
+    return ["--random-weights", "--synthetic-data", "--device", "cuda:0", "--seed", "0", "--output-dir", out_dir,
+            "--batch-size", str(batch), "--max-steps", "2", "--checkpointing-steps", "1000000", "--optimizer",
+            "adamw", "--learning-rate", str(TRAIN_SHARD_LR)] + list(extra)
+
+
+def _v2_train_argv(latent_glob, batch, out_dir, extra=()):
+    return ["--random-weights", "--latent-glob", latent_glob, "--device", "cuda:0", "--seed", "0", "--output-dir",
+            out_dir, "--batch-size", str(batch), "--use-remat", "--use-motion-cond", "--use-target-unet",
+            "--ema-decay", "0.95", "--optimizer", "adamw8bit", "--learning-rate", "1e-5", "--max-steps", "3",
+            "--checkpointing-steps", "1000000"] + list(extra)
+
+
+def _write_v2_latents(root, n=4):
+    """n v2 samples at full width (the preprocess's keys and dtypes: the
+    16x40x64x4 latents, teacher outputs and motion score, the 77x1024
+    context), seeded, as apps/preprocess.py writes them; the glob."""
+    import pickle
+
+    import numpy as np
+
+    os.makedirs(root, exist_ok=True)
+    rng = np.random.RandomState(2200)
+    for i in range(n):
+        z = lambda s=1.0: (s * rng.randn(16, 40, 64, 4)).astype(np.float32)  # noqa: E731
+        sample = {"index": np.int32(rng.randint(20, 50)), "z_t": z(), "cond_teacher_out": z(),
+                  "uncond_teacher_out": z(), "score": z(0.1), "prompt_emb": rng.randn(77, 1024).astype(np.float32),
+                  "use_motion_guide": True, "txt": PROMPTS[i % len(PROMPTS)], "short_txt": ""}
+        with open(os.path.join(root, f"{i:05d}.pkl"), "wb") as f:
+            pickle.dump(sample, f)
+    return os.path.join(root, "*.pkl")
+
+
+def _eps_one(trainer):
+    """Adam's eps = 1 on a v1 trainer, before its first step: an element then
+    moves by about lr x its clipped gradient, so the factors after a step
+    carry the gradient (at eps = 1e-8 each moves by ~lr whatever its
+    gradient, and two runs agree within 2 x lr x step by construction)."""
+    for opt, _ in trainer._groups:
+        opt.eps = 1.0
+    return trainer
+
+
+def _state_sample(trainer):
+    """Every SAMPLE-th element of the trainer's f32 state (the LoRA factors or
+    this rank's master slice), on the host."""
+    return (trainer.flat if not trainer.full_model else trainer.master)[::SAMPLE].float().cpu()
+
+
+def _train_steps(trainer, data, steps, skip=0):
+    """`steps` timed step_once calls (after `skip` batches); per step (loss,
+    grad_norm, the LoRA factors or the master slice and the gradient, every
+    SAMPLE-th element, on the host)."""
+    import torch
+
+    for _ in range(skip):
+        next(data)
+    recs, walls = [], []
+    for _ in range(steps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m = trainer.step_once(next(data))
+        loss, gnorm = float(m["loss"]), float(m["grad_norm"])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        grad = trainer._grad_flat if trainer._shards is None else trainer._grad_shard
+        recs.append((loss, gnorm, _state_sample(trainer), grad[::SAMPLE].float().cpu()))
+    return recs, walls
+
+
+def _free():
+    """Return the card's memory of the objects just deleted."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _host_tree(obj):
+    """obj with every tensor as a numpy array: a queue carries values, not the
+    shared memory of a process that may have ended."""
+    import torch
+
+    if isinstance(obj, torch.Tensor):
+        return obj.detach().cpu().numpy()
+    if isinstance(obj, dict):
+        return {k: _host_tree(v) for k, v in obj.items()}
+    if isinstance(obj, (list, tuple)):
+        return type(obj)(_host_tree(v) for v in obj)
+    return obj
+
+
+def _sharded_train_rank(rank, world, port, work, queue):
+    """One rank of phase 22 (a spawned process); puts its results (or its
+    traceback) on `queue`."""
+    try:
+        queue.put((rank, True, _host_tree(_sharded_train_rank_work(rank, world, port, work))))
+    except BaseException:  # report to the parent, which fails the phase
+        queue.put((rank, False, traceback.format_exc()))
+        raise
+
+
+
+
+def _sharded_train_rank_work(rank, world, port, work):
+    import torch
+
+    sys.path.insert(0, HERE)
+    from t2v_turbo_tpu_torch.apps import train_v1, train_v2
+    from t2v_turbo_tpu_torch.parallel import collectives, multihost
+    from t2v_turbo_tpu_torch.parallel.mesh import make_mesh
+    from t2v_turbo_tpu_torch.training.trainer import draws_seed
+
+    device = multihost.initialize(f"localhost:{port}", world, rank, backend="gloo", share_device=True,
+                                  timeout_s=900)
+    out = {"device": str(device)}
+    t_rank = time.perf_counter()
+
+    def progress(what):
+        print(f"{SHARDED_TRAIN} rank {rank}: {what} at {time.perf_counter() - t_rank:.1f} s", flush=True)
+    try:
+        for (data, seq), batch, extra, steps, _ in V1_SHARD_RUNS:
+            key = f"{data}x{seq}" + (" reward" if extra else "")
+            mesh = make_mesh(data=data, seq=seq, device=device)
+            args = train_v1.parse_args(_v1_train_argv(batch, os.path.join(work, f"v1 {key}"), extra))
+            t0 = time.perf_counter()
+            trainer, it, _ = train_v1.build_trainer(args, mesh=mesh)
+            build_s = time.perf_counter() - t0
+            _eps_one(trainer)
+            reset_launches()
+            collectives.reset_counters()
+            torch.cuda.reset_peak_memory_stats()
+            recs, walls = _train_steps(trainer, it, steps)
+            out[key] = {"build_s": build_s, "walls": walls, "launches": launch_snapshot(),
+                        "collectives": collectives.read_counters(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "metrics": [r[:2] for r in recs], "flat_sum": [float(r[2].double().sum()) for r in recs]}
+            if rank == 0:
+                torch.save([r[2:] for r in recs], os.path.join(work, f"v1 {key}.pt"))
+            progress(f"v1 {key} done")
+            del trainer, it
+            _free()
+        # v2 --fsdp at (2, 1): two steps, a checkpoint, a third; a fresh trainer resumes and retakes the third
+        mesh = make_mesh(data=2, seq=1, device=device)
+        args = train_v2.parse_args(_v2_train_argv(os.path.join(work, "latents", "*.pkl"), 1,
+                                                  os.path.join(work, "v2 fsdp"), ("--fsdp",)))
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        trainer, it, _ = train_v2.build_trainer(args, mesh=mesh)
+        v2 = {"build_s": time.perf_counter() - t0, "build_peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+              "local": [trainer.master.numel(), trainer.ema.numel(), trainer._shards.size],
+              "whole": trainer._segments[-1][1]}
+        collectives.reset_counters()
+        progress("v2 built")
+        recs, walls = _train_steps(trainer, it, 2)
+        progress("v2 steps 1-2 done")
+        t0 = time.perf_counter()
+        trainer.save(2)
+        v2["save_s"] = time.perf_counter() - t0
+        trainer.generator.manual_seed(draws_seed(trainer.cfg.seed, 2))  # as `run` restarting at step 2 draws
+
+        def state(tr):
+            opt = tr.optimizers["base"]
+            return [tr.master[::SAMPLE].cpu(), tr.ema[::SAMPLE].cpu(), tr.working[::SAMPLE].cpu(),
+                    opt.mu[0][0][::SAMPLE].cpu(), opt.nu[0][1].cpu()]
+        saved = state(trainer)
+        progress("v2 saved")
+        more, walls3 = _train_steps(trainer, it, 1)
+        after3 = [more[0][2], trainer.ema[::SAMPLE].cpu()]
+        v2.update(walls=walls + walls3, metrics=[r[:2] for r in recs + more], peak_gib=torch.cuda.max_memory_allocated()
+                  / 2**30, collectives=collectives.read_counters())
+        del trainer, it
+        _free()
+        fresh, it, _ = train_v2.build_trainer(args, mesh=mesh)
+        t0 = time.perf_counter()
+        start = fresh.resume_if_available()
+        v2["resume_s"] = time.perf_counter() - t0
+        fresh.generator.manual_seed(draws_seed(fresh.cfg.seed, start))
+        v2["restored_equal"] = [bool(torch.equal(a, b)) for a, b in zip(saved, state(fresh))]
+        progress("v2 resumed")
+        again, _ = _train_steps(fresh, it, 1, skip=2)
+        # the retaken step against the uninterrupted one: metrics, the master's and EMA's slices
+        ema3 = fresh.ema[::SAMPLE].cpu()
+        v2["again"] = [again[0][:2], float((again[0][2] - after3[0]).abs().max()),
+                       float((ema3 - after3[1]).abs().max())]
+        v2["again_equal"] = [bool(torch.equal(again[0][2], after3[0])), bool(torch.equal(ema3, after3[1]))]
+        v2["start"] = start
+        out["v2"] = v2
+        del fresh, it
+        _free()
+    finally:
+        multihost.shutdown()
+    return out
+
+
+def _nccl_world_of_one_step(argv, want_recs, want_snap):
+    """A world of one rank over NCCL: the v1 trainer built over its mesh takes
+    the first step of the reference; its factors, loss, grad_norm and
+    launches by kernel, route and shape equal the reference's to the bit.
+    A mesh of one is no mesh to the trainer (every collective helper returns
+    its input for a group of one): this checks that the flags and the
+    process group leave the step alone, not a collective over NCCL; the
+    all_reduce here is the one NCCL call."""
+    import torch
+    import torch.distributed as dist
+
+    from t2v_turbo_tpu_torch.apps import train_v1
+    from t2v_turbo_tpu_torch.parallel import multihost
+    from t2v_turbo_tpu_torch.parallel.mesh import make_mesh
+
+    t0 = time.perf_counter()
+    device = multihost.initialize(f"localhost:{_free_port()}", 1, 0, timeout_s=120)
+    try:
+        one = torch.ones(4, device=device)
+        dist.all_reduce(one)
+        backend = dist.get_backend()
+        trainer, it, _ = train_v1.build_trainer(train_v1.parse_args(argv), mesh=make_mesh(device=device))
+        _eps_one(trainer)
+        reset_launches()
+        recs, _ = _train_steps(trainer, it, 1)
+        snap = launch_snapshot()
+        del trainer, it
+        _free()
+    finally:
+        multihost.shutdown()
+    got, want = recs[0], want_recs[0]
+    same = (got[0] == want[0] and got[1] == want[1] and torch.equal(got[2], want[2]) and torch.equal(got[3], want[3])
+            and snap == want_snap)
+    log(f"{SHARDED_TRAIN}: a world of one rank on {device} over {backend} ({time.perf_counter() - t0:.1f} s, all_reduce "
+        f"{one.tolist()}): the v1 step over its mesh (loss {got[0]:.6f}, grad_norm {got[1]:.6f}) equals the step "
+        f"without one to the bit, factors, gradient and launches by kernel, route and shape "
+        f"{'OK' if same and backend == 'nccl' else 'FAIL'}")
+    if not same or backend != "nccl":
+        diff = {n: (snap[n], want_snap[n]) for n in want_snap if snap[n] != want_snap[n]}
+        raise AssertionError(f"{SHARDED_TRAIN}: the world of one differs: {got[:2]} vs {want[:2]}, launches {diff}")
+
+
+def _held_to_reference(what, recs, ref, init):
+    """A sharded run's steps against the one-process reference's, both with
+    Adam's eps = 1 (an element moves by ~lr x its clipped gradient): the
+    factors (sampled) within 5e-2 of the reference's largest move from
+    their seeded start, the loss within 1e-2 and grad_norm within 2e-2
+    relative, the gradients' cosine >= 0.999 (bf16 activations; statistics
+    and sums in another order)."""
+    import torch
+
+    for i, ((loss, gnorm), (flat, grad)) in enumerate(zip(recs["metrics"], recs["arrays"])):
+        r = ref[i]
+        flat, grad = torch.as_tensor(flat), torch.as_tensor(grad)
+        d_flat, moved = float((flat - r[2]).abs().max()), float((r[2] - init).abs().max())
+        cos = float(torch.nn.functional.cosine_similarity(grad.double(), r[3].double(), dim=0))
+        ok = (0 < moved and d_flat <= 5e-2 * moved and abs(loss - r[0]) <= 1e-2 * abs(r[0])
+              and abs(gnorm - r[1]) <= 2e-2 * r[1] and cos >= 0.999)
+        log(f"{SHARDED_TRAIN} {what} step {i + 1}: loss {loss:.6f} (one process {r[0]:.6f}), grad_norm {gnorm:.6f} "
+            f"({r[1]:.6f}), factors max|d| {d_flat:.3e} (<= 5e-2 x one process's largest move {moved:.3e}), the "
+            f"gradient's cosine to one process's {cos:.6f} (>= 0.999) {'OK' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"{SHARDED_TRAIN} {what} step {i + 1} differs from one process")
+
+
+def phase_sharded_training():
+    """v1 LoRA and v2 full-model training over the (data, seq) mesh at full
+    width on two ranks that share the one card (gloo), against one process."""
+    import collections
+    import queue as queue_mod
+    import shutil
+    import tempfile
+
+    import torch
+    import torch.multiprocessing as mp
+
+    from t2v_turbo_tpu_torch.apps import train_v1, train_v2
+
+    t_phase = time.perf_counter()
+    work = tempfile.mkdtemp(prefix="chip_smoke_sharded_train_", dir=os.path.join(HERE, "build"))
+    try:
+        # (a) one process: two v1 steps at the global batch, the NCCL world of one, the reward reference
+        refs, ref_init, ref_peak, ref_s = {}, {}, {}, {}
+        for (data, _), batch, extra, steps, key in V1_SHARD_RUNS:  # at each run's global batch
+            batch *= data
+            argv = _v1_train_argv(batch, os.path.join(work, f"one {key}"), extra)
+            trainer, it, _ = train_v1.build_trainer(train_v1.parse_args(argv))
+            ref_init[key] = _state_sample(_eps_one(trainer))
+            reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            first, walls = _train_steps(trainer, it, 1)
+            snap = launch_snapshot()
+            more, walls2 = _train_steps(trainer, it, steps - 1)
+            refs[key], ref_peak[key], ref_s[key] = first + more, torch.cuda.max_memory_allocated() / 2**30, walls + walls2
+            log(f"{SHARDED_TRAIN}: one process, {key} at batch {batch}: loss {[round(r[0], 6) for r in refs[key]]}, "
+                f"grad_norm {[round(r[1], 6) for r in refs[key]]}, s/step {[round(w, 3) for w in ref_s[key]]}, "
+                f"max_memory_allocated {ref_peak[key]:.2f} GiB")
+            del trainer, it
+            _free()
+            if key == "v1 B1":
+                _nccl_world_of_one_step(argv, refs[key], snap)
+        # one process: two v2 steps at the global batch of 2 (the peak memory the fsdp ranks are held against)
+        latent_glob = _write_v2_latents(os.path.join(work, "latents"))
+        torch.cuda.reset_peak_memory_stats()
+        trainer, it, _ = train_v2.build_trainer(train_v2.parse_args(_v2_train_argv(latent_glob, 2, os.path.join(
+            work, "one v2"))))
+        v2_build_peak = torch.cuda.max_memory_allocated() / 2**30
+        v2_ref, v2_s = _train_steps(trainer, it, 2)
+        ref_peak["v2"] = torch.cuda.max_memory_allocated() / 2**30
+        log(f"{SHARDED_TRAIN}: one process, v2 at batch 2 (remat, EMA, adamw8bit): loss "
+            f"{[round(r[0], 6) for r in v2_ref]}, grad_norm {[round(r[1], 6) for r in v2_ref]}, s/step "
+            f"{[round(w, 3) for w in v2_s]}, max_memory_allocated {ref_peak['v2']:.2f} GiB (after the build "
+            f"{v2_build_peak:.2f})")
+        del trainer, it
+        _free()
+
+        # (b) the two ranks
+        log(f"{SHARDED_TRAIN}: spawning 2 ranks on cuda:0 over gloo with share_device=True")
+        ctx = mp.get_context("spawn")
+        queue = ctx.Queue()
+        port = _free_port()
+        t0 = time.perf_counter()
+        procs = [ctx.Process(target=_sharded_train_rank, args=(r, 2, port, work, queue)) for r in range(2)]
+        for p in procs:
+            p.start()
+        results, deadline = {}, time.time() + 720
+        try:
+            while len(results) < 2:
+                try:
+                    rank, ok, res = queue.get(timeout=5)
+                except queue_mod.Empty:  # check that the ranks still live
+                    if time.time() > deadline or any(p.exitcode not in (None, 0) for p in procs):
+                        raise AssertionError(f"{SHARDED_TRAIN}: ranks ended without a result (exit codes "
+                                             f"{[p.exitcode for p in procs]})")
+                    continue
+                if not ok:
+                    raise AssertionError(f"{SHARDED_TRAIN}: rank {rank} failed:\n{res}")
+                results[rank] = res
+            for p in procs:
+                p.join(timeout=60)
+        finally:
+            for p in procs:
+                if p.is_alive():
+                    p.kill()
+                    p.join(timeout=30)
+        log(f"{SHARDED_TRAIN}: both ranks done in {time.perf_counter() - t0:.1f} s, exit codes "
+            f"{[p.exitcode for p in procs]}")
+
+        # (c) v1: the steps against one process; launches against the dry run; times, memory, collectives
+        smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                             capture_output=True, text=True, timeout=60).stdout.strip()
+        dry = sharded_training_shapes()
+        for (data, seq), batch, extra, _, ref_key in V1_SHARD_RUNS:
+            key = f"{data}x{seq}" + (" reward" if extra else "")
+            ref = refs[ref_key]
+            r0, r1 = results[0][key], results[1][key]
+            if r0["metrics"] != r1["metrics"] or r0["flat_sum"] != r1["flat_sum"]:
+                raise AssertionError(f"{SHARDED_TRAIN} {key}: the ranks' metrics or factors differ: {r0['metrics']} "
+                                     f"{r1['metrics']}")
+            _held_to_reference(f"({data}, {seq}){' with HPSv2' if extra else ''}",
+                               dict(r0, arrays=torch.load(os.path.join(work, f"v1 {key}.pt"))), ref, ref_init[ref_key])
+            for r in (0, 1):
+                res = results[r][key]
+                snap = res["launches"]
+                routes = {n: snap[n][1] for n in TRAIN_SHARD_CHECKED if snap[n][1]}
+                wrong = {n: v for n, v in routes.items() if set(v) - {"wgmma", "bulk", "split", "warp", "cta",
+                                                                      "cluster", "vector"}}
+                bad = []
+                if not extra:  # the reward towers' launches are not in the UNet's dry run
+                    want = _training_want(dry[(data, seq, r)], 2)
+                    bad = [n for n in TRAIN_SHARD_CHECKED
+                           if collections.Counter(snap[n][2]) != want.get(n, collections.Counter())]
+                need = ["flash_attention", "group_norm", "layer_norm", "fused_gn_silu_conv", "small_seq_attention"] \
+                    + list(GRAD_FLASH) + (list(SEQ_KERNELS) if seq > 1 else [])
+                missing = [n for n in need if snap[n][0] <= 0]
+                coll = res["collectives"]
+                log(f"{SHARDED_TRAIN} ({data}, {seq}){' HPSv2' if extra else ''} rank {r}: launches "
+                    f"{({n: snap[n][0] for n in TRAIN_SHARD_CHECKED})}"
+                    + ("" if extra else f"; by kernel and shape equal to the dry run's {'OK' if not bad else 'FAIL'}")
+                    + f"; routes {routes}; s/step {[round(w, 3) for w in res['walls']]} (build {res['build_s']:.1f} s); "
+                    f"max_memory_allocated {res['peak_gib']:.2f} GiB (one process at the global batch "
+                    f"{ref_peak[ref_key]:.2f}); collectives "
+                    f"{({n: c['calls'] for n, c in coll.items() if c['calls']})} calls, "
+                    f"{sum(c['staged_bytes'] for c in coll.values()) / 2**20:.1f} MiB staged, "
+                    f"{sum(c['seconds'] for c in coll.values()):.3f} s [{smi}]")
+                if bad or wrong or missing:
+                    raise AssertionError(f"{SHARDED_TRAIN} ({data}, {seq}) rank {r}: shapes differ for {bad}, routes "
+                                         f"{wrong}, not launched {missing}")
+
+        # (d) v2 --fsdp: the resume against the uninterrupted run; memory against one process
+        for r in (0, 1):
+            v2 = results[r]["v2"]
+            (loss3, gnorm3), again = v2["metrics"][2], v2["again"]
+            d_master, d_ema = again[1], again[2]
+            # steps 1-2 against one process at the global batch (the v1 runs' tolerances)
+            near = [abs(m[0] - x[0]) <= 1e-2 * abs(x[0]) and abs(m[1] - x[1]) <= 2e-2 * x[1]
+                    for m, x in zip(v2["metrics"][:2], v2_ref)]
+            ok = (all(near) and len(near) == 2 and v2["metrics"] == results[1 - r]["v2"]["metrics"]
+                  and all(v2["restored_equal"]) and again[0][0] == loss3 and again[0][1] == gnorm3
+                  and all(v2["again_equal"]) and v2["start"] == 2)
+            local, whole = v2["local"], v2["whole"]
+            coll = v2["collectives"]
+            log(f"{SHARDED_TRAIN} v2 --fsdp (2, 1) rank {r}: this rank keeps {local[0]} of the master's {whole} "
+                f"elements ({local[1]} of the EMA's), moments alike; steps 1-3 loss/grad_norm "
+                f"{[tuple(round(v, 6) for v in m) for m in v2['metrics']]} (one process at batch 2, steps 1-2: "
+                f"{[(round(x[0], 6), round(x[1], 6)) for x in v2_ref]}; loss within 1e-2, grad_norm within 2e-2 "
+                f"relative: {near}); s/step {[round(w, 3) for w in v2['walls']]} "
+                f"(build {v2['build_s']:.1f} s, the checkpoint gathered and written {v2['save_s']:.1f} s, read "
+                f"{v2['resume_s']:.1f} s); the state resumed from the step-2 file equals the trainer's at the save "
+                f"(master, EMA, working copy, int8 moments: {v2['restored_equal']}), the retaken step 3: loss "
+                f"{again[0][0]:.6f} (uninterrupted {loss3:.6f}, equal bits {again[0][0] == loss3}), grad_norm "
+                f"{again[0][1]:.6f} ({gnorm3:.6f}), master max|d| {d_master:.3e}, EMA {d_ema:.3e} (torch.equal: "
+                f"{v2['again_equal']}) {'OK' if ok else 'FAIL'}; max_memory_allocated "
+                f"{v2['peak_gib']:.2f} GiB (after the build {v2['build_peak_gib']:.2f}) against one process's "
+                f"{ref_peak['v2']:.2f} at batch 2; collectives {({n: c['calls'] for n, c in coll.items() if c['calls']})} "
+                f"calls, {sum(c['staged_bytes'] for c in coll.values()) / 2**30:.2f} GiB staged, "
+                f"{sum(c['seconds'] for c in coll.values()):.3f} s [{smi}]")
+            if not ok:
+                raise AssertionError(f"{SHARDED_TRAIN} v2 --fsdp rank {r}: a step differs from one process's or "
+                                     "the resumed step from the uninterrupted one")
+        log(f"{SHARDED_TRAIN}: two ranks sharing one card over gloo, every collective staged through host memory: "
+            "s/step is not a scaling figure")
+    finally:
+        shutil.rmtree(work, ignore_errors=True)
+    log(f"{SHARDED_TRAIN}: phase wall {time.perf_counter() - t_phase:.1f} s")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = ()
@@ -4672,6 +5206,7 @@ def main(argv=None) -> int:
         (SWITCHES, lambda: phase_unet_switches(records)),
         (XT, phase_x_transformer),
         (SHARDED, lambda: phase_sharded(records)),
+        (SHARDED_TRAIN, phase_sharded_training),
     ]
     if only:  # a development run of some phases (no argument: all of them)
         phases = [(n, f) for n, f in phases if n in ("device", "build") + only]

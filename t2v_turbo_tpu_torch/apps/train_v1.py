@@ -47,7 +47,21 @@ The reward towers and the reward VAE (the checkpoint's, or seeded random
 weights) are frozen, bf16 on the card; the text features come from the
 towers' pooled text branches, once per batch.
 
-Not yet ported: EMA, multi-host and FSDP.
+Over a (data, seq) mesh of torch.distributed ranks (JAX's --seq-shards,
+--fsdp and --multihost; apps/train_v1.py:59-62, :107, :303-306): under
+torchrun every rank runs this CLI, the frames of a clip split over
+--seq-shards ranks and the batch over the data axis, the world divided by
+seq (exactly data x seq ranks: a world that --seq-shards does not divide is
+refused). --batch-size is a data rank's batch (the global batch is data
+times it); with --synthetic-data every rank draws the global batch and
+keeps its data index's rows, so a sharded run trains on the one-process
+run's batches. --fsdp shards the optimizer state over the data axis
+(training/trainer.py). --device cpu runs the ranks on the CPU over gloo:
+  torchrun --nproc-per-node 2 -m t2v_turbo_tpu_torch.apps.train_v1 --tiny-model \
+      --device cpu --random-weights --synthetic-data --max-steps 2 --seq-shards 2
+Rank 0 writes the metrics, the checkpoints and the exports.
+
+Not yet ported: EMA (v1 has none in the reference either).
 """
 
 from __future__ import annotations
@@ -103,7 +117,15 @@ def parse_args(argv=None):
     p.add_argument("--use-remat", action="store_true",
                    help="recompute each block's activations in the backward (the UNet's, and "
                         "InternVideo2's with --video-rm-fn vi_clip2)")
-    p.add_argument("--device", default="cuda:0")
+    p.add_argument("--device", default="cuda:0",
+                   help="this process's device; under torchrun the rank's card (cuda:LOCAL_RANK), or cpu")
+    p.add_argument("--seq-shards", type=int, default=1,
+                   help="mesh seq axis: the frames of a clip over ranks (the data axis is the world over it)")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard the optimizer state over the mesh's data axis (ZeRO)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's torch.distributed world (implied by --seq-shards above 1 and by a "
+                        "torchrun world of more than one rank)")
     # reward feedback (the reference's --reward_fn_name / --video_rm_name ...)
     p.add_argument("--reward-fn", default="none", choices=["none", "clip", "hpsv2", "pick", "img_reward"])
     p.add_argument("--reward-ckpt", default=None,
@@ -153,13 +175,63 @@ class DataShape:
     ctx_dim: int
 
 
-def build_trainer(args, raw_videos=None, validation=False):
+def make_train_mesh(args):
+    """The (data, seq) mesh the flags ask for, or None: joins torchrun's world
+    (unless the process already joined one) and takes data = world / seq,
+    refusing a world that --seq-shards does not divide (JAX's make_mesh uses
+    exactly data * seq devices). The device becomes the rank's."""
+    import os
+
+    import torch.distributed as dist
+
+    from ..parallel import multihost
+    from ..parallel.mesh import make_mesh
+
+    if args.seq_shards < 1:
+        raise SystemExit(f"error: --seq-shards must be >= 1, got {args.seq_shards}")
+    world_env = int(os.environ.get("WORLD_SIZE", "1")) if multihost.torchrun_env() else 1
+    if not (args.multihost or args.seq_shards > 1 or world_env > 1 or dist.is_initialized()):
+        return None
+    device = None
+    if not dist.is_initialized():
+        if not multihost.torchrun_env():
+            raise SystemExit(f"error: --seq-shards {args.seq_shards} / --multihost need torchrun (its MASTER_ADDR, "
+                             "MASTER_PORT, RANK and WORLD_SIZE are not set): launch under torchrun --nproc-per-node "
+                             "data*seq")
+        device = multihost.initialize(device_type=torch.device(args.device).type)
+    world = dist.get_world_size()
+    if world % args.seq_shards:
+        raise SystemExit(f"error: --seq-shards {args.seq_shards} needs a world of data x {args.seq_shards} ranks, "
+                         f"the world has {world}")
+    mesh = make_mesh(data=world // args.seq_shards, seq=args.seq_shards, device=device)
+    args.device = str(mesh.device)
+    return mesh
+
+
+def data_rows(batches, mesh):
+    """The rows of this rank's data index of each global batch: (B, ...)
+    arrays and lists split evenly over the data axis (every rank keeps all
+    of a clip's frames; the trainer keeps its seq frames)."""
+    if mesh is None or mesh.data == 1:
+        yield from batches
+        return
+    d = mesh.coords()[0]
+    for batch in batches:
+        out = {}
+        for k, v in batch.items():
+            n = len(v) // mesh.data
+            out[k] = v[d * n:(d + 1) * n]
+        yield out
+
+
+def build_trainer(args, raw_videos=None, validation=False, mesh=None):
     """(trainer, data iterator, UNet config) from the parsed flags.
     `raw_videos`: decoded batches {video (B,T,H,W,3) in [-1, 1], txt} to
     encode in place of --data-shards / --data-csv (`raw_video_batches`).
     The trainer carries the frozen `vae` and `text_tower` it built (None
     where nothing needs one); `validation` builds both for
-    `build_validation_fn`, from the same weights."""
+    `build_validation_fn`, from the same weights. `mesh`: the rank's mesh
+    (default: `make_train_mesh`'s from the flags)."""
     from ..config import vc2_spec
     from ..diffusion import DDIMSolver, DiffusionSchedule
     from ..io.convert import load_checkpoint, split_vc2_checkpoint
@@ -170,6 +242,10 @@ def build_trainer(args, raw_videos=None, validation=False):
 
     if args.lora_rank <= 0:
         raise SystemExit("error: --lora-rank must be positive (full fine-tuning is v2's)")
+    if mesh is None:
+        mesh = make_train_mesh(args)
+    else:
+        args.device = str(mesh.device)
     device = torch.device(args.device)
     if args.tiny_model:
         ucfg = UNetConfig(**TINY_UNET_KW)
@@ -178,9 +254,11 @@ def build_trainer(args, raw_videos=None, validation=False):
         ucfg = vc2_spec().unet
         shape = DataShape(args.batch_size, args.n_frames, (args.height // 8, args.width // 8),
                           77, ucfg.context_dim)
+    if shape.frames % args.seq_shards:
+        raise SystemExit(f"error: {shape.frames} frames do not split over --seq-shards {args.seq_shards}")
     if raw_videos is None and not args.synthetic_data:
         # the decoder loads here, before the models are built: without it this raises
-        raw_videos = raw_video_batches(args, shape.frames, shape.batch)
+        raw_videos = raw_video_batches(args, shape.frames, shape.batch, mesh)
     wdim = ucfg.time_cond_proj_dim
     with torch.device(device):
         student = UNetModel(ucfg, use_remat=args.use_remat)
@@ -229,15 +307,20 @@ def build_trainer(args, raw_videos=None, validation=False):
             checkpoint_every=args.checkpointing_steps,
             keep_checkpoints=args.checkpoints_total_limit, log_every=1, seed=args.seed,
             max_grad_norm=args.max_grad_norm, lora_rank=args.lora_rank,
-            grad_accum_steps=args.gradient_accumulation_steps, grads_bf16=args.grads_bf16,
+            grad_accum_steps=args.gradient_accumulation_steps, grads_bf16=args.grads_bf16, fsdp=args.fsdp,
         ),
         reward_fn=reward_fn,
         video_reward_fn=video_reward_fn,
+        mesh=mesh,
     )
     trainer.vae, trainer.text_tower = vae, text
-    data = make_data_iter(args, shape, raw_videos, vae, text)
+    # synthetic data: every rank draws the global batch (data x its batch) and keeps its rows
+    parts = mesh.data if mesh is not None and raw_videos is None else 1
+    data = make_data_iter(args, dataclasses.replace(shape, batch=shape.batch * parts), raw_videos, vae, text)
     if image_rm is not None or video_rm is not None:
-        data = add_reward_fields(data, args, shape.frames, shape.batch, image_rm, video_rm)
+        data = add_reward_fields(data, args, shape.frames, shape.batch * parts, image_rm, video_rm)
+    if parts > 1:
+        data = data_rows(data, mesh)
     return trainer, data, ucfg
 
 
@@ -418,11 +501,15 @@ def make_data_iter(args, shape: DataShape, raw_videos=None, vae=None, text=None)
     return encode_batches(raw_videos, vae, embed, uncond, args.fps, scale_factor)
 
 
-def raw_video_batches(args, frames: int, b: int):
+def raw_video_batches(args, frames: int, b: int, mesh=None):
     """Decoded video batches {video (B,T,H,W,3) f32 in [-1, 1], txt} from
     --data-shards (WebVideoDataset, with --prefix-weights as its mixture)
     or --data-csv (MP4Dataset): the JAX CLI's `_make_raw_video_iter`. The
-    dataset loads the native decoder here, and raises if it cannot."""
+    dataset loads the native decoder here, and raises if it cannot. Over a
+    `mesh` each data index reads its own shards (or every data-th batch of
+    the CSV), the seq ranks of one data index the same clips."""
+    import itertools
+
     from ..data.datasets import MP4Dataset, read_csv_index
     from ..data.webdata import WebVideoDataset
 
@@ -432,10 +519,11 @@ def raw_video_batches(args, frames: int, b: int):
         if args.prefix_weights:
             prefix_weights = {k: float(v) for k, v in (kv.split("=") for kv in args.prefix_weights.split(","))}
         return iter(WebVideoDataset(sorted(glob.glob(args.data_shards)), batch_size=b, n_frames=frames,
-                                    size_hw=size_hw, prefix_weights=prefix_weights))
+                                    size_hw=size_hw, prefix_weights=prefix_weights, mesh=mesh))
     if args.data_csv:
         ds = MP4Dataset(read_csv_index(args.data_csv), n_frames=frames, size_hw=size_hw)
-        return ({"video": d["video"], "txt": d["text"]} for d in ds.batches(b))
+        mine = ds.batches(b) if mesh is None else itertools.islice(ds.batches(b), mesh.coords()[0], None, mesh.data)
+        return ({"video": d["video"], "txt": d["text"]} for d in mine)
     raise SystemExit("error: provide --data-shards, --data-csv or --synthetic-data")
 
 
@@ -484,9 +572,12 @@ def build_validation_fn(args, trainer, max_prompts=None, step_counts=(8, 16), su
     prompts (training/validation.py) through a T2VTurboVC2Pipeline at the
     training clip's frames and size, with the trainer's own frozen VAE and
     text tower (`build_trainer(..., validation=True)`), into `suffix` files
-    (.mp4 needs ffmpeg; .npy holds the uint8 frames)."""
+    (.mp4 needs ffmpeg; .npy holds the uint8 frames). Over the trainer's
+    mesh every rank renders (each data index on its own seq ranks) and rank
+    0 writes."""
     from ..config import vc2_spec
     from ..models.layers import compute_dtype
+    from ..parallel.mesh import seq_submesh
     from ..pipelines.vc2 import T2VTurboVC2Pipeline
     from ..training.validation import make_validation_logger
     from ..utils.tokenizer import CLIPTokenizer
@@ -499,11 +590,14 @@ def build_validation_fn(args, trainer, max_prompts=None, step_counts=(8, 16), su
         frames, (height, width), vae_scale = 4, (16, 16), 2
     else:
         frames, height, width, vae_scale = args.n_frames, args.height, args.width, 8
+    # over a mesh each data index renders every prompt on its seq ranks; rank 0 writes
+    mesh = None if trainer.mesh is None else seq_submesh(trainer.mesh)
     pipe = T2VTurboVC2Pipeline(unet=trainer.student, vae=vae, text_model=text, tokenizer=CLIPTokenizer(),
                                schedule=spec.make_schedule(), device=device, scale_factor=spec.scale_factor,
-                               vae_scale=vae_scale, w_embedding_dim=trainer.lcd_cfg.w_embedding_dim, dtype=dtype)
+                               vae_scale=vae_scale, w_embedding_dim=trainer.lcd_cfg.w_embedding_dim, dtype=dtype,
+                               mesh=mesh)
     return make_validation_logger(pipe, args.output_dir, step_counts=step_counts, frames=frames, height=height,
-                                  width=width, max_prompts=max_prompts, suffix=suffix)
+                                  width=width, max_prompts=max_prompts, suffix=suffix, write=trainer.is_main)
 
 
 def export_lora(trainer, ucfg, output_dir: str):
@@ -521,9 +615,10 @@ def main(argv=None):
     args = parse_args(argv)
     trainer, data, ucfg = build_trainer(args)
     metrics = trainer.run(data)
-    print(f"final metrics: {metrics}")
-    for path in export_lora(trainer, ucfg, args.output_dir):
-        print(path)
+    if trainer.is_main:
+        print(f"final metrics: {metrics}")
+        for path in export_lora(trainer, ucfg, args.output_dir):
+            print(path)
 
 
 if __name__ == "__main__":

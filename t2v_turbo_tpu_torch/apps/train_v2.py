@@ -34,7 +34,17 @@ trained tower is written as text_encoder.npz with the JAX CLI's keys,
 shapes and dtypes (io/convert.py::clip_text_to_jax), so either package
 reads it.
 
-Not ported yet: --fsdp, --multihost, --seq-shards.
+Over the data axis of a mesh of torch.distributed ranks (JAX's --fsdp
+and --multihost, apps/train_v2.py:46-54, :172-176): under torchrun every
+rank runs this CLI on its share of the global batch (--batch-size a
+rank's; each data rank takes its rows of the one-process run's batches);
+--fsdp keeps on each rank only its slices of the f32 master, the moments
+and the EMA (training/trainer.py, parallel/fsdp.py). --seq-shards is
+accepted at 1 only: above 1 it needs the temporal attention's probability
+capture sharded over the seq ranks (the motion prior's), which is not
+ported yet. Rank 0 writes the metrics, the checkpoints and the exports.
+  torchrun --nproc-per-node 2 -m t2v_turbo_tpu_torch.apps.train_v2 --tiny-model --device cpu \
+      --random-weights --latent-glob 'runs/v2_latents/*.pkl' --max-steps 2 --fsdp
 """
 
 from __future__ import annotations
@@ -81,7 +91,14 @@ def parse_args(argv=None):
                    help="re-encode captions every step and train the last text blocks and ln_final")
     p.add_argument("--unlocked-text-layers", type=int, default=4,
                    help="blocks of the reference's full text tower that train (counted from its end)")
-    p.add_argument("--device", default="cuda:0")
+    p.add_argument("--device", default="cuda:0",
+                   help="this process's device; under torchrun the rank's card (cuda:LOCAL_RANK), or cpu")
+    p.add_argument("--fsdp", action="store_true",
+                   help="shard the f32 master, the optimizer state and the EMA over the data axis (ZeRO)")
+    p.add_argument("--multihost", action="store_true",
+                   help="join torchrun's torch.distributed world (implied by a torchrun world of more than one rank)")
+    p.add_argument("--seq-shards", type=int, default=1,
+                   help="mesh seq axis: 1 only (above 1 needs the sharded temporal-attention capture)")
     # reward feedback (the reference's --reward_fn_name / --video_rm_name ..., :507-573, 1068-1162)
     p.add_argument("--reward-fn", default="none", choices=["none", "clip", "hpsv2", "pick", "img_reward"])
     p.add_argument("--reward-ckpt", default=None,
@@ -170,8 +187,14 @@ def build_text_encoder(args, device, ctx_len: int, clip_sd=None):
     return text
 
 
-def build_trainer(args):
-    """(trainer, data iterator, UNet config) from the parsed flags."""
+SEQ_REFUSAL = ("error: train_v2 --seq-shards {n}: sharding the frames needs the temporal attention's probability "
+               "capture (the motion prior's, models/unet_vc2.py record_probs) sharded over the seq ranks, which is not "
+               "ported yet; use --seq-shards 1 (the data axis and --fsdp work)")
+
+
+def build_trainer(args, mesh=None):
+    """(trainer, data iterator, UNet config) from the parsed flags; `mesh`:
+    the rank's mesh (default: the flags', parallel over data only)."""
     from ..config import vc2_spec
     from ..data.datasets import MP4LatentDataset
     from ..diffusion import DDIMSolver, DiffusionSchedule
@@ -180,8 +203,14 @@ def build_trainer(args):
     from ..training import lcd_v2
     from ..training.optim import make_v2_optimizer, v2_param_label
     from ..training.trainer import LCDTrainer, TrainerConfig
-    from .train_v1 import TINY_UNET_KW, build_reward_stack, build_vae
+    from .train_v1 import TINY_UNET_KW, build_reward_stack, build_vae, make_train_mesh
 
+    if args.seq_shards != 1:
+        raise SystemExit(SEQ_REFUSAL.format(n=args.seq_shards))
+    if mesh is None:
+        mesh = make_train_mesh(args)
+    else:
+        args.device = str(mesh.device)
     device = torch.device(args.device)
     if args.tiny_model:
         ucfg = UNetConfig(**TINY_UNET_KW, motion_cond_proj_dim=8 if args.use_motion_cond else None)
@@ -230,22 +259,26 @@ def build_trainer(args):
             output_dir=args.output_dir, max_steps=args.max_steps, checkpoint_every=args.checkpointing_steps,
             keep_checkpoints=args.checkpoints_total_limit, log_every=1, seed=args.seed, lora_rank=None,
             grad_accum_steps=args.gradient_accumulation_steps,
-            ema_decay=args.ema_decay if args.use_target_unet else None, grads_bf16=args.grads_bf16),
+            ema_decay=args.ema_decay if args.use_target_unet else None, grads_bf16=args.grads_bf16,
+            fsdp=args.fsdp),
         reward_fn=reward_fn,
         video_reward_fn=video_reward_fn,
         loss_fn=lcd_v2.trainer_loss,
         draws_fn=lcd_v2.trainer_draws,
         param_label=label,
         text_encoder=text,
+        mesh=mesh,
     )
-    return trainer, make_data_iter(args, ds, image_rm, video_rm, tokenizer), ucfg
+    part = (0, 1) if trainer.mesh is None else (trainer.mesh.coords()[0], trainer.mesh.data)
+    return trainer, make_data_iter(args, ds, image_rm, video_rm, tokenizer, part), ucfg
 
 
-def make_data_iter(args, ds, image_rm=None, video_rm=None, tokenizer=None):
-    """The trainer's batches: the dataset's, with the reward fields when a
-    reward model is given and, with a `tokenizer` (--train-text-encoder),
-    the captions' `tokens`; the captions stay on the host."""
-    base = ds.batches(args.batch_size)
+def make_data_iter(args, ds, image_rm=None, video_rm=None, tokenizer=None, part=(0, 1)):
+    """The trainer's batches: the dataset's (this data rank's `part` of the
+    global batch), with the reward fields when a reward model is given and,
+    with a `tokenizer` (--train-text-encoder), the captions' `tokens`; the
+    captions stay on the host."""
+    base = ds.batches(args.batch_size, part=part)
     if image_rm is not None or video_rm is not None:
         base = add_v2_reward_fields(base, args, image_rm, video_rm)
     for batch in base:
@@ -259,15 +292,24 @@ def make_data_iter(args, ds, image_rm=None, video_rm=None, tokenizer=None):
 def export_unets(trainer, output_dir: str):
     """Write unet.pt (the trained student), with the EMA target network
     target_unet.pt, and with a trained text encoder text_encoder.npz (the
-    JAX CLI's layout); returns their paths."""
+    JAX CLI's layout); returns their paths. Every rank calls it (with
+    --fsdp the weights are gathered); rank 0 writes (the others return [])."""
     from ..io.convert import clip_text_to_jax, save_unet
 
-    paths = [save_unet(trainer.export_student_params(), os.path.join(output_dir, "unet.pt"))]
+    out = [("unet.pt", trainer.export_student_params())]
     if trainer.ema is not None:
-        paths.append(save_unet(trainer.state_dict_of(trainer.ema), os.path.join(output_dir, "target_unet.pt")))
+        out.append(("target_unet.pt", trainer.export_target_params()))
     if trainer.text_encoder is not None:
-        path = os.path.join(output_dir, "text_encoder.npz")
-        np.savez(path, **clip_text_to_jax(trainer.text_state_dict()))
+        out.append(("text_encoder.npz", trainer.text_state_dict()))
+    if not trainer.is_main:
+        return []
+    paths = []
+    for name, sd in out:
+        path = os.path.join(output_dir, name)
+        if name.endswith(".npz"):
+            np.savez(path, **clip_text_to_jax(sd))
+        else:
+            save_unet(sd, path)
         paths.append(path)
     return paths
 
@@ -276,9 +318,11 @@ def main(argv=None):
     args = parse_args(argv)
     trainer, data, _ = build_trainer(args)
     metrics = trainer.run(data)
-    print(f"final metrics: {metrics}")
-    for path in export_unets(trainer, args.output_dir):
-        print(path)
+    paths = export_unets(trainer, args.output_dir)
+    if trainer.is_main:
+        print(f"final metrics: {metrics}")
+        for path in paths:
+            print(path)
 
 
 if __name__ == "__main__":

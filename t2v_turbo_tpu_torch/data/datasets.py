@@ -137,14 +137,21 @@ class MP4LatentDataset:
                 return apply_latent_defaults(d)
         raise IOError(f"MP4LatentDataset: {self.max_retries} failures near {i}")
 
-    def batches(self, batch_size: int, shuffle=True, loop=True) -> Iterator[dict]:
+    def batches(self, batch_size: int, shuffle=True, loop=True, part=(0, 1)) -> Iterator[dict]:
+        """Batches of `batch_size` samples in a seeded shuffled order; with
+        part = (index, count) the rows [index * batch_size, (index + 1) *
+        batch_size) of each batch of count * batch_size in that order (a data
+        rank's share of the global batch: the one-process stream's rows)."""
+        index, count = part
         order = list(range(len(self)))
         rng = random.Random(self.seed)
+        step = batch_size * count
         while True:
             if shuffle:
                 rng.shuffle(order)
-            for i in range(0, len(order) - batch_size + 1, batch_size):
-                yield collate_latent_batch([self[j] for j in order[i : i + batch_size]])
+            for i in range(0, len(order) - step + 1, step):
+                lo = i + index * batch_size
+                yield collate_latent_batch([self[j] for j in order[lo:lo + batch_size]])
             if not loop:
                 return
 

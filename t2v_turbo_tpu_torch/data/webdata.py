@@ -2,8 +2,10 @@
 
 Port of t2v_turbo_tpu/data/webdata.py, a rebuild of the reference's WebVid
 loader (data/dataset.py:42-151 + data/dataloader/custom_wds.py): tar shards
--> a per-rank split (the rank and world size of `torch.distributed` when it
-is initialised, else 0 and 1; wds.split_by_node in the reference) -> shard
+-> a per-rank split (a mesh's data index and data size, so the seq ranks of
+one data index read the same clips; without a mesh the rank and world size
+of `torch.distributed` when it is initialised, else 0 and 1;
+wds.split_by_node in the reference) -> shard
 shuffle -> samples grouped by key -> mp4 decode by the native video library
 -> resize / crop -> dict batches. A sample whose mp4 does not decode is
 skipped (the reference's warn-and-continue, data/dataset.py:58); a dataset
@@ -33,9 +35,14 @@ def split_shards_by_host(
     shards: Sequence[str],
     process_index: Optional[int] = None,
     process_count: Optional[int] = None,
+    mesh=None,
 ) -> List[str]:
     """Deterministic per-rank shard assignment (reference
-    data/dataset.py:101-105 split_by_node)."""
+    data/dataset.py:101-105 split_by_node): over a `mesh` (parallel/mesh.py)
+    by its data index and data size, so every seq rank of a data index gets
+    the same shards."""
+    if mesh is not None:
+        process_index, process_count = mesh.coords()[0], mesh.data
     if process_index is None:
         import torch.distributed as dist
 
@@ -163,10 +170,11 @@ class LatentWebDataset:
         shuffle_buffer_size: int = 1000,
         seed: int = 0,
         split_by_host: bool = True,
+        mesh=None,
     ):
         self.shards = list(shards)
         if split_by_host:
-            self.shards = split_shards_by_host(self.shards)
+            self.shards = split_shards_by_host(self.shards, mesh=mesh)
         if not self.shards:
             raise ValueError("no shards for this host")
         self.per_host_batch_size = per_host_batch_size
@@ -237,11 +245,12 @@ class WebVideoDataset:
         loop: bool = True,
         normalize: bool = True,
         prefix_weights: Optional[dict] = None,
+        mesh=None,
     ):
         videoio.load()
         self.shards = list(shards)
         if split_by_host:
-            self.shards = split_shards_by_host(self.shards)
+            self.shards = split_shards_by_host(self.shards, mesh=mesh)
         if not self.shards:
             raise ValueError("WebVideoDataset: no shards")
         self.batch_size = batch_size

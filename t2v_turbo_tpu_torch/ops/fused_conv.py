@@ -36,7 +36,9 @@ and the `out` head.
   alone on a given (a, b), for the sequence-parallel temporal convs
   (models/layers.py), whose statistics span every seq rank's frames
   (ops/norms.py::group_norm_affine_from_partials) and whose input carries
-  the neighbours' halo frames. Its own counters; forward only.
+  the neighbours' halo frames. Its own counters; with a gradient through
+  `FusedGnSiluConvAB` (the kernel forward, the plain composition's
+  gradient).
 - `FusedGnSiluConv`: the forward is the kernel (the plain version on CPU
   tensors, so the backward runs in the CPU tests) and keeps only the inputs;
   the backward is the unfused composition's gradient, as JAX `_fused_bwd`:
@@ -296,13 +298,48 @@ def fused_gn_silu_conv_ab_cuda(x, a, b, conv_kernel, conv_bias=None):
     return y
 
 
+class FusedGnSiluConvAB(torch.autograd.Function):
+    """B7 on given (a, b) forward (the plain version on CPU tensors), keeping
+    only the inputs; the backward recomputes h = silu(x*a + b) at the
+    kernel's rounding point and takes the conv's part with `conv2d_input` /
+    `conv2d_weight`, the bias's with a sum (JAX `_fused_bwd`'s rule with the
+    statistics given)."""
+
+    @staticmethod
+    def forward(ctx, x, a, b, conv_kernel, conv_bias):
+        ctx.save_for_backward(x, a, b, conv_kernel, conv_bias)
+        run = fused_gn_silu_conv_ab_plain if x.device.type == "cpu" else fused_gn_silu_conv_ab_cuda
+        return run(x, a, b, conv_kernel, conv_bias)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, a, b, w, bias = ctx.saved_tensors
+        needs = ctx.needs_input_grad
+        leaves = [t.detach().requires_grad_(n) for t, n in zip((x, a, b), needs)]
+        wanted = [i for i in range(3) if needs[i]]
+        with torch.enable_grad():
+            h = F.silu(leaves[0].float() * leaves[1].float()[:, :, None, None]
+                       + leaves[2].float()[:, :, None, None]).to(x.dtype)
+        pad = _padding(w)
+        grads = [None] * 5
+        if needs[3]:
+            grads[3] = torch.nn.grad.conv2d_weight(h.detach(), w.shape, g, padding=pad).to(w.dtype)
+        if needs[4] and bias is not None:
+            grads[4] = g.sum(dim=(0, 2, 3)).to(bias.dtype)
+        if wanted:
+            dh = torch.nn.grad.conv2d_input(h.shape, w.to(h.dtype), g, padding=pad)
+            for i, gi in zip(wanted, torch.autograd.grad(h, [leaves[i] for i in wanted], dh)):
+                grads[i] = gi
+        return tuple(grads)
+
+
 def fused_gn_silu_conv_ab(x, a, b, conv_kernel, conv_bias=None):
     """y = conv(silu(x*a + b)) + bias on (N, C, H, W), fused, for given a, b.
     CPU: the plain version; CUDA: `fused_gn_silu_conv_ab_cuda`, counted in
-    `launches`, `by_route`, `by_shape`. Forward only (the sharded path's
-    backward is A12b)."""
+    `launches`, `by_route`, `by_shape`; through `FusedGnSiluConvAB` when an
+    input needs a gradient."""
     if torch.is_grad_enabled() and any(t is not None and t.requires_grad for t in (x, a, b, conv_kernel, conv_bias)):
-        raise NotImplementedError("fused_gn_silu_conv_ab: forward only (the sharded path's backward is A12b)")
+        return FusedGnSiluConvAB.apply(x, a, b, conv_kernel, conv_bias)
     if x.device.type == "cpu":
         return fused_gn_silu_conv_ab_plain(x, a, b, conv_kernel, conv_bias)
     return fused_gn_silu_conv_ab_cuda(x, a, b, conv_kernel, conv_bias)

@@ -45,7 +45,10 @@ entries of their own: `group_norm_partials` (this rank's chunk partials and
 their element counts), gathered over the seq ranks
 (parallel/collectives.py), then `group_norm_from_partials` (B4's apply) or
 `group_norm_affine_from_partials` (B7's (a, b)). Each has a plain twin and
-counters; forward only.
+counters. With a gradient each goes through an `autograd.Function`
+(`_PartialsFn`, `_FromPartialsFn`, `_AffineFromPartialsFn`): the forward
+is the kernel, the backward the plain twin's math recomputed and
+differentiated; the counts carry no gradient.
 
 Gradients: when an input needs one, a CUDA call goes through an
 `autograd.Function` whose forward is the kernel and whose backward
@@ -531,11 +534,6 @@ def group_norm_affine_from_partials_plain(parts, counts, weight, bias, num_group
     return a, b
 
 
-def _refuse_grad(what, *tensors):
-    if _needs_grad(*(t for t in tensors if t is not None)):
-        raise NotImplementedError(f"{what}: forward only (the sharded path's backward is A12b)")
-
-
 def _split_ready(x, num_groups, what):
     """(n, c, s, plan) of a CUDA input the split kernels take; raises otherwise."""
     if x.device.type != "cuda":
@@ -622,10 +620,88 @@ def group_norm_affine_from_partials_cuda(parts, counts, weight, bias, num_groups
     return a_out, b_out
 
 
+def _split_vjp(plain, ctx, grads_out, n_inputs):
+    """Gradients of `plain(*saved inputs, *ctx.cfg)` at the saved inputs, None
+    for every input whose `needs_input_grad` is false (and for the int
+    counts), through the outputs that carry a cotangent."""
+    needs = ctx.needs_input_grad[:n_inputs]
+    saved = ctx.saved_tensors
+    leaves = [t if t is None or not n else t.detach().requires_grad_() for t, n in zip(saved, needs)]
+    wanted = [i for i, n in enumerate(needs) if n]
+    with torch.enable_grad():
+        outs = plain(*leaves, *ctx.cfg)
+    outs = outs if isinstance(outs, tuple) else (outs,)
+    pairs = [(o, g) for o, g in zip(outs, grads_out) if g is not None and o.requires_grad]
+    got = torch.autograd.grad([o for o, _ in pairs], [leaves[i] for i in wanted], [g for _, g in pairs],
+                              allow_unused=True, materialize_grads=True)
+    grads = [None] * n_inputs
+    for i, g in zip(wanted, got):
+        grads[i] = g
+    return tuple(grads)
+
+
+class _PartialsFn(torch.autograd.Function):
+    """B4's partials kernel forward (the plain version on a CPU tensor),
+    the plain partials' gradient backward."""
+
+    @staticmethod
+    def forward(ctx, x, num_groups):
+        ctx.save_for_backward(x)
+        ctx.cfg = (num_groups,)
+        run = group_norm_partials_plain if x.device.type == "cpu" else group_norm_partials_cuda
+        parts, counts = run(x, num_groups)
+        counts = counts.clone()  # not the shape's cached tensor
+        ctx.mark_non_differentiable(counts)
+        return parts, counts
+
+    @staticmethod
+    def backward(ctx, dparts, _dcounts):
+        return _split_vjp(lambda x, g: group_norm_partials_plain(x, g)[0], ctx, (dparts,), 1) + (None,)
+
+
+class _FromPartialsFn(torch.autograd.Function):
+    """B4's apply kernel forward, the plain apply's gradient backward (to x,
+    the partials and the affine)."""
+
+    @staticmethod
+    def forward(ctx, x, parts, counts, weight, bias, num_groups, eps, act):
+        ctx.save_for_backward(x, parts, counts, weight, bias)
+        ctx.cfg = (num_groups, eps, act)
+        run = group_norm_from_partials_plain if x.device.type == "cpu" else group_norm_from_partials_cuda
+        return run(x, parts, counts, weight, bias, num_groups, eps, act)
+
+    @staticmethod
+    def backward(ctx, dy):
+        return _split_vjp(group_norm_from_partials_plain, ctx, (dy,), 5) + (None, None, None)
+
+
+class _AffineFromPartialsFn(torch.autograd.Function):
+    """B7's (a, b) fold forward, the plain fold's gradient backward (to the
+    partials, the affine and the FiLM)."""
+
+    @staticmethod
+    def forward(ctx, parts, counts, weight, bias, film_scale, film_shift, num_groups, eps):
+        ctx.save_for_backward(parts, counts, weight, bias, film_scale, film_shift)
+        ctx.cfg = (num_groups, eps)
+        run = group_norm_affine_from_partials_plain if parts.device.type == "cpu" else \
+            group_norm_affine_from_partials_cuda
+        return run(parts, counts, weight, bias, num_groups, eps, film_scale, film_shift)
+
+    @staticmethod
+    def backward(ctx, da, db):
+        def plain(parts, counts, weight, bias, film_scale, film_shift, num_groups, eps):
+            return group_norm_affine_from_partials_plain(parts, counts, weight, bias, num_groups, eps, film_scale,
+                                                         film_shift)
+
+        return _split_vjp(plain, ctx, (da, db), 6) + (None, None)
+
+
 def group_norm_partials(x, num_groups=32):
     """(parts, counts) of x's (sample, group) rows, chunked as `partials_plan`
-    says. CUDA: `group_norm_partials_cuda`; CPU: the plain version."""
-    _refuse_grad("group_norm_partials", x)
+    says. CUDA: `group_norm_partials_cuda`; CPU: the plain version; through
+    `_PartialsFn` when x needs a gradient."""
+    if _needs_grad(x):
+        return _PartialsFn.apply(x, num_groups)
     if x.device.type == "cpu":
         return group_norm_partials_plain(x, num_groups)
     return group_norm_partials_cuda(x, num_groups)
@@ -633,8 +709,10 @@ def group_norm_partials(x, num_groups=32):
 
 def group_norm_from_partials(x, parts, counts, weight, bias, num_groups=32, eps=1e-5, act=None):
     """GroupNorm(+act) of x with the statistics of `parts` / `counts`. CUDA:
-    the kernel; CPU: the plain version."""
-    _refuse_grad("group_norm_from_partials", x, weight, bias)
+    the kernel; CPU: the plain version; through `_FromPartialsFn` when an
+    input needs a gradient."""
+    if _needs_grad(x, parts, weight, bias):
+        return _FromPartialsFn.apply(x, parts, counts, weight, bias, num_groups, eps, act)
     if x.device.type == "cpu":
         return group_norm_from_partials_plain(x, parts, counts, weight, bias, num_groups, eps, act)
     return group_norm_from_partials_cuda(x, parts, counts, weight, bias, num_groups, eps, act)
@@ -643,8 +721,10 @@ def group_norm_from_partials(x, parts, counts, weight, bias, num_groups=32, eps=
 def group_norm_affine_from_partials(parts, counts, weight, bias, num_groups=32, eps=1e-5, film_scale=None,
                                     film_shift=None):
     """B7's (a, b) for the statistics of `parts` / `counts`. CUDA: the
-    kernel; CPU: the plain version."""
-    _refuse_grad("group_norm_affine_from_partials", weight, bias, film_scale, film_shift)
+    kernel; CPU: the plain version; through `_AffineFromPartialsFn` when an
+    input needs a gradient."""
+    if _needs_grad(*(t for t in (parts, weight, bias, film_scale, film_shift) if t is not None)):
+        return _AffineFromPartialsFn.apply(parts, counts, weight, bias, film_scale, film_shift, num_groups, eps)
     if parts.device.type == "cpu":
         return group_norm_affine_from_partials_plain(parts, counts, weight, bias, num_groups, eps, film_scale,
                                                      film_shift)

@@ -6,7 +6,10 @@
   coordinates and each axis's process group; `shard_batch` / `replicated`.
 - `collectives`: the collectives that GSPMD inserted for the JAX package's
   sequence parallelism, written out (halo exchange, the GroupNorm partials'
-  gather, the seq <-> space all-to-all), forward only.
+  gather, the seq <-> space all-to-all), each with its backward, and the
+  data-parallel trainer's (all-reduce, reduce-scatter and all-gather of
+  flat buffers).
+- `fsdp`: ZeRO over the data axis of the trainer's flat state.
 
 The batch splits over `data`, the frames T over `seq`; `model` (tensor
 parallelism) stays 1.

@@ -1,4 +1,4 @@
-"""The collectives of sequence-parallel sampling, written out (forward only).
+"""The collectives of sequence- and data-parallel sampling and training, written out.
 
 The JAX package shards a clip (B, T, ...) over its "seq" mesh axis and
 GSPMD inserts what the temporal layers then need. Here the layers call
@@ -16,21 +16,33 @@ these helpers on an `AxisGroup` (parallel/mesh.py) of the seq axis:
   of its T / n frames) and S-sharded (all T frames of S / n columns), for
   the temporal attention, which needs every frame of a pixel.
 - `gather_to_all` / `gather_to_root`: whole tensors from every rank of a
-  group (the sampled latents; the decoded frames on rank 0).
+  group (the sampled latents, a reward's frames; the decoded frames on
+  rank 0).
 
-Transport: the group's backend. gloo takes no CUDA tensor in all_gather or
-all_to_all, so when the group's backend is gloo and the tensor lies on the
-card, the helper stages it through host memory (a copy to the host, the
-collective there, a copy back) and counts the staged bytes. That is the
-transport gloo implies, not a fallback: the kernels still run on the card.
-NCCL takes the card's tensors directly.
+Gradients: each of the first five is an `autograd.Function` whose backward
+sends every cotangent back to the rank that owns the value. The halo
+frames' gradients go back to their owners and add to the owners' edge
+frames; the gathers' backward is a reduce-scatter of the gradients (every
+rank used every rank's values); the two all-to-alls are each other's
+backward. The counts carry no gradient; `gather_to_root` refuses one.
+
+The trainer's data-parallel helpers, over flat buffers: `all_reduce_`
+(in place, a sum), `reduce_scatter_flat` (n * c elements in, this rank's
+c-element block of the sum out) and `all_gather_flat` (the inverse
+layout: every rank's c elements, in rank order).
+
+Transport: the group's backend. gloo takes no CUDA tensor in these
+collectives, so when the group's backend is gloo and the tensor lies on
+the card, the helper stages it through host memory (a copy to the host,
+the collective there, a copy back) and counts the staged bytes. That is
+the transport gloo implies, not a fallback: the kernels still run on the
+card. NCCL takes the card's tensors directly.
 
 Counters (each helper's attributes, read by chip_smoke.py): `calls`,
 `staged_bytes` (bytes copied to and from the host), `seconds` (host wall
 time inside the helper; for a staged call the stream is synchronised first,
-so it holds the transport alone, not the kernels queued before it).
-Gradients do not flow through these helpers yet (A12b adds their VJPs):
-they refuse a tensor that needs one.
+so it holds the transport alone, not the kernels queued before it). A
+backward's transport counts on its helper.
 """
 
 from __future__ import annotations
@@ -49,7 +61,7 @@ def _counters(fn):
 
 def _refuse_grad(x: torch.Tensor, what: str) -> None:
     if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(f"{what}: no backward through the sequence-parallel collectives yet (A12b)")
+        raise NotImplementedError(f"{what}: no backward (the decoded frames on one rank are not trained through)")
 
 
 class _Transport:
@@ -78,6 +90,13 @@ class _Transport:
         self.fn.staged_bytes += x.numel() * x.element_size()
         return x.to(self.device)
 
+    def back_into(self, dst: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+        if x is not dst:
+            if self.staged:
+                self.fn.staged_bytes += x.numel() * x.element_size()
+            dst.copy_(x)
+        return dst
+
     def __exit__(self, *exc):
         self.fn.calls += 1
         self.fn.seconds += time.perf_counter() - self.t0
@@ -91,6 +110,15 @@ def _all_gather(fn, x: torch.Tensor, group) -> torch.Tensor:
         outs = [torch.empty_like(src) for _ in range(group.size)]
         dist.all_gather(outs, src, group=group.pg)
         return t.back(torch.stack(outs))
+
+
+def _reduce_scatter(fn, x: torch.Tensor, group) -> torch.Tensor:
+    """x: (group.size, ...) -> block `group.index` of the sum of every rank's x."""
+    with _Transport(fn, group, x) as t:
+        src = t.send(x)
+        out = torch.empty(src[0].numel(), dtype=src.dtype, device=src.device)
+        dist.reduce_scatter_tensor(out, src.reshape(-1), group=group.pg)
+        return t.back(out.view(src.shape[1:]))
 
 
 def _all_to_all(fn, x: torch.Tensor, group) -> torch.Tensor:
@@ -109,14 +137,7 @@ def halo_sides(group) -> Tuple[int, int]:
     return int(group.index > 0), int(group.index < group.size - 1)
 
 
-@_counters
-def halo_exchange(x: torch.Tensor, group, dim: int) -> torch.Tensor:
-    """x extended along `dim` by the previous rank's last frame and the next
-    rank's first frame (where those ranks exist). The edges of all ranks go
-    out in one all_gather of two frames a rank."""
-    _refuse_grad(x, "halo_exchange")
-    if group.size == 1:
-        return x
+def _halo(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     edges = torch.cat([x.narrow(dim, 0, 1), x.narrow(dim, x.shape[dim] - 1, 1)], dim)
     every = _all_gather(halo_exchange, edges, group)
     lo, hi = halo_sides(group)
@@ -127,15 +148,44 @@ def halo_exchange(x: torch.Tensor, group, dim: int) -> torch.Tensor:
     return torch.cat(parts, dim)
 
 
+def _halo_grad(g: torch.Tensor, group, dim: int, t: int) -> torch.Tensor:
+    """The VJP of `_halo`: this rank's frames' part of g, plus the gradients
+    of the copies of its edge frames that its neighbours held as halos."""
+    lo, hi = halo_sides(group)
+    zero = g.new_zeros(g.shape[:dim] + (1,) + g.shape[dim + 1:])
+    sent = torch.cat([g.narrow(dim, 0, 1) if lo else zero, g.narrow(dim, lo + t, 1) if hi else zero], dim)
+    every = _all_gather(halo_exchange, sent, group)  # rank r: (its halo before, its halo after)
+    core = g.narrow(dim, lo, t).clone()
+    if lo:  # the previous rank's halo after it is my first frame
+        core.narrow(dim, 0, 1).add_(every[group.index - 1].narrow(dim, 1, 1))
+    if hi:  # the next rank's halo before it is my last frame
+        core.narrow(dim, t - 1, 1).add_(every[group.index + 1].narrow(dim, 0, 1))
+    return core
+
+
+class _HaloFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.t = group, dim, x.shape[dim]
+        return _halo(x, group, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _halo_grad(g.contiguous(), ctx.group, ctx.dim, ctx.t), None, None
+
+
 @_counters
-def gather_partials(parts: torch.Tensor, counts: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
-    """(R, P, 2) f32 partials and (P,) int32 counts of this rank -> (R, n*P,
-    2) and (n*P,) of every rank of the group, in rank order. One all_gather:
-    the counts ride as an extra row of f32 (exact: a chunk holds far fewer
-    than 2^24 elements)."""
-    _refuse_grad(parts, "gather_partials")
+def halo_exchange(x: torch.Tensor, group, dim: int) -> torch.Tensor:
+    """x extended along `dim` by the previous rank's last frame and the next
+    rank's first frame (where those ranks exist). The edges of all ranks go
+    out in one all_gather of two frames a rank; the backward sends the halo
+    frames' gradients back the same way."""
     if group.size == 1:
-        return parts, counts
+        return x
+    return _HaloFn.apply(x, group, dim)
+
+
+def _gather_parts(parts, counts, group):
     r, p = parts.shape[:2]
     packed = torch.cat([parts, counts.to(parts.dtype)[None, :, None].expand(1, p, 2)])
     every = _all_gather(gather_partials, packed, group)  # (n, R + 1, P, 2)
@@ -143,14 +193,36 @@ def gather_partials(parts: torch.Tensor, counts: torch.Tensor, group) -> Tuple[t
             every[:, r, :, 0].reshape(-1).to(torch.int32))
 
 
+class _GatherPartialsFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, parts, counts, group):
+        ctx.group = group
+        out, all_counts = _gather_parts(parts, counts, group)
+        ctx.mark_non_differentiable(all_counts)
+        return out, all_counts
+
+    @staticmethod
+    def backward(ctx, g, _gcounts):
+        n = ctx.group.size
+        r, np_, two = g.shape
+        blocks = g.reshape(r, n, np_ // n, two).transpose(0, 1).contiguous()  # block i: rank i's chunks
+        return _reduce_scatter(gather_partials, blocks, ctx.group), None, None
+
+
 @_counters
-def seq_to_space(x: torch.Tensor, group) -> torch.Tensor:
-    """(B, C, T / n, S) frames of this rank -> (B, C, T, S / n): all T frames
-    of this rank's S / n columns (rank i holds columns i*S/n ...)."""
-    _refuse_grad(x, "seq_to_space")
+def gather_partials(parts: torch.Tensor, counts: torch.Tensor, group) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(R, P, 2) f32 partials and (P,) int32 counts of this rank -> (R, n*P,
+    2) and (n*P,) of every rank of the group, in rank order. One all_gather:
+    the counts ride as an extra row of f32 (exact: a chunk holds far fewer
+    than 2^24 elements). Backward: a reduce-scatter of the partials'
+    gradients (every rank normalised with every rank's partials)."""
+    if group.size == 1:
+        return parts, counts
+    return _GatherPartialsFn.apply(parts, counts, group)
+
+
+def _to_space(x, group):
     n = group.size
-    if n == 1:
-        return x
     b, c, t, s = x.shape
     if s % n:
         raise ValueError(f"seq_to_space: {s} columns (H*W) do not split over {n} seq ranks")
@@ -159,13 +231,8 @@ def seq_to_space(x: torch.Tensor, group) -> torch.Tensor:
     return got.permute(1, 2, 0, 3, 4).reshape(b, c, n * t, s // n)
 
 
-@_counters
-def space_to_seq(x: torch.Tensor, group) -> torch.Tensor:
-    """The inverse of `seq_to_space`: (B, C, T, S / n) -> (B, C, T / n, S)."""
-    _refuse_grad(x, "space_to_seq")
+def _to_seq(x, group):
     n = group.size
-    if n == 1:
-        return x
     b, c, t, s = x.shape
     if t % n:
         raise ValueError(f"space_to_seq: {t} frames do not split over {n} seq ranks")
@@ -174,14 +241,66 @@ def space_to_seq(x: torch.Tensor, group) -> torch.Tensor:
     return got.permute(1, 2, 3, 0, 4).reshape(b, c, t // n, n * s)
 
 
+class _SeqToSpaceFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _to_space(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_seq(g.contiguous(), ctx.group), None
+
+
+class _SpaceToSeqFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _to_seq(x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _to_space(g.contiguous(), ctx.group), None
+
+
+@_counters
+def seq_to_space(x: torch.Tensor, group) -> torch.Tensor:
+    """(B, C, T / n, S) frames of this rank -> (B, C, T, S / n): all T frames
+    of this rank's S / n columns (rank i holds columns i*S/n ...). Backward:
+    `space_to_seq` of the gradient."""
+    if group.size == 1:
+        return x
+    return _SeqToSpaceFn.apply(x, group)
+
+
+@_counters
+def space_to_seq(x: torch.Tensor, group) -> torch.Tensor:
+    """The inverse of `seq_to_space`: (B, C, T, S / n) -> (B, C, T / n, S).
+    Backward: `seq_to_space` of the gradient."""
+    if group.size == 1:
+        return x
+    return _SpaceToSeqFn.apply(x, group)
+
+
+class _GatherToAllFn(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return _all_gather(gather_to_all, x, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _reduce_scatter(gather_to_all, g.contiguous(), ctx.group), None
+
+
 @_counters
 def gather_to_all(x: torch.Tensor, group) -> torch.Tensor:
     """(group.size, *x.shape): every rank's x (same shape on every rank), on
-    every rank."""
-    _refuse_grad(x, "gather_to_all")
+    every rank. Backward: a reduce-scatter (this rank's x gets the sum of
+    every rank's gradient of its block)."""
     if group.size == 1:
         return x[None]
-    return _all_gather(gather_to_all, x, group)
+    return _GatherToAllFn.apply(x, group)
 
 
 @_counters
@@ -208,6 +327,38 @@ def gather_to_root(x: torch.Tensor, counts: List[int], group, root: int = 0) -> 
         return t.back(torch.cat([o[:n] for o, n in zip(outs, counts)]))
 
 
+@_counters
+def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
+    """x summed over the group's ranks, in place; returns x."""
+    if group.size == 1:
+        return x
+    with _Transport(all_reduce_, group, x) as t:
+        src = t.send(x)
+        dist.all_reduce(src, group=group.pg)
+        return t.back_into(x, src)
+
+
+@_counters
+def reduce_scatter_flat(x: torch.Tensor, group) -> torch.Tensor:
+    """A flat buffer of n * c elements -> this rank's block of c elements of
+    its sum over the group's n ranks (block i: elements i*c ... of every
+    rank's buffer)."""
+    n = group.size
+    if x.numel() % n:
+        raise ValueError(f"reduce_scatter_flat: {x.numel()} elements do not split over {n} ranks")
+    if n == 1:
+        return x.reshape(-1).clone()
+    return _reduce_scatter(reduce_scatter_flat, x.reshape(n, -1), group)
+
+
+@_counters
+def all_gather_flat(x: torch.Tensor, group) -> torch.Tensor:
+    """c elements of every rank -> n * c, in rank order."""
+    if group.size == 1:
+        return x.reshape(-1).clone()
+    return _all_gather(all_gather_flat, x.reshape(-1), group).reshape(-1)
+
+
 def reset_counters() -> None:
     for fn in COLLECTIVES:
         fn.calls, fn.staged_bytes, fn.seconds = 0, 0, 0.0
@@ -219,4 +370,5 @@ def read_counters() -> dict:
             for fn in COLLECTIVES}
 
 
-COLLECTIVES = (halo_exchange, gather_partials, seq_to_space, space_to_seq, gather_to_all, gather_to_root)
+COLLECTIVES = (halo_exchange, gather_partials, seq_to_space, space_to_seq, gather_to_all, gather_to_root, all_reduce_,
+               reduce_scatter_flat, all_gather_flat)

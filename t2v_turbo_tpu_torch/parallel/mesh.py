@@ -120,6 +120,16 @@ def make_mesh(data: Optional[int] = None, seq: int = 1, model: int = 1,
     return Mesh(data, seq, model, rank, torch.device(device), tuple(axes))
 
 
+def seq_submesh(mesh: Mesh) -> Mesh:
+    """The mesh of this rank's data index alone (data = 1): its seq ranks,
+    which then form the world, e.g. for rendering one prompt over the seq
+    ranks while every data index renders its own."""
+    seq = mesh.axis("seq")
+    axes = (AxisGroup("data", 1, 0, (mesh.rank,), None, seq.backend), seq, mesh.axis("model"),
+            AxisGroup("world", seq.size, seq.index, seq.ranks, seq.pg, seq.backend))
+    return Mesh(1, mesh.seq, mesh.model, seq.index, mesh.device, axes)
+
+
 def batch_sharding(mesh: Mesh) -> Tuple[str, str]:
     """(B, T, ...) video batches: B over data, T over seq."""
     return ("data", "seq")

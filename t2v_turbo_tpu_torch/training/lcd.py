@@ -17,6 +17,17 @@ select which examples carry each reward, as the JAX package's role masks.
 The random draws (grid index, noise, w) come from `sample_draws`, a
 function of a `torch.Generator`; `lcd_loss` takes them explicitly, so a
 test can feed it the JAX package's own draws.
+
+Under a (data, seq) mesh (`mesh=`, parallel/mesh.py) each rank holds the
+(B / data, T / seq) block of the global batch and returns its share of the
+global loss, so that the world's sum of the losses, and of their
+gradients, is the one-process loss of the global batch (JAX's sharded
+step, whose psum XLA inserts): the distillation term is the rank's mean
+over 1 / (data * seq); a reward fn scores whole clips, so the rank's
+prediction is gathered over the seq ranks (`collectives.gather_to_all`,
+whose backward returns each frame's gradient to its rank), the mask's sum
+is the global batch's (an all-reduce over the data ranks), and the term is
+divided by seq, since every seq rank of a data index computes the same one.
 """
 
 from __future__ import annotations
@@ -62,6 +73,14 @@ class LCDDraws:
     def to(self, device) -> "LCDDraws":
         return LCDDraws(self.index.to(device), self.noise.to(device), self.w.to(device))
 
+    def shard(self, mesh) -> "LCDDraws":
+        """This rank's block of the global batch's draws: B over data, the
+        noise's T over seq."""
+        from ..parallel.mesh import shard
+
+        return LCDDraws(shard(mesh, self.index, ("data",)), shard(mesh, self.noise, ("data", "seq")),
+                        shard(mesh, self.w, ("data",)))
+
 
 def sample_draws(cfg: LCDConfig, latents_shape, generator: torch.Generator) -> LCDDraws:
     """The step's random draws, from `generator` on the CPU (so a card and
@@ -84,10 +103,12 @@ def lcd_loss(
     cfg: LCDConfig,
     reward_fn: Optional[Callable] = None,
     video_reward_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, terms) for one batch; `terms` holds distill_loss, loss and,
     with their fns, reward_loss and video_rm_loss, not detached (so a
-    caller can differentiate one term alone).
+    caller can differentiate one term alone). Under a `mesh`: this rank's
+    share of each (the module docstring).
 
     batch: latents (B, T, h, w, C) clean, scaled VAE latents; ctx and
     uncond_ctx (B, L, D) prompt and empty-prompt embeddings; fps (B,); and
@@ -137,18 +158,34 @@ def lcd_loss(
         distill = torch.mean((model_pred - target) ** 2)
     else:
         distill = huber_loss(model_pred, target, cfg.huber_c)
-    return with_reward_terms(distill, model_pred, batch, cfg, reward_fn, video_reward_fn)
+    return with_reward_terms(distill, model_pred, batch, cfg, reward_fn, video_reward_fn, mesh)
 
 
-def with_reward_terms(distill, model_pred, batch, cfg, reward_fn=None, video_reward_fn=None):
+def _whole_clips(model_pred, mesh):
+    """This rank's (B / data, T / seq, ...) prediction with the other seq
+    ranks' frames: (B / data, T, ...), frames in rank order."""
+    from ..parallel import collectives
+
+    group = mesh.axis("seq")
+    every = collectives.gather_to_all(model_pred, group)  # (seq, B, T / seq, ...)
+    return every.transpose(0, 1).reshape(model_pred.shape[0], -1, *model_pred.shape[2:])
+
+
+def with_reward_terms(distill, model_pred, batch, cfg, reward_fn=None, video_reward_fn=None, mesh=None):
     """(loss, terms): the distillation loss plus, for each reward fn, its
     term -(r * mask).sum() / max(mask.sum(), 1) * scale, r the fn's (B,)
     rewards of `model_pred` and mask the batch's `reward_mask` /
     `video_reward_mask` (ones when absent); the scales are cfg's
-    reward_scale / video_reward_scale."""
+    reward_scale / video_reward_scale. Under a `mesh` each term is this
+    rank's share (the module docstring)."""
+    if mesh is not None:  # a mean over this rank's block, one of data * seq equal blocks
+        distill = distill / (mesh.data * mesh.seq)
     terms = {"distill_loss": distill}
     total = distill
     b = model_pred.shape[0]
+    seq = 1 if mesh is None else mesh.seq
+    if mesh is not None and seq > 1 and (reward_fn is not None or video_reward_fn is not None):
+        model_pred = _whole_clips(model_pred, mesh)
     for name, fn, mask_key, scale in (
         ("reward_loss", reward_fn, "reward_mask", cfg.reward_scale),
         ("video_rm_loss", video_reward_fn, "video_reward_mask", cfg.video_reward_scale),
@@ -158,7 +195,12 @@ def with_reward_terms(distill, model_pred, batch, cfg, reward_fn=None, video_rew
         mask = batch.get(mask_key)
         mask = torch.ones(b, device=model_pred.device) if mask is None else mask.float()
         r = fn(model_pred, batch)
-        terms[name] = -(r * mask).sum() / mask.sum().clamp_min(1.0) * scale
+        count = mask.sum()
+        if mesh is not None and mesh.data > 1:
+            from ..parallel import collectives
+
+            count = collectives.all_reduce_(count.detach().clone().reshape(1), mesh.axis("data"))[0]
+        terms[name] = -(r * mask).sum() / count.clamp_min(1.0) * (scale / seq)
         total = total + terms[name]
     terms["loss"] = total
     return total, terms

@@ -93,13 +93,16 @@ def lcd_v2_loss(
     cfg: LCDV2Config,
     reward_fn: Optional[Callable] = None,
     video_reward_fn: Optional[Callable] = None,
+    mesh=None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """(loss, terms) for one batch, the terms not detached (lcd.py's
     `lcd_loss` convention). batch: index (B,) int, z_t, cond_teacher_out,
     uncond_teacher_out, score (B, T, h, w, C), prompt_emb (B, L, D),
     use_motion_guide (B,) bool, optionally fps and the reward fields.
     student(x, t, ctx, fps=, timestep_cond=, motion_cond=) and `target`
-    (the EMA network; None: the student) are epsilon models."""
+    (the EMA network; None: the student) are epsilon models. Under a `mesh`
+    (data axis only): this rank's share of each term (lcd.py's
+    `with_reward_terms`)."""
     z_t = batch["z_t"].float()
     index = batch["index"].long()
     ctx, fps = batch["prompt_emb"], batch.get("fps")
@@ -150,7 +153,7 @@ def lcd_v2_loss(
         distill = torch.mean((model_pred - target_pred) ** 2)
     else:
         distill = huber_loss(model_pred, target_pred, cfg.huber_c)
-    return with_reward_terms(distill, model_pred, batch, cfg, reward_fn, video_reward_fn)
+    return with_reward_terms(distill, model_pred, batch, cfg, reward_fn, video_reward_fn, mesh)
 
 
 def trainer_loss(trainer, batch, draws):
@@ -163,9 +166,15 @@ def trainer_loss(trainer, batch, draws):
         batch = dict(batch, prompt_emb=trainer.text_encoder(batch["tokens"]))
     return lcd_v2_loss(trainer.student, batch, draws, target=trainer.target, sched=trainer.sched,
                        solver=trainer.solver, cfg=trainer.lcd_cfg, reward_fn=trainer.reward_fn,
-                       video_reward_fn=trainer.video_reward_fn)
+                       video_reward_fn=trainer.video_reward_fn, mesh=trainer.mesh)
 
 
 def trainer_draws(trainer, batch):
-    """`LCDTrainer`'s draws hook for v2: w from its generator."""
-    return sample_v2_draws(trainer.lcd_cfg, batch["z_t"].shape[0], trainer.generator)
+    """`LCDTrainer`'s draws hook for v2: w from its generator, the global
+    batch's, this rank's block kept."""
+    draws = sample_v2_draws(trainer.lcd_cfg, trainer.global_shape(batch["z_t"].shape)[0], trainer.generator)
+    if trainer.mesh is None:
+        return draws
+    from ..parallel.mesh import shard
+
+    return LCDV2Draws(shard(trainer.mesh, draws.w, ("data",)))

@@ -70,6 +70,17 @@ def flat_buffer(tensors: List[torch.Tensor]):
     return flat, views
 
 
+def square_sum_f32(g: torch.Tensor) -> torch.Tensor:
+    """The sum of squares of a flat buffer in f32, chunk by chunk (no f32 copy
+    of a bf16 buffer is made; each chunk's sum is pairwise: on the CPU
+    `torch.linalg.vector_norm` of an 820K-element f32 gradient erred by
+    1.6e-5 relative, this by 1e-7). On the card, one `vector_norm`, squared:
+    its reduction is a tree already."""
+    if g.is_cuda:
+        return torch.square(torch.linalg.vector_norm(g, dtype=torch.float32))
+    return sum(torch.sum(torch.square(c.float())) for c in g.reshape(-1).split(STEP_CHUNK))
+
+
 def q8_quantize(x: torch.Tensor):
     """(int8 blocks (n_blocks, 256), f32 scales (n_blocks, 1)) of x's flattening."""
     flat = x.reshape(-1).float()
@@ -92,6 +103,12 @@ class AdamW:
         self.count = 0
         self.mu = [self._zeros(p) for p in self.params]
         self.nu = [self._zeros(p) for p in self.params]
+
+    @property
+    def row_elements(self) -> int:
+        """The parameter elements one row of a moment holds: a 256-element
+        int8 block (and its scale), or one element."""
+        return BLOCK if self.moments == "q8" else 1
 
     def _zeros(self, p: torch.Tensor):
         """A zero moment for p in its storage: int8 blocks and their scales,

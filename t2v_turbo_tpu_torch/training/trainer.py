@@ -1,7 +1,7 @@
-"""The LCD trainer on one device (port of t2v_turbo_tpu/training/trainer.py
-without the mesh, FSDP, tensor parallelism, the split step and multi-host),
-in two modes that share the step's clip and accumulation, `run`, the
-prefetcher, the checkpoints, the watchdog and the metrics:
+"""The LCD trainer (port of t2v_turbo_tpu/training/trainer.py without tensor
+parallelism and the split step), on one device or on one rank of a (data,
+seq) mesh, in two modes that share the step's clip and accumulation, `run`,
+the prefetcher, the checkpoints, the watchdog and the metrics:
 
 - LoRA (v1, `lora_rank` set). State: the student's LoRA factors (f32,
   installed on the frozen student by `lora.apply_lora`), the optimizer's
@@ -41,6 +41,26 @@ prefetcher, the checkpoints, the watchdog and the metrics:
 - Input: `run` pulls batches through `data.datasets.DevicePrefetcher`, so
   the data iterator's work (decode, encode) and the copy to the device
   overlap the step, as the JAX trainer's `run` does.
+- The mesh (`mesh=`, parallel/mesh.py; JAX shards the batch B -> data and
+  T -> seq, trainer.py:9-10): each rank holds its (B / data, T / seq)
+  block (`to_device` keeps its seq frames, parallel/multihost.py), and the
+  student, teacher and target run their temporal layers over the seq
+  group. Every rank draws the global draws from the generator and keeps
+  its block, so a sharded step draws the single-process numbers. The loss
+  hooks scale each rank's loss so that the world's sum of the gradients is
+  the global batch's (training/lcd.py), and the flat gradient is summed
+  over every rank (`collectives.all_reduce_`) before the norm and the
+  clip; the metrics are the world's sums. With `TrainerConfig.fsdp`
+  (parallel/fsdp.py, JAX trainer.py:243-300) each data rank keeps only its
+  slices of the f32 master (LoRA: of the factors), the moments, the EMA
+  and the reduced gradient (a reduce-scatter over the data ranks, after a
+  sum over the seq ranks); the working copy, the live norm affines and
+  the target's copy are all-gathered after each update. Rank 0 writes the
+  checkpoints, in the one-process format (the sharded state gathered
+  first), the metrics and the heartbeat; every rank resumes by reading the
+  file and keeping its slice, so a checkpoint crosses world sizes. The
+  ranks agree on a stop (SIGTERM to any of them) with one all-reduce a
+  step, so they stop at the same step.
 - Metrics: one JSON row per logged step in output_dir/metrics.jsonl with
   time_per_step_s, the losses (with reward feedback, reward_loss and
   video_rm_loss too), grad_norm and data_wait_frac (the share of
@@ -51,6 +71,7 @@ prefetcher, the checkpoints, the watchdog and the metrics:
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import json
@@ -67,7 +88,7 @@ from ..lora import LoRAConfig, apply_lora, base_state_dict, init_lora, lora_fact
 from ..models.layers import GroupNorm, LayerNorm
 from .ema import update_ema
 from .lcd import LCDConfig, lcd_loss, sample_draws
-from .optim import STEP_CHUNK, TEXT_PREFIX, flat_buffer
+from .optim import TEXT_PREFIX, flat_buffer, square_sum_f32
 from .watchdog import GracefulShutdown, Heartbeat
 
 
@@ -84,6 +105,7 @@ class TrainerConfig:
     grad_accum_steps: int = 1
     ema_decay: Optional[float] = None  # full model: the EMA target network's decay
     grads_bf16: bool = False  # the gradient buffer in bf16 (the norm stays f32)
+    fsdp: bool = False  # shard the optimizer state over the mesh's data axis (parallel/fsdp.py)
 
 
 def draws_seed(seed: int, step: int) -> int:
@@ -92,22 +114,25 @@ def draws_seed(seed: int, step: int) -> int:
 
 
 def v1_loss(trainer: "LCDTrainer", batch, draws):
-    """The v1 LCD loss of the trainer's student and teacher."""
+    """The v1 LCD loss of the trainer's student and teacher (this rank's
+    share of it under a mesh)."""
     return lcd_loss(trainer.student, trainer.teacher, batch, draws, sched=trainer.sched, solver=trainer.solver,
-                    cfg=trainer.lcd_cfg, reward_fn=trainer.reward_fn, video_reward_fn=trainer.video_reward_fn)
+                    cfg=trainer.lcd_cfg, reward_fn=trainer.reward_fn, video_reward_fn=trainer.video_reward_fn,
+                    mesh=trainer.mesh)
 
 
 def v1_draws(trainer: "LCDTrainer", batch):
-    """The v1 step's draws from the trainer's generator."""
-    return sample_draws(trainer.lcd_cfg, batch["latents"].shape, trainer.generator)
+    """The v1 step's draws from the trainer's generator: the global batch's,
+    this rank's block kept."""
+    draws = sample_draws(trainer.lcd_cfg, trainer.global_shape(batch["latents"].shape), trainer.generator)
+    return draws if trainer.mesh is None else draws.shard(trainer.mesh)
 
 
 def _norm_f32(g: torch.Tensor) -> torch.Tensor:
-    """The 2-norm of a flat gradient, in f32 (a bf16 buffer chunk by chunk,
-    so no f32 copy of it is made)."""
-    if g.dtype == torch.float32:
-        return torch.linalg.vector_norm(g)
-    return torch.sqrt(sum(torch.sum(torch.square(c.float())) for c in g.split(STEP_CHUNK)))
+    """The 2-norm of a flat gradient, in f32 (on the card one `vector_norm`)."""
+    if g.is_cuda:
+        return torch.linalg.vector_norm(g, dtype=torch.float32)
+    return torch.sqrt(square_sum_f32(g))
 
 
 def _is_norm_param(module: torch.nn.Module) -> Callable[[str], bool]:
@@ -128,7 +153,7 @@ class LCDTrainer:
                  reward_fn: Optional[Callable] = None, video_reward_fn: Optional[Callable] = None,
                  loss_fn: Callable = v1_loss, draws_fn: Callable = v1_draws,
                  param_label: Optional[Callable[[str], str]] = None,
-                 text_encoder: Optional[torch.nn.Module] = None):
+                 text_encoder: Optional[torch.nn.Module] = None, mesh=None):
         """student: the UNet to train; teacher: the frozen UNet (v1);
         reward_fn / video_reward_fn: the reward feedback terms
         (training/reward_adapters.py), whose models must be frozen.
@@ -143,12 +168,17 @@ class LCDTrainer:
         only), its parameters labelled as "text." + key, the "frozen" ones
         left out. loss_fn(trainer, batch, draws) -> (loss, terms) and
         draws_fn(trainer, batch) -> draws give the step's loss (default: v1's
-        LCD loss and draws)."""
+        LCD loss and draws). mesh: this rank's (data, seq) mesh
+        (parallel/mesh.py); a mesh of one rank is the single-device path."""
         self.cfg, self.lcd_cfg = cfg, lcd_cfg
         self.reward_fn, self.video_reward_fn = reward_fn, video_reward_fn
         self.loss_fn, self.draws_fn = loss_fn, draws_fn
         self.device = next(student.parameters()).device
         self.sched, self.solver = sched.to(self.device), solver.to(self.device)
+        self.mesh = mesh if mesh is not None and mesh.size > 1 else None
+        self.is_main = mesh is None or mesh.rank == 0
+        self._shards = None  # parallel.fsdp.FlatShards with cfg.fsdp over more than one data rank
+        self._fsdp = cfg.fsdp and self.mesh is not None and self.mesh.data > 1
         self.student = student
         self.teacher = teacher.requires_grad_(False) if teacher is not None else None
         self.target = None
@@ -161,8 +191,15 @@ class LCDTrainer:
             self._init_full(optimizer, param_label or (lambda name: "base"))
         else:
             self._init_lora(optimizer)
+        # with fsdp: this rank's slices of the reduced gradient
+        self._grad_shard = None if self._shards is None else torch.empty(
+            self._shards.size, dtype=self._grad_flat.dtype, device=self.device)
+        if self.mesh is not None:
+            for m in (self.student, self.teacher, self.target):
+                if m is not None and hasattr(m, "set_seq_group"):
+                    m.set_seq_group(self.mesh.axis("seq"))
         self.step = 0
-        self._acc: Optional[torch.Tensor] = None  # mean of the micro-step grads
+        self._acc: Optional[torch.Tensor] = None  # mean of the micro-step grads (this rank's slices with fsdp)
         self._micro = 0
         self.generator = torch.Generator().manual_seed(draws_seed(cfg.seed, 0))
         self.ckpt_dir = os.path.join(cfg.output_dir, "checkpoints")
@@ -185,8 +222,30 @@ class LCDTrainer:
         self._grad_flat = torch.zeros_like(self.flat, dtype=gdtype)
         self._grad_views = [self._grad_flat[v.storage_offset():v.storage_offset() + v.numel()].view(v.shape)
                             for v in views]
-        self.optimizer = optimizer([self.flat])
-        self._groups = [(self.optimizer, [slice(0, self.flat.numel())])]
+        segments = [(0, self.flat.numel())]
+        self._state = self._shard(self.flat, segments)  # the f32 buffer the optimizer steps on
+        self.optimizer = optimizer([self._state[self._slice(0)]])
+        self._groups = [(self.optimizer, [self._slice(0)])]
+        self._group_segs = [[0]]
+        # where each segment's values live between updates (gathered after each with fsdp)
+        self._live = [self.flat[lo:hi] for lo, hi in segments]
+
+    def _shard(self, full: torch.Tensor, segments) -> torch.Tensor:
+        """The optimizer-state buffer over `segments` of the f32 `full`: full
+        itself, or with fsdp this rank's slices of it (`parallel.fsdp`)."""
+        self._segments = list(segments)
+        if not self._fsdp:
+            return full
+        from ..parallel.fsdp import FlatShards
+
+        self._shards = FlatShards(self._segments, self.mesh.axis("data"))
+        return self._shards.take(full)
+
+    def _slice(self, k: int) -> slice:
+        """Segment k in the optimizer-state buffer's coordinates."""
+        if self._shards is not None:
+            return self._shards.local[k]
+        return slice(*self._segments[k])
 
     def _init_full(self, optimizer, param_label):
         """The master, the working copy, the gradient buffer, the groups'
@@ -220,86 +279,164 @@ class LCDTrainer:
         order = sorted(named, key=lambda np_: (is_text(np_[0]), is_norm(np_[0]), rank[param_label(np_[0])]))
         self.param_names = [n for n, _ in order]
         with torch.no_grad():
-            self.master, master_views = flat_buffer([p.detach() for _, p in order])
+            master, master_views = flat_buffer([p.detach() for _, p in order])
         # each tensor's [start, end of its padded span) in the master
-        offsets = [v.storage_offset() for v in master_views] + [self.master.numel()]
+        offsets = [v.storage_offset() for v in master_views] + [master.numel()]
         last_work = max(i for i, n in enumerate(self.param_names) if not is_norm(n))
         n_work = offsets[last_work + 1]  # the working copy covers every non-norm weight
         self._n_unet = offsets[sum(not is_text(n) for n in self.param_names)]
-        self.working = self.master[:n_work].to(dtype)
+        self.working = master[:n_work].to(dtype)
         self._n_work = n_work
-        # the groups' segments of the master: (label, non-norm or norm) runs
-        segments = {}
+        # the segments of the master: (text or UNet, label, non-norm or norm) runs, in order
+        spans = {}
         for i, (name, _) in enumerate(order):
-            key = (param_label(name), is_norm(name))
-            lo, hi = segments.get(key, (offsets[i], offsets[i]))
-            segments[key] = (lo, offsets[i + 1])
-        self._groups = []
+            key = (is_text(name), param_label(name), is_norm(name))
+            lo, hi = spans.get(key, (offsets[i], offsets[i]))
+            spans[key] = (lo, offsets[i + 1])
+        keys = sorted(spans, key=lambda k: spans[k])
+        seg_norm = [key[2] for key in keys]
+        self.master = self._state = self._shard(master, [spans[key] for key in keys])
+        self._groups, self._group_segs = [], []
         for lb in labels:
-            slices = [slice(*segments[(lb, norm)]) for norm in (False, True) if (lb, norm) in segments]
-            self._groups.append((optimizer([self.master[s] for s in slices], lb), slices))
+            ks = [k for k, key in enumerate(keys) if key[1] == lb]
+            self._groups.append((optimizer([self.master[self._slice(k)] for k in ks], lb), [self._slice(k) for k in ks]))
+            self._group_segs.append(ks)
         self.optimizers = {lb: opt for (opt, _), lb in zip(self._groups, labels)}
+        # each segment's live values: the working copy's span, or (norms) the
+        # master's own (with fsdp a whole copy of it, gathered after each update)
+        self._live = [master[lo:hi] if norm and not self._fsdp else master[lo:hi].clone() if norm else
+                      self.working[lo:hi] for (lo, hi), norm in zip(self._segments, seg_norm)]
 
-        def install(target, work, full, requires_grad):
-            """Parameters as views of `work` / `full` (norms): every trained
-            one, or with a `target` UNet the UNet's into it."""
+        def live_view(lo, n, live):
+            k = next(k for k, (a, b) in enumerate(self._segments) if a <= lo < b)
+            a = self._segments[k][0]
+            return live[k][lo - a:lo - a + n]
+
+        def install(target, live, requires_grad):
+            """Parameters as views of the segments' `live` values: every
+            trained one, or with a `target` UNet the UNet's into it."""
             for i, name in enumerate(self.param_names):
                 module, key = owner(name)
                 if target is not None:
                     if is_text(name):
                         continue
                     module = target
-                lo, n = offsets[i], order[i][1].numel()
-                src = full if is_norm(name) else work
-                _set_parameter(module, key, src[lo:lo + n].view(order[i][1].shape), requires_grad)
+                view = live_view(offsets[i], order[i][1].numel(), live).view(order[i][1].shape)
+                _set_parameter(module, key, view, requires_grad)
 
-        install(None, self.working, self.master, True)
+        install(None, self._live, True)
         self.params = [owner(n)[0].get_parameter(owner(n)[1]) for n in self.param_names]
         self._offsets = offsets[:-1]
         gdtype = torch.bfloat16 if cfg.grads_bf16 else torch.float32
-        self._grad_flat = torch.zeros(self.master.numel(), dtype=gdtype, device=self.device)
+        self._grad_flat = torch.zeros(master.numel(), dtype=gdtype, device=self.device)
         self._grad_views = [self._grad_flat[o:o + p.numel()].view(p.shape) for o, p in zip(offsets, self.params)]
         self.ema = None
         if cfg.ema_decay is not None:
-            self.ema = self.master[:self._n_unet].clone()
-            self.target_working = self.ema[:min(n_work, self._n_unet)].to(dtype)
+            self._n_unet_segs = sum(hi <= self._n_unet for _, hi in self._segments)
+            self.ema = self.master[:self._state_end(self._n_unet_segs)].clone()
+            # (on the CPU `to` returns the f32 EMA itself: the target's weights are its views)
+            self.target_working = (master[:min(n_work, self._n_unet)].to(dtype, copy=True) if self._fsdp else
+                                   self.ema[:min(n_work, self._n_unet)].to(dtype))
+            # the target's live values: the EMA's own span for a norm (with fsdp a
+            # whole copy, gathered after each update), else the target's working copy
+            self._target_live = [(master[lo:hi].clone() if self._fsdp else self.ema[lo:hi]) if norm else
+                                 self.target_working[lo:hi]
+                                 for (lo, hi), norm in zip(self._segments[:self._n_unet_segs], seg_norm)]
             with torch.device("meta"):
                 self.target = type(student)(student.cfg)
-            install(self.target, self.target_working, self.ema, False)
+            install(self.target, self._target_live, False)
             self.target.eval()
+        del master
+
+    def _state_end(self, n_segments: int) -> int:
+        """The end of the first `n_segments` segments in the state buffer."""
+        return self._slice(n_segments - 1).stop if n_segments else 0
 
     @property
     def full_model(self) -> bool:
         return self.cfg.lora_rank is None
 
+    def global_shape(self, shape) -> tuple:
+        """The global batch's shape of this rank's (B, T, ...) block."""
+        shape = tuple(shape)
+        if self.mesh is None:
+            return shape
+        return (shape[0] * self.mesh.data, shape[1] * self.mesh.seq) + shape[2:]
+
     @torch.no_grad()
     def _after_update(self) -> None:
-        """Full model, after an optimizer update: the working copy from the
-        master, then the EMA and the target's working copy from it."""
-        if not self.full_model:
-            return
-        self.working.copy_(self.master[:self._n_work])
-        if self.ema is not None:
-            update_ema(self.ema, self.master[:self._n_unet], self.cfg.ema_decay)
+        """After an optimizer update: the live values from the state (the
+        working copy from the master; with fsdp every rank's slices
+        gathered), then the EMA and the target's copy from it."""
+        if self._shards is not None:
+            self._gather_live(self._state, self._live)
+        elif self.full_model:
+            self.working.copy_(self.master[:self._n_work])
+        if self.full_model and self.ema is not None:
+            update_ema(self.ema, self.master[:self.ema.numel()], self.cfg.ema_decay)
+            self._refresh_target()
+
+    def _gather_live(self, state: torch.Tensor, live: List[torch.Tensor]) -> None:
+        for k, dst in enumerate(live):
+            dst.copy_(self._shards.gather(state, k, dst.dtype))
+
+    def _refresh_target(self) -> None:
+        if self._shards is not None:
+            self._gather_live(self.ema, self._target_live)
+        else:
             self.target_working.copy_(self.ema[:self.target_working.numel()])
+
+    def _whole(self, state: torch.Tensor, n_segments: Optional[int] = None) -> torch.Tensor:
+        """A state buffer (the master, the EMA, the accumulated gradient)
+        whole, over its first `n_segments` segments: itself, or with fsdp
+        every rank's slices gathered onto the host (a collective: every rank
+        calls it)."""
+        if self._shards is None:
+            return state
+        n_segments = len(self._segments) if n_segments is None else n_segments
+        out = torch.zeros(self._segments[n_segments - 1][1], dtype=state.dtype)
+        for k in range(n_segments):
+            lo, hi = self._segments[k]
+            out[lo:hi] = self._shards.gather(state, k, to_host=True)
+        return out
+
+    def _mine(self, whole: torch.Tensor, n_segments: Optional[int] = None) -> torch.Tensor:
+        """This rank's part of a whole state buffer (the inverse of `_whole`)."""
+        if self._shards is None:
+            return whole
+        n_segments = len(self._segments) if n_segments is None else n_segments
+        return torch.cat([whole[slice(*self._shards.mine[k])] for k in range(n_segments)])
 
     def state_dict_of(self, flat: torch.Tensor) -> Dict[str, torch.Tensor]:
         """Full model: the student's parameters as they lie in `flat` (the
-        master or the EMA), f32, under the UNet's state-dict keys."""
+        whole master or EMA, `whole_master()` / `whole_ema()` with fsdp),
+        f32, under the UNet's state-dict keys."""
         return {n: flat[o:o + p.numel()].view(p.shape)
                 for n, o, p in zip(self.param_names, self._offsets, self.params) if not n.startswith(TEXT_PREFIX)}
 
+    def whole_master(self) -> torch.Tensor:
+        """The f32 master, whole (gathered with fsdp: a collective)."""
+        return self._whole(self.master)
+
+    def whole_ema(self) -> torch.Tensor:
+        """The f32 EMA, whole (gathered with fsdp: a collective)."""
+        return self._whole(self.ema, self._n_unet_segs)
+
     def text_state_dict(self) -> Dict[str, torch.Tensor]:
         """The trained text encoder's state dict in f32: its trained
-        parameters from the master, the frozen ones as they are."""
-        trained = {n[len(TEXT_PREFIX):]: self.master[o:o + p.numel()].view(p.shape)
+        parameters from the master, the frozen ones as they are (with fsdp
+        a collective)."""
+        master = self.whole_master()
+        trained = {n[len(TEXT_PREFIX):]: master[o:o + p.numel()].view(p.shape)
                    for n, o, p in zip(self.param_names, self._offsets, self.params) if n.startswith(TEXT_PREFIX)}
         return {k: trained.get(k, v).detach().float() for k, v in self.text_encoder.state_dict().items()}
 
     # ------------------------------------------------------------------
     def loss_and_grads(self, batch: Dict[str, torch.Tensor], draws):
-        """(loss, metrics, the gradients in the flat buffer, laid out as
-        `self.params`) for a device batch with explicit draws."""
+        """(loss, metrics, the gradient) for a device batch with explicit
+        draws. The gradient is the flat buffer laid out as `self.params`,
+        summed over the mesh's ranks (with fsdp: this rank's slices of the
+        sum); the loss and the metrics are the world's sums."""
         if self.full_model:
             loss, terms = self.loss_fn(self, batch, draws)
             # a parameter the step does not reach (motion_cond_proj without the
@@ -316,13 +453,31 @@ class LCDTrainer:
                 grads = torch.autograd.grad(loss, self.params)
         torch._foreach_copy_(self._grad_views, grads)
         del grads
-        return loss, {k: v.detach() for k, v in terms.items()}, self._grad_flat
+        metrics = {k: v.detach() for k, v in terms.items()}
+        if self.mesh is None:
+            return loss, metrics, self._grad_flat
+        from ..parallel import collectives
+
+        names = sorted(metrics)
+        sums = collectives.all_reduce_(torch.stack([metrics[k].float() for k in names]), self.mesh.axis("world"))
+        metrics = dict(zip(names, sums.unbind()))
+        if self._shards is None:
+            return metrics["loss"], metrics, collectives.all_reduce_(self._grad_flat, self.mesh.axis("world"))
+        collectives.all_reduce_(self._grad_flat, self.mesh.axis("seq"))
+        return metrics["loss"], metrics, self._shards.reduce_scatter(self._grad_flat, self._grad_shard)
+
+    def _grad_norm(self, g: torch.Tensor) -> torch.Tensor:
+        """The global gradient's 2-norm in f32 (with fsdp: from this rank's
+        slices, the squared norms summed over the data ranks)."""
+        if self._shards is None:
+            return _norm_f32(g)
+        return torch.sqrt(self._shards.square_norm(g))
 
     def train_step(self, batch: Dict[str, torch.Tensor], draws) -> Dict[str, torch.Tensor]:
-        """One micro-step on a device batch with explicit draws; returns the
-        metrics (device scalars)."""
+        """One micro-step on a device batch with explicit draws (this rank's
+        block of them under a mesh); returns the metrics (device scalars)."""
         _, metrics, g = self.loss_and_grads(batch, draws)
-        gnorm = _norm_f32(g)  # the padding is zero
+        gnorm = self._grad_norm(g)  # the padding is zero
         k = max(1, self.cfg.grad_accum_steps)
         if k == 1:
             scale = torch.clamp(self.cfg.max_grad_norm / (gnorm + 1e-6), max=1.0)
@@ -331,7 +486,7 @@ class LCDTrainer:
             self._acc = g / k if self._acc is None else self._acc.add_(g, alpha=1.0 / k)
             self._micro += 1
             if self._micro == k:
-                norm = torch.linalg.vector_norm(self._acc)
+                norm = self._grad_norm(self._acc)
                 scale = torch.where(norm < self.cfg.max_grad_norm, torch.ones_like(norm),
                                     self.cfg.max_grad_norm / norm)
                 self._apply(self._acc, scale)
@@ -341,15 +496,21 @@ class LCDTrainer:
         return metrics
 
     def _apply(self, g: torch.Tensor, scale: torch.Tensor) -> None:
-        """Each group's optimizer step on its segments of g * scale, then
-        (full model) the working copy, the EMA and the target."""
+        """Each group's optimizer step on its segments of g * scale, then the
+        live values, the EMA and the target."""
         for opt, slices in self._groups:
             opt.step([g[s] for s in slices], scale)
         self._after_update()
 
     def to_device(self, host_batch: Dict) -> Dict[str, torch.Tensor]:
         """The batch's tensors on the trainer's device (keys starting with
-        "_", such as the captions, are host-only and left out)."""
+        "_", such as the captions, are host-only and left out); under a mesh
+        `host_batch` holds this rank's data rows, of which (B, T, ...)
+        tensors keep the frames of its seq index."""
+        if self.mesh is not None:
+            from ..parallel.multihost import host_local_batch_to_global
+
+            return host_local_batch_to_global(self.mesh, host_batch)
         return {k: torch.as_tensor(v).to(self.device, non_blocking=True)
                 for k, v in host_batch.items() if not k.startswith("_")}
 
@@ -371,15 +532,37 @@ class LCDTrainer:
                 found.append((int(m.group(1)), path))
         return sorted(found)
 
+    def _optimizer_states(self) -> List[dict]:
+        """Each group's optimizer state in the one-process layout (with fsdp
+        every rank's slices of the moments gathered: a collective)."""
+        states = []
+        for (opt, _), segs in zip(self._groups, self._group_segs):
+            state = opt.state_dict()
+            if self._shards is not None:
+                unit = opt.row_elements
+                for key in ("mu", "nu"):
+                    state[key] = [tuple(self._shards.gather_rows(t, k, unit).cpu() for t in m)
+                                  if isinstance(m, tuple) else self._shards.gather_rows(m, k, unit).cpu()
+                                  for m, k in zip(state[key], segs)]
+            states.append(state)
+        return states
+
     def save(self, step: int) -> None:
-        state = {"step": step, "optimizers": [opt.state_dict() for opt, _ in self._groups],
-                 "accum": (self._acc, self._micro)}
+        """Rank 0 writes output_dir/checkpoints/step_<step>.pt in the
+        one-process format; with fsdp every rank must call it (the sharded
+        state is gathered first)."""
+        if self._shards is None and not self.is_main:
+            return
+        state = {"step": step, "optimizers": self._optimizer_states(),
+                 "accum": (None if self._acc is None else self._whole(self._acc), self._micro)}
         if self.full_model:
-            state["master"] = self.master
+            state["master"] = self.whole_master()
             if self.ema is not None:
-                state["ema"] = self.ema
+                state["ema"] = self.whole_ema()
         else:
             state["factors"] = {n: {k: t.detach() for k, t in f.items()} for n, f in self.factors.items()}
+        if not self.is_main:
+            return
         path = os.path.join(self.ckpt_dir, f"step_{step:08d}.pt")
         torch.save(state, path + ".tmp")
         os.replace(path + ".tmp", path)
@@ -387,32 +570,61 @@ class LCDTrainer:
             os.remove(old)
 
     def resume_if_available(self) -> int:
+        """Load the newest checkpoint (every rank reads the one file and keeps
+        its slices); the step it was saved at, or 0."""
         found = self._checkpoints()
         if not found:
             return 0
-        state = torch.load(found[-1][1], map_location=self.device, weights_only=False)
+        state = torch.load(found[-1][1], map_location="cpu" if self._shards is not None else self.device,
+                           weights_only=False)
         with torch.no_grad():
             if self.full_model:
-                self.master.copy_(state["master"])
+                self.master.copy_(self._mine(state["master"]))
                 if self.ema is not None:
-                    self.ema.copy_(state["ema"])
-                    self.target_working.copy_(self.ema[:self.target_working.numel()])
-                self.working.copy_(self.master[:self._n_work])
+                    self.ema.copy_(self._mine(state["ema"], self._n_unet_segs))
             else:
                 for n, f in self.factors.items():
                     for k, t in f.items():
                         t.copy_(state["factors"][n][k])
-        for (opt, _), opt_state in zip(self._groups, state["optimizers"]):
+                if self._shards is not None:
+                    self._state.copy_(self._shards.take(self.flat))
+            if self._shards is not None and self.full_model:
+                self._gather_live(self.master, self._live)
+                if self.ema is not None:
+                    self._refresh_target()
+            elif self.full_model:
+                self.working.copy_(self.master[:self._n_work])
+                if self.ema is not None:
+                    self._refresh_target()
+        for (opt, _), segs, opt_state in zip(self._groups, self._group_segs, state["optimizers"]):
+            if self._shards is not None:
+                unit = opt.row_elements
+                opt_state = dict(opt_state)
+                for key in ("mu", "nu"):
+                    opt_state[key] = [tuple(self._shards.take_rows(t, k, unit) for t in m) if isinstance(m, tuple)
+                                      else self._shards.take_rows(m, k, unit) for m, k in zip(opt_state[key], segs)]
             opt.load_state_dict(opt_state)
-        self._acc, self._micro = state["accum"]
+        acc, self._micro = state["accum"]
+        self._acc = None if acc is None else self._mine(acc).to(self.device)
         self.step = int(state["step"])
         return self.step
 
     def _log(self, step: int, metrics: dict, dt: float) -> dict:
         row = {"step": step, "time_per_step_s": round(dt, 4), **metrics}
-        with open(self._metrics_path, "a") as f:
-            f.write(json.dumps(row) + "\n")
+        if self.is_main:
+            with open(self._metrics_path, "a") as f:
+                f.write(json.dumps(row) + "\n")
         return row
+
+    def _stop_agreed(self, requested: bool) -> bool:
+        """Whether any rank was asked to stop (one all-reduce of the flag over
+        the world, every step), so every rank stops at the same step."""
+        if self.mesh is None:
+            return requested
+        from ..parallel import collectives
+
+        flag = torch.tensor([float(requested)], device=self.device)
+        return bool(collectives.all_reduce_(flag, self.mesh.axis("world"))[0] > 0)
 
     # ------------------------------------------------------------------
     def run(self, data_iter: Iterator[dict], max_steps: Optional[int] = None,
@@ -425,7 +637,9 @@ class LCDTrainer:
         here. validation_fn(step, student) runs every `validation_every`
         steps, after the step's checkpoint (training/validation.py: the
         reference's periodic validation videos); it must leave the
-        trainer's generator alone, so the draws do not depend on it."""
+        trainer's generator alone, so the draws do not depend on it. Under
+        a mesh every rank runs this loop (the validation render too: the
+        UNet's seq layers are collective); rank 0 writes."""
         cfg = self.cfg
         start = self.resume_if_available()
         max_steps = max_steps or cfg.max_steps
@@ -433,10 +647,11 @@ class LCDTrainer:
         last_metrics, last_step = {}, start
         t_window, steps_in_window, wait_in_window = time.perf_counter(), 0, 0.0
         hb_path = os.path.join(cfg.output_dir, "heartbeat.json")
+        beat = Heartbeat(hb_path) if self.is_main else contextlib.nullcontext()
         with DevicePrefetcher(data_iter, put=self.to_device, depth=2) as prefetch, \
-                Heartbeat(hb_path) as hb, GracefulShutdown() as stop:
+                beat as hb, GracefulShutdown() as stop:
             for step in range(start, max_steps):
-                if stop.requested:
+                if self._stop_agreed(stop.requested):
                     break
                 t_wait = time.perf_counter()
                 try:
@@ -447,7 +662,8 @@ class LCDTrainer:
                 metrics = self.step_device(batch)
                 last_step = step + 1
                 steps_in_window += 1
-                hb.update(last_step)
+                if hb is not None:
+                    hb.update(last_step)
                 if last_step % cfg.log_every == 0 or step == start:
                     metrics = {k: float(v) for k, v in metrics.items()}  # waits for the device
                     now = time.perf_counter()
@@ -465,7 +681,12 @@ class LCDTrainer:
 
     def export_student_params(self) -> Dict[str, torch.Tensor]:
         """Inference-ready UNet state dict: base + collapsed LoRA, or (full
-        model) the f32 master."""
+        model) the f32 master (with fsdp a collective)."""
         if self.full_model:
-            return self.state_dict_of(self.master)
+            return self.state_dict_of(self.whole_master())
         return merge_lora(base_state_dict(self.student), self.factors)
+
+    def export_target_params(self) -> Dict[str, torch.Tensor]:
+        """Full model with an EMA: the target network's f32 state dict (with
+        fsdp a collective)."""
+        return self.state_dict_of(self.whole_ema())

@@ -42,12 +42,15 @@ DEFAULT_VALIDATION_PROMPTS = (
 def make_validation_logger(pipe, output_dir: str, prompts: Optional[Sequence[str]] = None,
                            step_counts: Sequence[int] = (8, 16), frames: int = 16, height: int = 320,
                            width: int = 512, save_fps: int = 8, max_prompts: Optional[int] = None,
-                           suffix: str = ".mp4"):
+                           suffix: str = ".mp4", write: bool = True):
     """validation_fn(step, unet) for `LCDTrainer.run`: renders each prompt
     at each step count with `unet` (the trainer's student, its LoRA merged
     through the weights' parametrisation) in `pipe`'s place, and appends
     {step, sample_steps, prompt, path} rows to validation/index.jsonl. The
-    student's train flags and the pipeline's own UNet are restored after."""
+    student's train flags and the pipeline's own UNet are restored after.
+    Over a mesh every rank renders (the UNet's seq layers are collective);
+    only a logger with `write` (rank 0's) writes, and a rank whose pipeline
+    returns no video writes nothing."""
     from ..io.video import save_video
     from ..pipelines.vc2 import video_to_uint8
 
@@ -55,7 +58,8 @@ def make_validation_logger(pipe, output_dir: str, prompts: Optional[Sequence[str
         raise ValueError(f"validation videos are .mp4 or .npy, not {suffix!r}")
     prompts = list(prompts or DEFAULT_VALIDATION_PROMPTS)[:max_prompts or None]
     vdir = os.path.join(output_dir, "validation")
-    os.makedirs(vdir, exist_ok=True)
+    if write:
+        os.makedirs(vdir, exist_ok=True)
     index_path = os.path.join(vdir, "index.jsonl")
 
     def validation_fn(step: int, unet: torch.nn.Module):
@@ -67,6 +71,8 @@ def make_validation_logger(pipe, output_dir: str, prompts: Optional[Sequence[str
                     for i, prompt in enumerate(prompts):
                         video = pipe(prompt=prompt, height=height, width=width, frames=frames,
                                      num_inference_steps=n_steps, generator=torch.Generator().manual_seed(i))
+                        if video is None or not write:
+                            continue
                         path = save_video(video_to_uint8(video)[0],
                                           os.path.join(vdir, f"step{step:07d}_s{n_steps}_p{i}{suffix}"),
                                           fps=save_fps)
