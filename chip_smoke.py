@@ -202,7 +202,9 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 attention; the first prompt again at motion_gs 0 must differ;
                 one more video profiled (chiprun_out/profile_v2_video.txt).
  11. v2 preprocess: apps/preprocess.py's job (build_job) at full width with a
-                seeded teacher on synthetic latents: 4 samples (the last
+                seeded teacher on synthetic latents, on a 10-point DDIM grid
+                (the JAX tests' and dryrun's; phases 12 and 16 train on the
+                same grid, so the motion gate is on): 4 samples (the last
                 under torch.profiler: chiprun_out/profile_v2_preprocess.txt) with the
                 motion prior and 1 without; the teacher's calls a sample
                 counted (index + 4 with the prior: index + 1 inversion
@@ -210,7 +212,8 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 unconditional output; 2 without), scores finite and non-zero
                 (zero without), the nine capture attentions plain (18 calls a
                 sample), every flash launch on wgmma; the pickles read by
-                MP4LatentDataset; s/sample and peak memory. Then a small f32
+                MP4LatentDataset; s/sample and peak memory. The first
+                sample is phase 23's one-process reference. Then a small f32
                 UNet's motion_prior_score (41 inversion steps) on the card
                 against the CPU.
  12. v2 training: apps/train_v2.py's build_trainer on those pickles at the
@@ -330,7 +333,32 @@ Phases; the script exits non-zero, without the final result line, if any fails:
                 EMA slices). Logged: s/step, each rank's peak memory against
                 one process's, the collectives' calls, staged MiB and
                 seconds. Phase 3 holds every shape of the v1 dry run
-                (`_sharded_cases`).
+                (`_sharded_cases`). The ranks then run phase 23's work.
+ 23. sharded v2: the motion prior and v2 under the seq axis, on phase 22's
+                two ranks (one spawned world for both phases). The
+                preprocess at (data, seq) = (1, 2): apps/preprocess.py's job
+                with its `mesh` set, phase 11's arguments, one motion-prior
+                sample (the teacher at T / seq = 8 frames, the capture and
+                the MotionClone score sequence-parallel); rank 0's sample
+                against phase 11's first (one process, same draws): z_t equal
+                to the bit, z_example, the conditional and unconditional
+                outputs mean|d| <= 1e-2 x max(1, max|ref|) (bf16; max|d|
+                logged); the score, which in bf16 at seeded weights lies
+                ~28% (relative L2) from the same sample's f32 score (phase
+                22's process computes it, TF32 off), no farther from that
+                f32 score than 1.5 x one process's bf16 score is; the
+                teacher's calls a rank (index + 4) and each rank's launches
+                by kernel and shape equal `sharded_v2_shapes`' dry run (the
+                score's backward through the flash launches up to the last
+                capture only). Then v2 full model
+                at (1, 2), the global batch of 2 on each rank (phase 22's
+                arguments): two steps held to phase 22's one-process steps
+                (loss within 1e-2, grad_norm within 2e-2 relative), every
+                path kernel launched on its route. Logged: s/sample,
+                s/step, each rank's peak memory, the collectives' calls,
+                staged MiB and seconds. Phase 3 holds every shape of both
+                dry runs (`_sharded_cases`). `--phases "sharded v2"` runs
+                phase 22 too.
 `python3 chip_smoke.py --phases "v2 generation,v2 preprocess"` runs only the
 named phases (after device and build), for development; with no argument
 every phase runs.
@@ -2833,6 +2861,14 @@ def phase_training_reference():
 # training. The pickles and exported UNets are large, so they go to a work
 # directory beside the script (build/, untracked), removed at the end.
 V2_DIR = os.path.join(HERE, "build", "chip_smoke_v2")
+V2_PRE_GRID = 10  # the preprocess's DDIM grid (JAX's tests and dryrun): index + 4 = 11-13 teacher calls a sample
+V2_PRE_REF = {}  # phase 11's first motion-prior sample: phase 23's one-process reference
+
+
+def _v2_pre_argv(device, n, seed, out_dir):
+    """apps/preprocess.py's flags of phases 11 and 23: n synthetic samples at full width on the grid above."""
+    return ["--random-weights", "--synthetic-data", "--device", device, "--num-samples", str(n), "--seed", str(seed),
+            "--num-ddim-timesteps", str(V2_PRE_GRID), "--output-dir", out_dir]
 V2_GEN = "v2 generation"
 V2_PRE = "v2 preprocess"
 V2_TRAIN = "v2 training"
@@ -2952,8 +2988,7 @@ def phase_v2_preprocess():
     paths, times = [], []
     with PlainAttentionCount() as plain:
         for motion, n, seed in ((True, 4, 0), (False, 1, 1)):
-            argv = ["--random-weights", "--synthetic-data", "--device", "cuda:0", "--num-samples", str(n),
-                    "--seed", str(seed), "--output-dir", os.path.join(V2_DIR, "latents", "motion" if motion else "plain")]
+            argv = _v2_pre_argv("cuda:0", n, seed, os.path.join(V2_DIR, "latents", "motion" if motion else "plain"))
             argv += [] if motion else ["--no-motion-prior"]
             t0 = time.perf_counter()
             job = preprocess.build_job(preprocess.parse_args(argv))
@@ -2964,7 +2999,7 @@ def phase_v2_preprocess():
             for k in range(n):
                 if motion and k == n - 1:  # the last sample with the prior under the profiler
                     (path, sample, seconds), wall_ms, busy_ms, events = _profiled(
-                        lambda: next(samples), "profile_v2_preprocess.txt", cpu=False)  # ~45 UNet calls: device only
+                        lambda: next(samples), "profile_v2_preprocess.txt", cpu=False)  # ~12 UNet calls: device only
                     fwd_ms, bwd_ms, _, _ = flash_device_ms(events)
                     top = sorted(events, key=lambda e: -e.self_device_time_total)[:6]
                     log(f"{V2_PRE} profile: one sample (index {int(sample['index'])}): wall {wall_ms:.1f} ms, "
@@ -2977,6 +3012,8 @@ def phase_v2_preprocess():
                     seconds = None  # not in s/sample: the profiler's own cost
                 else:
                     path, sample, seconds = next(samples)
+                    if motion and k == 0:  # phase 23's one-process reference
+                        V2_PRE_REF.update(sample=sample, seconds=seconds, calls=len(calls))
                 index = int(sample["index"])
                 want = index + 4 if motion else 2
                 score = sample["score"]
@@ -3104,7 +3141,7 @@ def _train_v2(latent_glob, batch):
             "--use-target-unet", "--ema-decay", "0.95", "--optimizer", "adamw8bit", "--learning-rate", "1e-5",
             "--temporal-lr", "1e-5", "--reward-fn", "hpsv2", "--reward-scale", "0.2", "--video-rm-fn", "vi_clip",
             "--video-reward-scale", "0.5", "--vae-decode-batch-size", "16", "--max-steps", "4",
-            "--checkpointing-steps", "1000000"]
+            "--checkpointing-steps", "1000000", "--num-ddim-timesteps", str(V2_PRE_GRID)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer, data, ucfg = train_v2.build_trainer(train_v2.parse_args(argv))
@@ -4074,7 +4111,8 @@ def _train_v2_text(latent_glob, batch):
             "--use-target-unet", "--ema-decay", "0.95", "--optimizer", "adamw8bit", "--learning-rate", "1e-5",
             "--temporal-lr", "1e-5", "--reward-fn", "hpsv2", "--reward-scale", "0.2", "--video-rm-fn", "vi_clip",
             "--video-reward-scale", "0.5", "--vae-decode-batch-size", "16", "--max-steps", "3",
-            "--checkpointing-steps", "1000000", "--train-text-encoder", "--unlocked-text-layers", "4"]
+            "--checkpointing-steps", "1000000", "--train-text-encoder", "--unlocked-text-layers", "4",
+            "--num-ddim-timesteps", str(V2_PRE_GRID)]
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     trainer, data, _ = train_v2.build_trainer(train_v2.parse_args(argv))
@@ -4235,7 +4273,8 @@ def _sharded_cases(cases_before, attn, flash, conv, gn, gn_stats, ln, small_seq,
 
     bf = torch.bfloat16
     shapes = collections.defaultdict(set)
-    for runs in list(sharded_path_shapes().values()) + list(sharded_training_shapes().values()):
+    for runs in (list(sharded_path_shapes().values()) + list(sharded_training_shapes().values())
+                 + list(sharded_v2_shapes().values())):
         for part in runs.values():
             for k, c in part.items():
                 shapes[k] |= set(c)
@@ -4929,6 +4968,11 @@ def _sharded_train_rank_work(rank, world, port, work):
         out["v2"] = v2
         del fresh, it
         _free()
+        try:  # phase 23's work; its failure fails that phase, not this one
+            out["v2 seq"] = _sharded_v2_rank_work(rank, device, work, progress)
+        except Exception:
+            out["v2 seq error"] = traceback.format_exc()
+            progress("phase 23's work failed")
     finally:
         multihost.shutdown()
     return out
@@ -5007,6 +5051,7 @@ def phase_sharded_training():
     import shutil
     import tempfile
 
+    import numpy as np
     import torch
     import torch.multiprocessing as mp
 
@@ -5035,6 +5080,9 @@ def phase_sharded_training():
             _free()
             if key == "v1 B1":
                 _nccl_world_of_one_step(argv, refs[key], snap)
+        if "sample" not in V2_PRE_REF:  # phase 11 did not run: phase 23's one-process preprocess reference
+            _v2_pre_reference(os.path.join(work, "pre one"))
+        _v2_pre_reference(os.path.join(work, "pre f32"), f32=True)
         # one process: two v2 steps at the global batch of 2 (the peak memory the fsdp ranks are held against)
         latent_glob = _write_v2_latents(os.path.join(work, "latents"))
         torch.cuda.reset_peak_memory_stats()
@@ -5081,10 +5129,15 @@ def phase_sharded_training():
                     p.join(timeout=30)
         log(f"{SHARDED_TRAIN}: both ranks done in {time.perf_counter() - t0:.1f} s, exit codes "
             f"{[p.exitcode for p in procs]}")
-
-        # (c) v1: the steps against one process; launches against the dry run; times, memory, collectives
         smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                              capture_output=True, text=True, timeout=60).stdout.strip()
+        pre = os.path.join(work, "pre_sharded.npz")  # phase 23's hand-over, before this phase's checks
+        SHARDED_V2_IN.update(results={r: results[r].get("v2 seq") for r in (0, 1)},
+                             errors={r: results[r].get("v2 seq error") for r in (0, 1)}, v2_ref=v2_ref,
+                             v2_ref_peak=ref_peak["v2"], v2_ref_s=v2_s, smi=smi,
+                             pre_sample=dict(np.load(pre)) if os.path.exists(pre) else None)
+
+        # (c) v1: the steps against one process; launches against the dry run; times, memory, collectives
         dry = sharded_training_shapes()
         for (data, seq), batch, extra, _, ref_key in V1_SHARD_RUNS:
             key = f"{data}x{seq}" + (" reward" if extra else "")
@@ -5161,6 +5214,278 @@ def phase_sharded_training():
     log(f"{SHARDED_TRAIN}: phase wall {time.perf_counter() - t_phase:.1f} s")
 
 
+# ---- phase 23: the motion prior and v2 under the seq axis, on phase 22's ranks ----
+SHARDED_V2 = "sharded v2"
+SHARDED_V2_IN = {}  # phase 22's hand-over: each rank's results of this phase's work and the references
+
+
+def _v2_pre_reference(out_dir, f32=False):
+    """Phase 11's first motion-prior sample, one process (for a run without
+    phase 11); with `f32`, the same sample with the teacher's bf16 weights
+    computed in f32 (TF32 off): the yardstick phase 23 holds both bf16
+    scores to."""
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import preprocess
+
+    job = preprocess.build_job(preprocess.parse_args(_v2_pre_argv("cuda:0", 1, 0, out_dir)))
+    if f32:
+        job.teacher.float()
+    calls = []
+    hook = job.teacher.register_forward_pre_hook(lambda *_: calls.append(1))
+    tf32 = torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32
+    if f32:
+        torch.backends.cudnn.allow_tf32 = torch.backends.cuda.matmul.allow_tf32 = False
+    try:
+        _, sample, seconds = next(job.samples())
+    finally:
+        torch.backends.cudnn.allow_tf32, torch.backends.cuda.matmul.allow_tf32 = tf32
+    hook.remove()
+    if f32:
+        V2_PRE_REF.update(f32=sample, f32_seconds=seconds)
+    else:
+        V2_PRE_REF.update(sample=sample, seconds=seconds, calls=len(calls))
+    del job
+    _free()
+
+
+@functools.lru_cache(maxsize=1)
+def sharded_v2_shapes():
+    """{seq index: {part: {kernel: Counter(shape)}}}: `_dry_run_shapes` of a
+    seq rank's passes at (data, seq) = (1, 2), the seq collectives shape-
+    only stand-ins: the preprocess's teacher (VC2's UNet, bf16) at one clip
+    of T / seq = 8 frames without a gradient ("pass": the inversion and the
+    unconditional output), capturing without one ("capture": the reference)
+    and capturing with a gradient to the latents ("capture grad"; "capture
+    grad head": its launches up to the last capture, the ones the score's
+    backward runs through); the v2 student (the motion embedding) at phase
+    22's global batch of 2 with a gradient ("v2 grad") and without ("v2":
+    the EMA target). Phase 3 holds every shape; phase 23 expects the
+    preprocess's launches exactly (`_pre_want`)."""
+    import torch
+
+    from t2v_turbo_tpu_torch.config import vc2_spec
+    from t2v_turbo_tpu_torch.models import UNetConfig, UNetModel, layers
+    from t2v_turbo_tpu_torch.models.layers import TemporalTransformer
+    from t2v_turbo_tpu_torch.parallel.mesh import AxisGroup
+
+    class LastCapture(Exception):
+        pass
+
+    out = {}
+    for index in range(2):
+        group = AxisGroup("seq", 2, index, (0, 1), None, "gloo")  # no group
+
+        def teacher(record=False, group=group, stop=False):
+            # the weights need no gradient in the preprocess; leaving them trainable here takes the
+            # same dispatch (every attention's q needs a gradient through the latents either way)
+            model = UNetModel(UNetConfig()).to(torch.bfloat16)
+            model.set_seq_group(group)
+            captures = sum(isinstance(m, TemporalTransformer) for b in model.output_blocks for m in b)
+            z = torch.zeros(1, 8, 40, 64, 4, requires_grad=torch.is_grad_enabled())
+            plain, seen = layers.attention, []
+
+            def attention(*a, **kw):
+                got = plain(*a, **kw)
+                seen.append(kw.get("return_probs", False))
+                if stop and sum(seen) == captures:
+                    raise LastCapture
+                return got
+            layers.attention = attention
+            try:
+                model(z, torch.zeros(1, dtype=torch.long), torch.zeros(1, 77, 1024), record_probs=record)
+            except LastCapture:
+                pass
+            finally:
+                layers.attention = plain
+
+        def student(group=group):
+            model = UNetModel(vc2_spec(motion_cond=True).unet).to(torch.bfloat16)
+            model.set_seq_group(group)
+            model(torch.zeros(2, 8, 40, 64, 4), torch.zeros(2, dtype=torch.long), torch.zeros(2, 77, 1024),
+                  fps=torch.full((2,), 16.0), timestep_cond=torch.zeros(2, 256), motion_cond=torch.zeros(2, 256))
+        out[index] = {}
+        for grad, parts in ((False, [("pass", teacher), ("capture", lambda: teacher(True)), ("v2", student)]),
+                            (True, [("capture grad", lambda: teacher(True)),
+                                    ("capture grad head", lambda: teacher(True, stop=True)), ("v2 grad", student)])):
+            out[index].update(_dry_run_shapes(parts, _collective_stand_ins(), grad=grad))
+    return out
+
+
+def _pre_want(dry, index):
+    """{kernel: Counter(shape)} of one preprocess sample at grid index
+    `index` on a seq rank (`dry`: its `sharded_v2_shapes()` entry): index +
+    2 plain passes (the inversion's index + 1 and the unconditional output),
+    the reference capture, and the capture with a gradient, whose flash
+    launches take B2 forward, and B3's two kernels back for those up to the
+    last capture (the rest do not reach the loss; the norms' and B7's
+    backward are plain math)."""
+    import collections
+
+    want = collections.defaultdict(collections.Counter)
+    for part, times in (("pass", index + 2), ("capture", 1), ("capture grad", 1), ("capture grad head", 1)):
+        for k, c in dry[part].items():
+            if part.startswith("capture grad") and k == "flash_attention":
+                names = GRAD_FLASH[:1] if part == "capture grad" else GRAD_FLASH[1:]
+            elif part == "capture grad head":
+                continue
+            else:
+                names = (k,)
+            for name in names:
+                for shape, m in c.items():
+                    want[name][shape] += times * m
+    return want
+
+
+def _sharded_v2_rank_work(rank, device, work, progress):
+    """Phase 23 on one rank of phase 22's world: the preprocess job at (1, 2)
+    (rank 0 saves its sample's arrays), then two v2 steps at (1, 2)."""
+    import numpy as np
+    import torch
+
+    from t2v_turbo_tpu_torch.apps import preprocess, train_v2
+    from t2v_turbo_tpu_torch.parallel import collectives
+    from t2v_turbo_tpu_torch.parallel.mesh import make_mesh
+
+    mesh = make_mesh(data=1, seq=2, device=device)
+    out = {}
+    t0 = time.perf_counter()
+    job = preprocess.build_job(preprocess.parse_args(_v2_pre_argv(str(device), 1, 0, os.path.join(work, "pre"))))
+    job.mesh = mesh
+    build_s = time.perf_counter() - t0
+    calls = []
+    hook = job.teacher.register_forward_pre_hook(lambda *_: calls.append(1))
+    reset_launches()
+    collectives.reset_counters()
+    torch.cuda.reset_peak_memory_stats()
+    path, sample, seconds = next(job.samples())
+    out["pre"] = {"build_s": build_s, "seconds": seconds, "calls": len(calls), "launches": launch_snapshot(),
+                  "collectives": collectives.read_counters(), "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                  "wrote": path is not None}
+    hook.remove()
+    if sample is not None:
+        np.savez(os.path.join(work, "pre_sharded.npz"), **{k: v for k, v in sample.items() if isinstance(v, np.ndarray)},
+                 index=sample["index"])
+    progress("phase 23: the preprocess done")
+    del job, sample
+    _free()
+
+    args = train_v2.parse_args(_v2_train_argv(os.path.join(work, "latents", "*.pkl"), 2, os.path.join(work, "v2 seq")))
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    trainer, it, _ = train_v2.build_trainer(args, mesh=mesh)
+    v2 = {"build_s": time.perf_counter() - t0, "build_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    reset_launches()
+    collectives.reset_counters()
+    recs, walls = _train_steps(trainer, it, 2)
+    v2.update(metrics=[r[:2] for r in recs], walls=walls, launches=launch_snapshot(),
+              collectives=collectives.read_counters(), peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    out["v2"] = v2
+    progress("phase 23: v2 at (1, 2) done")
+    del trainer, it
+    _free()
+    return out
+
+
+def _coll_text(coll):
+    return (f"collectives {({n: c['calls'] for n, c in coll.items() if c['calls']})} calls, "
+            f"{sum(c['staged_bytes'] for c in coll.values()) / 2**20:.1f} MiB staged, "
+            f"{sum(c['seconds'] for c in coll.values()):.3f} s")
+
+
+def phase_sharded_v2():
+    """The preprocess and v2 full-model training at (data, seq) = (1, 2) on
+    phase 22's two ranks, against one process (module docstring, 23)."""
+    import collections
+
+    import numpy as np
+
+    if not SHARDED_V2_IN:
+        raise AssertionError(f"{SHARDED_V2}: phase 22's ranks did not run (this phase's work runs in them)")
+    smi = SHARDED_V2_IN["smi"]
+    errors = {r: e for r, e in SHARDED_V2_IN["errors"].items() if e}
+    if errors:
+        raise AssertionError(f"{SHARDED_V2}: the ranks' work failed:\n" + "\n".join(errors.values()))
+    res = SHARDED_V2_IN["results"]
+
+    # (a) the preprocess: rank 0's sample against phase 11's one-process sample on the same draws
+    ref, got, f32 = V2_PRE_REF["sample"], SHARDED_V2_IN["pre_sample"], V2_PRE_REF["f32"]
+    index = int(ref["index"])
+    fails = []
+    parts = []
+    for k in ("z_t", "z_example", "cond_teacher_out", "uncond_teacher_out", "score"):
+        d = np.abs(got[k].astype(np.float64) - ref[k])
+        top = float(np.abs(ref[k]).max())
+        ok = got[k].shape == ref[k].shape
+        text = f"{k} mean|d| {float(d.mean()):.3e} max|d| {float(d.max()):.3e} (max|ref| {top:.3e}"
+        if k == "z_t":
+            ok = ok and np.array_equal(got[k], ref[k])
+            text += "; equal bits"
+        elif k != "score":
+            ok = ok and float(d.mean()) <= 1e-2 * max(1.0, top)
+            text += f"; mean <= {1e-2 * max(1.0, top):.3e}"
+        else:  # the bf16 score against the f32 one: the sharded run as near to it as one process's
+            def rel(a):
+                return float(np.linalg.norm(a.astype(np.float64) - f32[k]) / np.linalg.norm(f32[k]))
+            r_one, r_got = rel(ref[k]), rel(got[k])
+            cos = float(np.dot(got[k].ravel(), ref[k].ravel()) / np.linalg.norm(got[k]) / np.linalg.norm(ref[k]))
+            ok = ok and r_got <= 1.5 * r_one
+            text += (f"; mean|ref| {float(np.abs(ref[k]).mean()):.3e}, cosine to one process's {cos:.6f}; relative "
+                     f"L2 distance to the f32 score {r_got:.4f} <= 1.5 x one process's {r_one:.4f}")
+        parts.append(text + f") {'OK' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(k)
+    log(f"{SHARDED_V2}: the preprocess at (1, 2) (grid {V2_PRE_GRID}, index {index}) against one process's sample "
+        f"(phase 11's first, {V2_PRE_REF['seconds']:.2f} s, {V2_PRE_REF['calls']} teacher calls; the f32 one "
+        f"{V2_PRE_REF['f32_seconds']:.2f} s): " + "; ".join(parts))
+    dry = sharded_v2_shapes()
+    for r in (0, 1):
+        pre = res[r]["pre"]
+        snap = pre["launches"]
+        want = _pre_want(dry[r], index)
+        bad = [n for n in TRAIN_SHARD_CHECKED if collections.Counter(snap[n][2]) != want.get(n, collections.Counter())]
+        routes = {n: snap[n][1] for n in TRAIN_SHARD_CHECKED if snap[n][1]}
+        wrong = {n: v for n, v in routes.items() if set(v) - {"wgmma", "bulk", "split", "warp", "cta", "cluster",
+                                                              "vector"}}
+        missing = [n for n in TRAIN_SHARD_CHECKED if snap[n][0] <= 0]
+        ok = not bad and not wrong and not missing and pre["calls"] == index + 4 and pre["wrote"] == (r == 0)
+        log(f"{SHARDED_V2} preprocess rank {r}: teacher calls {pre['calls']} (index + 4 = {index + 4}); launches "
+            f"{({n: snap[n][0] for n in TRAIN_SHARD_CHECKED})}, by kernel and shape equal to the dry run's "
+            f"{'OK' if not bad else 'FAIL ' + str(bad)}; routes {routes}; s/sample {pre['seconds']:.2f} (one process "
+            f"{V2_PRE_REF['seconds']:.2f}; job built in {pre['build_s']:.1f} s); max_memory_allocated "
+            f"{pre['peak_gib']:.2f} GiB; {_coll_text(pre['collectives'])} [{smi}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"preprocess rank {r}: shapes {bad}, routes {wrong}, not launched {missing}")
+
+    # (b) v2 at (1, 2): two steps against phase 22's one process at the global batch of 2
+    v2_ref = SHARDED_V2_IN["v2_ref"]
+    need = ["flash_attention", "group_norm", "layer_norm", "fused_gn_silu_conv", "small_seq_attention"] + \
+        list(GRAD_FLASH) + list(SEQ_KERNELS)
+    for r in (0, 1):
+        v2 = res[r]["v2"]
+        near = [abs(m[0] - x[0]) <= 1e-2 * abs(x[0]) and abs(m[1] - x[1]) <= 2e-2 * x[1]
+                for m, x in zip(v2["metrics"], v2_ref)]
+        snap = v2["launches"]
+        routes = {n: snap[n][1] for n in TRAIN_SHARD_CHECKED if snap[n][1]}
+        wrong = {n: v for n, v in routes.items() if set(v) - {"wgmma", "bulk", "split", "warp", "cta", "cluster",
+                                                              "vector"}}
+        missing = [n for n in need if snap[n][0] <= 0]
+        ok = (len(near) == 2 and all(near) and v2["metrics"] == res[1 - r]["v2"]["metrics"] and not wrong
+              and not missing)
+        log(f"{SHARDED_V2} v2 (1, 2) rank {r}: steps 1-2 loss/grad_norm "
+            f"{[tuple(round(v, 6) for v in m) for m in v2['metrics']]} (one process at batch 2: "
+            f"{[(round(x[0], 6), round(x[1], 6)) for x in v2_ref]}; loss within 1e-2, grad_norm within 2e-2 "
+            f"relative: {near}); launches {({n: snap[n][0] for n in TRAIN_SHARD_CHECKED})}; routes {routes}; s/step "
+            f"{[round(w, 3) for w in v2['walls']]} (one process {[round(w, 3) for w in SHARDED_V2_IN['v2_ref_s']]}; "
+            f"build {v2['build_s']:.1f} s); max_memory_allocated {v2['peak_gib']:.2f} GiB (after the build "
+            f"{v2['build_peak_gib']:.2f}; one process at batch 2 {SHARDED_V2_IN['v2_ref_peak']:.2f}); "
+            f"{_coll_text(v2['collectives'])} [{smi}] {'OK' if ok else 'FAIL'}")
+        if not ok:
+            fails.append(f"v2 rank {r}: near {near}, routes {wrong}, not launched {missing}")
+    if fails:
+        raise AssertionError(f"{SHARDED_V2}: {fails}")
+
+
 def main(argv=None) -> int:
     argv = sys.argv[1:] if argv is None else argv
     only = ()
@@ -5207,8 +5532,10 @@ def main(argv=None) -> int:
         (XT, phase_x_transformer),
         (SHARDED, lambda: phase_sharded(records)),
         (SHARDED_TRAIN, phase_sharded_training),
+        (SHARDED_V2, phase_sharded_v2),
     ]
     if only:  # a development run of some phases (no argument: all of them)
+        only += (SHARDED_TRAIN,) if SHARDED_V2 in only else ()  # phase 23 runs on phase 22's ranks
         phases = [(n, f) for n, f in phases if n in ("device", "build") + only]
     failed = []
     for name, fn in phases:

@@ -21,6 +21,10 @@ and the contexts are seeded per caption (crc32).
 
 The draws (grid index, noise) come from a torch.Generator seeded with
 --seed; the synthetic latents and contexts from numpy, as the JAX CLI's.
+The CLI takes no mesh flag, as the JAX CLI takes none; a caller that has
+joined a torch.distributed world may set `PreprocessJob.mesh`, and every
+rank then runs `samples()` over the (data, seq) mesh
+(training/preprocess.py), rank 0 writing.
 """
 
 from __future__ import annotations
@@ -30,7 +34,7 @@ import dataclasses
 import glob
 import sys
 import time
-from typing import Iterator, Tuple
+from typing import Iterator, Optional, Tuple
 
 import numpy as np
 import torch
@@ -71,10 +75,12 @@ class PreprocessJob:
     solver: object
     generator: torch.Generator
     output_dir: str
+    mesh: Optional[object] = None  # parallel.mesh.Mesh: every rank runs `samples()`
 
-    def samples(self) -> Iterator[Tuple[str, dict, float]]:
+    def samples(self) -> Iterator[Tuple[Optional[str], Optional[dict], float]]:
         """(path, sample, seconds) for each sample written, the seconds
-        synchronised on a CUDA device."""
+        synchronised on a CUDA device; under a mesh, (None, None, seconds)
+        on every rank but rank 0, which writes."""
         from ..training.preprocess import preprocess_sample, sample_preprocess_draws, save_sample
 
         device = next(self.teacher.parameters()).device
@@ -82,10 +88,11 @@ class PreprocessJob:
             draws = sample_preprocess_draws(self.cfg, latents.shape, self.generator)
             t0 = time.perf_counter()
             sample = preprocess_sample(self.teacher, latents, ctx, self.uncond, draws, sched=self.sched,
-                                       solver=self.solver, cfg=self.cfg, txt=txt)
+                                       solver=self.solver, cfg=self.cfg, txt=txt, mesh=self.mesh)
             if device.type == "cuda":
                 torch.cuda.synchronize(device)
-            yield save_sample(self.output_dir, name, sample), sample, time.perf_counter() - t0
+            seconds = time.perf_counter() - t0
+            yield (None if sample is None else save_sample(self.output_dir, name, sample)), sample, seconds
 
 
 def build_job(args) -> PreprocessJob:

@@ -34,17 +34,21 @@ trained tower is written as text_encoder.npz with the JAX CLI's keys,
 shapes and dtypes (io/convert.py::clip_text_to_jax), so either package
 reads it.
 
-Over the data axis of a mesh of torch.distributed ranks (JAX's --fsdp
-and --multihost, apps/train_v2.py:46-54, :172-176): under torchrun every
-rank runs this CLI on its share of the global batch (--batch-size a
-rank's; each data rank takes its rows of the one-process run's batches);
---fsdp keeps on each rank only its slices of the f32 master, the moments
-and the EMA (training/trainer.py, parallel/fsdp.py). --seq-shards is
-accepted at 1 only: above 1 it needs the temporal attention's probability
-capture sharded over the seq ranks (the motion prior's), which is not
-ported yet. Rank 0 writes the metrics, the checkpoints and the exports.
-  torchrun --nproc-per-node 2 -m t2v_turbo_tpu_torch.apps.train_v2 --tiny-model --device cpu \
-      --random-weights --latent-glob 'runs/v2_latents/*.pkl' --max-steps 2 --fsdp
+Over a (data, seq) mesh of torch.distributed ranks (JAX's --seq-shards,
+--fsdp and --multihost, apps/train_v2.py:46-54, :172-176, :376): under
+torchrun every rank runs this CLI; --seq-shards N splits each clip's
+frames over N ranks and the batch over the data axis, the world divided
+by N (a world that N does not divide, or pickles whose frames it does not
+divide, is refused). --batch-size is a data rank's: each data rank takes
+its rows of the one-process run's batches, and the seq ranks of one data
+index read the same rows, each keeping its frames of the stored z_t,
+teacher outputs and motion score (the loss reads the preprocess's score:
+nothing is captured at train time). --fsdp keeps on each data rank only
+its slices of the f32 master, the moments and the EMA (training/
+trainer.py, parallel/fsdp.py). Rank 0 writes the metrics, the checkpoints
+and the exports; a checkpoint resumes on any world size.
+  torchrun --nproc-per-node 4 -m t2v_turbo_tpu_torch.apps.train_v2 --tiny-model --device cpu \
+      --random-weights --latent-glob 'runs/v2_latents/*.pkl' --max-steps 2 --seq-shards 2 --fsdp
 """
 
 from __future__ import annotations
@@ -98,7 +102,7 @@ def parse_args(argv=None):
     p.add_argument("--multihost", action="store_true",
                    help="join torchrun's torch.distributed world (implied by a torchrun world of more than one rank)")
     p.add_argument("--seq-shards", type=int, default=1,
-                   help="mesh seq axis: 1 only (above 1 needs the sharded temporal-attention capture)")
+                   help="mesh seq axis: the frames of a clip over ranks (the data axis is the world over it)")
     # reward feedback (the reference's --reward_fn_name / --video_rm_name ..., :507-573, 1068-1162)
     p.add_argument("--reward-fn", default="none", choices=["none", "clip", "hpsv2", "pick", "img_reward"])
     p.add_argument("--reward-ckpt", default=None,
@@ -187,14 +191,9 @@ def build_text_encoder(args, device, ctx_len: int, clip_sd=None):
     return text
 
 
-SEQ_REFUSAL = ("error: train_v2 --seq-shards {n}: sharding the frames needs the temporal attention's probability "
-               "capture (the motion prior's, models/unet_vc2.py record_probs) sharded over the seq ranks, which is not "
-               "ported yet; use --seq-shards 1 (the data axis and --fsdp work)")
-
-
 def build_trainer(args, mesh=None):
     """(trainer, data iterator, UNet config) from the parsed flags; `mesh`:
-    the rank's mesh (default: the flags', parallel over data only)."""
+    the rank's mesh (default: the flags', data = world / --seq-shards)."""
     from ..config import vc2_spec
     from ..data.datasets import MP4LatentDataset
     from ..diffusion import DDIMSolver, DiffusionSchedule
@@ -205,8 +204,14 @@ def build_trainer(args, mesh=None):
     from ..training.trainer import LCDTrainer, TrainerConfig
     from .train_v1 import TINY_UNET_KW, build_reward_stack, build_vae, make_train_mesh
 
-    if args.seq_shards != 1:
-        raise SystemExit(SEQ_REFUSAL.format(n=args.seq_shards))
+    paths = sorted(glob.glob(args.latent_glob))
+    if not paths:
+        raise SystemExit(f"error: no latent pickles match {args.latent_glob}")
+    ds = MP4LatentDataset(paths, seed=args.seed)
+    seq = args.seq_shards if mesh is None else mesh.seq
+    frames = ds[0]["z_t"].shape[0]
+    if seq > 1 and frames % seq:
+        raise SystemExit(f"error: {frames} frames do not split over --seq-shards {seq}")
     if mesh is None:
         mesh = make_train_mesh(args)
     else:
@@ -216,9 +221,6 @@ def build_trainer(args, mesh=None):
         ucfg = UNetConfig(**TINY_UNET_KW, motion_cond_proj_dim=8 if args.use_motion_cond else None)
     else:
         ucfg = vc2_spec(motion_cond=args.use_motion_cond).unet
-    paths = sorted(glob.glob(args.latent_glob))
-    if not paths:
-        raise SystemExit(f"error: no latent pickles match {args.latent_glob}")
     with torch.device(device):
         student = UNetModel(ucfg, use_remat=args.use_remat)  # f32: the trainer's master
     vae_sd = clip_sd = None
@@ -234,7 +236,6 @@ def build_trainer(args, mesh=None):
     rewards = args.reward_fn != "none" or args.video_rm_fn != "none"
     vae = build_vae(args, device, dtype, vae_sd) if rewards else None
     reward_fn, video_reward_fn, image_rm, video_rm = build_reward_stack(args, device, dtype, vae)
-    ds = MP4LatentDataset(paths, seed=args.seed)
     text = tokenizer = None
     label = v2_param_label
     if args.train_text_encoder:
@@ -275,9 +276,11 @@ def build_trainer(args, mesh=None):
 
 def make_data_iter(args, ds, image_rm=None, video_rm=None, tokenizer=None, part=(0, 1)):
     """The trainer's batches: the dataset's (this data rank's `part` of the
-    global batch), with the reward fields when a reward model is given and,
-    with a `tokenizer` (--train-text-encoder), the captions' `tokens`; the
-    captions stay on the host."""
+    global batch: the seq ranks of a data index read the same rows, and the
+    trainer keeps each rank's frames), with the reward fields, drawn on the
+    whole clips, when a reward model is given and, with a `tokenizer`
+    (--train-text-encoder), the captions' `tokens`; the captions stay on
+    the host."""
     base = ds.batches(args.batch_size, part=part)
     if image_rm is not None or video_rm is not None:
         base = add_v2_reward_fields(base, args, image_rm, video_rm)

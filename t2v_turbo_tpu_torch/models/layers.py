@@ -31,7 +31,9 @@ package written out (parallel/collectives.py):
 - the temporal attention switches the normalised clip to all T frames of H
   * W / seq columns (`seq_to_space`), runs proj_in, the blocks (B8 at full
   T, so relative position and the causal mask need no change) and proj_out
-  there, and switches back (`space_to_seq`) before the residual add.
+  there, and switches back (`space_to_seq`) before the residual add; the
+  MotionClone capture (`record_probs`) returns the probabilities of this
+  rank's columns.
 Without a group, or with a group of one rank, the code path and the kernel
 launches are the single-device ones.
 """
@@ -318,7 +320,8 @@ class TemporalTransformer(nn.Module):
     every block. Self-only: the reference's temporal cross-attention
     (`only_self_att=False`) is not ported, as the JAX package cannot build it.
     With a `seq_group` of more than one rank, x holds this rank's T / seq
-    frames (the module docstring's sequence parallelism)."""
+    frames (the module docstring's sequence parallelism), and the captured
+    probabilities are the rows of this rank's H*W / seq columns."""
 
     seq_group = None  # set by UNetModel.set_seq_group
 
@@ -343,9 +346,7 @@ class TemporalTransformer(nn.Module):
 
     def forward(self, x, record_probs: bool = False):
         if _sharded(self.seq_group):
-            if record_probs:
-                raise NotImplementedError("record_probs under sequence parallelism is not ported")
-            return self._forward_seq(x, self.seq_group)
+            return self._forward_seq(x, self.seq_group, record_probs)
         b, c, t, hh, ww = x.shape
         h = self.norm(x).permute(0, 3, 4, 2, 1).reshape(b * hh * ww, t, c)
         h = dense(self.proj_in, h)
@@ -360,9 +361,12 @@ class TemporalTransformer(nn.Module):
         out = x + h.view(b, hh, ww, t, c).permute(0, 4, 3, 1, 2)
         return (out, probs) if record_probs else out
 
-    def _forward_seq(self, x, group):
+    def _forward_seq(self, x, group, record_probs: bool = False):
         """This rank's frames (B, C, T / seq, H, W): the clip's norm, then
-        every block on all T frames of H * W / seq columns."""
+        every block on all T frames of H * W / seq columns. `record_probs`:
+        each block's attn1 probabilities of this rank's columns, (B * H*W /
+        seq * heads, T, T), the single-device rows of those columns in
+        their order (rank i holds columns i * H*W / seq ...)."""
         b, c, t, hh, ww = x.shape
         norm = self.norm
         h = group_norm_from_partials(x, *clip_partials(norm, x, group), norm.weight, norm.bias, norm.num_groups,
@@ -370,11 +374,17 @@ class TemporalTransformer(nn.Module):
         h = collectives.seq_to_space(h.view(b, c, t, hh * ww), group)  # (B, C, T, S / seq)
         frames, cols = h.shape[2:]
         h = dense(self.proj_in, h.permute(0, 3, 2, 1).reshape(b * cols, frames, c))
+        probs = []
         for block in self.transformer_blocks:
-            h = block(h, causal=self.causal_attention)
+            if record_probs:
+                h, p = block(h, record_probs=True, causal=self.causal_attention)
+                probs.append(p)
+            else:
+                h = block(h, causal=self.causal_attention)
         h = dense(self.proj_out, h)
         h = collectives.space_to_seq(h.view(b, cols, frames, c).permute(0, 3, 2, 1).contiguous(), group)
-        return x + h.view(b, c, t, hh, ww)
+        out = x + h.view(b, c, t, hh, ww)
+        return (out, probs) if record_probs else out
 
 
 def _temporal_conv(ch: int) -> nn.Conv3d:

@@ -31,7 +31,10 @@ the rank loss is a mean over layers, each layer still meets its own
 reference.
 
 `set_seq_group` makes the temporal layers sequence-parallel (models/layers.py):
-forward then takes this rank's T / seq frames of every clip.
+forward then takes this rank's T / seq frames of every clip, and each
+captured probability tensor holds the rows of this rank's H*W / seq columns
+(B*H*W/seq*heads, T, T), so a generated and a reference capture on one rank
+share one column split.
 """
 
 from __future__ import annotations

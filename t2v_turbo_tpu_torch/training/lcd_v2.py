@@ -100,8 +100,10 @@ def lcd_v2_loss(
     uncond_teacher_out, score (B, T, h, w, C), prompt_emb (B, L, D),
     use_motion_guide (B,) bool, optionally fps and the reward fields.
     student(x, t, ctx, fps=, timestep_cond=, motion_cond=) and `target`
-    (the EMA network; None: the student) are epsilon models. Under a `mesh`
-    (data axis only): this rank's share of each term (lcd.py's
+    (the EMA network; None: the student) are epsilon models. Under a
+    (data, seq) `mesh` the (B, T, ...) fields are this rank's (B / data,
+    T / seq) block and the (B,) ones its rows (the gate and w are per
+    sample); the loss is this rank's share of each term (lcd.py's
     `with_reward_terms`)."""
     z_t = batch["z_t"].float()
     index = batch["index"].long()

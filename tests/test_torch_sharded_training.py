@@ -19,7 +19,9 @@ the one-process references and the JAX package's sharded step.
   --fsdp at (2, 1) (int8 moments, the EMA, the text-encoder group) against
   one process (the whole master and EMA to 1e-5, loss and grad_norm to 1e-5
   relative), its step-2 checkpoint resumed on one process and one
-  process's resumed at (2, 1), each to the uninterrupted step 3; a
+  process's resumed at (2, 1), each to the uninterrupted step 3; two v2
+  steps at (1, 2) with --fsdp (over one data rank it shards nothing), each
+  rank on its frames of the stored fields, against one process; a
   LatentWebDataset step whose data ranks read their own shards; a SIGTERM
   to rank 1 inside `run`, after which both ranks stop at one step with one
   checkpoint; the validation render at (1, 2), rank 0 alone writing, within
@@ -28,13 +30,19 @@ the one-process references and the JAX package's sharded step.
   one process (1e-5) and against JAX's `make_train_step` jitted over a
   (data=2, seq=2) mesh of 4 virtual CPU devices on the same weights (2e-4:
   the loss, grad_norm and the factors after the step). JAX runs in this
-  process while the ranks run.
+  process while the ranks run. The v2 --fsdp steps at (2, 2) (the case
+  "train"'s v2 trainer), three of them against the one process of case
+  "train" (1e-5), the step-2 checkpoint resumed on one process and one
+  process's resumed at (2, 2), each to the uninterrupted step 3.
 - torchrun: `train_v1 --tiny-model --seq-shards 2 --device cpu` on 2 ranks
-  against the one-process CLI (metrics and unet_lora.npz to 1e-5).
+  against the one-process CLI (metrics and unet_lora.npz to 1e-5), and
+  `train_v2 --tiny-model --seq-shards 2 --fsdp` with the motion embedding
+  and the EMA target against the one-process CLI (metrics, unet.pt and
+  target_unet.pt to 1e-5).
 In process: the split entries' and B7-on-(a, b)'s backward against
 autograd of their plain twins (f32, 1e-5), the data-rank shard split, and
-the refusals (train_v2 --seq-shards 2; a world --seq-shards does not
-divide).
+the refusals (a world --seq-shards does not divide, for train_v1 and
+train_v2; train_v2 on pickles whose frames --seq-shards does not divide).
 """
 
 import json
@@ -53,6 +61,11 @@ from t2v_turbo_tpu_torch.ops import norms as N
 TOL, JAX_TOL = 1e-5, 2e-4
 CLI_V1 = ["--tiny-model", "--synthetic-data", "--random-weights", "--device", "cpu", "--lora-rank", "4",
           "--max-steps", "2", "--optimizer", "adamw", "--learning-rate", "1e-6", "--seed", "7"]
+# lr 1e-6 as CLI_V1's: the CLIs take Adam at eps 1e-8, which moves a weight whose exact gradient is zero (the
+# tiny UNets' embedding path) by ~lr whichever way round-off points; the in-process v2 cases hold the
+# weights at eps 1, these the CLIs' mesh, data split and frames
+CLI_V2 = ["--tiny-model", "--random-weights", "--device", "cpu", "--max-steps", "2", "--batch-size", "2",
+          "--optimizer", "adamw", "--learning-rate", "1e-6", "--use-motion-cond", "--use-target-unet", "--seed", "7"]
 
 
 def _jax_step(out_dir, then):
@@ -114,9 +127,14 @@ def runs(tmp_path_factory):
     meanwhile."""
     from t2v_turbo_tpu_torch.apps import train_v1
 
-    dirs = {k: tmp_path_factory.mktemp(k) for k in ("train", "train4", "cli")}
+    from t2v_turbo_tpu_torch.apps import train_v2
+
+    dirs = {k: tmp_path_factory.mktemp(k) for k in ("train", "train4", "cli", "cli_v2")}
     out = {"dirs": dirs}
-    groups = {"train": W.start_ranks("train", 2, dirs["train"])}
+    v2_argv = CLI_V2 + ["--latent-glob", W.write_v2_pickles(str(dirs["cli_v2"] / "latents"))]
+    groups = {"train": W.start_ranks("train", 2, dirs["train"]),
+              "cli_v2": W.start_torchrun("train_cli", 2, dirs["cli_v2"], "v2", *v2_argv, "--seq-shards", "2",
+                                         "--fsdp", "--output-dir", str(dirs["cli_v2"] / "sharded"))}
 
     def start_the_rest():  # the (2, 2) ranks read JAX's draws
         groups["train4"] = W.start_ranks("train4", 4, dirs["train4"])
@@ -131,6 +149,7 @@ def runs(tmp_path_factory):
             trainer = W.v1_trainer(dirs["train"] / f"one_{reward}_{accum}", None, reward, states=states, accum=accum)
             out[f"one reward={reward} accum={accum}"] = W.v1_steps(trainer, batch)
         train_v1.main(CLI_V1 + ["--output-dir", str(dirs["cli"] / "one")])
+        train_v2.main(v2_argv + ["--output-dir", str(dirs["cli_v2"] / "one")])
         trainer = W.v1_trainer(dirs["train4"] / "one", None, states=states)
         jbatch = {k: v for k, v in batch.items() if k != "reward_mask"}
         out["one jax draws"] = W.v1_steps(trainer, jbatch, n=1, draws=out["jax"]["draws"])[0]
@@ -232,6 +251,54 @@ def test_v2_fsdp_steps_and_checkpoints_cross_world_sizes(runs, name, ref, step):
     assert all(r["v2 resumed from one process at"] == 2 for r in reps) and reps[0]["v2 one resumed from fsdp at"] == 2
 
 
+@pytest.mark.parametrize("group, name, step", [("train", "v2_1x2", 0), ("train", "v2_1x2", 1),
+                                               ("train4", "v2_2x2", 0), ("train4", "v2_2x2", 1),
+                                               ("train4", "v2_2x2", 2), ("train4", "v2_2x2_from_one", None),
+                                               ("train4", "v2_one_from_2x2", None)])
+def test_v2_seq_steps_and_checkpoints_match_one_process(runs, group, name, step):
+    """v2 with the EMA target, int8 moments and the text group at (1, 2)
+    and --fsdp at (2, 2) against one process on the global batch (case
+    "train"'s); step 3 after a resume across world sizes (saved at (2, 2) ->
+    one process, and the reverse) against the uninterrupted run's."""
+    one = _arrays(runs, "train", 0)
+    i_got, i_ref = (0, 2) if step is None else (step, step)
+    ranks = (0,) if name == "v2_one_from_2x2" else range(4 if group == "train4" else 2)
+    for rank in ranks:
+        got = _arrays(runs, group, rank)
+        assert float(got[f"{name}_{i_got}_loss"]) == pytest.approx(float(one[f"v2_one_{i_ref}_loss"]), rel=TOL)
+        assert float(got[f"{name}_{i_got}_gnorm"]) == pytest.approx(float(one[f"v2_one_{i_ref}_gnorm"]), rel=TOL)
+        for k in ("master", "ema"):
+            np.testing.assert_allclose(got[f"{name}_{i_got}_{k}"], one[f"v2_one_{i_ref}_{k}"], atol=TOL, rtol=0,
+                                       err_msg=f"{name} rank {rank} {k}")
+    if group == "train":
+        assert [_report(runs, "train", r)["v2 1x2 sharded"] for r in range(2)] == [False, False]
+    else:
+        reps = [_report(runs, "train4", r) for r in range(4)]
+        local = [r["v2 2x2 local"] for r in reps]
+        # each data rank keeps its slices; the seq ranks of a data index the same ones
+        assert local[0] == local[1] and local[2] == local[3] and local[0][1] + local[2][1] == local[0][2]
+        assert all(r["v2 2x2 resumed from one process at"] == 2 for r in reps)
+        assert reps[0]["v2 one resumed from 2x2 at"] == 2
+
+
+def test_train_v2_cli_under_torchrun_matches_one_process(runs):
+    """`train_v2 --seq-shards 2 --fsdp` on 2 ranks against one process:
+    rank 0 alone logs and exports."""
+    d = runs["dirs"]["cli_v2"]
+    rows = {k: [json.loads(line) for line in open(d / k / "metrics.jsonl")] for k in ("one", "sharded")}
+    assert len(rows["sharded"]) == len(rows["one"]) == 2
+    for a, b in zip(rows["sharded"], rows["one"]):
+        assert a["step"] == b["step"]
+        assert a["loss"] == pytest.approx(b["loss"], rel=TOL) and a["grad_norm"] == pytest.approx(b["grad_norm"],
+                                                                                                 rel=TOL)
+    for name in ("unet.pt", "target_unet.pt"):
+        got, want = (torch.load(d / k / name, weights_only=True) for k in ("sharded", "one"))
+        assert set(got) == set(want)
+        for k in want:
+            np.testing.assert_allclose(got[k].numpy(), want[k].numpy(), atol=TOL, rtol=0, err_msg=f"{name} {k}")
+    assert [_report(runs, "cli_v2", r) for r in range(2)] == [{"ran": True}] * 2
+
+
 def test_latent_webdata_step_at_2x1(runs):
     reps = [_report(runs, "train", r) for r in range(2)]
     assert [r["webdata shards"] for r in reps] == [["latents_0.tar"], ["latents_1.tar"]]
@@ -328,17 +395,27 @@ def test_data_rank_shard_split():
     assert split_shards_by_host(shards, 1, 3) == shards[1::3]
 
 
-def test_refusals(tmp_path):
+@pytest.mark.parametrize("cli, refused", [("train_v1", "world"), ("train_v2", "world"), ("train_v2", "frames")])
+def test_refusals(tmp_path, cli, refused):
+    """A world that --seq-shards does not divide (in a world of one), and
+    train_v2's pickles whose frames it does not divide (refused before the
+    world is joined)."""
     from t2v_turbo_tpu_torch.apps import train_v1, train_v2
     from t2v_turbo_tpu_torch.parallel import multihost
 
-    args = train_v2.parse_args(["--latent-glob", "none", "--seq-shards", "2", "--tiny-model", "--device", "cpu"])
-    with pytest.raises(SystemExit, match="temporal attention's probability capture"):
-        train_v2.build_trainer(args)
+    if cli == "train_v1":
+        args = train_v1.parse_args(CLI_V1 + ["--seq-shards", "2", "--output-dir", str(tmp_path)])
+    else:
+        glob = W.write_v2_pickles(str(tmp_path / "latents"), n=1, frames=3 if refused == "frames" else 4)
+        args = train_v2.parse_args(CLI_V2 + ["--latent-glob", glob, "--seq-shards", "2", "--output-dir",
+                                             str(tmp_path)])
+    if refused == "frames":
+        with pytest.raises(SystemExit, match="3 frames do not split over --seq-shards 2"):
+            train_v2.build_trainer(args)
+        return
     multihost.initialize(f"localhost:{W.free_port()}", 1, 0, device_type="cpu", timeout_s=60)
     try:
-        args = train_v1.parse_args(CLI_V1 + ["--seq-shards", "2", "--output-dir", str(tmp_path)])
         with pytest.raises(SystemExit, match="needs a world of data x 2 ranks, the world has 1"):
-            train_v1.build_trainer(args)
+            (train_v1 if cli == "train_v1" else train_v2).build_trainer(args)
     finally:
         multihost.shutdown()

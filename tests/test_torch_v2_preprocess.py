@@ -11,6 +11,18 @@ the noise). Tolerances: z_t 1e-6 (the same f32 noising); z_example 1e-3
 unconditional outputs 2e-4. The pickle's keys, numpy dtypes and shapes
 equal JAX's, and each package's MP4LatentDataset reads the other's files.
 One JAX gradient compile (the motion core); the no-prior core has none.
+
+Under sequence parallelism, on two gloo ranks at (data, seq) = (1, 2)
+(tests/torch_dist_worker.py's `v2_capture`, started with the module's
+fixture so the ranks run while JAX compiles), against one process: a
+two-block TemporalTransformer's capture (each rank's probabilities are one
+process's rows of its columns, 1e-6; the output 1e-5); the teacher's nine-
+layer-style capture in the output blocks (1e-5), the rank loss summed over
+the ranks (1e-5 relative) and the motion score (1e-5 x its largest entry);
+and `preprocess_sample(mesh=)` on the JAX motion sample's draws (key 5):
+rank 0's pickle against one process at 1e-5 and against JAX at the
+tolerances above, with the teacher's calls (index + 4) on each rank and
+JAX's schema; rank 1 returns None.
 """
 
 import pickle
@@ -31,6 +43,7 @@ from t2v_turbo_tpu_torch import diffusion as P
 from t2v_turbo_tpu_torch.data.datasets import MP4LatentDataset
 from t2v_turbo_tpu_torch.models import UNetConfig, UNetModel
 from t2v_turbo_tpu_torch.training import preprocess as ppre
+import torch_dist_worker as W
 from torch_parity import TINY_UNET_KW, seeded_numpy_state_dict, to_torch
 
 KW = dict(TINY_UNET_KW, time_cond_proj_dim=None, channel_mult=(1,), attention_resolutions=(1,))  # one level: a shorter JAX compile
@@ -50,7 +63,9 @@ class Counting(torch.nn.Module):
 
 
 @pytest.fixture(scope="module")
-def setup():
+def setup(tmp_path_factory):
+    """The tiny teacher in both packages and the sample's inputs; the
+    sequence-parallel ranks start here on the motion sample's draws."""
     port = UNetModel(UNetConfig(**KW))
     sd = seeded_numpy_state_dict(port, 70)
     port.load_state_dict(to_torch(sd), strict=True)
@@ -61,11 +76,28 @@ def setup():
                 ctx=rng.randn(1, 7, 16).astype(np.float32), uncond=np.zeros((1, 7, 16), np.float32))
     jsched = J.DiffusionSchedule.create()
     jsolver = J.DDIMSolver.create(np.asarray(jsched.alphas_cumprod), ddim_timesteps=N)
-    return dict(port=Counting(port.requires_grad_(False).eval()), junet=junet, params=params, data=data,
-                jsched=jsched, jsolver=jsolver)
+    ranks_dir = tmp_path_factory.mktemp("v2_capture")
+    draws = _jax_draws(jax.random.PRNGKey(5), data["latents"].shape)
+    W.write_inputs(ranks_dir, {"unet": KW, "n": N}, **data, index=np.int64(draws.index), noise=draws.noise.numpy(),
+                   **{"unet." + k: v for k, v in sd.items()})
+    ranks = W.start_ranks("v2_capture", 2, ranks_dir)
+    yield dict(port=Counting(port.requires_grad_(False).eval()), junet=junet, params=params, data=data,
+               jsched=jsched, jsolver=jsolver, ranks=ranks, ranks_dir=ranks_dir, jax={})
+    for p in ranks:  # nothing left running after a failure
+        if p.poll() is None:
+            p.kill()
+            p.wait()
 
 
 def _jax_sample(s, motion, key, txt):
+    """JAX's sample (kept: the sequence-parallel case reuses the motion one)."""
+    name = (motion, tuple(np.asarray(key).tolist()), txt)
+    if name not in s["jax"]:
+        s["jax"][name] = _jax_sample_uncached(s, motion, key, txt)
+    return s["jax"][name]
+
+
+def _jax_sample_uncached(s, motion, key, txt):
     apply = lambda p, z, ts, c, fps=None: s["junet"].apply(p, z, ts, c, fps=fps)
     apply_mut = lambda p, z, ts, c, fps=None: s["junet"].apply(
         p, z, ts, c, fps=fps, record_probs=True, mutable=["intermediates"])
@@ -137,6 +169,50 @@ def test_sample_matches_jax(setup, motion, tmp_path):
     assert int(from_port["index"]) == int(from_jax["index"]) == draws.index
     batch = next(MP4LatentDataset([port_path, jax_path]).batches(2, shuffle=False, loop=False))
     assert batch["z_t"].shape == (2, 4, 8, 8, 4) and batch["index"].dtype == np.int32
+
+
+@pytest.fixture(scope="module")
+def seq_ranks(setup):
+    """The two ranks' reports, once both have ended."""
+    codes, outs = W.finish(setup["ranks"])
+    assert codes == [0, 0], "v2_capture ranks failed:\n" + "\n".join(outs)
+    return [W.read_report(setup["ranks_dir"], r) for r in range(2)]
+
+
+def test_temporal_transformer_capture_at_1x2(seq_ranks):
+    for rep in seq_ranks:
+        tt = rep["tt"]
+        assert tt["layers"] == [2, 2] and tt["rows"] == [[2 * 6 * 2, 4, 4]] * 2  # B * H*W / seq * heads rows
+        assert tt["probs"] <= 1e-6 and tt["out"] <= 1e-5
+
+
+def test_unet_capture_rank_loss_and_score_at_1x2(seq_ranks):
+    for rep in seq_ranks:
+        u = rep["unet"]
+        assert u["layers"][0] == u["layers"][1] > 0 and u["capture"] <= 1e-5 and u["cond"] <= 1e-5
+        for got, want in (u["rank loss"], u["score loss"]):
+            assert want > 0 and got == pytest.approx(want, rel=1e-5)
+        assert u["score max"] > 0 and u["score"] <= 1e-5 * u["score max"]
+
+
+def test_sharded_preprocess_matches_one_process_and_jax(setup, seq_ranks):
+    key = jax.random.PRNGKey(5)
+    want = _jax_sample(setup, True, key, "a cat")
+    draws = _jax_draws(key, setup["data"]["latents"].shape)
+    one, _ = _port_sample(setup, True, draws, "a cat")
+    assert [r["preprocess"] for r in seq_ranks] == [{"calls": draws.index + 4, "returned": r == 0} for r in range(2)]
+    with open(setup["ranks_dir"] / "sharded.pkl", "rb") as f:
+        got = pickle.load(f)
+    _same_schema(got, want)
+    for k in ("z_t", "z_example", "score", "cond_teacher_out", "uncond_teacher_out"):
+        np.testing.assert_allclose(got[k], one[k], atol=1e-5 * max(1.0, float(np.abs(one[k]).max())), rtol=0,
+                                   err_msg=k)
+    np.testing.assert_array_equal(got["z_t"], one["z_t"])  # the same elementwise noising of each frame
+    np.testing.assert_allclose(got["z_t"], want["z_t"], atol=1e-6)
+    np.testing.assert_allclose(got["z_example"], want["z_example"], atol=1e-3)
+    np.testing.assert_allclose(got["score"], want["score"], atol=1e-3 * float(np.abs(want["score"]).max()))
+    for k in ("cond_teacher_out", "uncond_teacher_out"):
+        np.testing.assert_allclose(got[k], want[k], atol=2e-4, err_msg=k)
 
 
 def test_draws_stay_in_the_band():

@@ -13,7 +13,10 @@ compile) with one no-zero weight set.
   largest entry, floored at 1e-7 x the largest of all (the tiny UNet's
   embedding paths have a zero gradient in exact math: PARITY.md's 2e-4 on
   the outputs, and the Huber loss amplifies it where |pred - target| is
-  small).
+  small). The same loss and gradients at (data, seq) = (1, 2), on two gloo
+  ranks (tests/torch_dist_worker.py's `v2_loss`, started by the fixture so
+  they run while JAX compiles), summed over the ranks, against the same
+  JAX references at the same tolerances.
 - the v2 temporal group: the same parameters as JAX's `is_temporal_param`
   after the block-index shift; one grouped update of the trainer against
   JAX's `make_v2_optimizer` to 1e-6.
@@ -44,6 +47,7 @@ from t2v_turbo_tpu_torch.io import convert
 from t2v_turbo_tpu_torch.models import UNetConfig, UNetModel
 from t2v_turbo_tpu_torch.training import lcd_v2, optim
 from t2v_turbo_tpu_torch.training.trainer import LCDTrainer, TrainerConfig
+import torch_dist_worker as W
 from torch_parity import TINY_UNET_KW, seeded_numpy_state_dict, to_torch
 
 KW = dict(TINY_UNET_KW, motion_cond_proj_dim=8, channel_mult=(1,), attention_resolutions=(1,))  # one level
@@ -72,7 +76,9 @@ def reward(model_pred, batch):
 
 
 @pytest.fixture(scope="module")
-def case():
+def case(tmp_path_factory):
+    """JAX's loss and gradients with the EMA target and without; the (1, 2)
+    ranks start before JAX compiles."""
     student = UNetModel(UNetConfig(**KW))
     sd = seeded_numpy_state_dict(student, 81)
     student.load_state_dict(to_torch(sd), strict=True)
@@ -86,6 +92,12 @@ def case():
     jsched = J.DiffusionSchedule.create()
     jsolver = J.DDIMSolver.create(np.asarray(jsched.alphas_cumprod))
     key = jax.random.PRNGKey(9)
+    k_w, _ = jax.random.split(key)
+    w = np.asarray(5.0 + 10.0 * jax.random.uniform(k_w, (3,)))
+    ranks_dir = tmp_path_factory.mktemp("v2_loss")
+    W.write_inputs(ranks_dir, {"unet": KW, "lcd": CFG}, w=w, **{f"batch.{k}": v for k, v in batch.items()},
+                   **{f"student.{k}": v for k, v in sd.items()}, **{f"target.{k}": v for k, v in ema_sd.items()})
+    ranks = W.start_ranks("v2_loss", 2, ranks_dir)
 
     def apply(p, z, t, c, fps=None, timestep_cond=None, motion_cond=None):
         return junet.apply(p, z, t, c, fps=fps, timestep_cond=timestep_cond, motion_cond=motion_cond)
@@ -95,11 +107,27 @@ def case():
                             target_params=t, target_apply=apply, sched=jsched, solver=jsolver,
                             cfg=JLCDV2Config(**CFG), reward_fn=reward)[0]
 
-    grad_fn = jax.jit(jax.value_and_grad(loss))
-    refs = {"ema": grad_fn(sp, tp), "none": grad_fn(sp, sp)}
-    k_w, _ = jax.random.split(key)
-    w = np.asarray(5.0 + 10.0 * jax.random.uniform(k_w, (3,)))
-    return dict(student=student, target=target, batch=batch, refs=refs, w=w)
+    try:
+        grad_fn = jax.jit(jax.value_and_grad(loss))
+        refs = {"ema": grad_fn(sp, tp), "none": grad_fn(sp, sp)}
+        yield dict(student=student, target=target, batch=batch, refs=refs, w=w, ranks=ranks, ranks_dir=ranks_dir)
+    finally:  # nothing left running after a failure
+        for p in ranks:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+
+
+def _close_to_jax(names, got, loss, ref_loss, ref_grads):
+    """The loss to 1e-5 relative; each gradient within 1e-3 x its largest
+    entry, floored at 1e-7 x the largest of all."""
+    assert float(loss) == pytest.approx(float(ref_loss), rel=1e-5)
+    ref = convert.unet_state_dict_from_jax(ref_grads)
+    assert set(ref) == set(names)
+    gmax = max(float(v.abs().max()) for v in ref.values())
+    for n, g in zip(names, got):
+        r = ref[n].numpy()
+        np.testing.assert_allclose(np.asarray(g), r, atol=max(1e-3 * float(np.abs(r).max()), 1e-7 * gmax), err_msg=n)
 
 
 @pytest.mark.parametrize("target", ["ema", "none"])
@@ -114,16 +142,26 @@ def test_lcd_v2_loss_and_gradients_match_jax(case, target):
     names = [n for n, _ in student.named_parameters()]
     grads = torch.autograd.grad(loss, [p for _, p in student.named_parameters()], allow_unused=True,
                                 materialize_grads=True)
-    ref_loss, ref_grads = case["refs"][target]
     assert set(terms) == {"distill_loss", "reward_loss", "loss"}
-    assert float(loss.detach()) == pytest.approx(float(ref_loss), rel=1e-5)
-    ref = convert.unet_state_dict_from_jax(ref_grads)
-    assert set(ref) == set(names)
-    gmax = max(float(v.abs().max()) for v in ref.values())
-    for n, g in zip(names, grads):
-        r = ref[n].numpy()
-        np.testing.assert_allclose(g.numpy(), r, atol=max(1e-3 * float(np.abs(r).max()), 1e-7 * gmax), err_msg=n)
+    _close_to_jax(names, [g.numpy() for g in grads], loss.detach(), *case["refs"][target])
     assert all(p.grad is None for p in case["target"].parameters())
+
+
+@pytest.fixture(scope="module")
+def seq_ranks(case):
+    codes, outs = W.finish(case["ranks"])
+    assert codes == [0, 0], "v2_loss ranks failed:\n" + "\n".join(outs)
+    return [W.read_report(case["ranks_dir"], r) for r in range(2)], np.load(case["ranks_dir"] / "arrays_0.npz")
+
+
+@pytest.mark.parametrize("target", ["ema", "none"])
+def test_lcd_v2_loss_and_gradients_at_1x2_match_jax(case, seq_ranks, target):
+    """Each rank's share of the loss and its gradients, summed over the seq
+    ranks, against JAX's whole-batch loss and gradients."""
+    reports, arrays = seq_ranks
+    assert all(r[target] == ["distill_loss", "loss", "reward_loss"] for r in reports)
+    names = [n for n, _ in case["student"].named_parameters()]
+    _close_to_jax(names, [arrays[f"{target}/{n}"] for n in names], arrays[f"{target}/loss"], *case["refs"][target])
 
 
 def test_motion_gate_and_quirk_factor():

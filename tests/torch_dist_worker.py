@@ -1,6 +1,7 @@
 """Rank processes for the port's torch.distributed CPU tests
 (tests/test_torch_parallel.py, tests/test_torch_seq_parallel.py,
-tests/test_torch_sharded_training.py).
+tests/test_torch_sharded_training.py, tests/test_torch_v2_preprocess.py,
+tests/test_torch_v2_train.py).
 
 The tests start every rank as its own process with `subprocess` (never by
 forking a process that imported JAX): this module imports torch, numpy and
@@ -431,6 +432,22 @@ def v2_batch(b=2, seed=80):
             "tokens": rng.randint(0, 64, size=(b, 7)).astype(np.int64)}
 
 
+def write_v2_pickles(out_dir, n=4, frames=4):
+    """n v2 samples as apps/preprocess.py writes them, at train_v2
+    --tiny-model's shapes (v2_batch's rows); the glob."""
+    import pickle
+
+    os.makedirs(out_dir, exist_ok=True)
+    for i in range(n):
+        row = {k: v[0] for k, v in v2_batch(b=1, seed=90 + i).items() if k != "tokens"}
+        row.update(index=np.int32([45, 10, 40, 20][i % 4]), use_motion_guide=bool(i % 3), txt=f"clip {i}",
+                   short_txt="", **{k: row[k][:frames] for k in ("z_t", "cond_teacher_out", "uncond_teacher_out",
+                                                                  "score")})
+        with open(os.path.join(out_dir, f"{i:05d}.pkl"), "wb") as f:
+            pickle.dump(row, f)
+    return os.path.join(out_dir, "*.pkl")
+
+
 def v2_trainer(out_dir, mesh=None, fsdp=False, text=True):
     """The full-model v2 trainer: int8 moments (eps 1), the EMA target, the
     text-encoder group (with `text`), over `mesh`."""
@@ -564,13 +581,174 @@ def _temporal_layer_grads(rank, group):
     return rep
 
 
+# ---- the motion prior and v2 under the seq axis (tests/test_torch_v2_preprocess.py, test_torch_v2_train.py) ----
+
+def write_inputs(out_dir, config: dict, **arrays) -> None:
+    """A test's inputs for its rank case: config.json and inputs.npz."""
+    with open(os.path.join(out_dir, "config.json"), "w") as f:
+        json.dump(config, f)
+    np.savez(os.path.join(out_dir, "inputs.npz"), **arrays)
+
+
+def _read_inputs(out_dir):
+    with open(os.path.join(out_dir, "config.json")) as f:
+        cfg = json.load(f)
+    return cfg, dict(np.load(os.path.join(out_dir, "inputs.npz")))
+
+
+def _unet(kw, arrays, prefix):
+    """A UNet of config `kw` with the state dict stored under `prefix` in `arrays`."""
+    from t2v_turbo_tpu_torch.models import UNetConfig, UNetModel
+
+    kw = {k: tuple(v) if isinstance(v, list) else v for k, v in kw.items()}
+    unet = UNetModel(UNetConfig(**kw))
+    unet.load_state_dict({k[len(prefix):]: torch.from_numpy(v) for k, v in arrays.items() if k.startswith(prefix)},
+                         strict=True)
+    return unet
+
+
+class CountingTeacher(torch.nn.Module):
+    """A UNet counting its calls; `set_seq_group` reaches the UNet."""
+
+    def __init__(self, unet):
+        super().__init__()
+        self.unet, self.calls = unet, 0
+
+    def set_seq_group(self, group):
+        self.unet.set_seq_group(group)
+
+    def forward(self, *args, **kw):
+        self.calls += 1
+        return self.unet(*args, **kw)
+
+
+def _my_columns(p, b, cols, rank, n):
+    """This rank's rows of a one-process capture (B*S*heads, T, T): those of
+    its S / n columns."""
+    t = p.shape[-1]
+    return p.view(b, cols, -1, t, t)[:, rank * cols // n:(rank + 1) * cols // n].reshape(-1, t, t)
+
+
+def case_v2_capture(rank, world, out_dir):
+    """At (1, 2) against one process in the same rank: a two-block
+    TemporalTransformer's capture; the tiny teacher's capture, rank loss and
+    motion score; `preprocess_sample(mesh=)` on the test's latents and
+    draws (rank 0 pickles its sample)."""
+    from t2v_turbo_tpu_torch import diffusion as P
+    from t2v_turbo_tpu_torch.models.layers import TemporalTransformer
+    from t2v_turbo_tpu_torch.parallel import collectives as C
+    from t2v_turbo_tpu_torch.parallel.mesh import make_mesh
+    from t2v_turbo_tpu_torch.training import motion
+    from t2v_turbo_tpu_torch.training import preprocess as ppre
+    from torch_parity import seeded_numpy_state_dict, to_torch
+
+    cfg, z = _read_inputs(out_dir)
+    mesh = make_mesh(data=1, seq=2)
+    group = mesh.axis("seq")
+    rep = {}
+
+    # a TemporalTransformer of two blocks: both blocks' probabilities and the output
+    g = torch.Generator().manual_seed(3)
+    b, c, t, hh, ww = 2, 64, 4, 3, 4
+    clip = 3.0 * torch.randn(b, c, t, hh, ww, generator=g) + 1.0
+    t0, tl = rank * t // world, t // world
+    tt = TemporalTransformer(c, 2, 32, depth=2)
+    tt.load_state_dict(to_torch(seeded_numpy_state_dict(tt, 5)))
+    with torch.no_grad():
+        out, probs = tt(clip, record_probs=True)
+        tt.seq_group = group
+        mine, mine_probs = tt(clip[:, :, t0:t0 + tl], record_probs=True)
+    rep["tt"] = {"layers": [len(probs), len(mine_probs)], "out": _err(mine, out[:, :, t0:t0 + tl]),
+                 "probs": max(_err(q, _my_columns(p, b, hh * ww, rank, world)) for p, q in zip(probs, mine_probs)),
+                 "rows": [list(q.shape) for q in mine_probs]}
+
+    # the teacher's capture, the rank loss and the score
+    unet = _unet(cfg["unet"], z, "unet.").requires_grad_(False).eval()
+    lat, ctx, uncond, noise = (torch.from_numpy(z[k]) for k in ("latents", "ctx", "uncond", "noise"))
+    index = int(z["index"])
+    sched = P.DiffusionSchedule.create()
+    solver = P.DDIMSolver.create(sched.alphas_cumprod.numpy(), ddim_timesteps=cfg["n"])
+    ts = solver.index_to_timestep(torch.tensor([index]))
+    z_t = P.add_noise(sched, lat, noise, ts)
+    z_ex = lat + 0.3 * noise  # a reference clip other than z_t
+    hw = lat.shape[2] * lat.shape[3]
+    with torch.no_grad():
+        _, caps = unet(z_t, ts, ctx, record_probs=True)
+        _, refs = unet(z_ex, ts, ctx, record_probs=True)
+    one_loss = float(motion.motion_rank_loss(caps, refs))
+    score, cond, loss = motion.motion_prior_score(unet, z_t, ts, z_ex, ctx, ctx, return_loss=True)
+    unet.set_seq_group(group)
+    f0, fl = rank * lat.shape[1] // world, lat.shape[1] // world
+    frames = lambda x: x[:, f0:f0 + fl]  # noqa: E731
+    with torch.no_grad():
+        _, my_caps = unet(frames(z_t), ts, ctx, record_probs=True)
+        _, my_refs = unet(frames(z_ex), ts, ctx, record_probs=True)
+    term = motion.motion_rank_loss(my_caps, my_refs, group=group)
+    my_score, my_cond, my_loss = motion.motion_prior_score(unet, frames(z_t), ts, frames(z_ex), ctx, ctx,
+                                                           return_loss=True, group=group)
+    rep["unet"] = {"layers": [len(caps), len(my_caps)],
+                   "capture": max(_err(q, _my_columns(p, 1, hw, rank, world)) for p, q in zip(caps, my_caps)),
+                   "rank loss": [float(C.all_reduce_(term.reshape(1).clone(), group)[0]), one_loss],
+                   "score loss": [float(my_loss), float(loss)], "score": _err(my_score, frames(score)),
+                   "score max": float(score.abs().max()), "cond": _err(my_cond, frames(cond))}
+
+    # the preprocess over the mesh (the test holds rank 0's pickle to one process and to JAX)
+    unet.set_seq_group(None)
+    teacher = CountingTeacher(unet)
+    sample = ppre.preprocess_sample(teacher, lat, ctx, uncond, ppre.PreprocessDraws(index, noise), sched=sched,
+                                    solver=solver, cfg=ppre.PreprocessConfig(num_ddim_timesteps=cfg["n"]),
+                                    txt="a cat", mesh=mesh)
+    rep["preprocess"] = {"calls": teacher.calls, "returned": sample is not None}
+    if sample is not None:
+        ppre.save_sample(out_dir, "sharded", sample)
+    return rep
+
+
+def case_v2_loss(rank, world, out_dir):
+    """`lcd_v2_loss` at (1, 2) on the test's batch and draws, with the EMA
+    target and with none: the loss and every student gradient summed over
+    the ranks (rank 0 saves them)."""
+    from t2v_turbo_tpu_torch import diffusion as P
+    from t2v_turbo_tpu_torch.parallel import collectives as C
+    from t2v_turbo_tpu_torch.parallel.mesh import make_mesh, shard_batch
+    from t2v_turbo_tpu_torch.training import lcd_v2
+
+    cfg, z = _read_inputs(out_dir)
+    mesh = make_mesh(data=1, seq=2)
+    student, target = _unet(cfg["unet"], z, "student."), _unet(cfg["unet"], z, "target.")
+    for m in (student, target):
+        m.set_seq_group(mesh.axis("seq"))
+    batch = shard_batch(mesh, {k[len("batch."):]: torch.from_numpy(v) for k, v in z.items() if k.startswith("batch.")})
+    sched = P.DiffusionSchedule.create()
+    solver = P.DDIMSolver.create(sched.alphas_cumprod.numpy())
+    names = [n for n, _ in student.named_parameters()]
+    arrays, rep = {}, {}
+    for name, tgt in (("ema", target), ("none", None)):
+        loss, terms = lcd_v2.lcd_v2_loss(student, batch, lcd_v2.LCDV2Draws(torch.from_numpy(z["w"])), target=tgt,
+                                         sched=sched, solver=solver, cfg=lcd_v2.LCDV2Config(**cfg["lcd"]),
+                                         reward_fn=lambda pred, _: pred.mean(dim=(1, 2, 3, 4)), mesh=mesh)
+        grads = torch.autograd.grad(loss, list(student.parameters()), allow_unused=True, materialize_grads=True)
+        flat = C.all_reduce_(torch.cat([g.reshape(-1) for g in grads] + [loss.detach().reshape(1)]),
+                             mesh.axis("world"))
+        arrays[f"{name}/loss"] = flat[-1].numpy()
+        offset = 0
+        for n, g in zip(names, grads):
+            arrays[f"{name}/{n}"] = flat[offset:offset + g.numel()].view(g.shape).numpy()
+            offset += g.numel()
+        rep[name] = sorted(terms)
+    if rank == 0:
+        np.savez(os.path.join(out_dir, "arrays_0.npz"), **arrays)
+    return rep
+
+
 def case_train(rank, world, out_dir):
     """Training on a world of 2 over gloo: the collectives' and the temporal
     layers' gradients, the v1 LoRA steps at (1, 2) and (2, 1), with a
     reward at (1, 2), with --fsdp at (2, 1), and there with two micro-steps
     an update, the v2 --fsdp steps at (2, 1) with the checkpoints
-    crossing world sizes, a LatentWebDataset step, and a SIGTERM to rank 1
-    in `run`; the validation render over the (1, 2) mesh."""
+    crossing world sizes and at (1, 2), a LatentWebDataset step, and a
+    SIGTERM to rank 1 in `run`; the validation render over the (1, 2)
+    mesh."""
     import signal
     import tarfile
 
@@ -642,6 +820,13 @@ def case_train(rank, world, out_dir):
         _save_steps(arrays, "v2_one_from_fsdp", [v2_record(one, one.step_device(vb))], V2_KEYS)
     dist.barrier()
 
+    # v2 at (1, 2) with --fsdp (one data rank: nothing to shard): two steps on each rank's frames
+    mesh12 = meshes[(1, 2)]
+    tr = v2_trainer(os.path.join(out_dir, f"v2_1x2_{rank}"), mesh12, fsdp=True)
+    local = shard_batch(mesh12, vb)
+    _save_steps(arrays, "v2_1x2", [v2_record(tr, tr.step_device(local)) for _ in range(2)], V2_KEYS)
+    rep["v2 1x2 sharded"] = tr._shards is not None
+
     # a LatentWebDataset step at (2, 1): each data rank reads its own shards
     import io
     import pickle
@@ -703,9 +888,14 @@ def case_train(rank, world, out_dir):
 
 def case_train4(rank, world, out_dir):
     """The v1 LoRA step at (2, 2) on the JAX case's weights, factors, batch
-    and draws (tests/test_torch_sharded_training.py's `jax_case`)."""
+    and draws (tests/test_torch_sharded_training.py's `jax_case`); the v2
+    --fsdp steps at (2, 2) with the checkpoints crossing world sizes."""
     from t2v_turbo_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from t2v_turbo_tpu_torch.training.lcd import LCDDraws
+
+    import shutil
+
+    import torch.distributed as dist
 
     z = np.load(os.path.join(out_dir, "inputs.npz"))
     states = v1_state_dicts()
@@ -715,8 +905,41 @@ def case_train4(rank, world, out_dir):
     draws = LCDDraws(*(torch.from_numpy(z[k]) for k in ("index", "noise", "w"))).shard(mesh)
     arrays = {}
     _save_steps(arrays, "v1_2x2", v1_steps(trainer, shard_batch(mesh, batch), n=1, draws=draws))
+    rep = {"coords": list(mesh.coords())}
+
+    # v2 --fsdp at (2, 2): steps 1, 2, a save, step 3; a (2, 2) resume from one
+    # process's step-2 checkpoint (rank 0 writes it); one process resuming the (2, 2) one
+    vb = {k: torch.from_numpy(v) for k, v in v2_batch().items()}
+    one_dir, dir22, back_dir = (os.path.join(out_dir, d) for d in ("v2_one", "v2_2x2", "v2_2x2_resumed"))
+    if rank == 0:
+        ref = v2_trainer(one_dir)
+        for _ in range(2):
+            ref.step_device(vb)
+        ref.save(2)
+        os.makedirs(os.path.join(back_dir, "checkpoints"))
+        shutil.copy(os.path.join(one_dir, "checkpoints", "step_00000002.pt"), os.path.join(back_dir, "checkpoints"))
+    tr = v2_trainer(dir22, mesh, fsdp=True)
+    local = shard_batch(mesh, vb)
+    recs = []
+    for step in range(3):
+        recs.append(v2_record(tr, tr.step_device(local)))
+        if step == 1:
+            tr.save(2)
+            resume_draws(tr, 2)
+    _save_steps(arrays, "v2_2x2", recs, V2_KEYS)
+    rep["v2 2x2 local"] = [tr.master.numel(), tr._shards.size, tr.whole_master().numel()]
+    dist.barrier()  # rank 0's one-process checkpoint is written
+    resumed = v2_trainer(back_dir, mesh, fsdp=True)
+    rep["v2 2x2 resumed from one process at"] = resumed.resume_if_available()
+    resume_draws(resumed, 2)
+    _save_steps(arrays, "v2_2x2_from_one", [v2_record(resumed, resumed.step_device(local))], V2_KEYS)
+    if rank == 0:
+        one = v2_trainer(dir22, None)
+        rep["v2 one resumed from 2x2 at"] = one.resume_if_available()
+        resume_draws(one, 2)
+        _save_steps(arrays, "v2_one_from_2x2", [v2_record(one, one.step_device(vb))], V2_KEYS)
     np.savez(os.path.join(out_dir, f"arrays_{rank}.npz"), **arrays)
-    return {"coords": list(mesh.coords())}
+    return rep
 
 
 def case_train_cli(rank, world, out_dir, *argv):
@@ -737,8 +960,9 @@ def case_train_cli(rank, world, out_dir, *argv):
 
 
 CASES = {"ops": case_ops, "sampling": case_sampling, "serve": case_serve, "generate": case_generate,
-         "train": case_train, "train4": case_train4, "train_cli": case_train_cli}
-TRAINING = ("train", "train4", "train_cli")  # cases that take gradients
+         "train": case_train, "train4": case_train4, "train_cli": case_train_cli, "v2_capture": case_v2_capture,
+         "v2_loss": case_v2_loss}
+TRAINING = ("train", "train4", "train_cli", "v2_capture", "v2_loss")  # cases that take gradients
 
 
 def main(argv):
