@@ -29,14 +29,17 @@ and LayerNorm, and every attention of head dim 64 or 512 but the CLIP
 tower's causal one, run the hand-written kernels (ops/attention.py::sdpa).
 
 Sharded (VC2): one process per rank under torchrun, the batch over
---data-shards ranks and the frames over --seq-shards (--model-shards, tensor
-parallelism, is A12b and refused); the world must hold exactly
+--data-shards ranks, the frames over --seq-shards and the UNet's weights
+over --model-shards (tensor parallelism: attention heads, GEGLU and the
+conv channels split, parallel/tp.py); the world must hold exactly
 data * seq * model ranks, each on cuda:{LOCAL_RANK} (NCCL), and rank 0
 writes the output:
   torchrun --nproc-per-node 2 -m t2v_turbo_tpu_torch.apps.generate --random-weights \\
-      --prompt "..." --seq-shards 2 --output out.npy
+      --prompt "..." --model-shards 2 --output out.npy
 --device cpu runs the ranks on the CPU over gloo; --multihost joins
-torchrun's world even at one shard.
+torchrun's world even at one shard. Ranks that share one card must use
+gloo (multihost.initialize(share_device=True); NCCL refuses two ranks on
+one device).
 """
 
 from __future__ import annotations
@@ -88,7 +91,7 @@ def add_mesh_args(p):
     p.add_argument("--data-shards", type=int, default=1, help="mesh data axis: videos of a batch over ranks")
     p.add_argument("--seq-shards", type=int, default=1, help="mesh seq axis: the frames of a video over ranks")
     p.add_argument("--model-shards", type=int, default=1,
-                   help="mesh model axis (tensor parallelism): not ported yet (A12b), must be 1")
+                   help="mesh model axis: the UNet's heads, GEGLU and conv channels over ranks (tensor parallelism)")
     p.add_argument("--multihost", action="store_true",
                    help="join torchrun's torch.distributed world (implied by a shard count above 1)")
 
@@ -107,8 +110,6 @@ def make_cli_mesh(args):
     need = shards[0] * shards[1] * shards[2]
     if min(shards) < 1:
         raise SystemExit(f"error: shard counts must be >= 1, got {shards}")
-    if args.model_shards > 1:
-        raise SystemExit("error: --model-shards > 1 (tensor parallelism) is not ported yet (A12b)")
     if need == 1 and not args.multihost:
         return None
     if getattr(args, "backbone", "vc2") != "vc2":

@@ -31,14 +31,14 @@ no module built), --ms-dir (the ModelScope folder's) or --random-weights
 build the model code).
 
 Sharded (VC2, one process per rank under torchrun; the JAX server's
---data-shards / --seq-shards): every rank builds the pipeline over the mesh
+--data-shards / --seq-shards / --model-shards): every rank builds the pipeline over the mesh
 (apps/generate.py::make_cli_mesh); rank 0 serves HTTP and, for each request,
 broadcasts the prompt and parameters to every rank, all ranks sample, and
 rank 0 answers. The other ranks `follow`: they run what rank 0 broadcasts
 until it broadcasts the shutdown; while idle, rank 0 broadcasts a heartbeat
 every HEARTBEAT_S, so no rank's wait outlasts the process group's timeout.
   torchrun --nproc-per-node 2 -m t2v_turbo_tpu_torch.apps.serve --random-weights --seq-shards 2
---model-shards above 1 (tensor parallelism) is A12b and refused; the
+--model-shards N splits the UNet's weights over N ranks (parallel/tp.py). The
 `warmup --export` artifacts serve on one rank, and shards with --artifacts
 are refused.
 

@@ -34,8 +34,24 @@ package written out (parallel/collectives.py):
   there, and switches back (`space_to_seq`) before the residual add; the
   MotionClone capture (`record_probs`) returns the probabilities of this
   rank's columns.
-Without a group, or with a group of one rank, the code path and the kernel
-launches are the single-device ones.
+Tensor parallelism: `UNetModel.set_model_group` splits the UNet's weights
+over the mesh's model axis (parallel/tp.py) and sets `model_group` on the
+modules that run split layers; their inputs and outputs stay whole on every
+rank of the group:
+- `CrossAttention` runs this rank's heads (q / k / v and the image branch's
+  `to_k_ip` / `to_v_ip` are column layers), `to_out` is a row layer: the
+  partial product summed over the group (`collectives.model_all_reduce`),
+  then the bias;
+- `FeedForward`: the GEGLU's projection column (this rank's value and gate
+  rows), `net.2` row;
+- `ResBlock`: B7 on the whole input with this rank's output channels
+  (`in_layers`), the embedding's matching columns, then B7 on the channel
+  block at 32 / n groups without its bias (`out_layers`), the sum, the
+  bias and the skip;
+- `TemporalConvBlock`: conv1 / conv3 column, conv2 / conv4 row; under a seq
+  group too, where the clip's partials are the channel block's and the halo
+  carries the channel block.
+Without a model group of more than one rank the launches are today's.
 """
 
 from __future__ import annotations
@@ -82,24 +98,42 @@ class LayerNorm(nn.Module):
         return layer_norm(x, self.weight, self.bias, self.eps, act)
 
 
-def gn_silu_conv(norm: GroupNorm, conv: nn.Module, x: torch.Tensor, film=None) -> torch.Tensor:
+def _sharded(group) -> bool:
+    return group is not None and group.size > 1
+
+
+def _row_sum(y: torch.Tensor, bias: Optional[torch.Tensor], group, channels_last: bool = False) -> torch.Tensor:
+    """A row-parallel layer's output: its partial y (channels on dim 1, or
+    last) summed over the model group, then the bias."""
+    y = collectives.model_all_reduce(y, group)
+    if bias is None:
+        return y
+    return y + (bias if channels_last else bias.view(-1, *(1,) * (y.dim() - 2)))
+
+
+def row_linear(layer: nn.Linear, x: torch.Tensor, group) -> torch.Tensor:
+    """A row-parallel Linear over the model group: x holds this rank's
+    input columns."""
+    return _row_sum(F.linear(x, layer.weight), layer.bias, group, channels_last=True)
+
+
+def gn_silu_conv(norm: GroupNorm, conv: nn.Module, x: torch.Tensor, film=None, group=None) -> torch.Tensor:
     """conv(silu(norm(x))) through the fused kernel (B7): a 'same' Conv2d on
     frames (N, C, H, W), or a (k, 1, 1) Conv3d on a clip (B, C, T, H, W),
     run as a (k, 1) conv on the clip viewed as (B, C, T, H*W), so the
     statistics span the clip. `conv.weight` is the module's parametrised
     (LoRA-merged) weight, so the LoRA factors get their gradient. `film`:
     (scale, shift), each (N, C), applied as h * (1 + scale) + shift between
-    the norm and the SiLU."""
+    the norm and the SiLU. `group`: a row-parallel conv over the model axis
+    (x is this rank's channel block): the bias is added after the sum."""
     w, shape = conv.weight, x.shape
     if x.dim() == 5:
         x, w = x.reshape(*shape[:3], -1), w.reshape(*w.shape[:3], 1)
-    y = fused_gn_silu_conv(x.contiguous(), norm.weight, norm.bias, w.contiguous(), conv.bias,
+    row = _sharded(group)
+    y = fused_gn_silu_conv(x.contiguous(), norm.weight, norm.bias, w.contiguous(), None if row else conv.bias,
                            norm.num_groups, norm.eps, *(film or (None, None)))
-    return y.view(shape[0], -1, *shape[2:])
-
-
-def _sharded(group) -> bool:
-    return group is not None and group.size > 1
+    y = y.view(shape[0], -1, *shape[2:])
+    return _row_sum(y, conv.bias, group) if row else y
 
 
 def clip_partials(norm: GroupNorm, x: torch.Tensor, group):
@@ -110,19 +144,22 @@ def clip_partials(norm: GroupNorm, x: torch.Tensor, group):
     return collectives.gather_partials(parts, counts, group)
 
 
-def gn_silu_conv_seq(norm: GroupNorm, conv: nn.Module, x: torch.Tensor, group) -> torch.Tensor:
+def gn_silu_conv_seq(norm: GroupNorm, conv: nn.Module, x: torch.Tensor, group, model_group=None) -> torch.Tensor:
     """`gn_silu_conv` of a (k, 1, 1) Conv3d on this rank's frames x (B, C, T
     / seq, H, W) of a clip sharded over `group`: the clip's statistics, B7
-    on x with its neighbours' halo frames, the halo outputs dropped."""
+    on x with its neighbours' halo frames, the halo outputs dropped.
+    `model_group`: a row-parallel conv (x is this rank's channel block)."""
     b, c, t, hh, ww = x.shape
     a, sh = group_norm_affine_from_partials(*clip_partials(norm, x, group), norm.weight, norm.bias, norm.num_groups,
                                             norm.eps)
     lo, _ = collectives.halo_sides(group)
     xh = collectives.halo_exchange(x, group, 2)
     w = conv.weight
+    row = _sharded(model_group)
     y = fused_gn_silu_conv_ab(xh.reshape(b, c, xh.shape[2], hh * ww), a, sh, w.reshape(*w.shape[:3], 1).contiguous(),
-                              conv.bias)
-    return y[:, :, lo:lo + t].contiguous().view(b, -1, t, hh, ww)
+                              None if row else conv.bias)
+    y = y[:, :, lo:lo + t].contiguous().view(b, -1, t, hh, ww)
+    return _row_sum(y, conv.bias, model_group) if row else y
 
 
 def dense(layer: nn.Module, x: torch.Tensor) -> torch.Tensor:
@@ -176,7 +213,11 @@ class CrossAttention(nn.Module):
       context's rows past TEXT_CONTEXT_LEN are image tokens, attended
       through `to_k_ip` / `to_v_ip` with the same queries (through `sdpa`)
       and added (the reference's image_cross_attention_scale, 1). A context
-      with no rows past it is refused, as JAX refuses it."""
+      with no rows past it is refused, as JAX refuses it.
+    With a `model_group` (parallel/tp.py) `heads` is this rank's share and
+    `to_out` sums over the group; `record_probs` is refused there."""
+
+    model_group = None  # set by parallel/tp.py::shard_unet_tp_
 
     def __init__(self, query_dim: int, context_dim: Optional[int] = None, heads: int = 8,
                  dim_head: int = 64, relative_position: bool = False, temporal_length: Optional[int] = None,
@@ -201,6 +242,9 @@ class CrossAttention(nn.Module):
             self.to_v_ip = nn.Linear(ctx_dim, inner, bias=False)
 
     def forward(self, x, context=None, causal: bool = False, record_probs: bool = False):
+        if record_probs and _sharded(self.model_group):
+            raise NotImplementedError("record_probs under the model axis: the capture belongs to the preprocess, "
+                                      "which takes the model axis in the training half of A12b.2 (A12b.2b)")
         ctx = x if context is None else context
         ctx_img = None
         if self.img_cross_attention:
@@ -229,7 +273,8 @@ class CrossAttention(nn.Module):
             out = sdpa(q, k, v, scale=scale)
         if ctx_img is not None:
             out = out + sdpa(q, split(self.to_k_ip(ctx_img)), split(self.to_v_ip(ctx_img)), scale=scale)
-        out = self.to_out(out.reshape(b, sq, self.heads * self.dim_head))
+        out = out.reshape(b, sq, self.heads * self.dim_head)
+        out = row_linear(self.to_out[0], out, self.model_group) if _sharded(self.model_group) else self.to_out(out)
         if record_probs:
             return out, probs.reshape(b * self.heads, sq, -1)
         return out
@@ -246,14 +291,19 @@ class GEGLU(nn.Module):
 
 
 class FeedForward(nn.Module):
-    """GEGLU MLP stored as the reference's `net.0.proj` / `net.2`."""
+    """GEGLU MLP stored as the reference's `net.0.proj` / `net.2`; with a
+    `model_group`, this rank's value and gate rows, then `net.2`'s sum."""
+
+    model_group = None  # set by parallel/tp.py::shard_unet_tp_
 
     def __init__(self, dim: int, mult: int = 4):
         super().__init__()
         self.net = nn.Sequential(GEGLU(dim, dim * mult), nn.Dropout(0.0), nn.Linear(dim * mult, dim))
 
     def forward(self, x):
-        return self.net(x)
+        if not _sharded(self.model_group):
+            return self.net(x)
+        return row_linear(self.net[2], self.net[0](x), self.model_group)
 
 
 class BasicTransformerBlock(nn.Module):
@@ -345,7 +395,7 @@ class TemporalTransformer(nn.Module):
         )
 
     def forward(self, x, record_probs: bool = False):
-        if _sharded(self.seq_group):
+        if _sharded(self.seq_group):  # the blocks take the model axis inside, after proj_in
             return self._forward_seq(x, self.seq_group, record_probs)
         b, c, t, hh, ww = x.shape
         h = self.norm(x).permute(0, 3, 4, 2, 1).reshape(b * hh * ww, t, c)
@@ -395,9 +445,11 @@ class TemporalConvBlock(nn.Module):
     """Four GN(whole clip)+SiLU -> (3,1,1) conv stages with an identity
     residual, on (B, C, T, H, W) (reference openaimodel3d.py:257-309). With a
     `seq_group` of more than one rank, x holds this rank's T / seq frames
-    (`gn_silu_conv_seq`)."""
+    (`gn_silu_conv_seq`). With a `model_group`, conv1 / conv3 give this
+    rank's channel block and conv2 / conv4 sum theirs over the group."""
 
     seq_group = None  # set by UNetModel.set_seq_group
+    model_group = None  # set by parallel/tp.py::shard_unet_tp_
 
     def __init__(self, channels: int):
         super().__init__()
@@ -409,11 +461,12 @@ class TemporalConvBlock(nn.Module):
 
     def forward(self, x):
         h, group = x, self.seq_group
-        for stage in (self.conv1, self.conv2, self.conv3, self.conv4):
+        for i, stage in enumerate((self.conv1, self.conv2, self.conv3, self.conv4)):
+            row = self.model_group if i % 2 else None  # conv2 / conv4
             if _sharded(group):
-                h = gn_silu_conv_seq(stage[0], stage[-1], h, group)
+                h = gn_silu_conv_seq(stage[0], stage[-1], h, group, row)
             else:
-                h = gn_silu_conv(stage[0], stage[-1], h)
+                h = gn_silu_conv(stage[0], stage[-1], h, group=row)
         return x + h
 
 
@@ -441,7 +494,10 @@ class ResBlock(nn.Module):
     With `use_scale_shift_norm` the embedding is (scale, shift), 2 * out
     wide, and FiLMs the out norm (h * (1 + scale) + shift before the SiLU,
     JAX layers.py:622-633), inside the fused kernel; else it is added to h
-    before the out norm."""
+    before the out norm. With a `model_group`, in_layers and the embedding
+    give this rank's channel block and out_layers sums it over the group."""
+
+    model_group = None  # set by parallel/tp.py::shard_unet_tp_
 
     def __init__(self, channels: int, emb_channels: int, out_channels: Optional[int] = None,
                  use_temporal_conv: bool = True, use_scale_shift_norm: bool = False):
@@ -463,9 +519,11 @@ class ResBlock(nn.Module):
         h = gn_silu_conv(self.in_layers[0], self.in_layers[2], x)
         emb_out = self.emb_layers(emb)
         if self.use_scale_shift_norm:
-            h = gn_silu_conv(self.out_layers[0], self.out_layers[3], h, film=emb_out.chunk(2, dim=-1))
+            h = gn_silu_conv(self.out_layers[0], self.out_layers[3], h, film=emb_out.chunk(2, dim=-1),
+                             group=self.model_group)
         else:
-            h = gn_silu_conv(self.out_layers[0], self.out_layers[3], h + emb_out[:, :, None, None])
+            h = gn_silu_conv(self.out_layers[0], self.out_layers[3], h + emb_out[:, :, None, None],
+                             group=self.model_group)
         h = self.skip_connection(x) + h
         if not self.use_temporal_conv:
             return h

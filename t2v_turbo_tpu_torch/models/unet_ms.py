@@ -179,6 +179,13 @@ class MSUNet3DConditionModel(nn.Module):
         self.conv_norm_out = GroupNorm(ch0, 32, cfg.norm_eps)
         self.conv_out = nn.Conv2d(ch0, cfg.out_channels, 3, padding=1)
 
+    def set_model_group(self, group) -> None:
+        """The model axis is not the MS UNet's: JAX's MS pipeline takes no
+        mesh. None or a group of one rank changes nothing."""
+        if group is not None and group.size > 1:
+            raise NotImplementedError("the MS UNet takes no model axis (JAX's MS pipeline takes no mesh); the "
+                                      "model axis runs the VC2 UNet's sampling, its training half is A12b.2b")
+
     def forward(
         self,
         x: torch.Tensor,  # (B, T, H, W, C)

@@ -35,6 +35,12 @@ forward then takes this rank's T / seq frames of every clip, and each
 captured probability tensor holds the rows of this rank's H*W / seq columns
 (B*H*W/seq*heads, T, T), so a generated and a reference capture on one rank
 share one column split.
+
+`set_model_group` splits the weights over the mesh's model axis in place
+(parallel/tp.py, JAX's Megatron rules with conv_channels): forward then
+takes and returns the whole (B, T / seq, ...) block on every rank of the
+model group, and `record_probs` is refused (the capture's model axis is the
+training half of A12b.2).
 """
 
 from __future__ import annotations
@@ -197,6 +203,15 @@ class UNetModel(nn.Module):
         for m in self.modules():
             if isinstance(m, (TemporalConvBlock, TemporalTransformer)):
                 m.seq_group = group
+
+    def set_model_group(self, group) -> None:
+        """Split the UNet's weights over `group` (an AxisGroup of the mesh's
+        model axis) in place (parallel/tp.py::shard_unet_tp_, as the JAX
+        pipeline shards it), init_attn included. None or one rank: nothing
+        changes. A split UNet cannot be made whole or split again."""
+        from ..parallel import tp
+
+        tp.shard_unet_tp_(self, group)
 
     def _block(self, layer, *args):
         """A ResBlock or transformer call, recomputed in the backward under use_remat."""

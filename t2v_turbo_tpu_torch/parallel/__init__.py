@@ -10,7 +10,8 @@
   data-parallel trainer's (all-reduce, reduce-scatter and all-gather of
   flat buffers).
 - `fsdp`: ZeRO over the data axis of the trainer's flat state.
+- `tp`: the UNet's Megatron column / row split over the model axis.
 
-The batch splits over `data`, the frames T over `seq`; `model` (tensor
-parallelism) stays 1.
+The batch splits over `data`, the frames T over `seq`, the UNet's weights
+over `model` (sampling and serving; the training half is A12b.2b).
 """

@@ -29,7 +29,9 @@ backward. The counts carry no gradient; `gather_to_root` refuses one.
 The trainer's data-parallel helpers, over flat buffers: `all_reduce_`
 (in place, a sum), `reduce_scatter_flat` (n * c elements in, this rank's
 c-element block of the sum out) and `all_gather_flat` (the inverse
-layout: every rank's c elements, in rank order).
+layout: every rank's c elements, in rank order). The model axis's one
+collective, `model_all_reduce`: the row-parallel layers' partial outputs
+summed out of place (parallel/tp.py), forward only.
 
 Transport: the group's backend. gloo takes no CUDA tensor in these
 collectives, so when the group's backend is gloo and the tensor lies on
@@ -59,9 +61,10 @@ def _counters(fn):
     return fn
 
 
-def _refuse_grad(x: torch.Tensor, what: str) -> None:
+def _refuse_grad(x: torch.Tensor, what: str,
+                 why: str = "the decoded frames on one rank are not trained through") -> None:
     if torch.is_grad_enabled() and x.requires_grad:
-        raise NotImplementedError(f"{what}: no backward (the decoded frames on one rank are not trained through)")
+        raise NotImplementedError(f"{what}: no backward ({why})")
 
 
 class _Transport:
@@ -339,6 +342,24 @@ def all_reduce_(x: torch.Tensor, group) -> torch.Tensor:
 
 
 @_counters
+def model_all_reduce(x: torch.Tensor, group) -> torch.Tensor:
+    """The sum of x over the group's ranks, out of place: a row-parallel
+    layer's partial outputs over the model axis (parallel/tp.py), summed in
+    x's dtype, as GSPMD's psum of the dot's output is. Forward only: the
+    backward (Megatron's f / g pair) belongs to the training half."""
+    _refuse_grad(x, "model_all_reduce", "Megatron's backward pair over the model axis is the training half of "
+                                        "A12b.2 (A12b.2b)")
+    if group.size == 1:
+        return x
+    with _Transport(model_all_reduce, group, x) as t:
+        src = t.send(x)
+        if src is x:  # NCCL, or a CPU tensor: the collective writes its input
+            src = x.clone()
+        dist.all_reduce(src, group=group.pg)
+        return t.back(src)
+
+
+@_counters
 def reduce_scatter_flat(x: torch.Tensor, group) -> torch.Tensor:
     """A flat buffer of n * c elements -> this rank's block of c elements of
     its sum over the group's n ranks (block i: elements i*c ... of every
@@ -371,4 +392,4 @@ def read_counters() -> dict:
 
 
 COLLECTIVES = (halo_exchange, gather_partials, seq_to_space, space_to_seq, gather_to_all, gather_to_root, all_reduce_,
-               reduce_scatter_flat, all_gather_flat)
+               model_all_reduce, reduce_scatter_flat, all_gather_flat)

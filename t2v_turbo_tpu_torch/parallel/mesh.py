@@ -8,14 +8,17 @@ rank sits and which ranks share each axis:
 - axis "seq": temporal sequence parallelism (each seq index holds T / seq
   frames; the temporal layers exchange halos, gather GroupNorm partials and
   switch to space-sharded layouts through parallel/collectives.py),
-- axis "model": tensor parallelism, not ported yet (A12b): it must be 1.
+- axis "model": tensor parallelism (each model index holds its block of
+  the UNet's split weights, parallel/tp.py, and the same latents, contexts
+  and frames as the other model ranks of its (data, seq) coordinate).
 
 Ranks are laid out row-major over (data, seq, model), as JAX reshapes its
 device list: rank = (d * seq + s) * model + m. `make_mesh` builds one
 process group for each set of ranks that differ along one axis only (every
 rank takes part in creating every group, as torch.distributed requires).
 `shard` / `shard_batch` / `replicated` keep JAX's meaning: split a global
-tensor by a spec of axis names, or keep it whole.
+tensor by a spec of axis names, or keep it whole; their specs name data and
+seq only, so every tensor stays whole over the model axis.
 """
 
 from __future__ import annotations
@@ -93,9 +96,6 @@ def make_mesh(data: Optional[int] = None, seq: int = 1, model: int = 1,
         raise ValueError(
             f"make_mesh: data*seq*model = {data}*{seq}*{model} = {data * seq * model} does not match the world "
             f"of {n} rank(s).")
-    if model != 1:
-        raise NotImplementedError(
-            f"make_mesh: model={model}: tensor parallelism (the model axis) is not ported yet (A12b); use model=1")
     if device is None:
         device = torch.device("cuda", torch.cuda.current_device()) if torch.cuda.is_available() else \
             torch.device("cpu")

@@ -18,6 +18,12 @@ from .vc2 import T2VTurboVC2Pipeline
 
 @dataclasses.dataclass
 class T2VTurboMSPipeline(T2VTurboVC2Pipeline):
+    def __post_init__(self):
+        if self.mesh is not None:
+            raise NotImplementedError("the MS pipeline takes no mesh, as JAX's takes none: sharded sampling and the "
+                                      "model axis (A12b.2; its training half is A12b.2b) run the VC2 UNet")
+        super().__post_init__()
+
     def _levels(self) -> int:
         return len(self.unet.cfg.block_out_channels)
 

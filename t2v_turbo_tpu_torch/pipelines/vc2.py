@@ -14,7 +14,12 @@ each step's renoise from its generator (every rank's is seeded alike) and
 keeps its (data, seq) block, so a sharded run draws the single-rank numbers,
 as JAX's device_put of one global draw does; latents and noise a caller
 passes are global too. The UNet's temporal layers run sequence-parallel
-(UNetModel.set_seq_group). The sampled latents are gathered on every rank;
+(UNetModel.set_seq_group). Over a model axis of more than one rank the
+UNet's weights are split once, in place (UNetModel.set_model_group, JAX's
+tensor-parallel shardings at vc2.py:231-248): the model ranks of one
+(data, seq) block hold the same latents and contexts and each runs its
+share of the heads, GEGLU and conv channels; the VAE and the text tower
+stay whole, as in JAX. The sampled latents are gathered on every rank;
 the VAE, which is per frame, decodes B*T / world frames on each rank (the
 first B*T % world ranks one more where they do not divide) and the frames
 are gathered on rank 0, which returns the video; the other ranks return
@@ -53,17 +58,16 @@ class T2VTurboVC2Pipeline:
     vae_scale: int = 8
     w_embedding_dim: int = 256
     dtype: torch.dtype = torch.bfloat16
-    mesh: Optional[Any] = None  # parallel.mesh.Mesh: sample over (data, seq) ranks
+    mesh: Optional[Any] = None  # parallel.mesh.Mesh: sample over (data, seq, model) ranks
 
     def __post_init__(self):
         self.device = torch.device(self.device)
         self.scheduler = LCMScheduler(schedule=self.schedule.to(self.device))
         if self.mesh is not None:
-            if self.mesh.model != 1:
-                raise NotImplementedError("the model axis (tensor parallelism) is not ported yet (A12b)")
             if not hasattr(self.unet, "set_seq_group"):
                 raise NotImplementedError(f"{type(self.unet).__name__} has no sequence-parallel path")
             self.unet.set_seq_group(self.mesh.axis("seq"))
+            self.unet.set_model_group(self.mesh.axis("model"))
 
     def _shard(self, x: torch.Tensor, spec=("data", "seq")) -> torch.Tensor:
         """This rank's block of a global (B, T, ...) tensor (rows only for

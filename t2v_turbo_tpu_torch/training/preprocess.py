@@ -43,6 +43,7 @@ import torch
 from ..diffusion import DDIMSolver, DiffusionSchedule, add_noise
 from ..parallel import collectives
 from ..parallel.mesh import shard
+from ..parallel.tp import refuse_model_axis
 from .motion import motion_prior_score, reverse_ddim_loop
 
 
@@ -83,6 +84,7 @@ def preprocess_sample(teacher, latents: torch.Tensor, prompt_emb: torch.Tensor, 
     With a `mesh` (every rank calls it with the global latents and draws;
     the teacher needs `set_seq_group`): the dict on rank 0, None on the
     others (the module docstring)."""
+    refuse_model_axis(mesh, "preprocess_sample")
     group = None
     if mesh is not None:
         if latents.shape[1] % mesh.seq:

@@ -86,6 +86,7 @@ from torch.nn.utils import parametrize
 from ..data.datasets import DevicePrefetcher
 from ..lora import LoRAConfig, apply_lora, base_state_dict, init_lora, lora_factors, merge_lora
 from ..models.layers import GroupNorm, LayerNorm
+from ..parallel.tp import TRAINING_HALF, is_sharded, refuse_model_axis
 from .ema import update_ema
 from .lcd import LCDConfig, lcd_loss, sample_draws
 from .optim import TEXT_PREFIX, flat_buffer, square_sum_f32
@@ -170,6 +171,10 @@ class LCDTrainer:
         draws_fn(trainer, batch) -> draws give the step's loss (default: v1's
         LCD loss and draws). mesh: this rank's (data, seq) mesh
         (parallel/mesh.py); a mesh of one rank is the single-device path."""
+        refuse_model_axis(mesh, "LCDTrainer")
+        if any(m is not None and is_sharded(m) for m in (student, teacher)):
+            raise NotImplementedError(f"LCDTrainer: a UNet split over the model axis (parallel/tp.py) is not "
+                                      f"trained yet: that is {TRAINING_HALF}")
         self.cfg, self.lcd_cfg = cfg, lcd_cfg
         self.reward_fn, self.video_reward_fn = reward_fn, video_reward_fn
         self.loss_fn, self.draws_fn = loss_fn, draws_fn

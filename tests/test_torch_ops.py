@@ -222,7 +222,7 @@ def test_port_imports_no_jax():
                        "rewards.internvideo2", "utils.bert_tokenizer", "training.validation", "apps.soak_v1",
                        "apps.preprocess", "apps.train_v2", "training.motion", "training.preprocess",
                        "training.lcd_v2", "training.ema", "apps.serve", "apps.warmup", "apps.verify_import",
-                       "pipelines.artifact"):
+                       "pipelines.artifact", "parallel.mesh", "parallel.collectives", "parallel.tp"):
             assert "t2v_turbo_tpu_torch." + needed in names, names
         print(len(names))
         """

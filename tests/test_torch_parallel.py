@@ -3,7 +3,8 @@ the collectives of sequence-parallel sampling, and the sharded CLIs.
 
 Rank processes are spawned with `subprocess` (tests/torch_dist_worker.py,
 which never imports JAX) over gloo on the CPU:
-- 2 ranks (case "ops"): `make_mesh` and its errors (JAX's messages),
+- 2 ranks (case "ops"): `make_mesh` and its errors (JAX's messages), the
+  model axis's mesh and the trainer's refusal of it,
   `host_local_batch_to_global` (tests/test_multihost.py's check: each rank's
   rows stay its own; a mean over the data group sees both), `shard_batch`;
   B4's partials -> gather_partials -> apply chain and the (a, b) fold
@@ -12,14 +13,18 @@ which never imports JAX) over gloo on the CPU:
   `seq_to_space` and its round trip; `halo_exchange`; the halo conv, a
   TemporalConvBlock and a TemporalTransformer on 3 of 6 frames against the
   whole clip's. Tolerance 1e-5 (f32; only the order of the sums differs).
-- 2 ranks under torchrun: `generate --seq-shards 2`; rank 0 alone writes,
-  its video against the single-process CLI's within one uint8 level.
-- 2 ranks: `serve --seq-shards 2`, rank 0 answering a POST while rank 1
-  follows; the served video against the single-process pipeline's.
-In process: the CLIs' refusals (--model-shards names A12b, shards without
-torchrun, a world of another size, artifacts with shards, a missing CUDA
-device), the frame split, and the CUDA entries refusing CPU tensors (and
-taking gradients through their autograd functions).
+- 2 ranks under torchrun: `generate --seq-shards 2` and `--model-shards 2`;
+  rank 0 alone writes, its video against the single-process CLI's within
+  one uint8 level (the CLI writes uint8 frames; the f32 videos are held at
+  1e-5 in tests/test_torch_seq_parallel.py).
+- 2 ranks: `serve --seq-shards 2` and `serve --model-shards 2`, rank 0
+  answering a POST while rank 1 follows; the served video against the
+  single-process pipeline's.
+In process: the CLIs' refusals (shards without torchrun, --model-shards
+too; a world of another size, artifacts with shards, a missing CUDA
+device), the consumers that refuse the model axis, the frame split, and the
+CUDA entries refusing CPU tensors (and taking gradients through their
+autograd functions).
 """
 
 import os
@@ -34,6 +39,7 @@ from t2v_turbo_tpu_torch.apps import generate, serve
 from t2v_turbo_tpu_torch.ops import fused_conv as FC
 from t2v_turbo_tpu_torch.ops import norms as N
 from t2v_turbo_tpu_torch.pipelines.vc2 import frame_split, video_to_uint8
+from t2v_turbo_tpu_torch.training.trainer import LCDTrainer
 
 TOL = 1e-5
 
@@ -42,10 +48,13 @@ TOL = 1e-5
 def runs(tmp_path_factory):
     """The three multi-process runs, started together; then the
     single-process references of the CLI runs."""
-    dirs = {k: tmp_path_factory.mktemp(k) for k in ("ops", "generate", "serve")}
+    dirs = {k: tmp_path_factory.mktemp(k) for k in ("ops", "generate", "generate_model", "serve", "serve_model")}
     procs = {"ops": W.start_ranks("ops", 2, dirs["ops"]),
              "generate": W.start_torchrun("generate", 2, dirs["generate"]),
-             "serve": W.start_ranks("serve", 2, dirs["serve"])}
+             "generate_model": W.start_torchrun("generate", 2, dirs["generate_model"], "model_sharded", "--model-shards",
+                                                "2"),
+             "serve": W.start_ranks("serve", 2, dirs["serve"]),
+             "serve_model": W.start_ranks("serve", 2, dirs["serve_model"], "model")}
     single = os.path.join(dirs["generate"], "single.npy")
     generate.main(W.CLI_ARGS + ["--prompt", "a cat", "--output", single], W.cli_spec())
     args = serve.parse_args(W.CLI_ARGS[:3])
@@ -78,6 +87,7 @@ def test_make_mesh_coordinates(ops):
     for rank, rep in enumerate(ops):
         assert rep["seq mesh"] == [1, 2, 1, [0, rank, 0], [0, 1], rank]
         assert rep["data mesh"] == [2, 1, [rank, 0, 0], [0, 1]]
+        assert rep["model mesh"] == [1, 1, 2, [0, 0, rank], [0, 1], rank]
 
 
 def test_host_local_batch_to_global(ops):
@@ -136,8 +146,17 @@ def test_sharded_generate_under_torchrun(runs):
     assert np.abs(got.astype(int) - runs["single"].astype(int)).max() <= 1  # f32 sums in another order
 
 
-def test_sharded_serve(runs):
-    rep0, rep1 = (W.read_report(runs["dirs"]["serve"], r) for r in range(2))
+def test_model_sharded_generate_under_torchrun(runs):
+    """generate --model-shards 2: the UNet's weights split over the two ranks."""
+    sharded = os.path.join(runs["dirs"]["generate_model"], "model_sharded.npy")
+    assert os.path.exists(sharded), runs["generate_model"]
+    got = np.load(sharded)
+    assert got.shape == runs["single"].shape == (4, 16, 16, 3)
+    assert np.abs(got.astype(int) - runs["single"].astype(int)).max() <= 1  # f32 sums in another order
+
+
+def _check_served(runs, name):
+    rep0, rep1 = (W.read_report(runs["dirs"][name], r) for r in range(2))
     assert rep1 == {"followed": True} and rep0["relay closed"]
     answer = rep0["answer"]
     assert answer["shape"] == [4, 16, 16, 3] and answer["path"].endswith(".npy")
@@ -145,15 +164,26 @@ def test_sharded_serve(runs):
     assert np.abs(got.astype(int) - runs["served_ref"].astype(int)).max() <= 1
 
 
+def test_sharded_serve(runs):
+    _check_served(runs, "serve")
+
+
+def test_model_sharded_serve(runs):
+    """serve --model-shards 2: the request sampled with the UNet split over both ranks."""
+    _check_served(runs, "serve_model")
+
+
 def test_cli_refusals(monkeypatch, tmp_path):
-    with pytest.raises(SystemExit, match="A12b"):
+    with pytest.raises(SystemExit, match="torchrun"):  # --model-shards is taken, and needs its ranks
         generate.make_cli_mesh(generate.parse_args(["--prompt", "x", "--model-shards", "2"]))
     with pytest.raises(SystemExit, match="torchrun"):
         generate.make_cli_mesh(generate.parse_args(["--prompt", "x", "--seq-shards", "2", "--device", "cpu"]))
     with pytest.raises(SystemExit, match="one rank"):
         serve.build_server(["--artifacts", str(tmp_path), "--random-weights", "--data-shards", "2"])
-    with pytest.raises(SystemExit, match="A12b"):
+    with pytest.raises(SystemExit, match="torchrun"):
         serve.build_server(["--random-weights", "--model-shards", "2", "--device", "cpu"])
+    with pytest.raises(NotImplementedError, match="A12b.2b"):  # the trainer does not take the model axis yet
+        LCDTrainer(student=None, sched=None, solver=None, optimizer=None, cfg=None, mesh=W.stand_in_mesh(model=2))
     assert generate.make_cli_mesh(generate.parse_args(["--prompt", "x"])) is None
     if not torch.cuda.is_available():  # a rank whose card is missing raises
         for k, v in dict(MASTER_ADDR="localhost", MASTER_PORT="1", RANK="0", WORLD_SIZE="2", LOCAL_RANK="0").items():

@@ -1,10 +1,13 @@
-"""Data- and sequence-parallel VC2 sampling of the port on the CPU: the tiny
-UNet and pipeline over (data, seq) meshes of gloo ranks against the port's
-single-process run, and against the JAX package's sharded pipeline.
+"""Data-, sequence- and tensor-parallel VC2 sampling of the port on the CPU:
+the tiny UNet and pipeline over (data, seq, model) meshes of gloo ranks
+against the port's single-process run, and against the JAX package's
+sharded pipeline.
 
 Ranks are spawned with `subprocess` (tests/torch_dist_worker.py, case
-"sampling", which never imports JAX): a world of 2 runs the (1, 2) mesh and
-a world of 4 the (1, 4) mesh (one frame a rank) and the (2, 2) mesh. Every
+"sampling", which never imports JAX): a world of 2 runs the (1, 2) and
+(1, 1, 2) meshes and a world of 4 the (1, 4) mesh (one frame a rank), the
+(2, 2) mesh and, with a model axis, (1, 2, 2), (2, 1, 2) and (1, 1, 4)
+(where the tiny UNet's level-0 attention, 2 heads, stays whole). Every
 rank draws nothing itself: the global latents, the renoise of each step and
 the contexts come from the test (numpy, and the JAX pipeline's scan draws
 of tests/test_torch_pipeline.py's `_jax_scan_noise`) and each rank keeps
@@ -15,9 +18,13 @@ its block, as every rank does with its generator's global draws.
   whole-clip GroupNorm statistics are summed in another order). The
   gathered latents, whose values reach ~100 at random weights: 1e-5 *
   max(1, |ref|).
-- Rank 0's video at (2, 2) against the JAX pipeline over a (data=2, seq=2)
-  mesh of 4 of the 8 virtual CPU devices, on tests/test_torch_pipeline.py's
-  weights: 2e-4 absolute, the UNet's bound (PARITY.md; the VAE's is 3e-4).
+- Rank 0's video at (2, 2), (1, 2, 2) and (2, 1, 2) against the JAX
+  pipeline over a (data=2, seq=2) mesh of 4 of the 8 virtual CPU devices,
+  on tests/test_torch_pipeline.py's weights: 2e-4 absolute, the UNet's
+  bound (PARITY.md; the VAE's is 3e-4). JAX's tensor-parallel forward
+  equals its replicated one (tests/test_tensor_parallel.py).
+- With a model axis, the model all-reduce's calls in one UNet pass equal
+  the plan's row layers that split.
 - A mesh of one rank runs the single-device path: the video equals the
   pipeline's without a mesh to the bit.
 """
@@ -41,7 +48,9 @@ from t2v_turbo_tpu.pipelines.vc2 import T2VTurboVC2Pipeline as JPipeline
 from test_torch_pipeline import _jax_scan_noise
 from torch_parity import TINY_UNET_KW, TINY_VAE_KW, seeded_numpy_state_dict
 
-MESHES = {"1x2": 2, "1x4": 4, "2x2": 4}  # (data x seq): the world that runs it
+# (data x seq[ x model]): the world that runs it (torch_dist_worker.SAMPLING_MESHES)
+MESHES = {W.mesh_name(*m): world for world, ms in W.SAMPLING_MESHES.items() for m in ms}
+MODEL_MESHES = [n for n in MESHES if n.count("x") == 2]
 TOL = 1e-5
 JAX_TOL = 2e-4
 KW = dict(height=16, width=16, frames=4, num_inference_steps=2)
@@ -88,12 +97,18 @@ def _arrays(sharded, name, rank):
     return np.load(sharded["dirs"][MESHES[name]] / f"arrays_{rank}.npz")
 
 
+def _axes(name):
+    """(data, seq, model) of a mesh name."""
+    data, seq, model = (list(map(int, name.split("x"))) + [1])[:3]
+    return data, seq, model
+
+
 @pytest.mark.parametrize("name", MESHES)
 def test_unet_blocks_match_single_process(sharded, name):
-    data, seq = map(int, name.split("x"))
+    data, seq, model = _axes(name)
     bl, tl = 2 // data, 4 // seq
     for rank in range(MESHES[name]):
-        d, s = divmod(rank, seq)
+        d, s = divmod(rank // model, seq)  # every model rank of (d, s) holds the whole block
         got = _arrays(sharded, name, rank)[f"unet_{name}"]
         np.testing.assert_allclose(got, sharded["unet"][d * bl:(d + 1) * bl, s * tl:(s + 1) * tl], atol=TOL, rtol=0)
 
@@ -112,16 +127,37 @@ def test_video_matches_single_process(sharded, name):
 
 @pytest.mark.parametrize("name", MESHES)
 def test_divisibility_error(sharded, name):
-    data, seq = map(int, name.split("x"))
+    data, seq, _ = _axes(name)
     rep = W.read_report(sharded["dirs"][MESHES[name]], 0)
-    assert rep[f"divisibility {name}"] == (f"sharded inference needs batch 2 divisible by the data axis ({data}) "
-                                           f"and frames 3 by the seq axis ({seq})")
+    want = "none" if seq == 1 else (f"sharded inference needs batch 2 divisible by the data axis ({data}) and "
+                                    f"frames 3 by the seq axis ({seq})")
+    assert rep[f"divisibility {name}"] == want  # the model axis adds no condition: 3 frames sample at seq 1
 
 
 def test_matches_jax_sharded_pipeline(sharded):
     got = _arrays(sharded, "2x2", 0)["video_2x2"]
     assert got.shape == sharded["jax"].shape == (2, 4, 16, 16, 3)
     np.testing.assert_allclose(got, sharded["jax"], atol=JAX_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", ["1x2x2", "2x1x2"])
+def test_model_axis_matches_jax_sharded_pipeline(sharded, name):
+    got = _arrays(sharded, name, 0)[f"video_{name}"]
+    assert got.shape == sharded["jax"].shape == (2, 4, 16, 16, 3)
+    np.testing.assert_allclose(got, sharded["jax"], atol=JAX_TOL, rtol=0)
+
+
+@pytest.mark.parametrize("name", MODEL_MESHES)
+def test_model_all_reduces_a_pass_equal_the_row_layers(sharded, name):
+    data, seq, model = _axes(name)
+    for rank in range(MESHES[name]):
+        rep = W.read_report(sharded["dirs"][MESHES[name]], rank)
+        calls, rows = rep[f"model all-reduces {name}"]
+        assert calls == rows and rows > 0
+        assert rep[f"model coords {name}"] == [rank // (seq * model), (rank // model) % seq, rank % model]
+    if name == "1x1x4":  # the level-0 attention's 2 heads do not split 4 ways: fewer row layers than at 2
+        two = W.read_report(sharded["dirs"][2], 0)["model all-reduces 1x1x2"][1]
+        assert W.read_report(sharded["dirs"][4], 0)["model all-reduces 1x1x4"][1] < two
 
 
 def test_mesh_of_one_rank_is_the_single_device_path(sharded, monkeypatch):

@@ -9,7 +9,7 @@ the port only. Each case runs on the CPU over gloo and writes what it
 measured to OUT_DIR (report_<rank>.json: {check: value}; arrays in
 <name>_<rank>.npz), for the test to assert on.
 
-    python tests/torch_dist_worker.py CASE RANK WORLD PORT OUT_DIR
+    python tests/torch_dist_worker.py CASE RANK WORLD PORT OUT_DIR [ARGS...]
 
 Under torchrun (`start_torchrun`) the rank, world and address come from its
 environment and CASE and OUT_DIR are the only arguments.
@@ -63,10 +63,10 @@ def _popen(cmd):
     return subprocess.Popen(cmd, env=_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
 
 
-def start_ranks(case: str, world: int, out_dir):
-    """Start `case` on `world` rank processes (`finish` waits for them)."""
+def start_ranks(case: str, world: int, out_dir, *args):
+    """Start `case` (with `args`) on `world` rank processes (`finish` waits for them)."""
     port = free_port()
-    return [_popen([sys.executable, __file__, case, str(r), str(world), str(port), str(out_dir)])
+    return [_popen([sys.executable, __file__, case, str(r), str(world), str(port), str(out_dir), *args])
             for r in range(world)]
 
 
@@ -130,6 +130,27 @@ def sampling_inputs(batch=2, frames=4, latent_hw=8, steps=2, ctx_len=7, ctx_dim=
     return lat, noise, ctx
 
 
+def stand_in_mesh(data=1, seq=1, model=2, rank=0):
+    """The mesh `rank` of a (data, seq, model) world sees, built without
+    process groups: for what reads only its shape and groups' layout (the
+    refusals, a shard plan); no collective can run over it."""
+    from t2v_turbo_tpu_torch.parallel.mesh import AXES, AxisGroup, Mesh
+
+    sizes = (data, seq, model)
+    here = (rank // (seq * model), (rank // model) % seq, rank % model)
+    axes = []
+    for i, name in enumerate(AXES):
+        ranks = []
+        for k in range(sizes[i]):
+            c = list(here)
+            c[i] = k
+            ranks.append((c[0] * seq + c[1]) * model + c[2])
+        axes.append(AxisGroup(name, sizes[i], here[i], tuple(ranks), None, "gloo"))
+    n = data * seq * model
+    axes.append(AxisGroup("world", n, rank, tuple(range(n)), None, "gloo"))
+    return Mesh(data, seq, model, rank, torch.device("cpu"), tuple(axes))
+
+
 # ---- the cases ----
 
 def _err(a, b) -> float:
@@ -150,15 +171,25 @@ def case_ops(rank, world, out_dir):
     from t2v_turbo_tpu_torch.parallel.mesh import make_mesh, shard_batch
     from torch_parity import seeded_numpy_state_dict, to_torch
 
+    from t2v_turbo_tpu_torch.training.trainer import LCDTrainer
+
     rep = {}
     # the mesh and its errors (JAX's messages)
-    for label, kw, exc in (("not divisible", dict(seq=3), ValueError), ("mismatch", dict(data=1, seq=1), ValueError),
-                           ("model", dict(seq=1, model=2), NotImplementedError)):
+    for label, kw, exc in (("not divisible", dict(seq=3), ValueError), ("mismatch", dict(data=1, seq=1), ValueError)):
         try:
             make_mesh(**kw)
             rep[f"mesh error {label}"] = "none"
         except exc as e:
             rep[f"mesh error {label}"] = str(e)
+    # the model axis: its mesh is made, and the trainer, which does not take it yet, refuses it
+    model_mesh = make_mesh(seq=1, model=2)
+    rep["model mesh"] = [model_mesh.data, model_mesh.seq, model_mesh.model, list(model_mesh.coords()),
+                         list(model_mesh.axis("model").ranks), model_mesh.axis("model").index]
+    try:
+        LCDTrainer(student=None, sched=None, solver=None, optimizer=None, cfg=None, mesh=model_mesh)
+        rep["mesh error model"] = "none"
+    except NotImplementedError as e:
+        rep["mesh error model"] = str(e)
     seq_mesh, data_mesh = make_mesh(seq=2), make_mesh()
     rep["seq mesh"] = [seq_mesh.data, seq_mesh.seq, seq_mesh.model, list(seq_mesh.coords()),
                        list(seq_mesh.axis("seq").ranks), seq_mesh.axis("seq").index]
@@ -238,26 +269,40 @@ def case_ops(rank, world, out_dir):
     return rep
 
 
+# (data, seq, model) meshes of each world; a name "DxS" for a mesh without a model axis, "DxSxM" with one
+SAMPLING_MESHES = {2: [(1, 2, 1), (1, 1, 2)], 4: [(1, 4, 1), (2, 2, 1), (1, 2, 2), (2, 1, 2), (1, 1, 4)]}
+
+
+def mesh_name(data, seq, model=1) -> str:
+    return f"{data}x{seq}" + (f"x{model}" if model > 1 else "")
+
+
 def case_sampling(rank, world, out_dir):
-    """The tiny UNet and pipeline over every (data, seq) mesh this world
-    takes, each rank's UNet output and rank 0's video saved."""
+    """The tiny UNet and pipeline over every (data, seq, model) mesh this
+    world takes, each rank's UNet output and rank 0's video saved; with a
+    model axis, the model all-reduce's calls in the UNet pass beside the
+    plan's row layers."""
+    from t2v_turbo_tpu_torch.parallel import collectives, tp
     from t2v_turbo_tpu_torch.parallel.mesh import make_mesh, shard
 
     inputs = np.load(os.path.join(out_dir, "inputs.npz"))
     lat, noise, ctx = (torch.from_numpy(inputs[k]) for k in ("lat", "noise", "ctx"))
-    meshes = {2: [(1, 2)], 4: [(1, 4), (2, 2)]}[world]
     rep, arrays = {}, {}
-    for data, seq in meshes:
-        mesh = make_mesh(data=data, seq=seq)
+    for data, seq, model in SAMPLING_MESHES[world]:
+        mesh = make_mesh(data=data, seq=seq, model=model)
         pipe = tiny_pipeline(mesh)
-        name = f"{data}x{seq}"
+        name = mesh_name(data, seq, model)
         t = torch.full((lat.shape[0],), 500, dtype=torch.long)
         w_emb = torch.from_numpy(inputs["w_emb"])
+        collectives.reset_counters()
         with torch.no_grad():
             out = pipe.unet(shard(mesh, lat, ("data", "seq")), shard(mesh, t, ("data",)),
                             shard(mesh, ctx, ("data",)), fps=shard(mesh, torch.full((lat.shape[0],), 16.0), ("data",)),
                             timestep_cond=shard(mesh, w_emb, ("data",)))
         arrays[f"unet_{name}"] = out.numpy()
+        if model > 1:
+            rep[f"model all-reduces {name}"] = [collectives.model_all_reduce.calls, tp.row_layers(pipe.unet.tp_plan)]
+            rep[f"model coords {name}"] = list(mesh.coords())
         video = pipe(prompt_embeds=ctx, latents=lat, noise=list(noise), height=16, width=16, frames=lat.shape[1],
                      num_inference_steps=noise.shape[0])
         rep[f"video {name}"] = video is not None
@@ -275,16 +320,17 @@ def case_sampling(rank, world, out_dir):
     return rep
 
 
-def case_serve(rank, world, out_dir):
-    """apps/serve.py on 2 ranks: rank 0 answers one POST (to itself), the
-    other rank follows; then the shutdown."""
+def case_serve(rank, world, out_dir, axis="seq"):
+    """apps/serve.py on 2 ranks at --seq-shards 2 (or --model-shards 2,
+    axis "model"): rank 0 answers one POST (to itself), the other rank
+    follows; then the shutdown."""
     import threading
     import urllib.request
 
     from t2v_turbo_tpu_torch.apps import serve
 
     serve.HEARTBEAT_S = 0.2  # several heartbeats while rank 0 idles below
-    argv = CLI_ARGS[:3] + ["--port", "0", "--output-dir", os.path.join(out_dir, "served"), "--seq-shards", "2"]
+    argv = CLI_ARGS[:3] + ["--port", "0", "--output-dir", os.path.join(out_dir, "served"), f"--{axis}-shards", "2"]
     if rank != 0:
         serve.main(argv, cli_spec())
         return {"followed": True}
@@ -305,12 +351,13 @@ def case_serve(rank, world, out_dir):
     return {"answer": answer, "relay closed": server.relay.closed}
 
 
-def case_generate(rank, world, out_dir):
-    """apps/generate.py under torchrun at --seq-shards 2."""
+def case_generate(rank, world, out_dir, name="sharded", *flags):
+    """apps/generate.py under torchrun, writing <name>.npy: at --seq-shards 2,
+    or at the flags given."""
     from t2v_turbo_tpu_torch.apps import generate
 
-    generate.main(CLI_ARGS + ["--prompt", "a cat", "--seq-shards", "2", "--output",
-                              os.path.join(out_dir, "sharded.npy")], cli_spec())
+    generate.main(CLI_ARGS + ["--prompt", "a cat", *(flags or ("--seq-shards", "2")), "--output",
+                              os.path.join(out_dir, f"{name}.npy")], cli_spec())
     return {"rank": rank}
 
 
@@ -965,6 +1012,15 @@ CASES = {"ops": case_ops, "sampling": case_sampling, "serve": case_serve, "gener
 TRAINING = ("train", "train4", "train_cli", "v2_capture", "v2_loss")  # cases that take gradients
 
 
+def _wait_for_reports(out_dir, world, timeout: float = TIMEOUT_S):
+    import time
+
+    deadline = time.time() + timeout
+    while time.time() < deadline and not all(os.path.exists(os.path.join(out_dir, f"report_{r}.json"))
+                                             for r in range(1, world)):
+        time.sleep(0.05)
+
+
 def main(argv):
     torch.set_num_threads(1)
     from t2v_turbo_tpu_torch.parallel import multihost
@@ -974,7 +1030,7 @@ def main(argv):
         case, out_dir, *extra = argv
         rank, world = int(os.environ["RANK"]), int(os.environ["WORLD_SIZE"])
     else:
-        case, rank, world, port, out_dir = argv
+        case, rank, world, port, out_dir, *extra = argv
         rank, world = int(rank), int(world)
         if case == "serve":  # the CLI joins the world from torchrun's variables
             os.environ.update(MASTER_ADDR="localhost", MASTER_PORT=port, RANK=str(rank), WORLD_SIZE=str(world),
@@ -988,7 +1044,9 @@ def main(argv):
     import torch.distributed as dist
 
     if dist.is_initialized():  # rank 0 hosts the store: no rank tears down while another still works
-        dist.barrier()  # (serve's ranks have left the world in the case already)
+        dist.barrier()
+    elif rank == 0:  # serve's ranks have left the world in the case: wait for the others' reports, which they
+        _wait_for_reports(out_dir, world)  # write once their shutdown no longer needs rank 0's store
     multihost.shutdown()
     print(f"RANK_{rank}_OK", flush=True)
 
